@@ -1,0 +1,517 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU, in phases; any failure
+exits non-zero and no phase's failure is caught.
+
+  1. print the card's name and power limit; build the CUDA kernels from
+     src/repro_torch/csrc with nvcc for sm_90a (one nvcc per source, in
+     parallel) and print what ptxas reports (registers, spills).
+  2. each kernel against its plain PyTorch version on the card: the small
+     edge cases of the CPU tests, and the serving path's shapes at full
+     Mixtral width, in fp32 and bf16, with the kernel's device time (its
+     launch wrapper alone), the public op's time as a caller sees it (host
+     work included), the plain version's and a PyTorch yardstick's times
+     (the yardstick, SDPA or a per-expert matmul loop, is never called by
+     the port), beside the card's lower bound for the same work.
+  3. one full-width mixtral-8x7b ``decode_chunk`` at depth 2 in fp32 (a
+     prefill pack then a decode sweep), on the card and again on the CPU
+     (plain versions): logits within LOGIT_ATOL and the same argmax.
+  4. the serving path: mixtral-8x7b at full width, depth cut from 32 to 8
+     layers, random bf16 weights from a seed, ``InferenceEngine.generate``
+     on 4 requests (prompts of 100-300 tokens, 32 new tokens, greedy,
+     page_size 16). Every request must finish, the allocator invariants
+     hold, and both kernels' launch counters (set to 0 just before) must
+     be > 0. Prints tok/s, TTFT and TBT.
+  5. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+
+Run on the card from the repository root:  python3 chip_smoke.py
+Options: --out FILE writes every measurement as JSON; --profile adds a
+torch.profiler window over a short serving run (kernel time by name and the
+device's busy share).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {torch.float32: 67e12,        # fp32 outside the tensor cores
+              torch.bfloat16: 989e12}      # dense bf16 tensor cores
+LOGIT_ATOL = 2e-3                  # the repo's chunked-vs-dense logit bound
+SERVE_LAYERS = 8                   # depth cut: 32 -> 8 layers (~23.7 GB bf16)
+SLEEP_CYCLES = 200_000_000         # ~0.1-0.2 s of SM clock: time to enqueue 10 calls
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def cuda_ms(fn, iters: int = 10, flush=None, queued: bool = True) -> float:
+    """Mean time of one call of ``fn``: CUDA events around each of ``iters``
+    calls, with ``flush`` (a buffer larger than L2) rewritten before each so
+    every call starts with a cold L2, as in a real step.
+
+    queued: a sleep kernel goes ahead of the calls, so the host enqueues
+    them all before the device reaches them and the events time the device
+    work alone, without the host's dispatch between launches (fails if the
+    host fell behind). Without it (for a function that synchronises inside,
+    or to measure an op as a caller sees it) each call is timed on its own
+    and the device waits for the host's dispatch within it."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(iters)]
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        slept = torch.cuda.Event()
+        slept.record()
+    for a, b in ev:
+        if flush is not None:
+            flush.zero_()
+        a.record()
+        fn()
+        b.record()
+        if not queued:
+            b.synchronize()
+    if queued:
+        assert not slept.query(), "the host fell behind the device: raise SLEEP_CYCLES"
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# ------------------------------------------------------------------ phase 2
+def attention_case(dev, *, B, C, H, Hkv, D, ps, maxp, num_pages, starts, nvalid, dtype,
+                   window=0, softcap=0.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, C, H, D), generator=g, device=dev).to(dtype)
+    kp = torch.randn((num_pages, ps, Hkv, D), generator=g, device=dev).to(dtype)
+    vp = torch.randn((num_pages, ps, Hkv, D), generator=g, device=dev).to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=g, device=dev)[:B * maxp] + 1
+    pt = perm.reshape(B, maxp).to(torch.int32)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    lengths = st + torch.tensor(nvalid, dtype=torch.int32, device=dev)
+    qpos = st[:, None] + torch.arange(C, device=dev, dtype=torch.int32)[None]
+    return q, kp, vp, pt, lengths, qpos, dict(scale=D ** -0.5, softcap=softcap, window=window)
+
+
+def attention_bound(q, kp, lengths, qpos, dtype, window=0):
+    """Bytes: q and out once; K and V once at each position some query of
+    the row can see (below the row's length and its last query's position,
+    within the window), and the page ids of those positions' pages.
+    Operations: 4*D per visible (query head, key) pair."""
+    B, C, H, D = q.shape
+    ps, Hkv = kp.shape[1], kp.shape[2]
+    L, pos = lengths.long().cpu(), qpos.long().cpu()
+    hi = torch.minimum(L, pos[:, -1] + 1)
+    lo = (pos[:, 0] - window + 1).clamp_min(0) if window else torch.zeros_like(hi)
+    keys = (hi - lo).clamp_min(0)
+    pages = torch.where(keys > 0, (hi + ps - 1) // ps - lo // ps, 0)
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * keys.sum().item() * Hkv * D * kp.element_size() + 4 * pages.sum().item())
+    q_lo = (pos - window + 1).clamp_min(0) if window else torch.zeros_like(pos)
+    vis = (torch.minimum(pos + 1, L[:, None]) - q_lo).clamp_min(0).sum().item()
+    return bound_ms(nbytes, 4.0 * D * H * vis, dtype)
+
+
+def sdpa_call(q, kp, vp, pt, lengths, qpos, scale):
+    """The PyTorch yardstick: scaled_dot_product_attention over the gathered
+    KV (the gather is done once, outside the timed call)."""
+    import torch.nn.functional as F
+    B, C, H, D = q.shape
+    ps, Hkv = kp.shape[1], kp.shape[2]
+    G = H // Hkv
+    L = pt.shape[1] * ps
+    k = kp[pt.long()].reshape(B, L, Hkv, D).repeat_interleave(G, 2).transpose(1, 2)
+    v = vp[pt.long()].reshape(B, L, Hkv, D).repeat_interleave(G, 2).transpose(1, 2)
+    kv = torch.arange(L, device=q.device)
+    mask = (kv[None, None] < lengths[:, None, None]) & (kv[None, None] <= qpos[:, :, None])
+    qt = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask[:, None], scale=scale)
+
+
+def run_attention(dev, flush, results):
+    from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
+                                                     chunked_prefill_cuda,
+                                                     chunked_prefill_reference)
+    # small edge cases of the CPU tests: mid-page starts, ragged lengths, an
+    # idle (length 0) row, windows, softcap, head_dim 16, page sizes 4/8/16
+    for dtype in (torch.float32, torch.bfloat16):
+        for ps, window, softcap in ((4, 0, 0.0), (8, 5, 0.0), (16, 3, 2.0)):
+            args = attention_case(dev, B=4, C=8, H=4, Hkv=2, D=16, ps=ps, maxp=8,
+                                  num_pages=33, starts=[5, 0, 13, 0], nvalid=[8, 6, 3, 0],
+                                  dtype=dtype, window=window, softcap=softcap, seed=ps)
+            *t, kw = args
+            out = chunked_prefill_attention(*t, **kw)
+            plain = chunked_prefill_reference(*t, **kw)
+            err = max_err(out, plain)
+            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            assert err <= tol and not out[3].any() and torch.isfinite(out).all(), \
+                f"attention edge case ps={ps} w={window} {dtype}: err {err} > {tol}"
+            log(f"  attention edge ps={ps} window={window} softcap={softcap} "
+                f"{str(dtype)[6:]}: max_abs_err={err:.3g} (tol {tol})")
+    # serving-path shapes at full Mixtral width
+    shapes = {
+        "decode": dict(B=4, C=1, starts=[131, 219, 299, 166], nvalid=[1, 1, 1, 1]),
+        "prefill": dict(B=2, C=128, starts=[0, 128], nvalid=[128, 100]),
+    }
+    # fp32: reduction order only; bf16: one rounding of outputs |o| < 4
+    tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    for name, sh in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            *t, kw = attention_case(dev, H=32, Hkv=8, D=128, ps=16, maxp=32, num_pages=256,
+                                    dtype=dtype, seed=1, **sh)
+            q, kp, vp, pt, lengths, qpos = t
+            out = chunked_prefill_attention(*t, **kw)
+            plain = chunked_prefill_reference(*t, **kw)
+            err = max_err(out, plain)
+            assert err <= tols[dtype], f"attention {name} {dtype}: err {err} > {tols[dtype]}"
+            starts = qpos[:, 0].contiguous()
+            # the kernel alone (its launch wrapper on int32 inputs made here),
+            # then the public op as the model calls it, host work included
+            ms = cuda_ms(lambda: chunked_prefill_cuda(q, kp, vp, pt, lengths, starts, **kw),
+                         flush=flush)
+            op_ms = cuda_ms(lambda: chunked_prefill_attention(*t, **kw), flush=flush,
+                            queued=False)
+            plain_ms = cuda_ms(lambda: chunked_prefill_reference(*t, **kw), flush=flush)
+            library_ms = cuda_ms(sdpa_call(*t, kw["scale"]), flush=flush)
+            bms, by = attention_bound(q, kp, lengths, qpos, dtype, kw["window"])
+            row = dict(kernel="chunked_prefill_attention", case=name, dtype=str(dtype)[6:],
+                       shape=f"q{tuple(q.shape)} pool{tuple(kp.shape)} lengths "
+                             f"{lengths.tolist()}",
+                       max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bms, bound_by=by)
+            results.append(row)
+            log(f"  attention {name} {row['dtype']}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.6f} "
+                f"({by}) max_abs_err={err:.3g}")
+
+
+def gmm_case(dev, *, tokens, E, K, N, dtype, seed=0):
+    """Rows of ``tokens`` tokens routed top-2 by a random router, sorted by
+    expert; weights scaled like the model's LeCun init (outputs ~ N(0,1))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((tokens, E), generator=g, device=dev)
+    e = torch.topk(logits, 2, dim=-1).indices.reshape(-1)
+    order = torch.argsort(e, stable=True)
+    gs = torch.bincount(e, minlength=E)
+    x = torch.randn((2 * tokens, K), generator=g, device=dev)[order].to(dtype)
+    w = torch.empty((E, K, N), device=dev, dtype=dtype)
+    for i in range(E):
+        w[i] = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(dtype)
+    return x, w, gs
+
+
+def run_gmm(dev, flush, results):
+    from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda, tile_layout
+    from repro_torch.kernels.moe_gmm.kernel import BLOCK_M
+    for dtype in (torch.float32, torch.bfloat16):
+        for sizes, K, N in (([8, 8, 8, 8], 16, 24), ([0, 32, 0, 1], 16, 24), ([33], 16, 24),
+                            ([1, 1, 1, 1, 29], 16, 24), ([0, 70, 0, 1], 40, 130)):
+            g = torch.Generator(device=dev).manual_seed(len(sizes))
+            gs = torch.tensor(sizes, device=dev)
+            x = torch.randn((int(gs.sum()), K), generator=g, device=dev).to(dtype)
+            w = torch.randn((len(sizes), K, N), generator=g, device=dev).to(dtype)
+            err = max_err(gmm(x, w, gs), gmm_reference(x, w, gs))
+            tol = 1e-4 if dtype == torch.float32 else 5e-2
+            assert err <= tol, f"gmm edge case {sizes} {dtype}: err {err} > {tol}"
+            log(f"  gmm edge sizes={sizes} K={K} N={N} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3g} (tol {tol})")
+    # fp32: reduction order over K; bf16: one rounding of outputs |o| < 5
+    tols = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+    for tokens in (8, 256):
+        for K, N in ((4096, 14336), (14336, 4096)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w, gs = gmm_case(dev, tokens=tokens, E=8, K=K, N=N, dtype=dtype, seed=tokens)
+                M = x.shape[0]
+                out = gmm(x, w, gs)
+                err = max_err(out, gmm_reference(x, w, gs))
+                assert err <= tols[dtype], f"gmm {tokens} tok {K}->{N} {dtype}: err {err}"
+                dst, te, tr, Mp = tile_layout(gs, M, BLOCK_M)
+                x_pad = x.new_empty((Mp, x.shape[1]))
+                x_pad[dst] = x
+                # the kernel alone on the padded layout made here, then the
+                # public op (layout, scatter, kernel, gather) as a caller sees it
+                ms = cuda_ms(lambda: gmm_tiles_cuda(x_pad, w, te, tr), flush=flush)
+                op_ms = cuda_ms(lambda: gmm(x, w, gs), flush=flush, queued=False)
+                # the plain version reads the group sizes back to the host
+                plain_ms = cuda_ms(lambda: gmm_reference(x, w, gs), flush=flush, queued=False)
+                bounds = np.concatenate([[0], np.cumsum(gs.tolist())])
+                parts = [(i, int(bounds[i]), int(bounds[i + 1])) for i in range(8)
+                         if bounds[i + 1] > bounds[i]]
+                lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b], w[i]) for i, a, b in parts],
+                                 flush=flush)
+                active = len(parts)
+                es = x.element_size()
+                nbytes = ((M * K + active * K * N + M * N) * es
+                          + gs.numel() * gs.element_size())
+                bms, by = bound_ms(nbytes, 2.0 * M * K * N, dtype)
+                row = dict(kernel="moe_gmm", case=f"{tokens}tok {K}->{N}",
+                           dtype=str(dtype)[6:],
+                           shape=f"x({M},{K}) w(8,{K},{N}) experts_active={active}",
+                           max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                results.append(row)
+                log(f"  gmm {tokens} tokens top-2 K={K} N={N} {row['dtype']}: "
+                    f"kernel_ms={ms:.4f} op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) max_abs_err={err:.3g}")
+                del x, w, x_pad, out
+                torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 3/4
+def mixtral(n_layers: int):
+    from repro_torch.configs import LayerGroup, get_config
+    cfg = get_config("mixtral-8x7b")
+    return cfg.scaled(name=f"mixtral-8x7b-{n_layers}L", n_layers=n_layers,
+                      layer_groups=(LayerGroup("A", n_layers, moe_mask="1"),))
+
+
+def run_card_vs_cpu(dev):
+    from repro_torch.models import RunCtx, build_model
+    from repro_torch.models.params import map_tree
+    model = build_model(mixtral(2))
+    params = model.init_params(0, device=dev, dtype=torch.float32)
+    cpu_params = map_tree(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(0)
+    ps, maxp, C = 16, 8, 16
+    pt = np.stack([np.arange(1, 1 + maxp), np.arange(1 + maxp, 1 + 2 * maxp)]).astype(np.int32)
+    tokens = rng.integers(1, 32000, (2, C)).astype(np.int32)
+    calls = [(tokens, np.array([0, 0], np.int32), np.array([16, 11], np.int32)),
+             (rng.integers(1, 32000, (2, 1)).astype(np.int32), np.array([16, 11], np.int32),
+              np.array([1, 1], np.int32))]
+    logits = {}
+    for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
+        cache = model.init_cache(2 * maxp + 1, ps, device=where)
+        outs = []
+        with torch.inference_mode():
+            for tok, st, nv in calls:
+                t = [torch.from_numpy(a).to(where) for a in (tok, st, nv, pt)]
+                lg, cache = model.decode_chunk(p, t[0], cache, t[1], t[2], RunCtx(), t[3])
+                outs.append(lg.float().cpu())
+        logits[key] = outs
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
+        assert torch.isfinite(a).all() and a.shape == (2, 32000)
+        err = max_err(a, b)
+        worst = max(worst, err)
+        assert err < LOGIT_ATOL, f"call {i}: card vs CPU logits differ by {err}"
+        assert torch.equal(a.argmax(-1), b.argmax(-1)), f"call {i}: argmax differs"
+    log(f"  depth-2 full-width decode_chunk (fp32, pack of 27 tokens then a decode sweep): "
+        f"card vs CPU max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, argmax equal")
+    return worst
+
+
+def prompts(rng, n=4):
+    lens = [113, 178, 241, 297][:n]
+    return [rng.integers(1, 32000, L).astype(np.int32) for L in lens]
+
+
+def run_serving(dev, profile: bool):
+    from repro_torch.core import EngineConfig, InferenceEngine, Request, request_metrics
+    from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
+    from repro_torch.kernels.paged_attention import chunked_prefill_cuda
+    from repro_torch.models import build_model
+    from repro_torch.models.params import map_tree
+    cfg = mixtral(SERVE_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    sizes = []
+    map_tree(lambda t: sizes.append(t.numel() * t.element_size()), params)
+    nbytes = sum(sizes)
+    log(f"  {cfg.name}: full width (d_model 4096, 32 heads / 8 kv, 8 experts top-2, "
+        f"d_expert 14336), depth cut 32 -> {SERVE_LAYERS} layers, random bf16 weights from "
+        f"seed 0: {nbytes / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
+    ecfg = EngineConfig(max_slots=4, page_size=16, num_pages=160, max_seq=512,
+                        prefill_chunk=128, greedy=True, cache_dtype=torch.bfloat16,
+                        device=str(dev))
+    eng = InferenceEngine(model, params, ecfg)
+    rng = np.random.default_rng(1)
+    # warm-up request: cuBLAS handles and allocator pools, not measured
+    eng.generate([Request(req_id="warm", prompt_tokens=prompts(rng, 1)[0][:40],
+                          max_new_tokens=2)])
+    reqs = [Request(req_id=f"r{i}", prompt_tokens=p, max_new_tokens=32)
+            for i, p in enumerate(prompts(rng))]
+    eng.step_records.clear()
+    chunked_prefill_cuda.launches = 0
+    gmm_tiles_cuda.launches = 0
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"chunked_prefill_attention": chunked_prefill_cuda.launches,
+                "moe_gmm": gmm_tiles_cuda.launches}
+    assert all(r.finished and len(r.generated) == 32 for r in reqs), "a request did not finish"
+    eng.allocator.check_invariants()
+    assert min(launches.values()) > 0, f"a kernel never ran on the serving path: {launches}"
+    ms = [request_metrics(r) for r in reqs]
+    n_tok = sum(m.n_tokens for m in ms)
+    recs = list(eng.step_records)
+    dec = [r.duration for r in recs if r.prefill_rows == 0 and r.decode_rows > 0]
+    pre = [r.duration for r in recs if r.prefill_rows > 0]
+    serve = dict(
+        config=cfg.name, layers=SERVE_LAYERS, requests=len(reqs),
+        prompt_tokens=[len(r.prompt_tokens) for r in reqs], new_tokens=32,
+        wall_s=wall, tok_s=n_tok / wall, steps=len(recs),
+        ttft_ms=[m.ttft * 1e3 for m in ms], tbt_ms=[m.tbt * 1e3 for m in ms],
+        decode_step_ms_mean=1e3 * float(np.mean(dec)) if dec else None,
+        prefill_step_ms_mean=1e3 * float(np.mean(pre)) if pre else None,
+        decode_steps=len(dec), prefill_steps=len(pre), launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  served {len(reqs)} requests x 32 new tokens (prompts {serve['prompt_tokens']}) "
+        f"in {wall:.3f} s over {len(recs)} steps: {serve['tok_s']:.2f} tok/s, "
+        f"TTFT ms {[round(x, 2) for x in serve['ttft_ms']]}, "
+        f"TBT ms {[round(x, 3) for x in serve['tbt_ms']]}, decode step "
+        f"{serve['decode_step_ms_mean']:.3f} ms, prefill step "
+        f"{serve['prefill_step_ms_mean']:.3f} ms (depth cut 32 -> {SERVE_LAYERS} layers)")
+    log(f"  launches on the serving run: {launches}")
+    if profile:
+        serve["profile"] = profile_window(eng, rng)
+    return serve, launches
+
+
+def profile_window(eng, rng):
+    """torch.profiler over a short serving run: device time by kernel name
+    and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Request
+    reqs = [Request(req_id=f"p{i}", prompt_tokens=p, max_new_tokens=8)
+            for i, p in enumerate(prompts(rng))]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: the host ops that launched them report
+        # the same time again
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((e.key, dt / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    log(f"  profile window: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / (wall * 1e3):.1f}%); top kernels by device time:")
+    for k, t, n in rows[:12]:
+        log(f"    {t:10.3f} ms  x{n:<6d} {k[:90]}")
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+                top=[dict(name=k, ms=t, count=n) for k, t, n in rows[:25]])
+
+
+# ------------------------------------------------------------------ main
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="write every measurement to this JSON file")
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler window over a short serving run")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build as kbuild
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 phases in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    t_start = time.perf_counter()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    log("phase 1: build the CUDA kernels (nvcc, sm_90a, one process per source)")
+    t0 = time.perf_counter()
+    logs = kbuild.build()
+    for name in kbuild.KERNELS:
+        kbuild.load_library(name)
+        lines = [ln.strip() for ln in logs.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"  {name}: {kbuild.library_path(name).name}"
+            + ("" if name in logs else " (already built)"))
+        for ln in lines:
+            log(f"    {ln}")
+    log(f"  built in {time.perf_counter() - t0:.1f} s")
+
+    log("phase 2: kernels vs plain versions on the card")
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
+    t0 = time.perf_counter()
+    results = []
+    run_attention(dev, flush, results)
+    run_gmm(dev, flush, results)
+    del flush
+    log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 3: full-width decode_chunk at depth 2, card vs CPU")
+    t0 = time.perf_counter()
+    e2e_err = run_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 4: serving run")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    serve, launches = run_serving(dev, args.profile)
+    log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
+
+    kernels = []
+    for name, route_src, replaces, case in (
+            ("chunked_prefill_attention", "src/repro_torch/csrc/chunked_prefill.cu",
+             "src/repro/kernels/paged_attention/kernel.py:232", "decode"),
+            ("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
+             "src/repro/kernels/moe_gmm/kernel.py:29", "8tok 4096->14336")):
+        row = next(r for r in results if r["kernel"] == name and r["case"] == case
+                   and r["dtype"] == "bfloat16")
+        kernels.append(dict(name=name, route="cuda", source=route_src, replaces=replaces,
+                            launches=launches[name], max_abs_err=row["max_abs_err"],
+                            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                            bound_by=row["bound_by"], library_ms=row["library_ms"],
+                            shape=f"{case} bf16: {row['shape']}"))
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(dict(card=card, cases=results, e2e_max_abs_logit=e2e_err,
+                                       serve=serve, kernels=kernels), indent=1))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"card: {card}")
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

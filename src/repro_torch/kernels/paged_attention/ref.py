@@ -1,0 +1,48 @@
+"""Plain PyTorch chunked paged attention: the gather-based oracle of
+``repro.kernels.paged_attention.ref.chunked_prefill_reference``.
+
+  q:           (B, S, H, D)     a chunk of S query tokens per sequence
+  k_pages:     (P, page_size, Hkv, D)   global physical page pool
+  v_pages:     (P, page_size, Hkv, D)
+  page_table:  (B, max_pages)   int32 physical page id per logical page
+  lengths:     (B,)             total resident kv entries (incl. this chunk)
+  q_positions: (B, S) int32     absolute position of each query token
+"""
+from __future__ import annotations
+
+import torch
+
+
+def chunked_prefill_reference(
+    q, k_pages, v_pages, page_table, lengths, q_positions, *,
+    scale=None, softcap: float = 0.0, window: int = 0,
+):
+    """Returns (B, S, H, D) in q's dtype. Query token i of row b attends
+    causally to kv positions <= q_positions[b, i] (clipped to lengths[b]);
+    a row with no visible key gives zeros."""
+    B, S, H, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    group = H // Hkv
+    if scale is None:
+        scale = D ** -0.5
+
+    pt = page_table.long()
+    k = k_pages[pt].reshape(B, maxp * ps, Hkv, D).repeat_interleave(group, dim=2)
+    v = v_pages[pt].reshape(B, maxp * ps, Hkv, D).repeat_interleave(group, dim=2)
+
+    s = torch.einsum("bshd,bkhd->bhsk", q.float(), k.float()) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    kv_pos = torch.arange(maxp * ps, device=q.device)[None, None, :]   # (1, 1, K)
+    q_pos = q_positions[:, :, None]                                     # (B, S, 1)
+    mask = (kv_pos < lengths[:, None, None]) & (kv_pos <= q_pos)
+    if window > 0:
+        mask &= kv_pos > q_pos - window
+    mask = mask[:, None]                                                # (B, 1, S, K)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(mask, p, torch.zeros_like(p))
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhsk,bkhd->bshd", p / denom, v.float())
+    return out.to(q.dtype)

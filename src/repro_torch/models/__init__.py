@@ -1,0 +1,4 @@
+from repro_torch.models.common import RunCtx
+from repro_torch.models.transformer import LM, build_model
+
+__all__ = ["LM", "build_model", "RunCtx"]

@@ -1,0 +1,68 @@
+"""Shared model-runtime context, device resolution and small layer primitives."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class RunCtx:
+    """Threaded through every layer, as in the reference.
+
+    It holds no fields yet: this port runs one attention mode (chunk, the
+    serving engine's unified iteration) and one MoE strategy (dropless), so
+    the reference's ``mode`` and ``moe_strategy`` come back with the slices
+    that add a second value. There is no backend knob either: the kernels'
+    ``ops`` modules dispatch on the tensors' device (hand-written CUDA kernel
+    on the card, plain PyTorch on the CPU).
+    """
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks for
+    another. Raises when CUDA is asked for (or defaulted to) and there is no
+    card, so nothing quietly falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * w.float()).to(dt)
+
+
+def rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (S,) or (B, S) absolute token positions."""
+    B, S, H, hd = x.shape
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions.float()[:, :, None] * freqs           # (B,S,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def act_fn(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    if name == "gelu":
+        return lambda t: F.gelu(t, approximate="tanh")
+    return F.silu
+
+
+def dense_mlp(p, x, act_name: str):
+    act = act_fn(act_name)
+    h = torch.einsum("bsd,df->bsf", x, p["wi"])
+    g = torch.einsum("bsd,df->bsf", x, p["wg"])
+    return torch.einsum("bsf,fd->bsd", act(g) * h, p["wo"])

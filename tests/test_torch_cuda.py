@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+engine on the card against the engine on the CPU. Every test here needs a
+card (marker ``cuda``) and skips without one; the file imports only torch
+and numpy, so it runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import tiny_config
+from repro_torch.core import EngineConfig, InferenceEngine, Request
+from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda
+from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
+                                                 chunked_prefill_cuda,
+                                                 chunked_prefill_reference)
+from repro_torch.models import build_model
+from repro_torch.models.params import map_tree
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run with `pytest -m cuda` on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full fp32
+    return torch.device("cuda")
+
+
+def _attn_case(seed, *, ps, D, B=4, C=8, H=4, Hkv=2, maxp=8):
+    """Starts mid-page, ragged lengths, and an idle row 3 (length 0)."""
+    rng = np.random.default_rng(seed)
+    P = B * maxp + 1
+    kp = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P, ps, Hkv, D)).astype(np.float32)
+    pt = np.array([[1 + b * maxp + i for i in range(maxp)] for b in range(B)], np.int32)
+    starts = np.asarray([5, 0, 13, 0], np.int32)
+    lengths = (starts + np.asarray([8, 6, 3, 0], np.int32)).astype(np.int32)
+    q = rng.standard_normal((B, C, H, D)).astype(np.float32)
+    qpos = (starts[:, None] + np.arange(C)[None]).astype(np.int32)
+    return q, kp, vp, pt, lengths, qpos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,D,window,softcap", [(4, 16, 0, 0.0), (8, 16, 5, 0.0),
+                                                 (16, 128, 3, 2.0), (4, 128, 0, 0.0)])
+def test_attention_kernel_matches_plain(cuda, dtype, ps, D, window, softcap):
+    q, kp, vp, pt, lengths, qpos = _attn_case(ps, ps=ps, D=D)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, pt, lengths, qpos)]
+    for i in range(3):
+        args[i] = args[i].to(dtype)
+    kw = dict(scale=D ** -0.5, softcap=softcap, window=window)
+    n0 = chunked_prefill_cuda.launches
+    out = chunked_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert chunked_prefill_cuda.launches == n0 + 1
+    plain = chunked_prefill_reference(*args, **kw)
+    # fp32: reduction order only; bf16: one rounding of outputs of size ~1
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+    assert not out[3].any(), "a length-0 row must give zeros"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,K,N", [([8, 8, 8, 8], 16, 24), ([0, 70, 0, 1], 40, 72),
+                                       ([1, 1, 1, 1, 129], 64, 130)])
+def test_gmm_kernel_matches_plain(cuda, dtype, sizes, K, N):
+    rng = np.random.default_rng(len(sizes))
+    gs = torch.tensor(sizes, device=cuda)
+    M = int(gs.sum())
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((len(sizes), K, N)).astype(np.float32))
+    w = w.to(cuda, dtype)
+    n0 = gmm_tiles_cuda.launches
+    out = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert gmm_tiles_cuda.launches == n0 + 1
+    # fp32: reduction order only; bf16: one rounding of outputs of size ~sqrt(K)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), gmm_reference(x, w, gs).float(), atol=tol, rtol=tol)
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """On the card the engine runs both CUDA kernels and gives the CPU's
+    greedy streams (fp32 on both sides), through preemption."""
+    model = build_model(tiny_config("mixtral-8x7b"))
+    params = model.init_params(0, device="cpu")
+    r = np.random.default_rng(0)
+    prompts = [r.integers(1, 256, 10).astype(np.int32) for _ in range(5)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else map_tree(lambda t: t.to(cuda), params)
+        eng = InferenceEngine(model, p, EngineConfig(
+            max_slots=3, page_size=8, num_pages=10, max_seq=64, prefill_chunk=16,
+            greedy=True, device=dev))
+        reqs = [Request(req_id=f"g{i}", prompt_tokens=q, max_new_tokens=20)
+                for i, q in enumerate(prompts)]
+        a0, g0 = chunked_prefill_cuda.launches, gmm_tiles_cuda.launches
+        eng.generate(reqs)
+        eng.allocator.check_invariants()
+        assert eng.scheduler.n_preemptions > 0
+        launched = (chunked_prefill_cuda.launches - a0, gmm_tiles_cuda.launches - g0)
+        assert (min(launched) > 0) == (dev == "cuda"), launched
+        outs.append([q.generated for q in reqs])
+    assert outs[0] == outs[1]

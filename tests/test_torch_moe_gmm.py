@@ -1,0 +1,128 @@
+"""Port's grouped expert matmul vs the JAX package: the plain version and
+``ops.gmm`` against JAX ``gmm`` (Pallas, interpret mode) over ragged group
+sizes (empty groups, single-expert skew), a hypothesis sweep and bf16; the
+kernel's tile-aligned layout; and ``moe_dropless`` against the JAX layer on
+tiny mixtral. The CUDA kernel against the plain version is in
+test_torch_cuda.py."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("hypothesis", reason="hypothesis not installed")
+from hypothesis import given, settings, strategies as st
+
+from repro.configs import tiny_config as jax_tiny_config
+from repro.kernels.moe_gmm import gmm as jax_gmm
+from repro.models import RunCtx as JaxRunCtx
+from repro.models import build_model as jax_build_model
+from repro.models.moe import moe_dropless as jax_moe_dropless
+from repro_torch.configs import tiny_config
+from repro_torch.kernels.moe_gmm import GroupedRows, gmm, gmm_reference, tile_layout
+from repro_torch.models import RunCtx
+from repro_torch.models.moe import moe_dropless
+from repro_torch.models.params import params_from_numpy
+
+
+def _run(rng, group_sizes, K=16, N=24, block_m=8):
+    gs = np.asarray(group_sizes, np.int32)
+    M, E = int(gs.sum()), len(gs)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = rng.standard_normal((E, K, N)).astype(np.float32)
+    ref = np.asarray(jax_gmm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(gs),
+                             backend="pallas", interpret=True, block_m=block_m, block_n=8))
+    tx, tw, tg = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(gs)
+    np.testing.assert_allclose(gmm(tx, tw, tg).numpy(), ref,
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(gmm_reference(tx, tw, tg).numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("sizes", [[8, 8, 8, 8], [0, 32, 0, 1], [33], [1, 1, 1, 1, 29]])
+def test_gmm_fixed(rng, sizes):
+    _run(rng, sizes)
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.lists(st.integers(0, 20), min_size=1, max_size=6).filter(lambda s: sum(s) > 0))
+def test_gmm_hypothesis(sizes):
+    _run(np.random.default_rng(sum(sizes)), sizes)
+
+
+def test_gmm_bf16(rng):
+    gs = np.asarray([5, 11], np.int32)
+    x = rng.standard_normal((16, 32)).astype(np.float32)
+    w = rng.standard_normal((2, 32, 16)).astype(np.float32)
+    ref = jax_gmm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), jnp.asarray(gs),
+                  backend="pallas", interpret=True, block_m=8, block_n=8)
+    out = gmm(torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(),
+              torch.from_numpy(gs))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("sizes,block_m", [([0, 32, 0, 1], 8), ([3, 0, 70, 1], 64),
+                                           ([0, 0, 0, 5], 8)])
+def test_tile_layout(sizes, block_m):
+    """Every expert starts on a tile boundary; each real row lands in a
+    tile of its own expert; padding tiles hold no row."""
+    gs = torch.tensor(sizes)
+    M, E = int(gs.sum()), len(sizes)
+    dst, tile_expert, tile_rows, Mp = tile_layout(gs, M, block_m)
+    T = Mp // block_m
+    assert Mp == ((M + block_m - 1) // block_m + E) * block_m
+    assert tile_expert.shape == tile_rows.shape == (T,)
+    assert int(tile_rows.sum()) == M and len(set(dst.tolist())) == M
+    eid = np.repeat(np.arange(E), sizes)
+    for m, d in enumerate(dst.tolist()):
+        t, r = divmod(d, block_m)
+        assert int(tile_expert[t]) == eid[m] and r < int(tile_rows[t])
+    real_tiles = sum((n + block_m - 1) // block_m for n in sizes)
+    assert (tile_rows[real_tiles:] == 0).all() and (tile_expert[real_tiles:] == E - 1).all()
+
+
+def test_tile_layout_per_tile_matmul(rng):
+    """What the kernel computes on the layout, tile by tile (each tile's
+    real rows times its expert's weights), gives the plain version's rows;
+    the NaN padding rows never reach them. On the CPU, ``GroupedRows``
+    leaves the rows as they are."""
+    gs = torch.tensor([0, 3, 0, 9])
+    x = torch.from_numpy(rng.standard_normal((12, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, 8, 5)).astype(np.float32))
+    dst, te, tr, Mp = tile_layout(gs, 12, 4)
+    xp = torch.full((Mp, 8), float("nan"))
+    xp[dst] = x
+    out = torch.full((Mp, 5), float("nan"))
+    for t, (e, n) in enumerate(zip(te.tolist(), tr.tolist())):
+        out[4 * t:4 * t + n] = xp[4 * t:4 * t + n] @ w[e]
+    torch.testing.assert_close(out[dst], gmm_reference(x, w, gs), atol=1e-6, rtol=1e-6)
+    rows = GroupedRows(gs, x)
+    assert rows.pack(x) is x and rows.unpack(x) is x
+
+
+def test_moe_dropless_matches_jax():
+    name = "mixtral-8x7b"
+    jcfg = jax_tiny_config(name)
+    jp = jax_build_model(jcfg).init_params(jax.random.PRNGKey(0))
+    jmoe = jax.tree.map(lambda a: a[0], jp["groups"][0]["layers"][0]["moe"])
+    x = np.random.default_rng(3).standard_normal((24, jcfg.d_model)).astype(np.float32)
+    ctx = JaxRunCtx(attn_backend="pallas", moe_strategy="dropless", interpret=True)
+    y_ref, aux_ref = jax_moe_dropless(jmoe, jnp.asarray(x), jcfg, ctx)
+    tmoe = params_from_numpy(jax.tree.map(np.asarray, jmoe), device="cpu")
+    y, aux = moe_dropless(tmoe, torch.from_numpy(x), tiny_config(name), RunCtx())
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(aux_ref), rtol=1e-5)
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    """The kernel wrapper never computes on the CPU: it raises before it
+    loads or builds anything."""
+    from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
+    x = torch.zeros((64, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        gmm_tiles_cuda(x, torch.zeros((2, 8, 4)), torch.zeros(1, dtype=torch.int32),
+                       torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="block_m"):
+        gmm_tiles_cuda(x, torch.zeros((2, 8, 4)), torch.zeros(1, dtype=torch.int32),
+                       torch.ones(1, dtype=torch.int32), block_m=8)
