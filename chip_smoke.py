@@ -2,31 +2,44 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, in phases; any failure
 exits non-zero and no phase's failure is caught.
 
-  1. print the card's name and power limit; build the CUDA kernels from
-     src/repro_torch/csrc with nvcc for sm_90a (one nvcc per source, in
-     parallel) and print what ptxas reports (registers, spills).
+  1. print the card's name and power limit; build the four CUDA kernels
+     from src/repro_torch/csrc with nvcc for sm_90a (one nvcc per source,
+     in parallel) and print what ptxas reports (registers, spills).
   2. each kernel against its plain PyTorch version on the card: the small
-     edge cases of the CPU tests, and the serving path's shapes at full
+     edge cases of the CPU tests, and the main paths' shapes at full
      Mixtral width, in fp32 and bf16, with the kernel's device time (its
      launch wrapper alone), the public op's time as a caller sees it (host
      work included), the plain version's and a PyTorch yardstick's times
      (the yardstick, SDPA or a per-expert matmul loop, is never called by
      the port), beside the card's lower bound for the same work.
-  3. one full-width mixtral-8x7b ``decode_chunk`` at depth 2 in fp32 (a
-     prefill pack then a decode sweep), on the card and again on the CPU
-     (plain versions): logits within LOGIT_ATOL and the same argmax.
+  3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
+     the CPU (plain versions), on the same two sequences of 20 tokens: the
+     engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, then
+     a decode sweep), ``forward`` at every position, ``prefill`` of the
+     first 16 then 4 ``decode_step``s over the dense ring, and the same 4
+     over the paged pool filled from the ring. Card vs CPU within
+     LOGIT_ATOL with the same argmax; on the card, every path's logits also
+     within LOGIT_ATOL of ``forward``'s at the same position.
   4. the serving path: mixtral-8x7b at full width, depth cut from 32 to 8
      layers, random bf16 weights from a seed, ``InferenceEngine.generate``
      on 4 requests (prompts of 100-300 tokens, 32 new tokens, greedy,
      page_size 16). Every request must finish, the allocator invariants
      hold, and both kernels' launch counters (set to 0 just before) must
      be > 0. Prints tok/s, TTFT and TBT.
-  5. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+  5. the model's generation path on phase 4's weights: ``LM.prefill`` of
+     the same 4 prompts (right-padded to 297, flash attention), then
+     GEN_STEPS = 32 greedy ``decode_step``s over the paged pool (paged
+     decode kernel), so 33 tokens per request. The flash and paged decode
+     launch counters (set to 0 just before) must be > 0. Prints prefill
+     ms, decode step ms, tok/s, and how many leading tokens of each greedy
+     stream equal phase 4's (printed only: bf16 near-ties may split two
+     different kernels; phase 3 holds the fp32 agreement).
+  6. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
-Options: --out FILE writes every measurement as JSON; --profile adds a
-torch.profiler window over a short serving run (kernel time by name and the
-device's busy share).
+Options: --out FILE writes every measurement as JSON; --profile adds
+torch.profiler windows over a short serving run and over decode steps of
+the generation path (kernel time by name and the device's busy share).
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ PEAK_FLOPS = {torch.float32: 67e12,        # fp32 outside the tensor cores
               torch.bfloat16: 989e12}      # dense bf16 tensor cores
 LOGIT_ATOL = 2e-3                  # the repo's chunked-vs-dense logit bound
 SERVE_LAYERS = 8                   # depth cut: 32 -> 8 layers (~23.7 GB bf16)
+GEN_STEPS = 32                     # greedy decode_steps of phase 5
 SLEEP_CYCLES = 200_000_000         # ~0.1-0.2 s of SM clock: time to enqueue 10 calls
 
 
@@ -139,7 +153,7 @@ def attention_bound(q, kp, lengths, qpos, dtype, window=0):
     return bound_ms(nbytes, 4.0 * D * H * vis, dtype)
 
 
-def sdpa_call(q, kp, vp, pt, lengths, qpos, scale):
+def sdpa_call(q, kp, vp, pt, lengths, qpos, scale, window=0):
     """The PyTorch yardstick: scaled_dot_product_attention over the gathered
     KV (the gather is done once, outside the timed call)."""
     import torch.nn.functional as F
@@ -151,6 +165,8 @@ def sdpa_call(q, kp, vp, pt, lengths, qpos, scale):
     v = vp[pt.long()].reshape(B, L, Hkv, D).repeat_interleave(G, 2).transpose(1, 2)
     kv = torch.arange(L, device=q.device)
     mask = (kv[None, None] < lengths[:, None, None]) & (kv[None, None] <= qpos[:, :, None])
+    if window:
+        mask &= kv[None, None] > qpos[:, :, None] - window
     qt = q.transpose(1, 2)
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask[:, None], scale=scale)
 
@@ -208,6 +224,134 @@ def run_attention(dev, flush, results):
                        library_ms=library_ms, bound_ms=bms, bound_by=by)
             results.append(row)
             log(f"  attention {name} {row['dtype']}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.6f} "
+                f"({by}) max_abs_err={err:.3g}")
+
+
+def flash_bound(q, k, dtype, *, causal, window, q_offset=0):
+    """Bytes: q, k, v and out once each. Operations: 4*D per visible
+    (query head, key) pair (causal and window counted per row)."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    qpos = torch.arange(Sq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(qpos + 1, max=Skv) if causal else torch.full_like(qpos, Skv)
+    lo = (qpos - window + 1).clamp_min(0) if window else torch.zeros_like(qpos)
+    pairs = B * H * (hi - lo).clamp_min(0).sum().item()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return bound_ms(nbytes, 4.0 * D * pairs, dtype)
+
+
+def run_flash(dev, flush, results):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
+                                                     mha_reference)
+    # small edge cases of the CPU tests (head_dim 16): GQA / MQA, window,
+    # softcap, q_offset, non-causal, ragged Sq / Skv of no tile multiple
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels_flash.py
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, Skv, H, Hkv, causal, window, softcap, qoff in (
+                (2, 64, 64, 4, 1, True, 0, 0.0, 0), (1, 80, 80, 4, 2, True, 16, 30.0, 0),
+                (2, 32, 96, 2, 2, True, 0, 0.0, 64), (1, 50, 70, 4, 2, False, 0, 0.0, 0)):
+            g = torch.Generator(device=dev).manual_seed(Sq + Skv)
+            q = torch.randn((B, Sq, H, 16), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, Skv, Hkv, 16), generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+            out = flash_attention(q, k, v, **kw)
+            err = max_err(out, mha_reference(q, k, v, **kw))
+            assert err <= tols[dtype] and torch.isfinite(out).all(), \
+                f"flash edge case {Sq}x{Skv} {kw} {dtype}: err {err} > {tols[dtype]}"
+            log(f"  flash edge Sq={Sq} Skv={Skv} H={H}/{Hkv} {kw} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3g} (tol {tols[dtype]})")
+    # the generation path's prefill at full width: 4 prompts right-padded to
+    # 297 tokens, Mixtral's heads (causal); then gemma2's heads with its
+    # window (cut to 128 to bite at 297 tokens) and attention softcap
+    for name, Hkv, window, softcap in (("prefill", 8, 0, 0.0), ("prefill window", 16, 128, 50.0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(7)
+            q = torch.randn((4, 297, 32, 128), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((4, 297, Hkv, 128), generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            kw = dict(causal=True, window=window, softcap=softcap, scale=128 ** -0.5)
+            out = flash_attention(q, k, v, **kw)
+            plain = mha_reference(q, k, v, **kw)
+            err = max_err(out, plain)
+            assert err <= tols[dtype], f"flash {name} {dtype}: err {err} > {tols[dtype]}"
+            del out, plain
+            ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), flush=flush)
+            op_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), flush=flush, queued=False)
+            plain_ms = cuda_ms(lambda: mha_reference(q, k, v, **kw), flush=flush)
+            # yardstick: SDPA on K/V repeated to the 32 query heads (made
+            # once, outside the timed call), the same mask as a boolean
+            G = 32 // Hkv
+            qt = q.transpose(1, 2)
+            kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
+            i = torch.arange(297, device=dev)
+            mask = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window)
+                                                 if window else True)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"]), flush=flush)
+            bms, by = flash_bound(q, k, dtype, causal=True, window=window)
+            row = dict(kernel="flash_attention", case=name, dtype=str(dtype)[6:],
+                       shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} causal window={window} "
+                             f"softcap={softcap}",
+                       max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bms, bound_by=by)
+            results.append(row)
+            log(f"  flash {name} {row['dtype']} {row['shape']}: kernel_ms={ms:.4f} "
+                f"op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                f"bound_ms={bms:.6f} ({by}) max_abs_err={err:.3g}")
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+
+
+def run_paged_decode(dev, flush, results):
+    from repro_torch.kernels.paged_attention import (paged_attention, paged_attention_cuda,
+                                                     paged_attention_reference)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # tests/test_kernels_paged.py
+    # small edge cases: page sizes 4 / 8 / 16, head_dim 16, a length-0 row,
+    # windows, softcap
+    for dtype in (torch.float32, torch.bfloat16):
+        for ps, window, softcap in ((4, 0, 0.0), (8, 9, 0.0), (16, 3, 30.0)):
+            *t, kw = attention_case(dev, B=4, C=1, H=8, Hkv=2, D=16, ps=ps, maxp=8,
+                                    num_pages=33, starts=[0, 0, 2 * ps + 2, 8 * ps - 1],
+                                    nvalid=[1, 0, 1, 1], dtype=dtype, window=window,
+                                    softcap=softcap, seed=ps)
+            q, kp, vp, pt, lengths, _ = t
+            out = paged_attention(q[:, 0], kp, vp, pt, lengths, **kw)
+            err = max_err(out, paged_attention_reference(q[:, 0], kp, vp, pt, lengths, **kw))
+            assert err <= tols[dtype] and not out[1].any() and torch.isfinite(out).all(), \
+                f"paged decode edge case ps={ps} w={window} {dtype}: err {err} > {tols[dtype]}"
+            log(f"  paged decode edge ps={ps} window={window} softcap={softcap} "
+                f"{str(dtype)[6:]}: max_abs_err={err:.3g} (tol {tols[dtype]})")
+    # the generation path's decode at full Mixtral width (row 1's decode
+    # shape), and the same with a window and softcap
+    for name, window, softcap in (("decode", 0, 0.0), ("decode window", 128, 50.0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            *t, kw = attention_case(dev, B=4, C=1, H=32, Hkv=8, D=128, ps=16, maxp=32,
+                                    num_pages=256, starts=[131, 219, 299, 166],
+                                    nvalid=[1, 1, 1, 1], dtype=dtype, window=window,
+                                    softcap=softcap, seed=1)
+            q4, kp, vp, pt, lengths, qpos = t
+            q = q4[:, 0].contiguous()
+            out = paged_attention(q, kp, vp, pt, lengths, **kw)
+            err = max_err(out, paged_attention_reference(q, kp, vp, pt, lengths, **kw))
+            assert err <= tols[dtype], f"paged decode {name} {dtype}: err {err} > {tols[dtype]}"
+            ms = cuda_ms(lambda: paged_attention_cuda(q, kp, vp, pt, lengths, **kw), flush=flush)
+            op_ms = cuda_ms(lambda: paged_attention(q, kp, vp, pt, lengths, **kw), flush=flush,
+                            queued=False)
+            plain_ms = cuda_ms(lambda: paged_attention_reference(q, kp, vp, pt, lengths, **kw),
+                               flush=flush)
+            library_ms = cuda_ms(sdpa_call(q4, kp, vp, pt, lengths, qpos, kw["scale"], window),
+                                 flush=flush)
+            bms, by = attention_bound(q4, kp, lengths, qpos, dtype, window)
+            row = dict(kernel="paged_attention", case=name, dtype=str(dtype)[6:],
+                       shape=f"q{tuple(q.shape)} pool{tuple(kp.shape)} lengths "
+                             f"{lengths.tolist()} window={window} softcap={softcap}",
+                       max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bms, bound_by=by)
+            results.append(row)
+            log(f"  paged {name} {row['dtype']}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.6f} "
                 f"({by}) max_abs_err={err:.3g}")
 
@@ -292,39 +436,87 @@ def mixtral(n_layers: int):
                       layer_groups=(LayerGroup("A", n_layers, moe_mask="1"),))
 
 
+def fill_pool_from_ring(paged, dense, pt, ps):
+    """Copy each row's ring buffer (slot == position: the ring is at least
+    as long as the sequence) into its pages pt[b, :W // ps]."""
+    for pg, dg in zip(paged["groups"], dense["groups"]):
+        for pc, dc in zip(pg, dg):
+            for pool, ring in (("kp", "k"), ("vp", "v")):
+                src = dc["attn"][ring]                               # (R, B, W, Hkv, hd)
+                R, B, W = src.shape[:3]
+                for b in range(B):
+                    pc["attn"][pool][:, pt[b, :W // ps].long()] = (
+                        src[:, b].reshape(R, W // ps, ps, *src.shape[3:]))
+
+
 def run_card_vs_cpu(dev):
+    """Every model path at depth 2, full width, fp32, on the card and on the
+    CPU, on the same tokens: returns the worst card-vs-CPU and cross-path
+    logit differences."""
     from repro_torch.models import RunCtx, build_model
     from repro_torch.models.params import map_tree
     model = build_model(mixtral(2))
     params = model.init_params(0, device=dev, dtype=torch.float32)
     cpu_params = map_tree(lambda t: t.cpu(), params)
     rng = np.random.default_rng(0)
-    ps, maxp, C = 16, 8, 16
+    ps, maxp, C, gen = 16, 2, 16, 4
+    seq = rng.integers(1, 32000, (2, C + gen)).astype(np.int32)
     pt = np.stack([np.arange(1, 1 + maxp), np.arange(1 + maxp, 1 + 2 * maxp)]).astype(np.int32)
-    tokens = rng.integers(1, 32000, (2, C)).astype(np.int32)
-    calls = [(tokens, np.array([0, 0], np.int32), np.array([16, 11], np.int32)),
-             (rng.integers(1, 32000, (2, 1)).astype(np.int32), np.array([16, 11], np.int32),
+    # decode_chunk: a pack of 16 / 11 prompt tokens, then a decode sweep
+    # feeding each row its next token (positions 16 and 11)
+    calls = [(seq[:, :C], np.array([0, 0], np.int32), np.array([16, 11], np.int32)),
+             (np.array([[seq[0, 16]], [seq[1, 11]]], np.int32), np.array([16, 11], np.int32),
               np.array([1, 1], np.int32))]
     logits = {}
     for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
-        cache = model.init_cache(2 * maxp + 1, ps, device=where)
-        outs = []
+        out = {}
         with torch.inference_mode():
-            for tok, st, nv in calls:
-                t = [torch.from_numpy(a).to(where) for a in (tok, st, nv, pt)]
-                lg, cache = model.decode_chunk(p, t[0], cache, t[1], t[2], RunCtx(), t[3])
-                outs.append(lg.float().cpu())
-        logits[key] = outs
+            cache = model.init_cache(2, C + gen, kind="paged", page_size=ps,
+                                     num_pages=2 * maxp + 1, device=where)
+            t_pt = torch.from_numpy(pt).to(where)
+            for i, (tok, st, nv) in enumerate(calls):
+                t = [torch.from_numpy(a).to(where) for a in (tok, st, nv)]
+                lg, cache = model.decode_chunk(p, t[0], cache, t[1], t[2], RunCtx(), t_pt)
+                out[f"decode_chunk {i}"] = lg
+            tokens = torch.from_numpy(seq).to(where)
+            out["forward"], _ = model.forward(p, {"tokens": tokens}, RunCtx())
+            dense = model.init_cache(2, maxp * ps, device=where)
+            out["prefill"], dense = model.prefill(p, {"tokens": tokens[:, :C]}, dense, RunCtx())
+            paged = model.init_cache(2, C + gen, kind="paged", page_size=ps,
+                                     num_pages=2 * maxp + 1, device=where)
+            fill_pool_from_ring(paged, dense, t_pt, ps)
+            for i in range(gen):
+                pos = torch.full((2,), C + i, dtype=torch.int32, device=where)
+                tok = tokens[:, C + i:C + i + 1]
+                out[f"decode_step dense {i}"], dense = model.decode_step(
+                    p, tok, dense, pos, RunCtx())
+                out[f"decode_step paged {i}"], paged = model.decode_step(
+                    p, tok, paged, pos, RunCtx(), page_table=t_pt, lengths=pos + 1)
+        logits[key] = {k: v.float().cpu() for k, v in out.items()}
     worst = 0.0
-    for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
-        assert torch.isfinite(a).all() and a.shape == (2, 32000)
+    for k, a in logits["card"].items():
+        b = logits["cpu"][k]
+        assert torch.isfinite(a).all() and a.shape[-1] == 32000, k
         err = max_err(a, b)
         worst = max(worst, err)
-        assert err < LOGIT_ATOL, f"call {i}: card vs CPU logits differ by {err}"
-        assert torch.equal(a.argmax(-1), b.argmax(-1)), f"call {i}: argmax differs"
-    log(f"  depth-2 full-width decode_chunk (fp32, pack of 27 tokens then a decode sweep): "
-        f"card vs CPU max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, argmax equal")
-    return worst
+        assert err < LOGIT_ATOL, f"{k}: card vs CPU logits differ by {err}"
+        assert torch.equal(a.argmax(-1), b.argmax(-1)), f"{k}: argmax differs"
+    # on the card, every path against forward's logits at the same position
+    card, fwd = logits["card"], logits["card"]["forward"]
+    pairs = [(card["decode_chunk 0"][0], fwd[0, 15]), (card["decode_chunk 0"][1], fwd[1, 10]),
+             (card["decode_chunk 1"][0], fwd[0, 16]), (card["decode_chunk 1"][1], fwd[1, 11]),
+             (card["prefill"], fwd[:, C - 1])]
+    for i in range(gen):
+        pairs += [(card[f"decode_step {kind} {i}"], fwd[:, C + i]) for kind in ("dense", "paged")]
+    cross = max(max_err(a, b) for a, b in pairs)
+    assert cross < LOGIT_ATOL, f"paths disagree with forward on the card by {cross}"
+    log(f"  depth-2 full-width fp32, card vs CPU: decode_chunk (pack of 27 tokens, then a "
+        f"decode sweep), forward (2 x 20 tokens), prefill (2 x 16) + 4 decode_steps over the "
+        f"dense ring and over the paged pool: max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, "
+        f"argmax equal")
+    log(f"  on the card, decode_chunk / prefill / decode_step vs forward at the same "
+        f"positions: max |dlogit| = {cross:.3g} < {LOGIT_ATOL}")
+    return worst, cross
 
 
 def prompts(rng, n=4):
@@ -393,20 +585,105 @@ def run_serving(dev, profile: bool):
         f"{serve['prefill_step_ms_mean']:.3f} ms (depth cut 32 -> {SERVE_LAYERS} layers)")
     log(f"  launches on the serving run: {launches}")
     if profile:
-        serve["profile"] = profile_window(eng, rng)
-    return serve, launches
+        from repro_torch.core import Request
+        preqs = [Request(req_id=f"p{i}", prompt_tokens=p, max_new_tokens=8)
+                 for i, p in enumerate(prompts(rng))]
+        serve["profile"] = profile_window(lambda: eng.generate(preqs), "4 requests x 8 tokens")
+    streams = [(r.prompt_tokens, list(r.generated)) for r in reqs]
+    return serve, launches, model, params, streams
 
 
-def profile_window(eng, rng):
-    """torch.profiler over a short serving run: device time by kernel name
+def run_generation(dev, model, params, streams, profile: bool):
+    """Phase 5: LM.prefill of phase 4's prompts (right-padded, flash
+    attention), then GEN_STEPS greedy decode_steps over the paged pool
+    (paged decode kernel), on phase 4's weights."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models import RunCtx
+    ps = 16
+    lens = [len(p) for p, _ in streams]
+    B, S = len(lens), max(lens)
+    maxp = -(-(S + GEN_STEPS) // ps)
+    toks = np.zeros((B, S), np.int32)
+    for b, (p, _) in enumerate(streams):
+        toks[b, :len(p)] = p
+    tokens = torch.from_numpy(toks).to(dev)
+    last = torch.tensor(lens, dtype=torch.int64, device=dev) - 1
+    pt = (torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp) + 1)
+    ctx = RunCtx()
+
+    def generate(n_steps):
+        """Prefill into a ring, copy it into the pool, decode n_steps."""
+        dense = model.init_cache(B, maxp * ps, torch.bfloat16, device=dev)
+        paged = model.init_cache(B, maxp * ps, torch.bfloat16, kind="paged", page_size=ps,
+                                 num_pages=B * maxp + 1, device=dev)
+        out, times = [], []
+        t0 = time.perf_counter()
+        lg, dense = model.prefill(params, {"tokens": tokens}, dense, ctx, last_pos=last)
+        nxt = lg.argmax(-1)
+        fill_pool_from_ring(paged, dense, pt, ps)
+        del dense
+        out.append(nxt.cpu())
+        times.append(time.perf_counter() - t0)
+        pos = last.to(torch.int32) + 1
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            lg, paged = model.decode_step(params, nxt[:, None].to(torch.int32), paged, pos, ctx,
+                                          page_table=pt, lengths=pos + 1)
+            nxt = lg.argmax(-1)
+            out.append(nxt.cpu())             # reads the token back, as a server must
+            times.append(time.perf_counter() - t0)
+            pos = pos + 1
+        return torch.stack(out, 1), times
+
+    with torch.inference_mode():
+        generate(2)                           # warm-up: allocator pools, cuBLAS handles
+        torch.cuda.synchronize()
+        for fn in (flash_attention_cuda, paged_attention_cuda, gmm_tiles_cuda):
+            fn.launches = 0
+        gen, times = generate(GEN_STEPS)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": flash_attention_cuda.launches,
+                    "paged_attention": paged_attention_cuda.launches,
+                    "moe_gmm": gmm_tiles_cuda.launches}
+    assert launches["flash_attention"] > 0 and launches["paged_attention"] > 0, \
+        f"a kernel never ran on the generation path: {launches}"
+    assert gen.shape == (B, GEN_STEPS + 1) and ((gen >= 0) & (gen < 32000)).all()
+    prefill_ms, step_ms = 1e3 * times[0], 1e3 * float(np.mean(times[1:]))
+    total = sum(times)
+    agree = []
+    for b, (_, eng) in enumerate(streams):
+        n = 0
+        while n < len(eng) and int(gen[b, n]) == eng[n]:
+            n += 1
+        agree.append(n)
+    res = dict(layers=SERVE_LAYERS, prompt_tokens=lens, padded_to=S, new_tokens=GEN_STEPS,
+               prefill_ms=prefill_ms, decode_step_ms_mean=step_ms,
+               decode_tok_s=B / (step_ms / 1e3), tok_s=B * (GEN_STEPS + 1) / total,
+               launches=launches, leading_tokens_equal_engine=agree)
+    log(f"  prefill of {B} prompts {lens} right-padded to {S} tokens: {prefill_ms:.3f} ms "
+        f"(ring copied into the pool included); {GEN_STEPS} decode_steps over the paged "
+        f"pool: {step_ms:.3f} ms per step, {res['decode_tok_s']:.2f} tok/s in decode, "
+        f"{res['tok_s']:.2f} tok/s over the whole generation (depth cut 32 -> "
+        f"{SERVE_LAYERS} layers)")
+    log(f"  launches on the generation run: {launches}")
+    log(f"  leading greedy tokens equal to phase 4's engine stream, per request: {agree} "
+        f"of its 32 (printed only: bf16 near-ties may split two different kernels)")
+    if profile:
+        with torch.inference_mode():
+            res["profile"] = profile_window(lambda: generate(8),
+                                            "prefill + 8 decode_steps of the generation path")
+    return res, launches
+
+
+def profile_window(fn, what: str):
+    """torch.profiler over one call of ``fn``: device time by kernel name
     and the device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import Request
-    reqs = [Request(req_id=f"p{i}", prompt_tokens=p, max_new_tokens=8)
-            for i, p in enumerate(prompts(rng))]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(reqs)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -423,7 +700,7 @@ def profile_window(eng, rng):
             rows.append((e.key, dt / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    log(f"  profile window: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+    log(f"  profile window ({what}): wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / (wall * 1e3):.1f}%); top kernels by device time:")
     for k, t, n in rows[:12]:
         log(f"    {t:10.3f} ms  x{n:<6d} {k[:90]}")
@@ -436,7 +713,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler window over a short serving run")
+                    help="add torch.profiler windows over a short serving run and over "
+                         "the generation path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -471,27 +749,42 @@ def main() -> int:
     results = []
     run_attention(dev, flush, results)
     run_gmm(dev, flush, results)
+    run_flash(dev, flush, results)
+    run_paged_decode(dev, flush, results)
     del flush
     log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
-    log("phase 3: full-width decode_chunk at depth 2, card vs CPU")
+    log("phase 3: every model path at depth 2, full width, fp32, card vs CPU")
     t0 = time.perf_counter()
-    e2e_err = run_card_vs_cpu(dev)
+    e2e_err, cross_err = run_card_vs_cpu(dev)
     torch.cuda.empty_cache()
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 4: serving run")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    serve, launches = run_serving(dev, args.profile)
+    serve, launches, model, params, streams = run_serving(dev, args.profile)
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 5: generation path (prefill + decode_step) on phase 4's weights")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    generation, gen_launches = run_generation(dev, model, params, streams, args.profile)
+    del model, params
+    launches.update(flash_attention=gen_launches["flash_attention"],
+                    paged_attention=gen_launches["paged_attention"])
+    log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, route_src, replaces, case in (
             ("chunked_prefill_attention", "src/repro_torch/csrc/chunked_prefill.cu",
              "src/repro/kernels/paged_attention/kernel.py:232", "decode"),
             ("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
-             "src/repro/kernels/moe_gmm/kernel.py:29", "8tok 4096->14336")):
+             "src/repro/kernels/moe_gmm/kernel.py:29", "8tok 4096->14336"),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:112", "prefill"),
+            ("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention/kernel.py:107", "decode")):
         row = next(r for r in results if r["kernel"] == name and r["case"] == case
                    and r["dtype"] == "bfloat16")
         kernels.append(dict(name=name, route="cuda", source=route_src, replaces=replaces,
@@ -503,7 +796,8 @@ def main() -> int:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(card=card, cases=results, e2e_max_abs_logit=e2e_err,
-                                       serve=serve, kernels=kernels), indent=1))
+                                       cross_path_max_abs_logit=cross_err, serve=serve,
+                                       generation=generation, kernels=kernels), indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
 """Config registry: ``get_config("<arch-id>")`` and reduced smoke configs.
 
-The port carries the configurations its serving path runs so far:
-``mixtral-8x7b`` (the paper's evaluation model, MoE) and ``qwen2.5-3b``
-(the dense family, with QKV bias).
+The port carries the configurations its paths run so far:
+``mixtral-8x7b`` (the paper's evaluation model, MoE), ``qwen2.5-3b`` (the
+dense family, with QKV bias) and ``gemma2-27b`` (alternating sliding-window
+and global attention, attention and logit softcaps, tied and scaled
+embeddings, gelu).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.configs.base import (  # noqa: F401 (re-export)
 
 _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "gemma2-27b": "gemma2_27b",
     "mixtral-8x7b": "mixtral_8x7b",
 }
 

@@ -115,8 +115,9 @@ class InferenceEngine:
         self.scheduler = ContinuousBatchScheduler(
             cfg.max_slots, self.allocator, policy=cfg.scheduler, max_seq=cfg.max_seq,
             prefix_cache=self.prefix_cache, tracer=tracer)
-        self.cache = model.init_cache(cfg.num_pages, cfg.page_size, cfg.cache_dtype,
-                                      device=self.device)
+        self.cache = model.init_cache(
+            cfg.max_slots, cfg.max_seq, cfg.cache_dtype, kind="paged",
+            page_size=cfg.page_size, num_pages=cfg.num_pages, device=self.device)
         self.page_table = np.zeros((cfg.max_slots, cfg.max_pages_per_seq), np.int32)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(cfg.seed)

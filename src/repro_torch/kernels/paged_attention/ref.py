@@ -1,5 +1,7 @@
-"""Plain PyTorch chunked paged attention: the gather-based oracle of
-``repro.kernels.paged_attention.ref.chunked_prefill_reference``.
+"""Plain PyTorch paged attention: the gather-based oracles of
+``repro.kernels.paged_attention.ref`` — ``chunked_prefill_reference`` (a
+chunk of query tokens per sequence) and ``paged_attention_reference``
+(decode: one query token per sequence, q (B, H, D)).
 
   q:           (B, S, H, D)     a chunk of S query tokens per sequence
   k_pages:     (P, page_size, Hkv, D)   global physical page pool
@@ -45,4 +47,38 @@ def chunked_prefill_reference(
     p = torch.where(mask, p, torch.zeros_like(p))
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhsk,bkhd->bshd", p / denom, v.float())
+    return out.to(q.dtype)
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_table, lengths, *,
+                              scale=None, softcap: float = 0.0, window: int = 0):
+    """Decode over the pool: q (B, H, D), one token per row, attends to
+    the row's kv positions < lengths[b] and, with a window, >
+    lengths[b] - 1 - window. Returns (B, H, D) in q's dtype; a row of
+    length 0 gives zeros."""
+    B, H, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    group = H // Hkv
+    if scale is None:
+        scale = D ** -0.5
+
+    pt = page_table.long()
+    k = k_pages[pt].reshape(B, maxp * ps, Hkv, D).repeat_interleave(group, dim=2)
+    v = v_pages[pt].reshape(B, maxp * ps, Hkv, D).repeat_interleave(group, dim=2)
+
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(maxp * ps, device=q.device)[None, :]
+    last = lengths.long()[:, None]
+    mask = pos < last
+    if window > 0:
+        mask &= pos > (last - 1) - window
+    mask = mask[:, None, :]                                             # (B, 1, K)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(mask, p, torch.zeros_like(p))
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhk,bkhd->bhd", p / denom, v.float())
     return out.to(q.dtype)

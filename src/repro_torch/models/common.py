@@ -1,7 +1,8 @@
-"""Shared model-runtime context, device resolution and small layer primitives."""
+"""Shared model-runtime context (``RunCtx`` with its attention mode), device
+resolution and small layer primitives."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Union
 
 import torch
@@ -12,13 +13,23 @@ import torch.nn.functional as F
 class RunCtx:
     """Threaded through every layer, as in the reference.
 
-    It holds no fields yet: this port runs one attention mode (chunk, the
-    serving engine's unified iteration) and one MoE strategy (dropless), so
-    the reference's ``mode`` and ``moe_strategy`` come back with the slices
-    that add a second value. There is no backend knob either: the kernels'
-    ``ops`` modules dispatch on the tensors' device (hand-written CUDA kernel
-    on the card, plain PyTorch on the CPU).
+    mode: "train" | "prefill" | "decode" | "chunk" — the attention path of
+        each layer: flash attention over the whole sequence (train,
+        prefill; prefill also fills the dense ring cache), one new token
+        over the dense ring or the paged pool (decode), or the serving
+        engine's chunk over the paged pool (chunk). ``LM.prefill``,
+        ``decode_step`` and ``decode_chunk`` set it themselves.
+
+    The MoE layer has one strategy, dropless (the reference's
+    ``moe_strategy="dropless"``); the capacity and shard_map strategies come
+    with the training and distribution slices. There is no backend knob:
+    the kernels' ``ops`` modules dispatch on the tensors' device
+    (hand-written CUDA kernel on the card, plain PyTorch on the CPU).
     """
+    mode: str = "train"
+
+    def with_mode(self, mode: str) -> "RunCtx":
+        return replace(self, mode=mode)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

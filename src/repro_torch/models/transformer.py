@@ -1,10 +1,13 @@
-"""The LM for the dense and MoE families, serving path: ``decode_chunk``
-over the paged KV pool.
+"""The LM for the dense and MoE families: the teacher-forced ``forward``,
+the generation API ``prefill`` + ``decode_step`` over dense ring or paged
+caches, and the serving path ``decode_chunk`` over the paged KV pool.
 
 Repeated layers keep their parameters stacked on a leading repeat axis, as
 in the reference, and run as a plain Python loop over repeats and pattern
-positions (the reference scans). The SSM, enc-dec and VLM families and the
-forward / prefill / decode_step paths come with later slices.
+positions (the reference scans). Caches are updated in place: ``prefill``,
+``decode_step`` and ``decode_chunk`` return the cache they were given. The
+SSM, enc-dec and VLM families and the training ``loss`` come with later
+slices.
 """
 from __future__ import annotations
 
@@ -36,34 +39,39 @@ class LM:
         return params_lib.init_params(self.cfg, seed, device=device, dtype=dtype)
 
     # ------------------------------------------------------------------ layers
-    def _apply_layer(self, p, x, c, *, kind: str, ctx: RunCtx, positions, page_table,
-                     lengths, valid):
+    def _apply_layer(self, p, x, c, *, kind: str, ctx: RunCtx, positions, page_table=None,
+                     lengths=None, valid=None):
+        """Returns (x, aux): aux is the MoE load-balance loss (0.0 without MoE)."""
         cfg = self.cfg
+        aux = 0.0
         h = rmsnorm(x, p["ln1"], cfg.rms_eps)
-        x = x + attention_sublayer(p["attn"], h, ctx, cfg, kind, c["attn"], positions,
-                                   page_table, lengths, valid)
+        x = x + attention_sublayer(p["attn"], h, ctx, cfg, kind, c["attn"] if c else None,
+                                   positions, page_table, lengths, valid)
         if "moe" in p:
             h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
-            mo, _ = moe_sublayer(p["moe"], h2, cfg, ctx)
+            mo, aux = moe_sublayer(p["moe"], h2, cfg, ctx)
             x = x + mo
         elif "mlp" in p:
             h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
             x = x + dense_mlp(p["mlp"], h2, cfg.act)
-        return x
+        return x, aux
 
     def _run_groups(self, groups_params, x, cache, *, ctx: RunCtx, **kw):
         """Every layer in order: groups, then repeats, then pattern
-        positions. The cache's pools are updated in place."""
+        positions. The cache (None for ``forward``) is updated in place.
+        Returns (x, aux summed over layers)."""
+        aux_total = 0.0
         for gi, g in enumerate(self.cfg.layer_groups):
             gp = groups_params[gi]["layers"]
-            gc = cache["groups"][gi]
+            gc = cache["groups"][gi] if cache is not None else None
             for r in range(g.repeats):
                 for pos, kind in enumerate(g.pattern):
-                    # the r-th repeat of the stacked params / pools (views)
-                    p_r, c_r = (params_lib.map_tree(lambda t: t[r], tree)
-                                for tree in (gp[pos], gc[pos]))
-                    x = self._apply_layer(p_r, x, c_r, kind=kind, ctx=ctx, **kw)
-        return x
+                    # the r-th repeat of the stacked params / caches (views)
+                    p_r = params_lib.map_tree(lambda t: t[r], gp[pos])
+                    c_r = params_lib.map_tree(lambda t: t[r], gc[pos]) if gc else None
+                    x, aux = self._apply_layer(p_r, x, c_r, kind=kind, ctx=ctx, **kw)
+                    aux_total = aux_total + aux
+        return x, aux_total
 
     # ------------------------------------------------------------------ embed
     def _embed(self, params, tokens):
@@ -82,6 +90,50 @@ class LM:
         return logits
 
     # ------------------------------------------------------------------ api
+    def forward(self, params, batch, ctx: RunCtx):
+        """Teacher-forced full-sequence logits through flash attention.
+        batch {"tokens": (B, S)}. Returns (logits (B, S, vocab), aux), aux the
+        MoE load-balance loss summed over layers (0.0 without MoE)."""
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions)
+        x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
+        return self._head(params, x), aux
+
+    def prefill(self, params, batch, cache, ctx: RunCtx, last_pos=None):
+        """Full-sequence pass through flash attention that also fills the
+        dense ring cache. ``last_pos`` (B,) selects the logits position (the
+        true prompt end when prompts are right-padded); defaults to the final
+        position. Returns (last_logits (B, vocab), cache), the cache written
+        in place."""
+        ctx = ctx.with_mode("prefill")
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions)
+        x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
+        if last_pos is None:
+            last = x[:, -1:]
+        else:
+            last = x[torch.arange(x.shape[0], device=x.device), last_pos.long()][:, None]
+        return self._head(params, last)[:, 0], cache
+
+    def decode_step(self, params, tokens, cache, positions, ctx: RunCtx,
+                    page_table=None, lengths=None):
+        """tokens (B,1); positions (B,) absolute position of the new token.
+        Over a dense cache the ring is read; over a paged cache (``kp`` /
+        ``vp`` pools) ``page_table`` (B, max_pages) maps each row's pages and
+        ``lengths`` (B,) counts its entries, the new token's included
+        (default positions + 1). Returns (logits (B, vocab), cache), the
+        cache written in place."""
+        ctx = ctx.with_mode("decode")
+        x = self._embed(params, tokens)
+        if lengths is None:
+            lengths = positions + 1
+        x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
+                                page_table=page_table, lengths=lengths)
+        x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
+        return self._head(params, x)[:, 0], cache
+
     def decode_chunk(self, params, tokens, cache, starts, nvalid, ctx: RunCtx, page_table):
         """Unified serving iteration over a paged cache: each batch row
         feeds a chunk of up to C tokens of one sequence — C == 1 is decode,
@@ -92,38 +144,56 @@ class LM:
         page_table (B, max_pages). Returns (logits (B, vocab) at each row's
         last valid position, cache) — the cache's pools updated in place.
         """
+        ctx = ctx.with_mode("chunk")
         B, C = tokens.shape
         x = self._embed(params, tokens)
         ar = torch.arange(C, device=tokens.device)
         positions = starts.long()[:, None] + ar[None, :]
         valid = ar[None, :] < nvalid[:, None]
         lengths = starts + nvalid
-        x = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
-                             page_table=page_table, lengths=lengths, valid=valid)
+        x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
+                                page_table=page_table, lengths=lengths, valid=valid)
         x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
         last = torch.clamp(nvalid.long(), min=1) - 1
         x_last = x[torch.arange(B, device=x.device), last]
         return self._head(params, x_last[:, None])[:, 0], cache
 
     # ------------------------------------------------------------------ cache
-    def init_cache(self, num_pages: int, page_size: int = 16,
-                   dtype: torch.dtype = torch.float32, *,
+    def init_cache(self, B: int, max_seq: int, dtype: torch.dtype = torch.float32, *,
+                   kind: str = "dense", page_size: int = 16, num_pages: int = 0,
                    device: Optional[Union[str, torch.device]] = None) -> Dict[str, Any]:
-        """The paged cache (the reference's ``kind="paged"``): per-layer
-        physical page pools, stacked per group on the repeat axis,
-        {"groups": [[{"attn": {"kp", "vp"}} per pattern position]]}, each
-        pool (R, num_pages, page_size, Hkv, hd). The engine supplies
-        page_table / lengths. The dense ring caches come with the
-        prefill / decode_step slice."""
+        """The cache tree {"groups": [[{"attn": {...}} per pattern position]]},
+        every leaf stacked per group on the repeat axis R, as the reference's.
+
+        kind="dense": per-layer ring buffers "k" / "v" (R, B, W, Hkv, hd) and
+                      "slot_pos" (R, B, W) int32 (-1 = empty), W = min(max_seq,
+                      window) on local ("L") layers and max_seq elsewhere.
+        kind="paged": per-layer physical page pools "kp" / "vp" (R, num_pages,
+                      page_size, Hkv, hd); the caller supplies page_table /
+                      lengths (B and max_seq are not used).
+        """
+        if kind not in ("dense", "paged"):
+            raise ValueError(f"cache kind {kind!r}: 'dense' or 'paged'")
         dev = resolve_device(device)
         cfg = self.cfg
+        Hkv, hd = cfg.n_kv_heads, cfg.head_dim
         groups_cache: List[Any] = []
         for g in cfg.layer_groups:
-            shape = (g.repeats, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-            groups_cache.append([
-                {"attn": {"kp": torch.zeros(shape, dtype=dtype, device=dev),
-                          "vp": torch.zeros(shape, dtype=dtype, device=dev)}}
-                for _ in g.pattern])
+            R = g.repeats
+            per_pos = []
+            for k in g.pattern:
+                if kind == "paged":
+                    shape = (R, num_pages, page_size, Hkv, hd)
+                    c = {"kp": torch.zeros(shape, dtype=dtype, device=dev),
+                         "vp": torch.zeros(shape, dtype=dtype, device=dev)}
+                else:
+                    W = (min(max_seq, cfg.sliding_window)
+                         if (k == "L" and cfg.sliding_window) else max_seq)
+                    c = {"k": torch.zeros((R, B, W, Hkv, hd), dtype=dtype, device=dev),
+                         "v": torch.zeros((R, B, W, Hkv, hd), dtype=dtype, device=dev),
+                         "slot_pos": torch.full((R, B, W), -1, dtype=torch.int32, device=dev)}
+                per_pos.append({"attn": c})
+            groups_cache.append(per_pos)
         return {"groups": groups_cache}
 
 

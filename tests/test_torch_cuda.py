@@ -11,11 +11,15 @@ import torch
 
 from repro_torch.configs import tiny_config
 from repro_torch.core import EngineConfig, InferenceEngine, Request
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
+                                                 mha_reference)
 from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda
 from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                  chunked_prefill_cuda,
-                                                 chunked_prefill_reference)
-from repro_torch.models import build_model
+                                                 chunked_prefill_reference, paged_attention,
+                                                 paged_attention_cuda,
+                                                 paged_attention_reference)
+from repro_torch.models import RunCtx, build_model
 from repro_torch.models.params import map_tree
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +84,103 @@ def test_gmm_kernel_matches_plain(cuda, dtype, sizes, K, N):
     # fp32: reduction order only; bf16: one rounding of outputs of size ~sqrt(K)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(out.float(), gmm_reference(x, w, gs).float(), atol=tol, rtol=tol)
+
+
+# the cases of tests/test_torch_flash_attention.py at head_dim 16 and 128,
+# plus ragged edges (Sq, Skv of no tile multiple)
+FLASH_CASES = [
+    # B, Sq, Skv, H, Hkv, D, causal, window, softcap, q_offset
+    (2, 64, 64, 4, 2, 16, True, 0, 0.0, 0),
+    (2, 64, 64, 4, 1, 16, True, 0, 0.0, 0),
+    (1, 96, 96, 4, 2, 128, True, 32, 0.0, 0),
+    (1, 64, 64, 4, 4, 16, True, 0, 50.0, 0),
+    (2, 32, 96, 2, 2, 16, True, 0, 0.0, 64),
+    (2, 48, 48, 4, 2, 128, False, 0, 0.0, 0),
+    (1, 80, 80, 4, 2, 16, True, 16, 30.0, 0),
+    (1, 50, 70, 4, 2, 16, False, 0, 0.0, 0),
+    (2, 97, 97, 8, 2, 128, True, 0, 0.0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, case):
+    B, Sq, Skv, H, Hkv, D, causal, window, softcap, qoff = case
+    rng = np.random.default_rng(Sq + Skv + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+               for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    n0 = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == n0 + 1 and out.dtype == dtype
+    plain = mha_reference(q, k, v, **kw)
+    # tests/test_kernels_flash.py's tolerances: fp32 2e-5, bf16 2e-2
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,D,window,softcap", [(4, 16, 0, 0.0), (8, 16, 9, 0.0),
+                                                 (16, 128, 0, 30.0), (16, 128, 40, 0.0)])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, ps, D, window, softcap):
+    """Ragged lengths (one of them 0, one past a split boundary), GQA group 4."""
+    rng = np.random.default_rng(ps + D)
+    B, H, Hkv, P, maxp = 4, 8, 2, 40, 9
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32)).to(cuda, dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal((P, ps, Hkv, D)).astype(np.float32))
+              .to(cuda, dtype) for _ in range(2))
+    pt = torch.from_numpy(rng.integers(1, P, (B, maxp)).astype(np.int32)).to(cuda)
+    lengths = torch.tensor([1, 0, 2 * ps + 3, maxp * ps], dtype=torch.int32, device=cuda)
+    kw = dict(scale=D ** -0.5, softcap=softcap, window=window)
+    n0 = paged_attention_cuda.launches
+    out = paged_attention(q, kp, vp, pt, lengths, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == n0 + 1
+    plain = paged_attention_reference(q, kp, vp, pt, lengths, **kw)
+    # tests/test_kernels_paged.py's tolerances: fp32 2e-5, bf16 3e-2
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+    assert not out[1].any(), "a length-0 row must give zeros"
+
+
+@pytest.mark.parametrize("name", ["gemma2-27b", "mixtral-8x7b"])
+def test_generation_path_on_card_matches_cpu(cuda, name):
+    """forward, prefill and decode_step (dense ring and paged pool) on the
+    card (flash and paged decode kernels) against the CPU, fp32."""
+    model = build_model(tiny_config(name))
+    params = model.init_params(0, device="cpu")
+    B, S, gen, ps = 2, 20, 4, 4
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (B, S + gen))
+                            .astype(np.int32))
+    maxp = (S + gen) // ps
+    pt = torch.arange(B * maxp, dtype=torch.int32).reshape(B, maxp) + 1
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else map_tree(lambda t: t.to(cuda), params)
+        t = toks.to(dev)
+        f0, p0 = flash_attention_cuda.launches, paged_attention_cuda.launches
+        full, _ = model.forward(p, {"tokens": t}, RunCtx())
+        dense = model.init_cache(B, S + gen, device=dev)
+        paged = model.init_cache(B, S + gen, kind="paged", page_size=ps,
+                                 num_pages=B * maxp + 1, device=dev)
+        lg, dense = model.prefill(p, {"tokens": t[:, :S]}, dense, RunCtx())
+        # the paged pool gets the prompt as one decode_chunk pack
+        starts = torch.zeros(B, dtype=torch.int32, device=dev)
+        nvalid = torch.full((B,), S, dtype=torch.int32, device=dev)
+        model.decode_chunk(p, t[:, :S], paged, starts, nvalid, RunCtx(), pt.to(dev))
+        outs = [full, lg]
+        for i in range(gen):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            ld, dense = model.decode_step(p, t[:, S + i:S + i + 1], dense, pos, RunCtx())
+            lp, paged = model.decode_step(p, t[:, S + i:S + i + 1], paged, pos, RunCtx(),
+                                          page_table=pt.to(dev), lengths=pos + 1)
+            outs += [ld, lp]
+        launched = (flash_attention_cuda.launches - f0, paged_attention_cuda.launches - p0)
+        assert (min(launched) > 0) == (dev == "cuda"), launched
+        logits[dev] = [o.float().cpu() for o in outs]
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        torch.testing.assert_close(b, a, atol=2e-3, rtol=0)
 
 
 def test_engine_on_card_matches_cpu(cuda):

@@ -2,7 +2,9 @@
 the same weights and requests: identical greedy token streams through
 page-pressure preemption and a warm shared-prefix hit (the copy-on-write
 path), allocator invariants afterwards. Sampling is compared in
-distribution, because the two frameworks' generators differ."""
+distribution, because the two frameworks' generators differ. Then the
+port's engine against the port's own pure-model loop (``prefill`` +
+``decode_step``), as tests/test_engine.py holds the JAX engine."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,7 @@ from repro.core.metrics import Request as JaxRequest
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import tiny_config
 from repro_torch.core import EngineConfig, InferenceEngine, Request, sample_tokens
-from repro_torch.models import build_model
+from repro_torch.models import RunCtx, build_model
 from repro_torch.models.params import params_from_numpy
 
 NAME = "mixtral-8x7b"
@@ -160,3 +162,39 @@ def test_speculative_not_ported(models):
     _, _, model, tp = models
     with pytest.raises(NotImplementedError):
         InferenceEngine(model, tp, EngineConfig(device="cpu", enable_speculative=True))
+
+
+def _ref_greedy(model, params, prompt, n):
+    """The pure-model reference of tests/test_engine.py:24-32 on the port:
+    prefill over a dense ring cache, then one decode_step per token."""
+    cache = model.init_cache(1, 128, device="cpu")
+    lg, cache = model.prefill(params, {"tokens": torch.from_numpy(prompt)[None]}, cache,
+                              RunCtx())
+    out = [int(lg[0].argmax())]
+    for i in range(n - 1):
+        lg, cache = model.decode_step(params, torch.tensor([[out[-1]]]), cache,
+                                      torch.tensor([len(prompt) + i], dtype=torch.int32),
+                                      RunCtx())
+        out.append(int(lg[0].argmax()))
+    return out
+
+
+@pytest.mark.parametrize("num_pages", [10, 64])
+def test_engine_matches_model_reference(num_pages):
+    """tests/test_engine.py:35-49 on the port (tiny qwen2.5): the engine's
+    chunked paged path and the model's flash-prefill + ring-decode path give
+    the same greedy streams, with 10 pages (9 usable, just enough for 3
+    slots of 22 tokens) and with 64."""
+    model = build_model(tiny_config("qwen2.5-3b"))
+    params = model.init_params(0, device="cpu")
+    r = np.random.default_rng(0)
+    prompts = [r.integers(1, model.cfg.vocab, 10).astype(np.int32) for _ in range(5)]
+    eng = InferenceEngine(model, params, EngineConfig(
+        max_slots=3, page_size=8, num_pages=num_pages, max_seq=64, greedy=True, device="cpu"))
+    reqs = [Request(req_id=f"x{i}", prompt_tokens=p, max_new_tokens=12)
+            for i, p in enumerate(prompts)]
+    eng.generate(reqs)
+    eng.allocator.check_invariants()
+    for req, p in zip(reqs, prompts):
+        assert req.finished
+        assert req.generated == _ref_greedy(model, params, p, 12)

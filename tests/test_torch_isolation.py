@@ -52,15 +52,21 @@ def test_sources_name_no_jax_import():
 def test_module_list_is_complete():
     names = _modules()
     for m in ("repro_torch.core.engine", "repro_torch.kernels.paged_attention.kernel",
-              "repro_torch.kernels.moe_gmm.ops", "repro_torch.models.transformer"):
+              "repro_torch.kernels.moe_gmm.ops", "repro_torch.models.transformer",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref",
+              "repro_torch.kernels.paged_attention.ops", "repro_torch.models.attention",
+              "repro_torch.configs.gemma2_27b"):
         assert m in names
     for m in names:
         importlib.import_module(m)
 
 
-@pytest.mark.parametrize("entry", ["engine", "init_params", "init_cache"])
+@pytest.mark.parametrize("entry", ["engine", "init_params", "init_cache", "init_cache_paged"])
 def test_no_silent_cpu_fallback(entry):
-    """Without a card and without ``device="cpu"``, entry points raise."""
+    """Without a card and without ``device="cpu"``, entry points raise: the
+    engine, the params, and both kinds of cache (``init_cache`` defaults to
+    the dense ring cache, as the reference's)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     model = build_model(tiny_config("qwen2.5-3b"))
@@ -69,8 +75,10 @@ def test_no_silent_cpu_fallback(entry):
             InferenceEngine(model, model.init_params(0, device="cpu"), EngineConfig())
         elif entry == "init_params":
             model.init_params(0)
+        elif entry == "init_cache":
+            model.init_cache(2, 8)
         else:
-            model.init_cache(8)
+            model.init_cache(2, 8, kind="paged", num_pages=8)
 
 
 def test_kernel_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch, tmp_path):

@@ -141,7 +141,8 @@ def test_decode_chunk_matches_jax(name):
     rows = np.array([[1 + b * maxp + i for i in range(maxp)] for b in range(3)], np.int32)
     jcache = jmodel.init_cache(4, 64, jnp.float32, kind="paged", page_size=ps,
                                num_pages=num_pages)
-    tcache = model.init_cache(num_pages, ps, device="cpu")
+    tcache = model.init_cache(4, 64, kind="paged", page_size=ps, num_pages=num_pages,
+                              device="cpu")
     jctx = JaxRunCtx(attn_backend="xla", moe_strategy="dropless")
     for tok, st, nv, row_ids in _packs():
         B = tok.shape[0]

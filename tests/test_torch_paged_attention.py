@@ -1,8 +1,10 @@
-"""Port's chunked paged attention vs the JAX package: the plain PyTorch
-version against the JAX Pallas kernel (interpret mode), the JAX gather
-reference and a brute-force numpy oracle, at 1e-5 (all fp32; the paths
-differ in reduction order only). The CUDA kernel against the plain version
-is in test_torch_cuda.py."""
+"""Port's paged attention vs the JAX package. Chunked prefill: the plain
+PyTorch version against the JAX Pallas kernel (interpret mode), the JAX
+gather reference and a brute-force numpy oracle, at 1e-5. Decode (one query
+token per row): the plain version against the JAX Pallas kernel and
+reference on the sweep of tests/test_kernels_paged.py, at its tolerances
+(2e-5 fp32, 3e-2 bf16). All fp32 paths differ in reduction order only. The
+CUDA kernels against the plain versions are in test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,9 +12,13 @@ import torch
 
 from repro.kernels.paged_attention import (chunked_prefill_attention as jax_attention,
                                            chunked_prefill_reference as jax_reference)
+from repro.kernels.paged_attention import paged_attention as jax_paged
+from repro.kernels.paged_attention import paged_attention_reference as jax_paged_reference
 from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                  chunked_prefill_cuda,
-                                                 chunked_prefill_reference)
+                                                 chunked_prefill_reference, paged_attention,
+                                                 paged_attention_cuda,
+                                                 paged_attention_reference)
 
 TOL = 1e-5
 
@@ -98,3 +104,65 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     t = [torch.from_numpy(a) for a in (q, kp, vp, pt, lengths, qpos[:, 0].copy())]
     with pytest.raises(ValueError, match="CUDA"):
         chunked_prefill_cuda(*t, scale=0.25)
+
+
+# ---------------------------------------------------------------- decode
+def _decode_case(seed, *, H, Hkv, D, ps, B=3, P=24, maxp=5, lengths=None, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(dtype)
+    kp = rng.standard_normal((P, ps, Hkv, D)).astype(dtype)
+    vp = rng.standard_normal((P, ps, Hkv, D)).astype(dtype)
+    pt = rng.integers(1, P, (B, maxp)).astype(np.int32)
+    if lengths is None:
+        lengths = [1, ps * 2 + 3, maxp * ps]
+    return q, kp, vp, pt, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(8, 2, 16), (4, 4, 32), (8, 1, 64)])
+@pytest.mark.parametrize("page_size", [4, 8])
+@pytest.mark.parametrize("window", [0, 9])
+def test_decode_plain_matches_jax(H, Hkv, D, page_size, window):
+    args = _decode_case(H * D + page_size + window, H=H, Hkv=Hkv, D=D, ps=page_size)
+    port = paged_attention(*map(torch.from_numpy, args), window=window).numpy()
+    direct = paged_attention_reference(*map(torch.from_numpy, args), window=window).numpy()
+    jargs = [jnp.asarray(a) for a in args]
+    ref = np.asarray(jax_paged_reference(*jargs, window=window))
+    pal = np.asarray(jax_paged(*jargs, window=window, backend="pallas", interpret=True))
+    np.testing.assert_array_equal(port, direct)
+    np.testing.assert_allclose(port, ref, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(port, pal, atol=2e-5, rtol=2e-5)
+
+
+def test_decode_plain_bf16():
+    q, kp, vp, pt, lengths = _decode_case(7, H=4, Hkv=2, D=32, ps=8, B=2, P=16, maxp=4,
+                                          lengths=[7, 30])
+    jargs = [jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp, jnp.bfloat16),
+             jnp.asarray(vp, jnp.bfloat16), jnp.asarray(pt), jnp.asarray(lengths)]
+    pal = np.asarray(jax_paged(*jargs, backend="pallas", interpret=True), np.float32)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, pt, lengths)]
+    out = paged_attention(t[0].bfloat16(), t[1].bfloat16(), t[2].bfloat16(), t[3], t[4])
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), pal, atol=3e-2, rtol=3e-2)
+
+
+def test_decode_plain_softcap():
+    args = _decode_case(8, H=4, Hkv=2, D=16, ps=4, B=2, P=8, maxp=3, lengths=[5, 12])
+    port = paged_attention(*map(torch.from_numpy, args), softcap=30.0).numpy()
+    pal = np.asarray(jax_paged(*[jnp.asarray(a) for a in args], softcap=30.0,
+                               backend="pallas", interpret=True))
+    np.testing.assert_allclose(port, pal, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 3])
+def test_decode_length_zero_gives_zeros(window):
+    args = _decode_case(9, H=4, Hkv=2, D=16, ps=4, lengths=[0, 6, 0])
+    port = paged_attention(*map(torch.from_numpy, args), window=window).numpy()
+    ref = np.asarray(jax_paged_reference(*[jnp.asarray(a) for a in args], window=window))
+    assert np.isfinite(port).all() and not port[0].any() and not port[2].any()
+    np.testing.assert_allclose(port, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_decode_cuda_wrapper_rejects_cpu_tensors():
+    t = [torch.from_numpy(a) for a in _decode_case(10, H=4, Hkv=2, D=16, ps=4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_cuda(*t, scale=0.25)
