@@ -2,16 +2,18 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, in phases; any failure
 exits non-zero and no phase's failure is caught.
 
-  1. print the card's name and power limit; build the four CUDA kernels
+  1. print the card's name and power limit; build the five CUDA kernels
      from src/repro_torch/csrc with nvcc for sm_90a (one nvcc per source,
      in parallel) and print what ptxas reports (registers, spills).
   2. each kernel against its plain PyTorch version on the card: the small
      edge cases of the CPU tests, and the main paths' shapes at full
-     Mixtral width, in fp32 and bf16, with the kernel's device time (its
-     launch wrapper alone), the public op's time as a caller sees it (host
-     work included), the plain version's and a PyTorch yardstick's times
-     (the yardstick, SDPA or a per-expert matmul loop, is never called by
-     the port), beside the card's lower bound for the same work.
+     Mixtral width (the SSD scan at mamba2's and jamba's), in fp32 and
+     bf16, with the kernel's device time (its launch wrapper alone), the
+     public op's time as a caller sees it (host work included), the plain
+     version's and a PyTorch yardstick's times (the yardstick, SDPA or a
+     per-expert matmul loop, is never called by the port; no single
+     PyTorch call computes the SSD scan), beside the card's lower bound for
+     the same work.
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
      the CPU (plain versions), on the same two sequences of 20 tokens: the
      engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, then
@@ -19,7 +21,10 @@ exits non-zero and no phase's failure is caught.
      first 16 then 4 ``decode_step``s over the dense ring, and the same 4
      over the paged pool filled from the ring. Card vs CPU within
      LOGIT_ATOL with the same argmax; on the card, every path's logits also
-     within LOGIT_ATOL of ``forward``'s at the same position.
+     within LOGIT_ATOL of ``forward``'s at the same position. Then the same
+     for mamba2 at depth 2, full width: ``forward``, ``prefill`` + 4
+     ``decode_step``s, and a ``decode_chunk`` pack whose ``first`` rows
+     reset garbage states, then a decode sweep.
   4. the serving path: mixtral-8x7b at full width, depth cut from 32 to 8
      layers, random bf16 weights from a seed, ``InferenceEngine.generate``
      on 4 requests (prompts of 100-300 tokens, 32 new tokens, greedy,
@@ -34,12 +39,18 @@ exits non-zero and no phase's failure is caught.
      ms, decode step ms, tok/s, and how many leading tokens of each greedy
      stream equal phase 4's (printed only: bf16 near-ties may split two
      different kernels; phase 3 holds the fp32 agreement).
-  6. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+  6. mamba2-1.3b at full width and depth (48 layers), random bf16 weights
+     from a seed, through ``InferenceEngine.generate`` as in phase 4 (every
+     request finishes, allocator invariants, the SSD kernel's launch counter
+     > 0), then its generation API on the same weights: ``prefill`` of each
+     prompt at its own length, 32 batched ``decode_step``s, and how many
+     leading tokens equal the engine's stream (printed only).
+  7. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
 Options: --out FILE writes every measurement as JSON; --profile adds
-torch.profiler windows over a short serving run and over decode steps of
-the generation path (kernel time by name and the device's busy share).
+torch.profiler windows over short serving runs and over decode steps of
+the generation paths (kernel time by name and the device's busy share).
 """
 from __future__ import annotations
 
@@ -428,6 +439,109 @@ def run_gmm(dev, flush, results):
                 torch.cuda.empty_cache()
 
 
+def ssd_case(dev, *, B, L, H, P, N, G, dtype, init=False, nvalid=None, seed=0):
+    """SSD scan inputs made on the card: x / B / C in ``dtype``, dt and A in
+    fp32 (dt = 0 past each row's nvalid live tokens, as the engine masks a
+    ragged pack), an fp32 initial state when ``init``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, L, H, P), generator=g, device=dev).to(dtype)
+    dt = torch.rand((B, L, H), generator=g, device=dev) * 0.19 + 0.01
+    if nvalid is not None:
+        live = torch.arange(L, device=dev)[None, :] < torch.tensor(nvalid, device=dev)[:, None]
+        dt = torch.where(live[..., None], dt, 0.0)
+    A = -(torch.rand((H,), generator=g, device=dev) * 1.5 + 0.5)
+    Bm, Cm = (torch.randn((B, L, G, N), generator=g, device=dev).to(dtype) for _ in range(2))
+    s0 = torch.randn((B, H, P, N), generator=g, device=dev) if init else None
+    return x, dt, A, Bm, Cm, s0
+
+
+def ssd_bound(x, Bm, init, dtype):
+    """Bytes: x, dt, A, B, C and the initial state read once; y and the final
+    state (fp32) written once. Operations: the chunked algorithm at the
+    kernel's 64-token tiles over all L tokens: per (row, head) and tile of
+    n tokens, 2(N+P) per causal pair (C.B and M.x) and 4NP per token (the
+    state read out and the state update)."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    es = x.element_size()
+    nbytes = (B * L * H * P * es + B * L * H * 4 + H * 4 + 2 * B * L * G * N * es
+              + (B * H * P * N * 4 if init else 0) + B * L * H * P * 4 + B * H * P * N * 4)
+    tiles = [min(64, L - t0) for t0 in range(0, L, 64)]
+    flops = B * H * sum(n * (n + 1) / 2 * 2 * (N + P) + 4 * n * N * P for n in tiles)
+    return bound_ms(nbytes, flops, dtype)
+
+
+def run_ssd(dev, flush, results):
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_reference, ssd_scan, ssd_scan_cuda
+    # small edge cases of the CPU and card tests: tests/test_kernels_ssd.py's
+    # shapes (ragged L), tests/test_mamba.py's (P 4 / N 5, P 3 / N 4, chunk 4)
+    # with a carried state, the tiny configs' widths with groups and a ragged
+    # row whose padded tokens must leave the state untouched
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, L, H, P, N, G, chunk, init, nvalid in (
+                (2, 32, 3, 8, 4, 3, 8, False, None), (1, 24, 2, 16, 8, 2, 8, False, None),
+                (2, 27, 2, 8, 4, 2, 8, False, None), (2, 17, 3, 4, 5, 3, 4, True, None),
+                (1, 16, 2, 3, 4, 2, 4, True, None), (2, 40, 8, 16, 16, 1, 16, True, [40, 13])):
+            x, dt, A, Bm, Cm, s0 = ssd_case(dev, B=B, L=L, H=H, P=P, N=N, G=G, dtype=dtype,
+                                            init=init, nvalid=nvalid, seed=L)
+            y, s = ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state=s0)
+            rep = H // G
+            Br, Cr = Bm.repeat_interleave(rep, 2), Cm.repeat_interleave(rep, 2)
+            y_ref, s_ref = ssd_reference(x, dt, A, Br, Cr, chunk, init_state=s0)
+            # fp32 math on the same inputs: reduction order only
+            err = max(max_err(y, y_ref), max_err(s, s_ref))
+            out = ssd_scan(x, dt, A, Br, Cr, chunk)
+            plain = ssd_reference(x, dt, A, Br, Cr, chunk)[0]
+            scan_err = max_err(out, plain)
+            # tests/test_kernels_ssd.py's atol = rtol: fp32 1e-4, bf16 5e-2
+            # (ssd_scan rounds y to bf16)
+            tol = 1e-4 if dtype == torch.float32 else 5e-2
+            scan_ok = bool(((out.float() - plain).abs() <= tol * (1 + plain.abs())).all())
+            assert err <= 1e-4 and scan_ok and out.dtype == dtype and torch.isfinite(y).all(), \
+                f"ssd edge case L={L} H={H} P={P} N={N} {dtype}: err {err} / {scan_err}"
+            log(f"  ssd edge L={L} H={H}/{G} P={P} N={N} chunk={chunk} init={init} "
+                f"nvalid={nvalid} {str(dtype)[6:]}: max_abs_err y/state={err:.3g} (tol 1e-4), "
+                f"ssd_scan out={scan_err:.3g} (atol = rtol {tol})")
+    # full-width shapes: mamba2's prefill of one 297-token prompt, the
+    # engine's prefill pack (2 rows of 128 tokens, one ragged, from carried
+    # states; one half-padded SSD chunk of 256), jamba's 128 heads with N 16
+    for name, sh in (
+            ("mamba2 prefill", dict(B=1, L=297, H=64, P=64, N=128, G=1)),
+            ("mamba2 pack", dict(B=2, L=128, H=64, P=64, N=128, G=1, init=True,
+                                 nvalid=[128, 100])),
+            ("jamba pack", dict(B=2, L=128, H=128, P=64, N=16, G=1, init=True,
+                                nvalid=[128, 100]))):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, A, Bm, Cm, s0 = ssd_case(dev, dtype=dtype, seed=3, **sh)
+            H = x.shape[2]
+            y, s = ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0)
+            Br, Cr = Bm.expand(-1, -1, H, -1), Cm.expand(-1, -1, H, -1)
+            y_ref, s_ref = ssd_reference(x, dt, A, Br, Cr, 256, init_state=s0)
+            err = max(max_err(y, y_ref), max_err(s, s_ref))
+            # fp32 on both sides over 64-token tiles vs 256-token chunks:
+            # reduction order only, on outputs of size up to ~40
+            assert err <= 2e-3 and torch.isfinite(y).all(), f"ssd {name} {dtype}: err {err}"
+            del y, s, y_ref, s_ref
+            ms = cuda_ms(lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0), flush=flush)
+            op_ms = cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0),
+                            flush=flush, queued=False)
+            plain_ms = cuda_ms(lambda: ssd_reference(x, dt, A, Br, Cr, 256, init_state=s0),
+                               flush=flush)
+            bms, by = ssd_bound(x, Bm, s0 is not None, dtype)
+            row = dict(kernel="ssd_scan", case=name, dtype=str(dtype)[6:],
+                       shape=f"x{tuple(x.shape)} B/C{tuple(Bm.shape)} d_state "
+                             f"{Bm.shape[-1]} init_state={s0 is not None} "
+                             f"nvalid={sh.get('nvalid')}",
+                       max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bms, bound_by=by)
+            results.append(row)
+            log(f"  ssd {name} {row['dtype']} {row['shape']}: kernel_ms={ms:.4f} "
+                f"op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no single "
+                f"PyTorch call) bound_ms={bms:.6f} ({by}) max_abs_err={err:.3g}")
+            del x, Bm, Cm, Br, Cr
+            torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 3/4
 def mixtral(n_layers: int):
     from repro_torch.configs import LayerGroup, get_config
@@ -475,8 +589,8 @@ def run_card_vs_cpu(dev):
                                      num_pages=2 * maxp + 1, device=where)
             t_pt = torch.from_numpy(pt).to(where)
             for i, (tok, st, nv) in enumerate(calls):
-                t = [torch.from_numpy(a).to(where) for a in (tok, st, nv)]
-                lg, cache = model.decode_chunk(p, t[0], cache, t[1], t[2], RunCtx(), t_pt)
+                t = [torch.from_numpy(a).to(where) for a in (tok, st, nv, np.arange(2), st == 0)]
+                lg, cache = model.decode_chunk(p, t[0], cache, *t[1:], RunCtx(), t_pt)
                 out[f"decode_chunk {i}"] = lg
             tokens = torch.from_numpy(seq).to(where)
             out["forward"], _ = model.forward(p, {"tokens": tokens}, RunCtx())
@@ -514,6 +628,92 @@ def run_card_vs_cpu(dev):
         f"decode sweep), forward (2 x 20 tokens), prefill (2 x 16) + 4 decode_steps over the "
         f"dense ring and over the paged pool: max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, "
         f"argmax equal")
+    log(f"  on the card, decode_chunk / prefill / decode_step vs forward at the same "
+        f"positions: max |dlogit| = {cross:.3g} < {LOGIT_ATOL}")
+    return worst, cross
+
+
+def mamba2(n_layers: int):
+    from repro_torch.configs import LayerGroup, get_config
+    cfg = get_config("mamba2-1.3b")
+    if n_layers == cfg.n_layers:
+        return cfg
+    return cfg.scaled(name=f"mamba2-1.3b-{n_layers}L", n_layers=n_layers,
+                      layer_groups=(LayerGroup("M", n_layers),))
+
+
+def run_mamba_card_vs_cpu(dev):
+    """mamba2 at depth 2, full width, fp32, on the card and on the CPU, on
+    the same two sequences of 154 tokens: ``forward``; ``prefill`` of the
+    first 150 then 4 ``decode_step``s over the dense cache; the engine's
+    ``decode_chunk``, a pack of 150 / 97 tokens on slots 2 / 0 whose states
+    hold garbage (``first`` must reset them), then a decode sweep over the
+    3 slots (slot 1 idle). Returns the worst card-vs-CPU and cross-path
+    logit differences."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models import RunCtx, build_model
+    from repro_torch.models.params import map_tree
+    model = build_model(mamba2(2))
+    params = model.init_params(0, device=dev, dtype=torch.float32)
+    cpu_params = map_tree(lambda t: t.cpu(), params)
+    V = model.cfg.vocab
+    rng = np.random.default_rng(2)
+    C, gen, n1 = 150, 4, 97
+    seq = rng.integers(1, V, (2, C + gen)).astype(np.int32)
+    pack = np.zeros((2, C), np.int32)
+    pack[0], pack[1, :n1] = seq[0, :C], seq[1, :n1]
+    calls = [(pack, [0, 0], [C, n1], [2, 0], [True, True]),
+             (np.array([[seq[1, n1]], [0], [seq[0, C]]], np.int32), [n1, 0, C], [1, 0, 1],
+              [0, 1, 2], [False, False, False])]
+    logits, launched = {}, 0
+    for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
+        out = {}
+        n0 = ssd_scan_cuda.launches
+        with torch.inference_mode():
+            cache = model.init_cache(3, C + gen, kind="paged", device=where)
+            g = torch.Generator().manual_seed(5)
+            for c in cache["groups"][0]:                  # garbage states: first resets them
+                for leaf in c["ssm"].values():
+                    leaf.copy_(torch.randn(leaf.shape, generator=g))
+            pt = torch.zeros((3, 1), dtype=torch.int32, device=where)
+            for i, (tok, st, nv, sl, fi) in enumerate(calls):
+                t = [torch.tensor(np.asarray(a), device=where) for a in (tok, st, nv, sl, fi)]
+                lg, cache = model.decode_chunk(p, t[0], cache, *t[1:], RunCtx(), pt[:len(tok)])
+                out[f"decode_chunk {i}"] = lg
+            tokens = torch.from_numpy(seq).to(where)
+            out["forward"], _ = model.forward(p, {"tokens": tokens}, RunCtx())
+            dense = model.init_cache(2, C + gen, device=where)
+            out["prefill"], dense = model.prefill(p, {"tokens": tokens[:, :C]}, dense, RunCtx())
+            for i in range(gen):
+                pos = torch.full((2,), C + i, dtype=torch.int32, device=where)
+                out[f"decode_step {i}"], dense = model.decode_step(
+                    p, tokens[:, C + i:C + i + 1], dense, pos, RunCtx())
+        if key == "card":
+            launched = ssd_scan_cuda.launches - n0
+        logits[key] = {k: v.float().cpu() for k, v in out.items()}
+    assert launched > 0, "the SSD kernel never ran on the card"
+    worst = 0.0
+    for k, a in logits["card"].items():
+        b = logits["cpu"][k]
+        assert torch.isfinite(a).all() and a.shape[-1] == V, k
+        err = max_err(a, b)
+        worst = max(worst, err)
+        assert err < LOGIT_ATOL, f"mamba2 {k}: card vs CPU logits differ by {err}"
+        assert torch.equal(a.argmax(-1), b.argmax(-1)), f"mamba2 {k}: argmax differs"
+    card, fwd = logits["card"], logits["card"]["forward"]
+    pairs = [(card["decode_chunk 0"][0], fwd[0, C - 1]),
+             (card["decode_chunk 0"][1], fwd[1, n1 - 1]),
+             (card["decode_chunk 1"][0], fwd[1, n1]), (card["decode_chunk 1"][2], fwd[0, C]),
+             (card["prefill"], fwd[:, C - 1])]
+    pairs += [(card[f"decode_step {i}"], fwd[:, C + i]) for i in range(gen)]
+    cross = max(max_err(a, b) for a, b in pairs)
+    assert cross < LOGIT_ATOL, f"mamba2 paths disagree with forward on the card by {cross}"
+    cfg = model.cfg
+    log(f"  mamba2 depth-2 fp32 (d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
+        f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, vocab {V}), card vs CPU: forward (2 x {C + gen} tokens), prefill (2 x {C}) + {gen} "
+        f"decode_steps, decode_chunk (a pack of {C} / {n1} tokens over garbage states reset by "
+        f"first, then a decode sweep): max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, argmax "
+        f"equal; SSD kernel launches on the card: {launched}")
     log(f"  on the card, decode_chunk / prefill / decode_step vs forward at the same "
         f"positions: max |dlogit| = {cross:.3g} < {LOGIT_ATOL}")
     return worst, cross
@@ -677,6 +877,152 @@ def run_generation(dev, model, params, streams, profile: bool):
     return res, launches
 
 
+def copy_cache_row(dst, src, b):
+    """dst's batch row b <- src's row 0, leaf by leaf (leaves are (R, B, ...))."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_cache_row(dst[k], src[k], b)
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src):
+            copy_cache_row(d, s, b)
+    else:
+        dst[:, b] = src[:, 0]
+
+
+def run_mamba(dev, profile: bool):
+    """Phase 6: full-depth mamba2 in bf16 through the engine, then the
+    generation API on the same weights."""
+    from repro_torch.core import EngineConfig, InferenceEngine, Request, request_metrics
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models import RunCtx, build_model
+    from repro_torch.models.params import map_tree
+    cfg = mamba2(48)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    sizes = []
+    map_tree(lambda t: sizes.append(t.numel() * t.element_size()), params)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+        f"{cfg.ssm_heads} SSD heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+        f"{cfg.ssm.chunk_size}, vocab {cfg.vocab}; random bf16 weights from seed 0: "
+        f"{sum(sizes) / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
+    ecfg = EngineConfig(max_slots=4, page_size=16, num_pages=160, max_seq=512,
+                        prefill_chunk=128, greedy=True, cache_dtype=torch.bfloat16,
+                        device=str(dev))
+    eng = InferenceEngine(model, params, ecfg)
+    assert eng.prefix_cache is None
+    rng = np.random.default_rng(1)
+    # warm-up request: cuBLAS handles and allocator pools, not measured
+    eng.generate([Request(req_id="warm", prompt_tokens=prompts(rng, 1)[0][:40],
+                          max_new_tokens=2)])
+    ps = prompts(rng)
+    reqs = [Request(req_id=f"m{i}", prompt_tokens=p, max_new_tokens=32)
+            for i, p in enumerate(ps)]
+    eng.step_records.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ssd_scan_cuda.launches
+    assert all(r.finished and len(r.generated) == 32 for r in reqs), "a request did not finish"
+    eng.allocator.check_invariants()
+    assert launches > 0, "the SSD kernel never ran on the mamba2 serving path"
+    ms = [request_metrics(r) for r in reqs]
+    n_tok = sum(m.n_tokens for m in ms)
+    recs = list(eng.step_records)
+    dec = [r.duration for r in recs if r.prefill_rows == 0 and r.decode_rows > 0]
+    pre = [r.duration for r in recs if r.prefill_rows > 0]
+    serve = dict(
+        config=cfg.name, layers=cfg.n_layers, requests=len(reqs),
+        prompt_tokens=[len(r.prompt_tokens) for r in reqs], new_tokens=32,
+        wall_s=wall, tok_s=n_tok / wall, steps=len(recs),
+        ttft_ms=[m.ttft * 1e3 for m in ms], tbt_ms=[m.tbt * 1e3 for m in ms],
+        decode_step_ms_mean=1e3 * float(np.mean(dec)) if dec else None,
+        prefill_step_ms_mean=1e3 * float(np.mean(pre)) if pre else None,
+        decode_steps=len(dec), prefill_steps=len(pre), launches={"ssd_scan": launches},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  served {len(reqs)} requests x 32 new tokens (prompts {serve['prompt_tokens']}) "
+        f"in {wall:.3f} s over {len(recs)} steps: {serve['tok_s']:.2f} tok/s, "
+        f"TTFT ms {[round(x, 2) for x in serve['ttft_ms']]}, "
+        f"TBT ms {[round(x, 3) for x in serve['tbt_ms']]}, decode step "
+        f"{serve['decode_step_ms_mean']:.3f} ms, prefill-pack step "
+        f"{serve['prefill_step_ms_mean']:.3f} ms, peak device memory "
+        f"{serve['peak_mem_gb']:.2f} GB; ssd_scan launches {launches}")
+    if profile:
+        preqs = [Request(req_id=f"q{i}", prompt_tokens=p, max_new_tokens=8)
+                 for i, p in enumerate(ps)]
+        serve["profile"] = profile_window(lambda: eng.generate(preqs),
+                                          "mamba2 engine, 4 requests x 8 tokens")
+    streams = [list(r.generated) for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+
+    # the generation API: each prompt prefilled at its own length (right
+    # padding would advance the SSM states), its cache row copied into one
+    # batch of 4, then GEN_STEPS batched decode_steps
+    lens = [len(p) for p in ps]
+    B, ctx = len(ps), RunCtx()
+
+    def generate(n_steps):
+        max_seq = max(lens) + n_steps + 1
+        cache = model.init_cache(B, max_seq, torch.bfloat16, device=dev)
+        out, times, firsts = [], [], []
+        t0 = time.perf_counter()
+        for b, p in enumerate(ps):
+            one = model.init_cache(1, max_seq, torch.bfloat16, device=dev)
+            lg, one = model.prefill(params, {"tokens": torch.from_numpy(p)[None].to(dev)}, one,
+                                    ctx)
+            copy_cache_row(cache, one, b)
+            firsts.append(lg.argmax(-1))
+        nxt = torch.cat(firsts)
+        out.append(nxt.cpu())
+        times.append(time.perf_counter() - t0)
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, nxt[:, None].to(torch.int32), cache, pos, ctx)
+            nxt = lg.argmax(-1)
+            out.append(nxt.cpu())             # reads the token back, as a server must
+            times.append(time.perf_counter() - t0)
+            pos = pos + 1
+        return torch.stack(out, 1), times
+
+    with torch.inference_mode():
+        generate(2)                           # warm-up
+        torch.cuda.synchronize()
+        n0 = ssd_scan_cuda.launches
+        gen, times = generate(GEN_STEPS)
+        torch.cuda.synchronize()
+        gen_launches = ssd_scan_cuda.launches - n0
+    assert gen_launches > 0, "the SSD kernel never ran on the mamba2 generation path"
+    assert gen.shape == (B, GEN_STEPS + 1) and ((gen >= 0) & (gen < cfg.vocab)).all()
+    agree = []
+    for b, eng_stream in enumerate(streams):
+        n = 0
+        while n < len(eng_stream) and int(gen[b, n]) == eng_stream[n]:
+            n += 1
+        agree.append(n)
+    prefill_ms, step_ms = 1e3 * times[0], 1e3 * float(np.mean(times[1:]))
+    generation = dict(prompt_tokens=lens, new_tokens=GEN_STEPS, prefill_ms=prefill_ms,
+                      decode_step_ms_mean=step_ms, decode_tok_s=B / (step_ms / 1e3),
+                      tok_s=B * (GEN_STEPS + 1) / sum(times),
+                      launches={"ssd_scan": gen_launches}, leading_tokens_equal_engine=agree)
+    log(f"  generation API: prefill of the {B} prompts {lens} one by one at their own "
+        f"lengths: {prefill_ms:.3f} ms in all; {GEN_STEPS} batched decode_steps: "
+        f"{step_ms:.3f} ms per step, {generation['decode_tok_s']:.2f} tok/s in decode; "
+        f"ssd_scan launches {gen_launches}")
+    log(f"  leading greedy tokens equal to the engine's stream, per request: {agree} of its 32 "
+        f"(printed only: bf16 near-ties may split the chunked and the whole-prompt scan)")
+    if profile:
+        with torch.inference_mode():
+            generation["profile"] = profile_window(
+                lambda: generate(8), "mamba2 prefill of 4 prompts + 8 decode_steps")
+    return serve, generation
+
+
 def profile_window(fn, what: str):
     """torch.profiler over one call of ``fn``: device time by kernel name
     and the device's busy share of the window."""
@@ -713,8 +1059,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="add torch.profiler windows over a short serving run and over "
-                         "the generation path")
+                    help="add torch.profiler windows over short serving runs and over "
+                         "the generation paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -751,12 +1097,15 @@ def main() -> int:
     run_gmm(dev, flush, results)
     run_flash(dev, flush, results)
     run_paged_decode(dev, flush, results)
+    run_ssd(dev, flush, results)
     del flush
     log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 3: every model path at depth 2, full width, fp32, card vs CPU")
     t0 = time.perf_counter()
     e2e_err, cross_err = run_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    mamba_err, mamba_cross = run_mamba_card_vs_cpu(dev)
     torch.cuda.empty_cache()
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -775,6 +1124,13 @@ def main() -> int:
                     paged_attention=gen_launches["paged_attention"])
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 6: full-depth mamba2 serving (bf16), then its generation API")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mamba_serve, mamba_generation = run_mamba(dev, args.profile)
+    launches["ssd_scan"] = mamba_serve["launches"]["ssd_scan"]
+    log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, route_src, replaces, case in (
             ("chunked_prefill_attention", "src/repro_torch/csrc/chunked_prefill.cu",
@@ -784,7 +1140,9 @@ def main() -> int:
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:112", "prefill"),
             ("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention/kernel.py:107", "decode")):
+             "src/repro/kernels/paged_attention/kernel.py:107", "decode"),
+            ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:65", "mamba2 pack")):
         row = next(r for r in results if r["kernel"] == name and r["case"] == case
                    and r["dtype"] == "bfloat16")
         kernels.append(dict(name=name, route="cuda", source=route_src, replaces=replaces,
@@ -796,8 +1154,12 @@ def main() -> int:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(card=card, cases=results, e2e_max_abs_logit=e2e_err,
-                                       cross_path_max_abs_logit=cross_err, serve=serve,
-                                       generation=generation, kernels=kernels), indent=1))
+                                       cross_path_max_abs_logit=cross_err,
+                                       mamba_e2e_max_abs_logit=mamba_err,
+                                       mamba_cross_path_max_abs_logit=mamba_cross, serve=serve,
+                                       generation=generation, mamba_serve=mamba_serve,
+                                       mamba_generation=mamba_generation, kernels=kernels),
+                                  indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

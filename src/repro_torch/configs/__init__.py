@@ -2,9 +2,11 @@
 
 The port carries the configurations its paths run so far:
 ``mixtral-8x7b`` (the paper's evaluation model, MoE), ``qwen2.5-3b`` (the
-dense family, with QKV bias) and ``gemma2-27b`` (alternating sliding-window
+dense family, with QKV bias), ``gemma2-27b`` (alternating sliding-window
 and global attention, attention and logit softcaps, tied and scaled
-embeddings, gelu).
+embeddings, gelu), ``mamba2-1.3b`` (the SSM family: SSD layers only) and
+``jamba-v0.1-52b`` (the hybrid family: mamba and attention layers, MoE on
+every other layer).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from repro_torch.configs.base import (  # noqa: F401 (re-export)
 _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "gemma2-27b": "gemma2_27b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "mixtral-8x7b": "mixtral_8x7b",
 }
 
@@ -68,6 +72,11 @@ def tiny_config(name: str, *, seq_len: int = 64) -> ModelConfig:
         if cfg.moe
         else None
     )
+    ssm = (
+        dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk_size=16)
+        if cfg.ssm
+        else None
+    )
     return cfg.scaled(
         name=cfg.name + "-tiny",
         n_layers=n_layers,
@@ -80,5 +89,6 @@ def tiny_config(name: str, *, seq_len: int = 64) -> ModelConfig:
         vocab=256,
         sliding_window=min(cfg.sliding_window, seq_len // 4) if cfg.sliding_window else 0,
         moe=moe,
+        ssm=ssm,
         layer_groups=groups,
     )

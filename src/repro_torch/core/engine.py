@@ -15,10 +15,15 @@ Design (as the reference's ``repro.core.engine``):
     pressure; a paused, partially-prefilled slot resumes from chunk 0 with
     its generated tokens intact.
 
-On the card the attention and expert matmuls run the port's CUDA kernels.
-The engine runs on ``cuda`` unless ``EngineConfig.device`` says otherwise.
-Speculative decoding, fault injection and the SSM / enc-dec / VLM serving
-paths of the reference come with later slices.
+SSM and hybrid models keep one recurrent state per slot: each pack row
+names its slot and whether it carries the sequence's first chunk (which
+resets that state). The prefix cache is off for them, since a page does not
+capture an SSM layer's state.
+
+On the card the attention, expert matmuls and SSD scan run the port's CUDA
+kernels. The engine runs on ``cuda`` unless ``EngineConfig.device`` says
+otherwise. Speculative decoding, fault injection and the enc-dec / VLM
+serving paths of the reference come with later slices.
 """
 from __future__ import annotations
 
@@ -111,7 +116,11 @@ class InferenceEngine:
                                 cfg.max_slots + 1)
         self.chunk_rows = max(1, min(self.token_budget // self.chunk, cfg.max_slots))
         self.allocator = PagedAllocator(cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq)
-        self.prefix_cache = PrefixCache(self.allocator) if cfg.enable_prefix_cache else None
+        # prefix sharing is only sound when a page fully captures a token
+        # range's state: an SSM layer carries recurrent state instead
+        has_ssm = any("M" in g.pattern for g in model.cfg.layer_groups)
+        self.prefix_cache = (PrefixCache(self.allocator)
+                             if cfg.enable_prefix_cache and not has_ssm else None)
         self.scheduler = ContinuousBatchScheduler(
             cfg.max_slots, self.allocator, policy=cfg.scheduler, max_seq=cfg.max_seq,
             prefix_cache=self.prefix_cache, tracer=tracer)
@@ -135,15 +144,15 @@ class InferenceEngine:
         self._last_decode_rows = 0
 
     # ------------------------------------------------------------- model call
-    def _run(self, tokens, starts, nvalid, page_table) -> np.ndarray:
+    def _run(self, tokens, starts, nvalid, slots, first, page_table) -> np.ndarray:
         """One fused iteration over a packed batch of per-sequence chunks
         (decode == chunk of 1). Returns the next token per row (0 for
         inactive rows) on the host."""
-        tk, st, nv, pt = (torch.from_numpy(a).to(self.device)
-                          for a in (tokens, starts, nvalid, page_table))
+        tk, st, nv, sl, fi, pt = (torch.from_numpy(a).to(self.device)
+                                  for a in (tokens, starts, nvalid, slots, first, page_table))
         with torch.inference_mode():
             logits, self.cache = self.model.decode_chunk(
-                self.params, tk, self.cache, st, nv, self.ctx, pt)
+                self.params, tk, self.cache, st, nv, sl, fi, self.ctx, pt)
             nxt = sample_tokens(logits, self._gen, self.cfg.temperature, self.cfg.top_p,
                                 self.cfg.greedy)
             nxt = torch.where(nv > 0, nxt, 0)
@@ -151,12 +160,13 @@ class InferenceEngine:
 
     def _copy_pages(self, src: List[int], dst: List[int]) -> None:
         """Device-side page copy (the COW step): kp/vp[:, dst] = kp/vp[:, src]
-        across every attention layer, in place on the pools."""
+        across every attention layer, in place on the pools (SSM layers hold
+        no pages)."""
         si = torch.tensor(src, dtype=torch.long, device=self.device)
         di = torch.tensor(dst, dtype=torch.long, device=self.device)
         for group in self.cache["groups"]:
             for c in group:
-                for pool in c["attn"].values():
+                for pool in c.get("attn", {}).values():
                     pool.index_copy_(1, di, pool.index_select(1, si))
 
     def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
@@ -299,15 +309,25 @@ class InferenceEngine:
             tokens = np.zeros((B, C), np.int32)
             starts = np.zeros((B,), np.int32)
             nvalid = np.zeros((B,), np.int32)
+            slots = np.zeros((B,), np.int32)
+            first = np.zeros((B,), bool)
             pt = np.zeros((B, cfg.max_pages_per_seq), np.int32)
             for i, (st, n) in enumerate(grants):
                 tokens[i, :n] = st.all_tokens[st.fed:st.fed + n]
                 starts[i] = st.fed
                 nvalid[i] = n
+                slots[i] = st.slot
+                first[i] = st.fed == 0
                 row = self.allocator.page_table_row(st.slot)
                 self.page_table[st.slot] = row
                 pt[i] = row
-            nxt = self._run(tokens, starts, nvalid, pt)
+            # padding rows need distinct (unused) slots: their masked SSM
+            # state writes must never collide with a live row's slot
+            used = set(slots[:len(grants)].tolist())
+            spare = [s for s in range(cfg.max_slots) if s not in used]
+            for i in range(len(grants), B):
+                slots[i] = spare.pop()
+            nxt = self._run(tokens, starts, nvalid, slots, first, pt)
             t_emit = now()
             for i, (st, n) in enumerate(grants):
                 st.fed += n
@@ -379,7 +399,8 @@ class InferenceEngine:
             tokens[st.slot, 0] = st.last_token
             starts[st.slot] = st.fed
             nvalid[st.slot] = 1
-        nxt = self._run(tokens, starts, nvalid, self.page_table)
+        nxt = self._run(tokens, starts, nvalid, np.arange(M, dtype=np.int32),
+                        np.zeros((M,), bool), self.page_table)
         t_emit = now()
         self.decode_tokens += len(decode_sts)
         iter_tokens += len(decode_sts)

@@ -5,8 +5,8 @@ tensors, with repeated layers stacked on a leading ``(R, ...)`` repeat axis
 per layer group and the same leaf names, so a parameter pytree of the JAX
 package maps onto this one leaf for leaf (``params_from_numpy``).
 
-This slice covers the attention families (dense and MoE); the SSM, enc-dec
-and VLM specs come with their chunk paths.
+This slice covers the attention families (dense and MoE), the SSM family
+and the hybrid one; the enc-dec and VLM specs come with their chunk paths.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from repro_torch.models.common import resolve_device
 class ParamSpec:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]
-    init: str = "lecun"          # lecun | normal02 | zeros | ones
+    init: str = "lecun"          # lecun | normal02 | zeros | ones | a_log | dt_bias
     tag: str = ""                # "routed_expert" marks MoE routed weights (active-count)
 
     def __post_init__(self):
@@ -71,11 +71,33 @@ def _moe_specs(cfg: ModelConfig, R: int) -> Dict[str, Any]:
     return s
 
 
-def _layer_specs(cfg: ModelConfig, is_moe: bool, R: int, *,
+def _ssm_specs(cfg: ModelConfig, R: int) -> Dict[str, Any]:
+    d, ssm = cfg.d_model, cfg.ssm
+    d_in = cfg.d_inner
+    H = cfg.ssm_heads
+    G, N = ssm.n_groups, ssm.d_state
+    d_proj = 2 * d_in + 2 * G * N + H     # z, x, B, C, dt
+    conv_dim = d_in + 2 * G * N           # x, B, C go through the causal conv
+    return {
+        "in_proj": ParamSpec((R, d, d_proj), ("layers", "embed", "ssm_proj")),
+        "conv_w": ParamSpec((R, conv_dim, ssm.d_conv), ("layers", "conv_dim", None)),
+        "conv_b": ParamSpec((R, conv_dim), ("layers", "conv_dim"), "zeros"),
+        "A_log": ParamSpec((R, H), ("layers", "ssm_heads"), "a_log"),
+        "D": ParamSpec((R, H), ("layers", "ssm_heads"), "ones"),
+        "dt_bias": ParamSpec((R, H), ("layers", "ssm_heads"), "dt_bias"),
+        "norm": ParamSpec((R, d_in), ("layers", "ssm_inner"), "ones"),
+        "out_proj": ParamSpec((R, d_in, d), ("layers", "ssm_inner", "embed")),
+    }
+
+
+def _layer_specs(cfg: ModelConfig, kind: str, is_moe: bool, R: int, *,
                  dense_first: bool = False) -> Dict[str, Any]:
     d = cfg.d_model
-    spec: Dict[str, Any] = {"ln1": ParamSpec((R, d), ("layers", "embed"), "ones"),
-                            "attn": _attn_specs(cfg, R)}
+    spec: Dict[str, Any] = {"ln1": ParamSpec((R, d), ("layers", "embed"), "ones")}
+    if kind == "M":
+        spec["ssm"] = _ssm_specs(cfg, R)
+    else:
+        spec["attn"] = _attn_specs(cfg, R)
     if is_moe and cfg.moe is not None:
         spec["ln2"] = ParamSpec((R, d), ("layers", "embed"), "ones")
         spec["moe"] = _moe_specs(cfg, R)
@@ -87,10 +109,8 @@ def _layer_specs(cfg: ModelConfig, is_moe: bool, R: int, *,
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    if (cfg.encoder is not None or cfg.vision is not None
-            or any("M" in g.pattern for g in cfg.layer_groups)):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM, enc-dec and VLM layers are not ported yet")
+    if cfg.encoder is not None or cfg.vision is not None:
+        raise NotImplementedError(f"{cfg.name}: enc-dec and VLM layers are not ported yet")
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": {"w": ParamSpec((cfg.vocab, d), ("vocab", "embed"), "normal02")},
@@ -101,10 +121,10 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     groups = []
     for gi, g in enumerate(cfg.layer_groups):
         layers = []
-        for pos in range(len(g.pattern)):
+        for pos, kind in enumerate(g.pattern):
             is_moe = bool(g.moe_mask and g.moe_mask[pos % len(g.moe_mask)] == "1")
             dense_first = (gi == 0 and pos == 0 and cfg.dense_d_ff > 0 and not is_moe)
-            layers.append(_layer_specs(cfg, is_moe, g.repeats, dense_first=dense_first))
+            layers.append(_layer_specs(cfg, kind, is_moe, g.repeats, dense_first=dense_first))
         groups.append({"layers": layers})
     specs["groups"] = groups
     return specs
@@ -128,6 +148,12 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device,
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init in ("a_log", "dt_bias"):
+        u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+        if spec.init == "a_log":                   # mamba2: A ~ uniform[1, 16], stored as log
+            return torch.log(1.0 + 15.0 * u).to(dtype)
+        dt = 1e-3 + (1e-1 - 1e-3) * u              # inverse softplus of dt ~ uniform[1e-3, 1e-1]
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     if spec.init == "normal02":
         std = 0.02
     else:
@@ -150,7 +176,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Random parameters following the reference's distributions (normal
     0.02 for embeddings and router, LeCun normal for projections, ones for
-    norms, zeros for biases), drawn from a seeded generator on ``device``.
+    norms, zeros for biases; for SSM layers A_log = log U[1, 16] and dt_bias
+    the inverse softplus of U[1e-3, 1e-1]), drawn from a seeded generator on
+    ``device``.
     The numbers differ from the JAX init of the same seed; to hold the port
     against the reference, bridge the JAX tree with ``params_from_numpy``."""
     dev = resolve_device(device)

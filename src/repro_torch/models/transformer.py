@@ -1,13 +1,13 @@
-"""The LM for the dense and MoE families: the teacher-forced ``forward``,
-the generation API ``prefill`` + ``decode_step`` over dense ring or paged
-caches, and the serving path ``decode_chunk`` over the paged KV pool.
+"""The LM for the dense, MoE, SSM (mamba2) and hybrid (jamba) families: the
+teacher-forced ``forward``, the generation API ``prefill`` + ``decode_step``
+over dense ring or paged caches, and the serving path ``decode_chunk`` over
+the paged KV pool and the slot-pooled SSM state.
 
 Repeated layers keep their parameters stacked on a leading repeat axis, as
 in the reference, and run as a plain Python loop over repeats and pattern
 positions (the reference scans). Caches are updated in place: ``prefill``,
 ``decode_step`` and ``decode_chunk`` return the cache they were given. The
-SSM, enc-dec and VLM families and the training ``loss`` come with later
-slices.
+enc-dec and VLM families and the training ``loss`` come with later slices.
 """
 from __future__ import annotations
 
@@ -19,15 +19,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as params_lib
 from repro_torch.models.attention import attention_sublayer
 from repro_torch.models.common import RunCtx, dense_mlp, resolve_device, rmsnorm
+from repro_torch.models.mamba import mamba_sublayer
 from repro_torch.models.moe import moe_sublayer
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if (cfg.encoder is not None or cfg.vision is not None
-                or any("M" in g.pattern for g in cfg.layer_groups)):
-            raise NotImplementedError(
-                f"{cfg.name}: the SSM, enc-dec and VLM chunk paths are not ported yet")
+        if cfg.encoder is not None or cfg.vision is not None:
+            raise NotImplementedError(f"{cfg.name}: the enc-dec and VLM paths are not ported yet")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ params
@@ -40,13 +39,16 @@ class LM:
 
     # ------------------------------------------------------------------ layers
     def _apply_layer(self, p, x, c, *, kind: str, ctx: RunCtx, positions, page_table=None,
-                     lengths=None, valid=None):
+                     lengths=None, valid=None, chunk=None):
         """Returns (x, aux): aux is the MoE load-balance loss (0.0 without MoE)."""
         cfg = self.cfg
         aux = 0.0
         h = rmsnorm(x, p["ln1"], cfg.rms_eps)
-        x = x + attention_sublayer(p["attn"], h, ctx, cfg, kind, c["attn"] if c else None,
-                                   positions, page_table, lengths, valid)
+        if kind == "M":
+            x = x + mamba_sublayer(p["ssm"], h, cfg, ctx, c["ssm"] if c else None, chunk)
+        else:
+            x = x + attention_sublayer(p["attn"], h, ctx, cfg, kind, c["attn"] if c else None,
+                                       positions, page_table, lengths, valid)
         if "moe" in p:
             h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
             mo, aux = moe_sublayer(p["moe"], h2, cfg, ctx)
@@ -91,8 +93,8 @@ class LM:
 
     # ------------------------------------------------------------------ api
     def forward(self, params, batch, ctx: RunCtx):
-        """Teacher-forced full-sequence logits through flash attention.
-        batch {"tokens": (B, S)}. Returns (logits (B, S, vocab), aux), aux the
+        """Teacher-forced full-sequence logits through flash attention and
+        the SSD scan. batch {"tokens": (B, S)}. Returns (logits (B, S, vocab), aux), aux the
         MoE load-balance loss summed over layers (0.0 without MoE)."""
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
@@ -101,11 +103,13 @@ class LM:
         return self._head(params, x), aux
 
     def prefill(self, params, batch, cache, ctx: RunCtx, last_pos=None):
-        """Full-sequence pass through flash attention that also fills the
-        dense ring cache. ``last_pos`` (B,) selects the logits position (the
-        true prompt end when prompts are right-padded); defaults to the final
-        position. Returns (last_logits (B, vocab), cache), the cache written
-        in place."""
+        """Full-sequence pass through flash attention and the SSD scan that
+        also fills the dense ring cache and the SSM states. ``last_pos`` (B,)
+        selects the logits position (the true prompt end when prompts are
+        right-padded); defaults to the final position. Right padding is
+        sound for attention layers only: in an SSM layer the padding tokens
+        advance the carried state. Returns (last_logits (B, vocab), cache),
+        the cache written in place."""
         ctx = ctx.with_mode("prefill")
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
@@ -134,15 +138,19 @@ class LM:
         x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
         return self._head(params, x)[:, 0], cache
 
-    def decode_chunk(self, params, tokens, cache, starts, nvalid, ctx: RunCtx, page_table):
+    def decode_chunk(self, params, tokens, cache, starts, nvalid, slots, first, ctx: RunCtx,
+                     page_table):
         """Unified serving iteration over a paged cache: each batch row
         feeds a chunk of up to C tokens of one sequence — C == 1 is decode,
         C > 1 is a prefill chunk. KV goes straight into the paged pool.
 
         tokens (B, C); starts (B,) absolute position of each row's first
-        token; nvalid (B,) live tokens per row (0 = inactive row);
-        page_table (B, max_pages). Returns (logits (B, vocab) at each row's
-        last valid position, cache) — the cache's pools updated in place.
+        token; nvalid (B,) live tokens per row (0 = inactive row); slots
+        (B,) engine slot per row, the row of the slot-pooled SSM state (must
+        be distinct); first (B,) True on a sequence's first chunk (resets
+        the SSM and conv state); page_table (B, max_pages). Returns (logits
+        (B, vocab) at each row's last valid position, cache) — the cache's
+        pools and SSM states updated in place.
         """
         ctx = ctx.with_mode("chunk")
         B, C = tokens.shape
@@ -151,8 +159,9 @@ class LM:
         positions = starts.long()[:, None] + ar[None, :]
         valid = ar[None, :] < nvalid[:, None]
         lengths = starts + nvalid
+        pack = {"slots": slots, "nvalid": nvalid, "first": first}
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
-                                page_table=page_table, lengths=lengths, valid=valid)
+                                page_table=page_table, lengths=lengths, valid=valid, chunk=pack)
         x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
         last = torch.clamp(nvalid.long(), min=1) - 1
         x_last = x[torch.arange(B, device=x.device), last]
@@ -162,15 +171,19 @@ class LM:
     def init_cache(self, B: int, max_seq: int, dtype: torch.dtype = torch.float32, *,
                    kind: str = "dense", page_size: int = 16, num_pages: int = 0,
                    device: Optional[Union[str, torch.device]] = None) -> Dict[str, Any]:
-        """The cache tree {"groups": [[{"attn": {...}} per pattern position]]},
-        every leaf stacked per group on the repeat axis R, as the reference's.
+        """The cache tree {"groups": [[{"attn": {...}} or {"ssm": {...}} per
+        pattern position]]}, every leaf stacked per group on the repeat axis
+        R, as the reference's.
 
         kind="dense": per-layer ring buffers "k" / "v" (R, B, W, Hkv, hd) and
                       "slot_pos" (R, B, W) int32 (-1 = empty), W = min(max_seq,
                       window) on local ("L") layers and max_seq elsewhere.
         kind="paged": per-layer physical page pools "kp" / "vp" (R, num_pages,
                       page_size, Hkv, hd); the caller supplies page_table /
-                      lengths (B and max_seq are not used).
+                      lengths (max_seq is not used).
+        SSM ("M") layers hold, under either kind, one state per batch row
+        (engine slot): "state" (R, B, H, P, N) fp32 and "conv" (R, B,
+        conv_dim, d_conv - 1) in ``dtype``.
         """
         if kind not in ("dense", "paged"):
             raise ValueError(f"cache kind {kind!r}: 'dense' or 'paged'")
@@ -182,6 +195,15 @@ class LM:
             R = g.repeats
             per_pos = []
             for k in g.pattern:
+                if k == "M":
+                    ssm = cfg.ssm
+                    conv_dim = cfg.d_inner + 2 * ssm.n_groups * ssm.d_state
+                    per_pos.append({"ssm": {
+                        "state": torch.zeros((R, B, cfg.ssm_heads, ssm.head_dim, ssm.d_state),
+                                             dtype=torch.float32, device=dev),
+                        "conv": torch.zeros((R, B, conv_dim, ssm.d_conv - 1), dtype=dtype,
+                                            device=dev)}})
+                    continue
                 if kind == "paged":
                     shape = (R, num_pages, page_size, Hkv, hd)
                     c = {"kp": torch.zeros(shape, dtype=dtype, device=dev),

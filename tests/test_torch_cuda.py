@@ -19,6 +19,7 @@ from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                  chunked_prefill_reference, paged_attention,
                                                  paged_attention_cuda,
                                                  paged_attention_reference)
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_reference, ssd_scan, ssd_scan_cuda
 from repro_torch.models import RunCtx, build_model
 from repro_torch.models.params import map_tree
 
@@ -30,6 +31,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run with `pytest -m cuda` on the card")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False         # the SSM layers' depthwise conv
     return torch.device("cuda")
 
 
@@ -168,7 +170,9 @@ def test_generation_path_on_card_matches_cpu(cuda, name):
         # the paged pool gets the prompt as one decode_chunk pack
         starts = torch.zeros(B, dtype=torch.int32, device=dev)
         nvalid = torch.full((B,), S, dtype=torch.int32, device=dev)
-        model.decode_chunk(p, t[:, :S], paged, starts, nvalid, RunCtx(), pt.to(dev))
+        model.decode_chunk(p, t[:, :S], paged, starts, nvalid,
+                           torch.arange(B, dtype=torch.int32, device=dev),
+                           torch.ones(B, dtype=torch.bool, device=dev), RunCtx(), pt.to(dev))
         outs = [full, lg]
         for i in range(gen):
             pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
@@ -204,5 +208,179 @@ def test_engine_on_card_matches_cpu(cuda):
         assert eng.scheduler.n_preemptions > 0
         launched = (chunked_prefill_cuda.launches - a0, gmm_tiles_cuda.launches - g0)
         assert (min(launched) > 0) == (dev == "cuda"), launched
+        outs.append([q.generated for q in reqs])
+    assert outs[0] == outs[1]
+
+
+# the cases of tests/test_kernels_ssd.py and tests/test_mamba.py, the tiny
+# configs' widths (P 16, N 16, chunk 16), jamba's (P 64, N 16) with groups,
+# and one full-width mamba2 shape: the engine's prefill pack of 2 x 128
+# tokens (one half-padded chunk of 256) from a carried state
+SSD_CASES = [
+    # B, L, H, P, N, G, chunk, init_state, ragged rows (nvalid)
+    (2, 32, 3, 8, 4, 3, 8, False, None),
+    (1, 24, 2, 16, 8, 2, 8, False, None),
+    (1, 16, 1, 4, 2, 1, 16, False, None),
+    (2, 27, 2, 8, 4, 2, 8, False, None),
+    (2, 17, 3, 4, 5, 3, 4, True, None),
+    (1, 16, 2, 3, 4, 2, 4, True, None),
+    (2, 40, 8, 16, 16, 1, 16, True, [40, 13]),
+    (1, 130, 128, 64, 16, 1, 256, True, None),
+    (2, 128, 64, 64, 128, 1, 256, True, [128, 100]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, dtype, case):
+    """y and the final state of the kernel against the plain version on the
+    same inputs; ragged rows have dt = 0 past their live tokens (padded
+    tokens must leave the state untouched)."""
+    B, L, H, P, N, G, chunk, with_state, nvalid = case
+    rng = np.random.default_rng(L + H + P + N)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, (B, L, H)).astype(np.float32)
+    if nvalid is not None:
+        dt[np.arange(L)[None, :] >= np.asarray(nvalid)[:, None]] = 0.0
+    A = -rng.uniform(0.5, 2.0, (H,)).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((B, L, G, N)).astype(np.float32) for _ in range(2))
+    s0 = rng.standard_normal((B, H, P, N)).astype(np.float32) if with_state else None
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in
+         dict(x=x, dt=dt, A=A, B_=Bm, C=Cm).items()}
+    for k in ("x", "B_", "C"):
+        t[k] = t[k].to(dtype)
+    init = torch.from_numpy(s0).to(cuda) if with_state else None
+    n0 = ssd_scan_cuda.launches
+    y, s = ssd_chunked(**t, chunk=chunk, init_state=init)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == n0 + 1 and y.dtype == s.dtype == torch.float32
+    rep = H // G
+    y_ref, s_ref = ssd_reference(t["x"], t["dt"], t["A"], t["B_"].repeat_interleave(rep, 2),
+                                 t["C"].repeat_interleave(rep, 2), chunk, init_state=init)
+    # fp32 math on the same inputs on both sides: reduction order only
+    # (tests/test_mamba.py's 1e-4, relative to outputs of size up to ~30)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, s_ref, atol=1e-4, rtol=1e-4)
+    if nvalid is not None:         # the state of a ragged row is its live tokens' state
+        b, n = 1, nvalid[1]
+        _, s1 = ssd_chunked(t["x"][b:b + 1, :n], t["dt"][b:b + 1, :n], t["A"],
+                            t["B_"][b:b + 1, :n], t["C"][b:b + 1, :n], chunk,
+                            init_state=None if init is None else init[b:b + 1])
+        torch.testing.assert_close(s[b:b + 1], s1, atol=1e-4, rtol=1e-4)
+    out = ssd_scan(t["x"], t["dt"], t["A"], t["B_"].repeat_interleave(rep, 2),
+                   t["C"].repeat_interleave(rep, 2), chunk)
+    assert out.dtype == dtype
+    plain = ssd_reference(t["x"], t["dt"], t["A"], t["B_"].repeat_interleave(rep, 2),
+                          t["C"].repeat_interleave(rep, 2), chunk)[0]
+    # tests/test_kernels_ssd.py's tolerances: fp32 1e-4, bf16 5e-2
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), plain, atol=tol, rtol=tol)
+
+
+def test_ssd_cuda_tensor_goes_to_kernel_or_raises(cuda):
+    """A CUDA tensor the kernel cannot take raises; none falls back to the
+    plain version."""
+    rng = np.random.default_rng(0)
+
+    def case(P=8, N=4, B=1, L=8, H=2):
+        return [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+            rng.standard_normal((B, L, H, P)), rng.uniform(0.01, 0.2, (B, L, H)),
+            -rng.uniform(0.5, 2.0, (H,)), rng.standard_normal((B, L, H, N)),
+            rng.standard_normal((B, L, H, N)))]
+    n0 = ssd_scan_cuda.launches
+    ssd_scan(*case(), 8)
+    assert ssd_scan_cuda.launches == n0 + 1
+    for bad in (dict(P=80), dict(N=160)):
+        with pytest.raises(ValueError, match="ssd_scan_cuda"):
+            ssd_scan(*case(**bad), 8)
+    x, dt, A, B_, C = case()
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B_, C, 8)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan(x.half(), dt, A, B_.half(), C.half(), 8)
+    assert ssd_scan_cuda.launches == n0 + 1
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_ssm_paths_on_card_match_cpu(cuda, name):
+    """forward, prefill + decode_step over the dense cache, and a
+    decode_chunk pack (first chunks, a ragged row, a padding row on a spare
+    slot) then a decode sweep, on the card (SSD kernel) against the CPU,
+    fp32."""
+    model = build_model(tiny_config(name))
+    params = model.init_params(0, device="cpu")
+    B, S, gen, ps = 2, 37, 4, 4
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (B, S + gen))
+                            .astype(np.int32))
+    maxp = (S + gen + ps - 1) // ps
+    pt = torch.arange(B * maxp, dtype=torch.int32).reshape(B, maxp) + 1
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else map_tree(lambda t: t.to(cuda), params)
+        t = toks.to(dev)
+        n0 = ssd_scan_cuda.launches
+        full, _ = model.forward(p, {"tokens": t}, RunCtx())
+        dense = model.init_cache(B, S + gen, device=dev)
+        lg, dense = model.prefill(p, {"tokens": t[:, :S]}, dense, RunCtx())
+        outs = [full, lg]
+        for i in range(gen):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            ld, dense = model.decode_step(p, t[:, S + i:S + i + 1], dense, pos, RunCtx())
+            outs.append(ld)
+        # the engine's path: rows on slots 2 / 0 of 3, row 1 ragged, a
+        # padding row on spare slot 1, then a decode sweep over all slots
+        paged = model.init_cache(3, S + gen, kind="paged", page_size=ps,
+                                 num_pages=B * maxp + 1, device=dev)
+        tok = torch.zeros((3, S), dtype=torch.int32, device=dev)
+        tok[:2] = t[:, :S]
+        rows = torch.zeros((3, maxp), dtype=torch.int32)
+        rows[:2] = pt
+
+        def arr(v, dt=torch.int32):
+            return torch.tensor(v, dtype=dt, device=dev)
+        lc, paged = model.decode_chunk(p, tok, paged, arr([0, 0, 0]), arr([S, 30, 0]),
+                                       arr([2, 0, 1]), arr([True, True, False], torch.bool),
+                                       RunCtx(), rows.to(dev))
+        outs.append(lc[:2])
+        sweep = torch.zeros((3, maxp), dtype=torch.int32)
+        sweep[2], sweep[0] = pt[0], pt[1]
+        ls, paged = model.decode_chunk(
+            p, torch.stack([t[1, 30:31], t[1, 30:31], t[0, S:S + 1]]), paged,
+            arr([30, 0, S]), arr([1, 0, 1]), arr([0, 1, 2]), arr([False] * 3, torch.bool),
+            RunCtx(), sweep.to(dev))
+        outs.append(ls[[0, 2]])
+        assert (ssd_scan_cuda.launches - n0 > 0) == (dev == "cuda")
+        logits[dev] = [o.float().cpu() for o in outs]
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        torch.testing.assert_close(b, a, atol=2e-3, rtol=0)
+    # on the card, the engine's path agrees with forward at the same positions
+    card = logits["cuda"]
+    torch.testing.assert_close(card[-2][0], card[0][0, S - 1], atol=2e-3, rtol=0)
+    torch.testing.assert_close(card[-2][1], card[0][1, 29], atol=2e-3, rtol=0)
+    torch.testing.assert_close(card[-1][0], card[0][1, 30], atol=2e-3, rtol=0)
+    torch.testing.assert_close(card[-1][1], card[0][0, S], atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_ssm_engine_on_card_matches_cpu(cuda, name):
+    """The engine on the card runs the SSD kernel and gives the CPU's greedy
+    streams (fp32 on both sides), through preemption."""
+    model = build_model(tiny_config(name))
+    params = model.init_params(0, device="cpu")
+    r = np.random.default_rng(7)
+    prompts = [r.integers(1, 256, n).astype(np.int32) for n in (19, 7, 12, 10)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else map_tree(lambda t: t.to(cuda), params)
+        eng = InferenceEngine(model, p, EngineConfig(
+            max_slots=3, page_size=8, num_pages=8, max_seq=64, prefill_chunk=8,
+            greedy=True, device=dev))
+        reqs = [Request(req_id=f"s{i}", prompt_tokens=q, max_new_tokens=10)
+                for i, q in enumerate(prompts)]
+        n0 = ssd_scan_cuda.launches
+        eng.generate(reqs)
+        eng.allocator.check_invariants()
+        assert eng.scheduler.n_preemptions > 0
+        assert (ssd_scan_cuda.launches - n0 > 0) == (dev == "cuda")
         outs.append([q.generated for q in reqs])
     assert outs[0] == outs[1]

@@ -1,10 +1,12 @@
 """Port's serving engine vs the JAX ``InferenceEngine`` on tiny mixtral with
 the same weights and requests: identical greedy token streams through
 page-pressure preemption and a warm shared-prefix hit (the copy-on-write
-path), allocator invariants afterwards. Sampling is compared in
-distribution, because the two frameworks' generators differ. Then the
-port's engine against the port's own pure-model loop (``prefill`` +
-``decode_step``), as tests/test_engine.py holds the JAX engine."""
+path), allocator invariants afterwards; the same on tiny mamba2 and jamba
+(slot-pooled SSM state, first-chunk resets, preemption), whose engines keep
+the prefix cache off. Sampling is compared in distribution, because the two
+frameworks' generators differ. Then the port's engine against the port's
+own pure-model loop (``prefill`` + ``decode_step``), as tests/test_engine.py
+holds the JAX engine."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +102,42 @@ def test_warm_prefix_hit_matches_jax(models):
     assert st["prefix_hit_pages"] > 0 and st["cow_copies"] > 0
     for k in ("prefix_hit_pages", "cow_copies", "prefix_cached_tokens"):
         assert st[k] == js[k], k
+
+
+@pytest.fixture(scope="module", params=["mamba2-1.3b", "jamba-v0.1-52b"])
+def ssm_models(request):
+    jmodel = jax_build_model(jax_tiny_config(request.param))
+    jp = jmodel.init_params(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return jmodel, jp, build_model(tiny_config(request.param)), tp
+
+
+@pytest.mark.parametrize("num_pages", [8, 64])
+def test_ssm_greedy_streams_match_jax(ssm_models, num_pages):
+    """Prompts longer than the prefill chunk, so later chunks continue from
+    the slot's carried state; num_pages=8 holds 7 usable pages for 3 slots
+    of up to 34 tokens: the scheduler preempts, and a resumed request
+    restarts its state from its first chunk."""
+    je, te = _engines(ssm_models, max_slots=3, page_size=8, num_pages=num_pages, max_seq=64,
+                      prefill_chunk=8, greedy=True)
+    assert te.prefix_cache is None and je.prefix_cache is None
+    r = np.random.default_rng(7)
+    prompts = [r.integers(1, 256, n).astype(np.int32) for n in (19, 7, 12, 10)]
+    _serve(je, te, prompts, 10)
+    te.allocator.check_invariants()
+    assert te.scheduler.n_preemptions == je.scheduler.n_preemptions
+    assert (te.scheduler.n_preemptions > 0) == (num_pages == 8)
+
+
+def test_prefix_cache_gated_off_for_ssm():
+    """tests/test_prefix_cache.py::test_prefix_cache_gated_off_for_ssm on
+    the port: a page does not hold an SSM layer's state, so no prefix is
+    shared."""
+    model = build_model(tiny_config("mamba2-1.3b"))
+    eng = InferenceEngine(model, model.init_params(0, device="cpu"), EngineConfig(
+        max_slots=2, page_size=8, num_pages=16, max_seq=32, greedy=True, device="cpu"))
+    assert eng.prefix_cache is None
+    assert eng.scheduler.prefix_cache is None
 
 
 def test_sampled_mode_completes(models):

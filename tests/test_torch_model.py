@@ -151,7 +151,9 @@ def test_decode_chunk_matches_jax(name):
         lg_ref, jcache = jmodel.decode_chunk(
             jp, jnp.asarray(tok), jcache, jnp.asarray(st), jnp.asarray(nv),
             jnp.arange(B, dtype=jnp.int32), jnp.asarray(st == 0), jctx, jnp.asarray(pt))
-        lg, tcache = model.decode_chunk(tp, _t(tok), tcache, _t(st), _t(nv), RunCtx(), _t(pt))
+        lg, tcache = model.decode_chunk(tp, _t(tok), tcache, _t(st), _t(nv),
+                                        _t(np.arange(B, dtype=np.int32)), _t(st == 0), RunCtx(),
+                                        _t(pt))
         live = nv > 0
         assert lg.shape == (B, model.cfg.vocab) and torch.isfinite(lg).all()
         err = np.abs(lg.numpy()[live] - np.asarray(lg_ref)[live]).max()
