@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, in phases; any failure
 exits non-zero and no phase's failure is caught.
 
-  1. print the card's name and power limit; build the five CUDA kernels
+  1. print the card's name and power limit; build the six CUDA kernels
      from src/repro_torch/csrc with nvcc for sm_90a (one nvcc per source,
      in parallel) and print what ptxas reports (registers, spills).
   2. each kernel against its plain PyTorch version on the card: the small
@@ -11,9 +11,11 @@ exits non-zero and no phase's failure is caught.
      bf16, with the kernel's device time (its launch wrapper alone), the
      public op's time as a caller sees it (host work included), the plain
      version's and a PyTorch yardstick's times (the yardstick, SDPA or a
-     per-expert matmul loop, is never called by the port; no single
+     plain matmul on float weights, is never called by the port; no single
      PyTorch call computes the SSD scan), beside the card's lower bound for
-     the same work.
+     the same work. The grouped matmul also on int8 experts; the w8a16
+     matmul with the per-output-channel scale, the int8 tree's row scales
+     and a transposed weight, then at mixtral's wq and head shapes.
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
      the CPU (plain versions), on the same two sequences of 20 tokens: the
      engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, then
@@ -21,10 +23,12 @@ exits non-zero and no phase's failure is caught.
      first 16 then 4 ``decode_step``s over the dense ring, and the same 4
      over the paged pool filled from the ring. Card vs CPU within
      LOGIT_ATOL with the same argmax; on the card, every path's logits also
-     within LOGIT_ATOL of ``forward``'s at the same position. Then the same
-     for mamba2 at depth 2, full width: ``forward``, ``prefill`` + 4
-     ``decode_step``s, and a ``decode_chunk`` pack whose ``first`` rows
-     reset garbage states, then a decode sweep.
+     within LOGIT_ATOL of ``forward``'s at the same position. The same
+     again on ``quantize_params_int8`` of those weights (w8a16 and the int8
+     grouped matmul on the card). Then the same for mamba2 at depth 2, full
+     width: ``forward``, ``prefill`` + 4 ``decode_step``s, and a
+     ``decode_chunk`` pack whose ``first`` rows reset garbage states, then
+     a decode sweep.
   4. the serving path: mixtral-8x7b at full width, depth cut from 32 to 8
      layers, random bf16 weights from a seed, ``InferenceEngine.generate``
      on 4 requests (prompts of 100-300 tokens, 32 new tokens, greedy,
@@ -45,7 +49,13 @@ exits non-zero and no phase's failure is caught.
      > 0), then its generation API on the same weights: ``prefill`` of each
      prompt at its own length, 32 batched ``decode_step``s, and how many
      leading tokens equal the engine's stream (printed only).
-  7. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+  7. mixtral-8x7b at full width and full depth (32 layers) on int8 weights
+     (``init_params_int8`` of a bf16 init, ~47 GB: the bf16 model, ~93 GB,
+     does not fit on one card): phase 4's serving run (the w8a16, grouped
+     matmul and chunked attention launch counters > 0; weights' GB, init
+     seconds and peak memory printed), then phase 5's generation API on the
+     same weights.
+  8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
 Options: --out FILE writes every measurement as JSON; --profile adds
@@ -55,6 +65,7 @@ the generation paths (kernel time by name and the device's busy share).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -383,8 +394,8 @@ def gmm_case(dev, *, tokens, E, K, N, dtype, seed=0):
 
 
 def run_gmm(dev, flush, results):
-    from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda, tile_layout
-    from repro_torch.kernels.moe_gmm.kernel import BLOCK_M
+    from repro_torch.kernels.moe_gmm import gmm, gmm_reference
+    from repro_torch.quant import quantize_leaf
     for dtype in (torch.float32, torch.bfloat16):
         for sizes, K, N in (([8, 8, 8, 8], 16, 24), ([0, 32, 0, 1], 16, 24), ([33], 16, 24),
                             ([1, 1, 1, 1, 29], 16, 24), ([0, 70, 0, 1], 40, 130)):
@@ -392,51 +403,158 @@ def run_gmm(dev, flush, results):
             gs = torch.tensor(sizes, device=dev)
             x = torch.randn((int(gs.sum()), K), generator=g, device=dev).to(dtype)
             w = torch.randn((len(sizes), K, N), generator=g, device=dev).to(dtype)
-            err = max_err(gmm(x, w, gs), gmm_reference(x, w, gs))
             tol = 1e-4 if dtype == torch.float32 else 5e-2
-            assert err <= tol, f"gmm edge case {sizes} {dtype}: err {err} > {tol}"
+            # the float experts, then the same experts in int8
+            errs = [max_err(gmm(x, wk, gs), gmm_reference(x, wk, gs))
+                    for wk in (w, quantize_leaf(w))]
+            assert max(errs) <= tol, f"gmm edge case {sizes} {dtype}: err {errs} > {tol}"
             log(f"  gmm edge sizes={sizes} K={K} N={N} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3g} (tol {tol})")
-    # fp32: reduction order over K; bf16: one rounding of outputs |o| < 5
-    tols = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
-    for tokens in (8, 256):
-        for K, N in ((4096, 14336), (14336, 4096)):
-            for dtype in (torch.float32, torch.bfloat16):
-                x, w, gs = gmm_case(dev, tokens=tokens, E=8, K=K, N=N, dtype=dtype, seed=tokens)
-                M = x.shape[0]
-                out = gmm(x, w, gs)
-                err = max_err(out, gmm_reference(x, w, gs))
-                assert err <= tols[dtype], f"gmm {tokens} tok {K}->{N} {dtype}: err {err}"
-                dst, te, tr, Mp = tile_layout(gs, M, BLOCK_M)
-                x_pad = x.new_empty((Mp, x.shape[1]))
-                x_pad[dst] = x
-                # the kernel alone on the padded layout made here, then the
-                # public op (layout, scatter, kernel, gather) as a caller sees it
-                ms = cuda_ms(lambda: gmm_tiles_cuda(x_pad, w, te, tr), flush=flush)
-                op_ms = cuda_ms(lambda: gmm(x, w, gs), flush=flush, queued=False)
-                # the plain version reads the group sizes back to the host
-                plain_ms = cuda_ms(lambda: gmm_reference(x, w, gs), flush=flush, queued=False)
-                bounds = np.concatenate([[0], np.cumsum(gs.tolist())])
-                parts = [(i, int(bounds[i]), int(bounds[i + 1])) for i in range(8)
-                         if bounds[i + 1] > bounds[i]]
-                lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b], w[i]) for i, a, b in parts],
-                                 flush=flush)
-                active = len(parts)
-                es = x.element_size()
-                nbytes = ((M * K + active * K * N + M * N) * es
-                          + gs.numel() * gs.element_size())
-                bms, by = bound_ms(nbytes, 2.0 * M * K * N, dtype)
-                row = dict(kernel="moe_gmm", case=f"{tokens}tok {K}->{N}",
-                           dtype=str(dtype)[6:],
-                           shape=f"x({M},{K}) w(8,{K},{N}) experts_active={active}",
-                           max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=bms, bound_by=by)
-                results.append(row)
-                log(f"  gmm {tokens} tokens top-2 K={K} N={N} {row['dtype']}: "
-                    f"kernel_ms={ms:.4f} op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) max_abs_err={err:.3g}")
-                del x, w, x_pad, out
-                torch.cuda.empty_cache()
+                f"max_abs_err={errs[0]:.3g}, int8 experts {errs[1]:.3g} (tol {tol})")
+    # fp32: reduction order over K; bf16: one rounding of outputs |o| < 5.
+    # Then the same cases on int8 experts (scale per expert and input row,
+    # as the int8 tree has them) against the plain version on the same
+    # QuantizedLinear; the yardstick stays torch.matmul on the x-dtype
+    # weights. In bf16 the two round fp32 sums taken in different orders,
+    # so an output may land one bf16 step away: 2^-5 for |o| < 8
+    tols = {(False, torch.float32): 1e-3, (False, torch.bfloat16): 3e-2,
+            (True, torch.float32): 1e-3, (True, torch.bfloat16): 2 ** -5}
+    for int8 in (False, True):
+        for tokens in (8, 256):
+            for K, N in ((4096, 14336), (14336, 4096)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=dtype,
+                                 int8=int8, tol=tols[int8, dtype])
+
+
+def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
+    from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda, tile_layout
+    from repro_torch.kernels.moe_gmm.kernel import BLOCK_M
+    from repro_torch.quant import quantize_leaf
+    x, w, gs = gmm_case(dev, tokens=tokens, E=8, K=K, N=N, dtype=dtype, seed=tokens)
+    wk = quantize_leaf(w) if int8 else w
+    M = x.shape[0]
+    out = gmm(x, wk, gs)
+    err = max_err(out, gmm_reference(x, wk, gs))
+    kind = " int8" if int8 else ""
+    assert err <= tol, f"gmm{kind} {tokens} tok {K}->{N} {dtype}: err {err}"
+    dst, te, tr, Mp = tile_layout(gs, M, BLOCK_M)
+    x_pad = x.new_empty((Mp, x.shape[1]))
+    x_pad[dst] = x
+    # the kernel alone on the padded layout made here, then the
+    # public op (layout, scatter, kernel, gather) as a caller sees it
+    if int8:
+        scale = wk.scale.reshape(wk.q.shape[:2])
+        ms = cuda_ms(lambda: gmm_tiles_cuda(x_pad, wk.q, te, tr, w_scale=scale), flush=flush)
+    else:
+        ms = cuda_ms(lambda: gmm_tiles_cuda(x_pad, w, te, tr), flush=flush)
+    op_ms = cuda_ms(lambda: gmm(x, wk, gs), flush=flush, queued=False)
+    # the plain version reads the group sizes back to the host
+    plain_ms = cuda_ms(lambda: gmm_reference(x, wk, gs), flush=flush, queued=False)
+    bounds = np.concatenate([[0], np.cumsum(gs.tolist())])
+    parts = [(i, int(bounds[i]), int(bounds[i + 1])) for i in range(8)
+             if bounds[i + 1] > bounds[i]]
+    lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b], w[i]) for i, a, b in parts], flush=flush)
+    active = len(parts)
+    es = x.element_size()
+    wbytes = active * K * (N + 4) if int8 else active * K * N * es
+    nbytes = (M * K + M * N) * es + wbytes + gs.numel() * gs.element_size()
+    bms, by = bound_ms(nbytes, 2.0 * M * K * N, dtype)
+    row = dict(kernel="moe_gmm", case=f"{tokens}tok {K}->{N}{kind}", dtype=str(dtype)[6:],
+               shape=f"x({M},{K}) w(8,{K},{N}){kind} experts_active={active}",
+               max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    results.append(row)
+    log(f"  gmm{kind} {tokens} tokens top-2 K={K} N={N} {row['dtype']}: "
+        f"kernel_ms={ms:.4f} op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) max_abs_err={err:.3g}")
+    del x, w, wk, x_pad, out
+    torch.cuda.empty_cache()
+
+
+def w8a16_case(dev, *, M, K, N, G, dtype, seed=0):
+    """x (M, K) and a (K, N) weight scaled like the model's LeCun init,
+    quantized as the int8 tree quantizes a leaf: over its last axis, so one
+    scale per input row (G = 1) or, for a (K, G, N / G) leaf such as wq,
+    per (input row, head). Returns x, the weight in x's dtype (the
+    yardstick's), q (K, N) int8 and the row scale (K, G)."""
+    from repro_torch.quant import quantize_leaf
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    ql = quantize_leaf(w.reshape(K, G, N // G))
+    return x, w.to(dtype), ql.q.reshape(K, N), ql.scale.reshape(K, G)
+
+
+def w8a16_bound(M, K, N, G, dtype):
+    """Bytes: x and out once in x's dtype, the int8 weights and the fp32
+    row scales (K, G) once. Operations: 2 M K N at the dtype's peak."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = M * K * es + K * N + 4 * K * G + M * N * es
+    return bound_ms(nbytes, 2.0 * M * K * N, dtype)
+
+
+def run_w8a16(dev, flush, results):
+    from repro_torch.kernels.quant_matmul import (w8a16_matmul, w8a16_matmul_cuda,
+                                                  w8a16_matmul_reference)
+    from repro_torch.kernels.quant_matmul.ops import quantize_int8
+    # small edge cases: the CPU tests' shapes with the per-output-channel
+    # scale (the TPU kernel's own function); ragged M / N / K with the row
+    # scale per input row and per head; the transposed-stride weight of a
+    # tied head with its col scale
+    tols = {torch.float32: 1e-3, torch.bfloat16: 5e-2}   # tests/test_kernels_quant.py / _gmm
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, K, N, form in ((16, 64, 32, "col"), (32, 128, 64, "col"), (8, 32, 16, "col"),
+                              (5, 100, 130, "rows"), (70, 96, 128, "heads"),
+                              (4, 160, 300, "transposed")):
+            g = torch.Generator(device=dev).manual_seed(M + K + N)
+            x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+            w = torch.randn((N, K) if form == "transposed" else (K, N), generator=g, device=dev)
+            if form in ("col", "transposed"):
+                q, col = quantize_int8(w, axis=1 if form == "transposed" else 0)
+                q = q.T if form == "transposed" else q        # strides (1, K)
+                row = None
+            else:
+                col = None
+                _, _, q, row = w8a16_case(dev, M=M, K=K, N=N, G=1 if form == "rows" else 4,
+                                          dtype=dtype, seed=M)
+            out = w8a16_matmul(x, q, col, row_scale=row)
+            err = max_err(out, w8a16_matmul_reference(x, q, col, row))
+            assert err <= tols[dtype] and out.dtype == dtype and torch.isfinite(out).all(), \
+                f"w8a16 edge case {M}x{K}x{N} {form} {dtype}: err {err} > {tols[dtype]}"
+            log(f"  w8a16 edge M={M} K={K} N={N} {form} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3g} (tol {tols[dtype]})")
+    # full-width mixtral shapes: wq at decode (4 rows, row scale per head of
+    # 128), the head at decode (lm_head (4096, 32000), row scale per input
+    # row) and wq over a prefill pack of 256 rows
+    for name, M, N, G in (("decode wq", 4, 4096, 32), ("decode head", 4, 32000, 1),
+                          ("prefill wq", 256, 4096, 32)):
+        K = 4096
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, q, row = w8a16_case(dev, M=M, K=K, N=N, G=G, dtype=dtype, seed=M + N)
+            out = w8a16_matmul(x, q, row_scale=row)
+            err = max_err(out, w8a16_matmul_reference(x, q, None, row))
+            # fp32: reduction order over K; bf16: the kernel and the plain
+            # version round fp32 sums taken in different orders, so an
+            # output may land one bf16 step away: 2^-5 for |o| < 8
+            tol = 1e-3 if dtype == torch.float32 else 2 ** -5
+            assert err <= tol, f"w8a16 {name} {dtype}: err {err} > {tol}"
+            ms = cuda_ms(lambda: w8a16_matmul_cuda(x, q, None, row), flush=flush)
+            op_ms = cuda_ms(lambda: w8a16_matmul(x, q, row_scale=row), flush=flush,
+                            queued=False)
+            plain_ms = cuda_ms(lambda: w8a16_matmul_reference(x, q, None, row), flush=flush)
+            library_ms = cuda_ms(lambda: torch.matmul(x, w), flush=flush)
+            bms, by = w8a16_bound(M, K, N, G, dtype)
+            row_ = dict(kernel="w8a16_matmul", case=name, dtype=str(dtype)[6:],
+                        shape=f"x({M},{K}) q({K},{N}) int8 row_scale({K},{G})",
+                        max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bms, bound_by=by)
+            results.append(row_)
+            log(f"  w8a16 {name} {row_['dtype']} {row_['shape']}: kernel_ms={ms:.4f} "
+                f"op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                f"(torch.matmul on the {str(dtype)[6:]} weights) bound_ms={bms:.6f} ({by}) "
+                f"max_abs_err={err:.3g}")
+            del x, w, q, row, out
+            torch.cuda.empty_cache()
 
 
 def ssd_case(dev, *, B, L, H, P, N, G, dtype, init=False, nvalid=None, seed=0):
@@ -546,6 +664,8 @@ def run_ssd(dev, flush, results):
 def mixtral(n_layers: int):
     from repro_torch.configs import LayerGroup, get_config
     cfg = get_config("mixtral-8x7b")
+    if n_layers == cfg.n_layers:
+        return cfg
     return cfg.scaled(name=f"mixtral-8x7b-{n_layers}L", n_layers=n_layers,
                       layer_groups=(LayerGroup("A", n_layers, moe_mask="1"),))
 
@@ -563,15 +683,24 @@ def fill_pool_from_ring(paged, dense, pt, ps):
                         src[:, b].reshape(R, W // ps, ps, *src.shape[3:]))
 
 
-def run_card_vs_cpu(dev):
+def run_card_vs_cpu(dev, int8: bool = False):
     """Every model path at depth 2, full width, fp32, on the card and on the
     CPU, on the same tokens: returns the worst card-vs-CPU and cross-path
-    logit differences."""
+    logit differences. With ``int8`` the weights are quantize_params_int8
+    of the same fp32 weights (projections, experts, router, embedding and
+    head int8): on the card the projections and the head run the w8a16
+    kernel and the experts the int8 grouped matmul."""
+    from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
+    from repro_torch.kernels.quant_matmul import w8a16_matmul_cuda
     from repro_torch.models import RunCtx, build_model
     from repro_torch.models.params import map_tree
+    from repro_torch.quant import quantize_params_int8
     model = build_model(mixtral(2))
     params = model.init_params(0, device=dev, dtype=torch.float32)
+    if int8:
+        params = quantize_params_int8(params)
     cpu_params = map_tree(lambda t: t.cpu(), params)
+    n0 = (w8a16_matmul_cuda.launches, gmm_tiles_cuda.launches)
     rng = np.random.default_rng(0)
     ps, maxp, C, gen = 16, 2, 16, 4
     seq = rng.integers(1, 32000, (2, C + gen)).astype(np.int32)
@@ -607,6 +736,9 @@ def run_card_vs_cpu(dev):
                 out[f"decode_step paged {i}"], paged = model.decode_step(
                     p, tok, paged, pos, RunCtx(), page_table=t_pt, lengths=pos + 1)
         logits[key] = {k: v.float().cpu() for k, v in out.items()}
+        if key == "card":
+            launched = (w8a16_matmul_cuda.launches - n0[0], gmm_tiles_cuda.launches - n0[1])
+    assert launched[1] > 0 and (launched[0] > 0) == int8, f"launches on the card: {launched}"
     worst = 0.0
     for k, a in logits["card"].items():
         b = logits["cpu"][k]
@@ -624,7 +756,8 @@ def run_card_vs_cpu(dev):
         pairs += [(card[f"decode_step {kind} {i}"], fwd[:, C + i]) for kind in ("dense", "paged")]
     cross = max(max_err(a, b) for a, b in pairs)
     assert cross < LOGIT_ATOL, f"paths disagree with forward on the card by {cross}"
-    log(f"  depth-2 full-width fp32, card vs CPU: decode_chunk (pack of 27 tokens, then a "
+    kind = "int8 weights (w8a16 launches {}, gmm {})".format(*launched) if int8 else "fp32"
+    log(f"  depth-2 full-width {kind}, card vs CPU: decode_chunk (pack of 27 tokens, then a "
         f"decode sweep), forward (2 x 20 tokens), prefill (2 x 16) + 4 decode_steps over the "
         f"dense ring and over the paged pool: max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, "
         f"argmax equal")
@@ -724,23 +857,51 @@ def prompts(rng, n=4):
     return [rng.integers(1, 32000, L).astype(np.int32) for L in lens]
 
 
-def run_serving(dev, profile: bool):
+def depth_note(cfg) -> str:
+    return ("full depth, 32 layers" if cfg.n_layers == 32
+            else f"depth cut 32 -> {cfg.n_layers} layers")
+
+
+def build_mixtral(dev, n_layers: int, int8: bool):
+    """Full-width mixtral-8x7b at ``n_layers``, random weights from seed 0:
+    bf16, or (``int8``) ``init_params_int8`` of the same bf16 init, which
+    holds one repeat of a leaf in float at a time. Peak memory counts from
+    here."""
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params_int8, map_tree
+    cfg = mixtral(n_layers)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if int8:
+        params = init_params_int8(cfg, 0, device=dev, dtype=torch.bfloat16)
+    else:
+        params = model.init_params(0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    map_tree(lambda t: sizes.append(t.numel() * t.element_size()), params)
+    info = dict(config=cfg.name, layers=cfg.n_layers, weights="int8" if int8 else "bf16",
+                weights_gb=sum(sizes) / 1e9, init_s=init_s,
+                init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  {cfg.name}: full width (d_model 4096, 32 heads / 8 kv, 8 experts top-2, "
+        f"d_expert 14336), {depth_note(cfg)}, random "
+        f"{'int8 (init_params_int8 of bf16)' if int8 else 'bf16'} weights from seed 0: "
+        f"{info['weights_gb']:.2f} GB, init {init_s:.1f} s, peak device memory "
+        f"{info['init_peak_gb']:.2f} GB")
+    return model, params, info
+
+
+def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
+                profile_tokens: int = 8):
+    """InferenceEngine.generate on 4 requests x 32 greedy tokens; every
+    request finishes, the allocator invariants hold, and the path's kernels
+    (w8a16 too on int8 weights) launched."""
     from repro_torch.core import EngineConfig, InferenceEngine, Request, request_metrics
     from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
     from repro_torch.kernels.paged_attention import chunked_prefill_cuda
-    from repro_torch.models import build_model
-    from repro_torch.models.params import map_tree
-    cfg = mixtral(SERVE_LAYERS)
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init_params(0, device=dev, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    sizes = []
-    map_tree(lambda t: sizes.append(t.numel() * t.element_size()), params)
-    nbytes = sum(sizes)
-    log(f"  {cfg.name}: full width (d_model 4096, 32 heads / 8 kv, 8 experts top-2, "
-        f"d_expert 14336), depth cut 32 -> {SERVE_LAYERS} layers, random bf16 weights from "
-        f"seed 0: {nbytes / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
+    from repro_torch.kernels.quant_matmul import w8a16_matmul_cuda
+    cfg = model.cfg
     ecfg = EngineConfig(max_slots=4, page_size=16, num_pages=160, max_seq=512,
                         prefill_chunk=128, greedy=True, cache_dtype=torch.bfloat16,
                         device=str(dev))
@@ -752,24 +913,26 @@ def run_serving(dev, profile: bool):
     reqs = [Request(req_id=f"r{i}", prompt_tokens=p, max_new_tokens=32)
             for i, p in enumerate(prompts(rng))]
     eng.step_records.clear()
-    chunked_prefill_cuda.launches = 0
-    gmm_tiles_cuda.launches = 0
+    for fn in (chunked_prefill_cuda, gmm_tiles_cuda, w8a16_matmul_cuda):
+        fn.launches = 0
     t0 = time.perf_counter()
     eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"chunked_prefill_attention": chunked_prefill_cuda.launches,
-                "moe_gmm": gmm_tiles_cuda.launches}
+                "moe_gmm": gmm_tiles_cuda.launches, "w8a16_matmul": w8a16_matmul_cuda.launches}
     assert all(r.finished and len(r.generated) == 32 for r in reqs), "a request did not finish"
     eng.allocator.check_invariants()
-    assert min(launches.values()) > 0, f"a kernel never ran on the serving path: {launches}"
+    assert launches["chunked_prefill_attention"] > 0 and launches["moe_gmm"] > 0 \
+        and (launches["w8a16_matmul"] > 0) == int8, \
+        f"a kernel never ran on the serving path: {launches}"
     ms = [request_metrics(r) for r in reqs]
     n_tok = sum(m.n_tokens for m in ms)
     recs = list(eng.step_records)
     dec = [r.duration for r in recs if r.prefill_rows == 0 and r.decode_rows > 0]
     pre = [r.duration for r in recs if r.prefill_rows > 0]
     serve = dict(
-        config=cfg.name, layers=SERVE_LAYERS, requests=len(reqs),
+        config=cfg.name, layers=cfg.n_layers, requests=len(reqs),
         prompt_tokens=[len(r.prompt_tokens) for r in reqs], new_tokens=32,
         wall_s=wall, tok_s=n_tok / wall, steps=len(recs),
         ttft_ms=[m.ttft * 1e3 for m in ms], tbt_ms=[m.tbt * 1e3 for m in ms],
@@ -782,25 +945,28 @@ def run_serving(dev, profile: bool):
         f"TTFT ms {[round(x, 2) for x in serve['ttft_ms']]}, "
         f"TBT ms {[round(x, 3) for x in serve['tbt_ms']]}, decode step "
         f"{serve['decode_step_ms_mean']:.3f} ms, prefill step "
-        f"{serve['prefill_step_ms_mean']:.3f} ms (depth cut 32 -> {SERVE_LAYERS} layers)")
+        f"{serve['prefill_step_ms_mean']:.3f} ms, peak device memory "
+        f"{serve['peak_mem_gb']:.2f} GB ({depth_note(cfg)})")
     log(f"  launches on the serving run: {launches}")
     if profile:
-        from repro_torch.core import Request
-        preqs = [Request(req_id=f"p{i}", prompt_tokens=p, max_new_tokens=8)
+        preqs = [Request(req_id=f"p{i}", prompt_tokens=p, max_new_tokens=profile_tokens)
                  for i, p in enumerate(prompts(rng))]
-        serve["profile"] = profile_window(lambda: eng.generate(preqs), "4 requests x 8 tokens")
+        serve["profile"] = profile_window(lambda: eng.generate(preqs),
+                                          f"4 requests x {profile_tokens} tokens")
     streams = [(r.prompt_tokens, list(r.generated)) for r in reqs]
-    return serve, launches, model, params, streams
+    return serve, launches, streams
 
 
 def run_generation(dev, model, params, streams, profile: bool):
-    """Phase 5: LM.prefill of phase 4's prompts (right-padded, flash
-    attention), then GEN_STEPS greedy decode_steps over the paged pool
-    (paged decode kernel), on phase 4's weights."""
+    """Phases 5 and 7: LM.prefill of the serving run's prompts (right-padded,
+    flash attention), then GEN_STEPS greedy decode_steps over the paged pool
+    (paged decode kernel), on the serving run's weights."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.quant_matmul import w8a16_matmul_cuda
     from repro_torch.models import RunCtx
+    counted = (flash_attention_cuda, paged_attention_cuda, gmm_tiles_cuda, w8a16_matmul_cuda)
     ps = 16
     lens = [len(p) for p, _ in streams]
     B, S = len(lens), max(lens)
@@ -840,13 +1006,14 @@ def run_generation(dev, model, params, streams, profile: bool):
     with torch.inference_mode():
         generate(2)                           # warm-up: allocator pools, cuBLAS handles
         torch.cuda.synchronize()
-        for fn in (flash_attention_cuda, paged_attention_cuda, gmm_tiles_cuda):
+        for fn in counted:
             fn.launches = 0
         gen, times = generate(GEN_STEPS)
         torch.cuda.synchronize()
         launches = {"flash_attention": flash_attention_cuda.launches,
                     "paged_attention": paged_attention_cuda.launches,
-                    "moe_gmm": gmm_tiles_cuda.launches}
+                    "moe_gmm": gmm_tiles_cuda.launches,
+                    "w8a16_matmul": w8a16_matmul_cuda.launches}
     assert launches["flash_attention"] > 0 and launches["paged_attention"] > 0, \
         f"a kernel never ran on the generation path: {launches}"
     assert gen.shape == (B, GEN_STEPS + 1) and ((gen >= 0) & (gen < 32000)).all()
@@ -858,18 +1025,18 @@ def run_generation(dev, model, params, streams, profile: bool):
         while n < len(eng) and int(gen[b, n]) == eng[n]:
             n += 1
         agree.append(n)
-    res = dict(layers=SERVE_LAYERS, prompt_tokens=lens, padded_to=S, new_tokens=GEN_STEPS,
+    res = dict(layers=model.cfg.n_layers, prompt_tokens=lens, padded_to=S, new_tokens=GEN_STEPS,
                prefill_ms=prefill_ms, decode_step_ms_mean=step_ms,
                decode_tok_s=B / (step_ms / 1e3), tok_s=B * (GEN_STEPS + 1) / total,
                launches=launches, leading_tokens_equal_engine=agree)
     log(f"  prefill of {B} prompts {lens} right-padded to {S} tokens: {prefill_ms:.3f} ms "
         f"(ring copied into the pool included); {GEN_STEPS} decode_steps over the paged "
         f"pool: {step_ms:.3f} ms per step, {res['decode_tok_s']:.2f} tok/s in decode, "
-        f"{res['tok_s']:.2f} tok/s over the whole generation (depth cut 32 -> "
-        f"{SERVE_LAYERS} layers)")
+        f"{res['tok_s']:.2f} tok/s over the whole generation ({depth_note(model.cfg)})")
     log(f"  launches on the generation run: {launches}")
-    log(f"  leading greedy tokens equal to phase 4's engine stream, per request: {agree} "
-        f"of its 32 (printed only: bf16 near-ties may split two different kernels)")
+    log(f"  leading greedy tokens equal to the engine's stream on the same weights, per "
+        f"request: {agree} of its 32 (printed only: bf16 near-ties may split two different "
+        f"kernels)")
     if profile:
         with torch.inference_mode():
             res["profile"] = profile_window(lambda: generate(8),
@@ -1098,6 +1265,7 @@ def main() -> int:
     run_flash(dev, flush, results)
     run_paged_decode(dev, flush, results)
     run_ssd(dev, flush, results)
+    run_w8a16(dev, flush, results)
     del flush
     log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
@@ -1105,14 +1273,17 @@ def main() -> int:
     t0 = time.perf_counter()
     e2e_err, cross_err = run_card_vs_cpu(dev)
     torch.cuda.empty_cache()
+    int8_err, int8_cross = run_card_vs_cpu(dev, int8=True)
+    torch.cuda.empty_cache()
     mamba_err, mamba_cross = run_mamba_card_vs_cpu(dev)
     torch.cuda.empty_cache()
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 4: serving run")
     t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    serve, launches, model, params, streams = run_serving(dev, args.profile)
+    model, params, info = build_mixtral(dev, SERVE_LAYERS, int8=False)
+    serve, launches, streams = run_serving(dev, args.profile, model, params)
+    serve.update(info)
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 5: generation path (prefill + decode_step) on phase 4's weights")
@@ -1131,6 +1302,20 @@ def main() -> int:
     launches["ssd_scan"] = mamba_serve["launches"]["ssd_scan"]
     log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 7: full-depth mixtral-8x7b on int8 weights: serving run, then the "
+        "generation API")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, info = build_mixtral(dev, 32, int8=True)
+    int8_serve, int8_launches, streams = run_serving(dev, args.profile, model, params,
+                                                     int8=True, profile_tokens=4)
+    int8_serve.update(info)
+    int8_generation, _ = run_generation(dev, model, params, streams, profile=False)
+    del model, params
+    launches["w8a16_matmul"] = int8_launches["w8a16_matmul"]
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, route_src, replaces, case in (
             ("chunked_prefill_attention", "src/repro_torch/csrc/chunked_prefill.cu",
@@ -1142,7 +1327,9 @@ def main() -> int:
             ("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention/kernel.py:107", "decode"),
             ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan/kernel.py:65", "mamba2 pack")):
+             "src/repro/kernels/ssd_scan/kernel.py:65", "mamba2 pack"),
+            ("w8a16_matmul", "src/repro_torch/csrc/quant_matmul.cu",
+             "src/repro/kernels/quant_matmul/kernel.py:40", "decode wq")):
         row = next(r for r in results if r["kernel"] == name and r["case"] == case
                    and r["dtype"] == "bfloat16")
         kernels.append(dict(name=name, route="cuda", source=route_src, replaces=replaces,
@@ -1156,9 +1343,13 @@ def main() -> int:
         out.write_text(json.dumps(dict(card=card, cases=results, e2e_max_abs_logit=e2e_err,
                                        cross_path_max_abs_logit=cross_err,
                                        mamba_e2e_max_abs_logit=mamba_err,
-                                       mamba_cross_path_max_abs_logit=mamba_cross, serve=serve,
+                                       mamba_cross_path_max_abs_logit=mamba_cross,
+                                       int8_e2e_max_abs_logit=int8_err,
+                                       int8_cross_path_max_abs_logit=int8_cross, serve=serve,
                                        generation=generation, mamba_serve=mamba_serve,
-                                       mamba_generation=mamba_generation, kernels=kernels),
+                                       mamba_generation=mamba_generation,
+                                       int8_serve=int8_serve, int8_generation=int8_generation,
+                                       kernels=kernels),
                                   indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

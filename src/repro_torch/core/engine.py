@@ -41,6 +41,7 @@ from repro_torch.core.scheduler import ContinuousBatchScheduler, SlotState
 from repro_torch.core.timeline import StepRecord
 from repro_torch.models import LM, RunCtx
 from repro_torch.models.common import resolve_device
+from repro_torch.quant.quantize import QuantizedLinear
 
 
 @dataclass
@@ -103,7 +104,8 @@ class InferenceEngine:
         if cfg.enable_speculative:
             raise NotImplementedError("speculative decoding is not ported yet")
         self.device = resolve_device(cfg.device)
-        wdev = params["embed"]["w"].device
+        embed = params["embed"]["w"]
+        wdev = (embed.q if isinstance(embed, QuantizedLinear) else embed).device
         if wdev.type != self.device.type or self.device.index not in (None, wdev.index):
             raise ValueError(f"params are on {wdev}, the engine runs on {self.device}")
         self.model = model

@@ -6,6 +6,10 @@
 // Replaces the TPU kernel src/repro/kernels/moe_gmm/kernel.py, gmm_pallas
 // (body _gmm_kernel). Same function; the per-tile expert map picks the
 // weight matrix, and fp32 accumulation gives an output in x's dtype.
+// Weights are fp32, bf16 or int8; int8 experts come with the int8 tree's
+// scale per (expert, input row), w_scale (E, K), which multiplies each
+// weight as the ws tile is staged (the w8a16 form of
+// src/repro_torch/csrc/quant_matmul.cu, for the expert stack).
 //
 // What bounds it on the card: bytes at decode, operations at prefill. A
 // decode sweep has a few rows per expert, so each expert's (K, N) weights
@@ -41,8 +45,8 @@ constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
     gmm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-               const int* __restrict__ tile_expert, const int* __restrict__ tile_rows,
-               TX* __restrict__ out, int K, int N) {
+               const float* __restrict__ w_scale, const int* __restrict__ tile_expert,
+               const int* __restrict__ tile_rows, TX* __restrict__ out, int K, int N) {
   const int tile = blockIdx.y;
   const int rows = tile_rows[tile];
   if (rows <= 0) return;  // padding tile
@@ -72,9 +76,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     for (int i = tid; i < kBlockK * kBlockN; i += kThreads) {
       const int kk = i / kBlockN, nn = i % kBlockN;
-      ws[kk][nn] = (k0 + kk < K && n0 + nn < N)
-                       ? to_f32(we[static_cast<size_t>(k0 + kk) * N + n0 + nn])
-                       : 0.f;
+      float v = (k0 + kk < K && n0 + nn < N)
+                    ? to_f32(we[static_cast<size_t>(k0 + kk) * N + n0 + nn])
+                    : 0.f;
+      if constexpr (std::is_same_v<TW, int8_t>) {
+        if (k0 + kk < K) v *= w_scale[static_cast<size_t>(e) * K + k0 + kk];
+      }
+      ws[kk][nn] = v;
     }
     __syncthreads();
     if (active) {
@@ -112,23 +120,26 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int gmm_block_m() { return kBlockM; }
 
 // Returns the CUDA error of the launch (0 on success), -1 for an unsupported
-// dtype. Layouts: x (n_tiles * kBlockM, K); w (E, K, N); tile_expert,
+// dtype. Layouts: x (n_tiles * kBlockM, K); w (E, K, N) fp32, bf16 or int8
+// (w_dtype kInt8, then w_scale (E, K) fp32; null otherwise); tile_expert,
 // tile_rows (n_tiles,) int32; out (n_tiles * kBlockM, N), written only at
 // each tile's first tile_rows rows; all contiguous.
-extern "C" int gmm_launch(const void* x, const void* w, const void* tile_expert,
-                          const void* tile_rows, void* out, int n_tiles, int K, int N,
-                          int x_dtype, int w_dtype, void* stream) {
+extern "C" int gmm_launch(const void* x, const void* w, const void* w_scale,
+                          const void* tile_expert, const void* tile_rows, void* out,
+                          int n_tiles, int K, int N, int x_dtype, int w_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return dispatch_dtype(x_dtype, [&](auto tx) {
     using TX = std::remove_pointer_t<decltype(tx)>;
-    return dispatch_dtype(w_dtype, [&](auto tw) {
+    auto launch = [&](auto tw) {
       using TW = std::remove_pointer_t<decltype(tw)>;
       const dim3 grid((N + kBlockN - 1) / kBlockN, n_tiles);
       gmm_kernel<TX, TW><<<grid, kThreads, 0, s>>>(
           static_cast<const TX*>(x), static_cast<const TW*>(w),
-          static_cast<const int*>(tile_expert), static_cast<const int*>(tile_rows),
-          static_cast<TX*>(out), K, N);
+          static_cast<const float*>(w_scale), static_cast<const int*>(tile_expert),
+          static_cast<const int*>(tile_rows), static_cast<TX*>(out), K, N);
       return static_cast<int>(cudaGetLastError());
-    });
+    };
+    if (w_dtype == kInt8) return launch(static_cast<int8_t*>(nullptr));
+    return dispatch_dtype(w_dtype, launch);
   });
 }

@@ -2,9 +2,12 @@
 CUDA tensors, the plain version for CPU tensors (no fallback between them).
 
 ``gmm(x, w, group_sizes)`` computes ``out[m] = x[m] @ w[expert_of(m)]`` for
-rows sorted by expert. The kernel reads the rows from a tile-aligned padded
-buffer (each expert starts on a ``block_m`` boundary; static worst case
-Mp = M + E*block_m, rounded to whole tiles). ``GroupedRows`` builds that
+rows sorted by expert; ``w`` is an (E, K, N) tensor or a ``QuantizedLinear``
+of the int8 tree (q (E, K, N) int8, scale (E, K, 1) per expert and input
+row), which the kernel dequantizes as it stages each weight tile. The
+kernel reads the rows from a tile-aligned padded buffer (each expert starts
+on a ``block_m`` boundary; static worst case Mp = M + E*block_m, rounded to
+whole tiles). ``GroupedRows`` builds that
 layout once, so a caller with several matmuls over the same rows (the MoE
 layer's three) scatters into it once and gathers out of it once.
 """
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch.kernels.moe_gmm.kernel import BLOCK_M, gmm_tiles_cuda
 from repro_torch.kernels.moe_gmm.ref import expert_of_rows, gmm_reference
+from repro_torch.quant.quantize import QuantizedLinear
 
 
 def tile_layout(group_sizes, M: int, block_m: int):
@@ -63,6 +67,9 @@ class GroupedRows:
     def matmul(self, xb, w):
         if not self.cuda:
             return gmm_reference(xb, w, self.group_sizes)
+        if isinstance(w, QuantizedLinear):
+            return gmm_tiles_cuda(xb, w.q, self.tile_expert, self.tile_rows,
+                                  w_scale=w.scale.reshape(w.q.shape[:2]))
         return gmm_tiles_cuda(xb, w, self.tile_expert, self.tile_rows)
 
     def unpack(self, yb):

@@ -34,22 +34,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import chunked_prefill_attention, paged_attention
-from repro_torch.models.common import RunCtx, rope
+from repro_torch.models.common import RunCtx, dequant, linear, rope
 
 
 def _project_qkv(p, h, cfg: ModelConfig):
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", h, p["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", h, p["wv"])
+    q = linear(h, p["wq"])
+    k = linear(h, p["wk"])
+    v = linear(h, p["wv"])
     if "bq" in p:
-        q = q + p["bq"][None, None]
-        k = k + p["bk"][None, None]
-        v = v + p["bv"][None, None]
+        q = q + dequant(p["bq"], h.dtype)[None, None]
+        k = k + dequant(p["bk"], h.dtype)[None, None]
+        v = v + dequant(p["bv"], h.dtype)[None, None]
     return q, k, v
 
 
 def _out_proj(p, o):
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return linear(o, p["wo"], n_in=2)
 
 
 def _decode_dense_attn(q, cache, positions, *, window: int, softcap: float, scale: float):

@@ -1,5 +1,8 @@
 """Shared model-runtime context (``RunCtx`` with its attention mode), device
-resolution and small layer primitives."""
+resolution and small layer primitives, among them the two helpers through
+which every layer reads its weights, plain or int8 (``QuantizedLinear``
+leaves of ``quant.quantize_params_int8``): ``linear`` for a projection and
+``dequant`` for a leaf read outside a matmul."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -7,6 +10,9 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.quant_matmul import w8a16_matmul
+from repro_torch.quant.quantize import QuantizedLinear, dequant
 
 
 @dataclass(frozen=True)
@@ -43,8 +49,23 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+def linear(x, w, n_in: int = 1):
+    """x (..., *w.shape[:n_in]) contracted with w's first ``n_in`` dims ->
+    (..., *w.shape[n_in:]). A plain tensor is an einsum over those dims; a
+    ``QuantizedLinear`` goes to the w8a16 matmul on its int8 values, flattened
+    to (K, N), with the leaf's scale over its last axis as the row scale
+    (K, G): G = 1 for a (K, N) projection, G = heads for (d, H, hd)."""
+    if not isinstance(w, QuantizedLinear):
+        return torch.tensordot(x, w, dims=n_in)
+    in_shape, out_shape = w.q.shape[:n_in], w.q.shape[n_in:]
+    K, N = in_shape.numel(), out_shape.numel()
+    y = w8a16_matmul(x.reshape(-1, K), w.q.reshape(K, N), row_scale=w.scale.reshape(K, -1))
+    return y.reshape(*x.shape[:x.dim() - n_in], *out_shape)
+
+
 def rmsnorm(x, w, eps: float = 1e-6):
     dt = x.dtype
+    w = dequant(w, dt)
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * w.float()).to(dt)
@@ -74,6 +95,6 @@ def act_fn(name: str):
 
 def dense_mlp(p, x, act_name: str):
     act = act_fn(act_name)
-    h = torch.einsum("bsd,df->bsf", x, p["wi"])
-    g = torch.einsum("bsd,df->bsf", x, p["wg"])
-    return torch.einsum("bsf,fd->bsd", act(g) * h, p["wo"])
+    h = linear(x, p["wi"])
+    g = linear(x, p["wg"])
+    return linear(act(g) * h, p["wo"])

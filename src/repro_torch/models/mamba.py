@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked
-from repro_torch.models.common import RunCtx, rmsnorm
+from repro_torch.models.common import RunCtx, dequant, linear, rmsnorm
 
 
 def _split_proj(zxbcdt, cfg: ModelConfig):
@@ -107,8 +107,10 @@ def mamba_sublayer(
     ssm = cfg.ssm
     d_in, K = cfg.d_inner, ssm.d_conv
     B, S, _ = h.shape
+    # every leaf but the two projections is read outside a matmul
+    p = {k: v if k.endswith("_proj") else dequant(v, h.dtype) for k, v in p.items()}
 
-    zxbcdt = torch.einsum("bsd,dk->bsk", h, p["in_proj"])
+    zxbcdt = linear(h, p["in_proj"])
     z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
     A = -torch.exp(p["A_log"].float())                    # (H,)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
@@ -164,4 +166,4 @@ def mamba_sublayer(
 
     # gated RMSNorm + out projection
     y = rmsnorm((y * F.silu(z.float())).to(h.dtype), p["norm"], cfg.rms_eps)
-    return torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    return linear(y, p["out_proj"])

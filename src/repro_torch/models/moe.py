@@ -1,6 +1,7 @@
 """Mixture-of-Experts layer, dropless strategy (the serving engine's path):
 exact token-choice routing, rows sorted by expert, three grouped matmuls
-(the hand-written CUDA kernel on the card), weighted scatter-add combine.
+(the hand-written CUDA kernel on the card, on int8 experts too), weighted
+scatter-add combine.
 
 The reference's capacity and shard_map strategies come with the training
 and distribution slices.
@@ -14,12 +15,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm import GroupedRows
-from repro_torch.models.common import RunCtx, act_fn
+from repro_torch.models.common import RunCtx, act_fn, dequant, linear
 
 
 def router_topk(xf, router_w, k: int):
     """xf (T, d) -> (topw (T,k) f32, topi (T,k) int64, aux scalar)."""
-    logits = xf.float() @ router_w.float()
+    logits = xf.float() @ dequant(router_w, xf.dtype).float()
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1)
     topw = topw / torch.clamp(topw.sum(dim=-1, keepdim=True), min=1e-9)
@@ -31,9 +32,9 @@ def router_topk(xf, router_w, k: int):
 
 
 def _shared_ffn(p_shared, xf, act_name):
-    h = xf @ p_shared["wi"]
-    g = xf @ p_shared["wg"]
-    return (act_fn(act_name)(g) * h) @ p_shared["wo"]
+    h = linear(xf, p_shared["wi"])
+    g = linear(xf, p_shared["wg"])
+    return linear(act_fn(act_name)(g) * h, p_shared["wo"])
 
 
 def moe_dropless(p, xf, cfg: ModelConfig, ctx: RunCtx):

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import resolve_device
+from repro_torch.quant.quantize import QuantizedLinear, quantizable, quantize_leaf
 
 
 @dataclass(frozen=True)
@@ -130,30 +131,44 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return specs
 
 
-def map_tree(fn, tree):
+def map_tree(fn, tree, is_leaf=None):
     """Apply ``fn`` to every leaf of a dict/list tree of parameters or
-    caches, in JAX pytree order (dict keys sorted, lists in order)."""
+    caches, in JAX pytree order (dict keys sorted, lists in order). A
+    ``QuantizedLinear`` is a node of two leaves (``q``, ``scale``), as a
+    NamedTuple is in JAX, unless ``is_leaf`` takes it whole."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: map_tree(fn, tree[k]) for k in sorted(tree)}
+        return {k: map_tree(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, QuantizedLinear):
+        return QuantizedLinear(*(map_tree(fn, v, is_leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tree(fn, v) for v in tree)
+        return type(tree)(map_tree(fn, v, is_leaf) for v in tree)
     return fn(tree)
 
 
 # --------------------------------------------------------------------------
-def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device,
-               dtype: torch.dtype) -> torch.Tensor:
+def _init_slices(spec: ParamSpec, gen: torch.Generator, device: torch.device,
+                 dtype: torch.dtype):
+    """Yields (r, values in ``dtype``): one repeat r of a stacked (>= 3-D)
+    normal leaf at a time, drawn in float32, so a full-width expert stack
+    never needs a float32 copy of the whole leaf; any other leaf whole,
+    with r None."""
     shape = spec.shape
     if spec.init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=device)
+        yield None, torch.zeros(shape, dtype=dtype, device=device)
+        return
     if spec.init == "ones":
-        return torch.ones(shape, dtype=dtype, device=device)
+        yield None, torch.ones(shape, dtype=dtype, device=device)
+        return
     if spec.init in ("a_log", "dt_bias"):
         u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
         if spec.init == "a_log":                   # mamba2: A ~ uniform[1, 16], stored as log
-            return torch.log(1.0 + 15.0 * u).to(dtype)
+            yield None, torch.log(1.0 + 15.0 * u).to(dtype)
+            return
         dt = 1e-3 + (1e-1 - 1e-3) * u              # inverse softplus of dt ~ uniform[1e-3, 1e-1]
-        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+        yield None, (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+        return
     if spec.init == "normal02":
         std = 0.02
     else:
@@ -162,12 +177,45 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device,
         if len(shape) == 4:            # (R, in, h, hd) or (R, E, in, out)
             fan_in = shape[1] if spec.logical[1] == "embed" else shape[2]
         std = 1.0 / math.sqrt(max(fan_in, 1))
-    out = torch.empty(shape, dtype=dtype, device=device)
-    # draw a stacked leaf one repeat at a time in float32, so a full-width
-    # expert stack never needs a float32 copy of the whole leaf
-    for dst in (out.unbind(0) if len(shape) >= 3 else (out,)):
-        tmp = torch.randn(dst.shape, generator=gen, dtype=torch.float32, device=device)
-        dst.copy_(tmp.mul_(std))
+    if len(shape) < 3:
+        yield None, torch.randn(shape, generator=gen, dtype=torch.float32,
+                                device=device).mul_(std).to(dtype)
+        return
+    for r in range(shape[0]):
+        tmp = torch.randn(shape[1:], generator=gen, dtype=torch.float32, device=device)
+        yield r, tmp.mul_(std).to(dtype)
+
+
+def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    out = None
+    for r, part in _init_slices(spec, gen, device, dtype):
+        if r is None:
+            return part
+        if out is None:
+            out = torch.empty(spec.shape, dtype=dtype, device=device)
+        out[r].copy_(part)
+    return out
+
+
+def _init_leaf_int8(spec: ParamSpec, gen: torch.Generator, device: torch.device,
+                    dtype: torch.dtype):
+    """``quantize_leaf`` of ``_init_leaf``'s tensor when the reference's
+    predicate takes the leaf, quantized one repeat at a time; the float
+    leaf otherwise."""
+    if not quantizable(spec.shape, dtype):
+        return _init_leaf(spec, gen, device, dtype)
+    out = None
+    for r, part in _init_slices(spec, gen, device, dtype):
+        if r is None:
+            return quantize_leaf(part)
+        if out is None:
+            out = QuantizedLinear(
+                q=torch.empty(spec.shape, dtype=torch.int8, device=device),
+                scale=torch.empty((*spec.shape[:-1], 1), dtype=torch.float32, device=device))
+        qr = quantize_leaf(part)
+        out.q[r].copy_(qr.q)
+        out.scale[r].copy_(qr.scale)
     return out
 
 
@@ -187,19 +235,47 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return map_tree(lambda s: _init_leaf(s, gen, dev, dtype), param_specs(cfg))
 
 
+def init_params_int8(cfg: ModelConfig, seed: int = 0, *,
+                     device: Optional[Union[str, torch.device]] = None,
+                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """``quantize_params_int8(init_params(cfg, seed, device=device,
+    dtype=dtype))``, leaf for leaf and bit for bit (the same generator
+    stream, each repeat rounded to ``dtype`` before it is quantized), while
+    never holding more than one repeat of a leaf in float: the full-depth
+    mixtral-8x7b is ~93 GB in bf16 and ~47 GB in int8, so only this way
+    does it fit on one 80 GB card."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return map_tree(lambda s: _init_leaf_int8(s, gen, dev, dtype), param_specs(cfg))
+
+
+def _is_quantized(a) -> bool:
+    """A quantized leaf of either package (duck typed: the JAX package's
+    ``QuantizedLinear`` cannot be imported here)."""
+    return hasattr(a, "q") and hasattr(a, "scale")
+
+
 def params_from_numpy(tree, device: Optional[Union[str, torch.device]] = None,
                       dtype: Optional[torch.dtype] = None):
     """The weight bridge: a parameter tree with array leaves (``np.asarray``
     of each JAX leaf, or the JAX arrays themselves) -> the same tree of
-    tensors on ``device``, cast to ``dtype`` when given. Leaves are copied,
-    because ``np.asarray`` of a JAX array is read-only and
-    ``torch.from_numpy`` needs a writable buffer."""
+    tensors on ``device``, cast to ``dtype`` when given. A quantized leaf
+    (``q`` / ``scale``, as ``quantize_params_int8`` of either package makes
+    it) becomes a ``QuantizedLinear`` whose ``q`` stays int8 and ``scale``
+    fp32. Leaves are copied, because ``np.asarray`` of a JAX array is
+    read-only and ``torch.from_numpy`` needs a writable buffer."""
     dev = resolve_device(device)
 
-    def leaf(a):
+    def tensor(a, dt):
         t = torch.from_numpy(np.array(a, copy=True))
-        return t.to(device=dev, dtype=dtype or t.dtype)
-    return map_tree(leaf, tree)
+        return t.to(device=dev, dtype=dt or t.dtype)
+
+    def leaf(a):
+        if _is_quantized(a):
+            return QuantizedLinear(q=tensor(a.q, torch.int8), scale=tensor(a.scale, torch.float32))
+        return tensor(a, dtype)
+    return map_tree(leaf, tree, is_leaf=_is_quantized)
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:

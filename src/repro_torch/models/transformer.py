@@ -5,9 +5,14 @@ the paged KV pool and the slot-pooled SSM state.
 
 Repeated layers keep their parameters stacked on a leading repeat axis, as
 in the reference, and run as a plain Python loop over repeats and pattern
-positions (the reference scans). Caches are updated in place: ``prefill``,
-``decode_step`` and ``decode_chunk`` return the cache they were given. The
-enc-dec and VLM families and the training ``loss`` come with later slices.
+positions (the reference scans). The parameter tree may be the int8 one of
+``quant.quantize_params_int8`` / ``params.init_params_int8``: each layer
+reads its leaves through ``linear`` and ``dequant``, so the model computes
+what it computes on ``dequantize_tree`` of that tree, with the large
+matmuls on int8 weights in the w8a16 and grouped matmul kernels. Caches
+are updated in place: ``prefill``, ``decode_step`` and ``decode_chunk``
+return the cache they were given. The enc-dec and VLM families and the
+training ``loss`` come with later slices.
 """
 from __future__ import annotations
 
@@ -16,9 +21,11 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.quant_matmul import w8a16_matmul
 from repro_torch.models import params as params_lib
 from repro_torch.models.attention import attention_sublayer
-from repro_torch.models.common import RunCtx, dense_mlp, resolve_device, rmsnorm
+from repro_torch.models.common import (QuantizedLinear, RunCtx, dense_mlp, dequant, linear,
+                                       resolve_device, rmsnorm)
 from repro_torch.models.mamba import mamba_sublayer
 from repro_torch.models.moe import moe_sublayer
 
@@ -77,16 +84,33 @@ class LM:
 
     # ------------------------------------------------------------------ embed
     def _embed(self, params, tokens):
+        """Rows of the embedding table. An int8 table's rows are gathered,
+        then dequantized to the model's dtype: that of the final norm, a 1-D
+        leaf that quantization never takes."""
         cfg = self.cfg
-        x = params["embed"]["w"][tokens.long()]
+        w, tok = params["embed"]["w"], tokens.long()
+        if isinstance(w, QuantizedLinear):
+            x = dequant(QuantizedLinear(w.q[tok], w.scale[tok]), params["final_norm"]["w"].dtype)
+        else:
+            x = w[tok]
         if cfg.scale_embedding:
             x = x * (cfg.d_model ** 0.5)
         return x
 
     def _head(self, params, x):
+        """Logits from an lm_head (K, V) or the tied embedding (V, K). On
+        int8 leaves the w8a16 matmul computes them: with lm_head's scale
+        per input row, or with the embedding's per-row scale as the scale
+        per output column of its transpose (read through its strides)."""
         cfg = self.cfg
-        w = params["embed"]["w"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-        logits = x @ w.to(x.dtype)
+        w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
+        if not isinstance(w, QuantizedLinear):
+            logits = x @ (w.T if cfg.tie_embeddings else w).to(x.dtype)
+        elif cfg.tie_embeddings:
+            logits = w8a16_matmul(x.reshape(-1, x.shape[-1]), w.q.T, w.scale[:, 0])
+            logits = logits.reshape(*x.shape[:-1], -1)
+        else:
+            logits = linear(x, w)
         if cfg.logit_softcap > 0:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits

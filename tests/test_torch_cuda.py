@@ -19,9 +19,12 @@ from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                  chunked_prefill_reference, paged_attention,
                                                  paged_attention_cuda,
                                                  paged_attention_reference)
+from repro_torch.kernels.quant_matmul import (w8a16_matmul, w8a16_matmul_cuda,
+                                              w8a16_matmul_reference)
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_reference, ssd_scan, ssd_scan_cuda
 from repro_torch.models import RunCtx, build_model
 from repro_torch.models.params import map_tree
+from repro_torch.quant import quantize_leaf, quantize_params_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -382,5 +385,158 @@ def test_ssm_engine_on_card_matches_cpu(cuda, name):
         eng.allocator.check_invariants()
         assert eng.scheduler.n_preemptions > 0
         assert (ssd_scan_cuda.launches - n0 > 0) == (dev == "cuda")
+        outs.append([q.generated for q in reqs])
+    assert outs[0] == outs[1]
+
+
+# w8a16: the CPU tests' shapes with the per-output-channel scale (the TPU
+# kernel's function), ragged M / N / K edges with the int8 tree's row scale
+# per input row (G = 1) or per (input row, head) (G = heads), both scales,
+# no scale, and the transposed-stride weight of the tied head
+W8A16_CASES = [
+    # M, K, N, col_scale, row-scale groups (0: none), transposed weight
+    (16, 64, 32, True, 0, False),
+    (32, 128, 64, True, 0, False),
+    (8, 32, 16, True, 0, False),
+    (5, 100, 130, False, 1, False),
+    (70, 96, 128, False, 4, False),
+    (3, 256, 4096, False, 32, False),
+    (67, 40, 72, True, 2, False),
+    (9, 33, 50, False, 0, False),
+    (4, 160, 300, True, 0, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", W8A16_CASES)
+def test_w8a16_kernel_matches_plain(cuda, dtype, case):
+    M, K, N, with_col, G, transposed = case
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
+    q = torch.from_numpy(rng.integers(-127, 128, (N, K) if transposed else (K, N))
+                         .astype(np.int8)).to(cuda)
+    if transposed:
+        q = q.T                                    # strides (1, K), as embed.q.T
+    col = (torch.from_numpy(rng.uniform(0.001, 0.02, N).astype(np.float32)).to(cuda)
+           if with_col else None)
+    row = (torch.from_numpy(rng.uniform(0.001, 0.02, (K, G)).astype(np.float32)).to(cuda)
+           if G else None)
+    if not (with_col or G):
+        x = x / 64                                 # keep the outputs of size ~1
+    n0 = w8a16_matmul_cuda.launches
+    out = w8a16_matmul(x, q, col, row_scale=row)
+    torch.cuda.synchronize()
+    assert w8a16_matmul_cuda.launches == n0 + 1 and out.dtype == dtype
+    plain = w8a16_matmul_reference(x, q, col, row)
+    # tests/test_kernels_quant.py's 1e-3 in fp32 (reduction order only);
+    # bf16 as tests/test_kernels_gmm.py: one rounding of outputs of size ~1
+    tol = 1e-3 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+
+
+def test_w8a16_cuda_tensor_goes_to_kernel_or_raises(cuda):
+    """Operands the kernel cannot take raise; none falls back to the plain
+    version."""
+    x = torch.randn((4, 64), device=cuda)
+    q = torch.randint(-127, 128, (64, 96), dtype=torch.int8, device=cuda)
+    n0 = w8a16_matmul_cuda.launches
+    with pytest.raises(ValueError, match="int8"):
+        w8a16_matmul(x, q.float())
+    with pytest.raises(ValueError, match="G dividing"):
+        w8a16_matmul(x, q, row_scale=torch.ones((64, 5), device=cuda))
+    with pytest.raises(ValueError, match="dtype"):
+        w8a16_matmul(x.half(), q)
+    assert w8a16_matmul_cuda.launches == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,K,N", [([8, 8, 8, 8], 16, 24), ([0, 70, 0, 1], 40, 72),
+                                       ([1, 1, 1, 1, 129], 64, 130)])
+def test_gmm_int8_kernel_matches_plain(cuda, dtype, sizes, K, N):
+    """int8 experts with their scale per (expert, input row) through the
+    grouped matmul, against the plain version on the same QuantizedLinear."""
+    rng = np.random.default_rng(len(sizes) + K)
+    gs = torch.tensor(sizes, device=cuda)
+    M, E = int(gs.sum()), len(sizes)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
+    w = quantize_leaf(torch.from_numpy(rng.standard_normal((E, K, N)).astype(np.float32))
+                      .to(cuda))
+    n0 = gmm_tiles_cuda.launches
+    out = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert gmm_tiles_cuda.launches == n0 + 1 and out.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), gmm_reference(x, w, gs).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "gemma2-27b", "mamba2-1.3b"])
+def test_int8_paths_on_card_match_cpu(cuda, name):
+    """The int8 tree of a tiny model widened to d_model 256 (every
+    projection quantized; gemma2's tied head and mamba2's tied head read the
+    int8 embedding transposed): forward, prefill + decode_step and a
+    decode_chunk pack then a decode sweep, on the card (w8a16 and int8
+    gmm kernels) against the CPU, fp32."""
+    model = build_model(tiny_config(name).scaled(d_model=256))
+    params = quantize_params_int8(model.init_params(0, device="cpu"))
+    B, S, gen, ps = 2, 20, 3, 4
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (B, S + gen))
+                            .astype(np.int32))
+    maxp = (S + gen + ps - 1) // ps
+    pt = torch.arange(B * maxp, dtype=torch.int32).reshape(B, maxp) + 1
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else map_tree(lambda t: t.to(cuda), params)
+        t = toks.to(dev)
+        n0 = w8a16_matmul_cuda.launches
+        full, _ = model.forward(p, {"tokens": t}, RunCtx())
+        dense = model.init_cache(B, S + gen, device=dev)
+        lg, dense = model.prefill(p, {"tokens": t[:, :S]}, dense, RunCtx())
+        outs = [full, lg]
+        for i in range(gen):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            ld, dense = model.decode_step(p, t[:, S + i:S + i + 1], dense, pos, RunCtx())
+            outs.append(ld)
+        paged = model.init_cache(B, S + gen, kind="paged", page_size=ps,
+                                 num_pages=B * maxp + 1, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        nv = torch.tensor([S, S - 7], **i32)
+        lc, paged = model.decode_chunk(p, t[:, :S], paged, torch.zeros(B, **i32), nv,
+                                       torch.arange(B, **i32),
+                                       torch.ones(B, dtype=torch.bool, device=dev), RunCtx(),
+                                       pt.to(dev))
+        nxt = t[torch.arange(B, device=dev), nv.long()][:, None]
+        ls, paged = model.decode_chunk(p, nxt, paged, nv, torch.ones(B, **i32),
+                                       torch.arange(B, **i32),
+                                       torch.zeros(B, dtype=torch.bool, device=dev), RunCtx(),
+                                       pt.to(dev))
+        outs += [lc, ls]
+        assert (w8a16_matmul_cuda.launches - n0 > 0) == (dev == "cuda")
+        logits[dev] = [o.float().cpu() for o in outs]
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        torch.testing.assert_close(b, a, atol=2e-3, rtol=0)
+
+
+def test_int8_engine_on_card_matches_cpu(cuda):
+    """The engine on the int8 tiny mixtral (d_model 256) runs the w8a16 and
+    int8 gmm kernels on the card and gives the CPU's greedy streams, through
+    preemption."""
+    model = build_model(tiny_config("mixtral-8x7b").scaled(d_model=256))
+    params = quantize_params_int8(model.init_params(0, device="cpu"))
+    r = np.random.default_rng(0)
+    prompts = [r.integers(1, 256, 10).astype(np.int32) for _ in range(5)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else map_tree(lambda t: t.to(cuda), params)
+        eng = InferenceEngine(model, p, EngineConfig(
+            max_slots=3, page_size=8, num_pages=10, max_seq=64, prefill_chunk=16,
+            greedy=True, device=dev))
+        reqs = [Request(req_id=f"q{i}", prompt_tokens=q, max_new_tokens=20)
+                for i, q in enumerate(prompts)]
+        w0, g0 = w8a16_matmul_cuda.launches, gmm_tiles_cuda.launches
+        eng.generate(reqs)
+        eng.allocator.check_invariants()
+        assert eng.scheduler.n_preemptions > 0
+        launched = (w8a16_matmul_cuda.launches - w0, gmm_tiles_cuda.launches - g0)
+        assert (min(launched) > 0) == (dev == "cuda"), launched
         outs.append([q.generated for q in reqs])
     assert outs[0] == outs[1]

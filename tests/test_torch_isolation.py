@@ -59,7 +59,9 @@ def test_module_list_is_complete():
               "repro_torch.configs.gemma2_27b", "repro_torch.configs.mamba2_1_3b",
               "repro_torch.configs.jamba_v0_1_52b", "repro_torch.models.mamba",
               "repro_torch.kernels.ssd_scan.kernel", "repro_torch.kernels.ssd_scan.ops",
-              "repro_torch.kernels.ssd_scan.ref"):
+              "repro_torch.kernels.ssd_scan.ref", "repro_torch.quant.quantize",
+              "repro_torch.kernels.quant_matmul.kernel", "repro_torch.kernels.quant_matmul.ops",
+              "repro_torch.kernels.quant_matmul.ref"):
         assert m in names
     for m in names:
         importlib.import_module(m)

@@ -1,7 +1,8 @@
 """Port's grouped expert matmul vs the JAX package: the plain version and
 ``ops.gmm`` against JAX ``gmm`` (Pallas, interpret mode) over ragged group
-sizes (empty groups, single-expert skew), a hypothesis sweep and bf16; the
-kernel's tile-aligned layout; and ``moe_dropless`` against the JAX layer on
+sizes (empty groups, single-expert skew), a hypothesis sweep, bf16 and
+int8 experts (against JAX ``gmm`` on the dequantized experts); the kernel's
+tile-aligned layout; and ``moe_dropless`` against the JAX layer on
 tiny mixtral. The CUDA kernel against the plain version is in
 test_torch_cuda.py."""
 import jax
@@ -18,11 +19,14 @@ from repro.kernels.moe_gmm import gmm as jax_gmm
 from repro.models import RunCtx as JaxRunCtx
 from repro.models import build_model as jax_build_model
 from repro.models.moe import moe_dropless as jax_moe_dropless
+from repro.quant import dequantize_tree as jax_dequantize_tree
+from repro.quant import quantize_params_int8 as jax_quantize_params_int8
 from repro_torch.configs import tiny_config
 from repro_torch.kernels.moe_gmm import GroupedRows, gmm, gmm_reference, tile_layout
 from repro_torch.models import RunCtx
 from repro_torch.models.moe import moe_dropless
 from repro_torch.models.params import params_from_numpy
+from repro_torch.quant import QuantizedLinear
 
 
 def _run(rng, group_sizes, K=16, N=24, block_m=8):
@@ -60,6 +64,26 @@ def test_gmm_bf16(rng):
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
                                atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("sizes", [[8, 8, 8, 8], [0, 70, 0, 1]])
+def test_gmm_int8_experts(rng, sizes):
+    """int8 experts with the int8 tree's scale per (expert, input row), as
+    JAX's quantize_params_int8 makes them: the port's gmm on the bridged
+    QuantizedLinear against JAX gmm (Pallas, interpret mode) on the
+    dequantized experts."""
+    gs = np.asarray(sizes, np.int32)
+    M, E, K, N = int(gs.sum()), len(gs), 64, 264          # E*K*N >= 1 << 14
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    jq = jax_quantize_params_int8({"w": jnp.asarray(rng.standard_normal((E, K, N)),
+                                                    jnp.float32)})
+    ref = jax_gmm(jnp.asarray(x), jax_dequantize_tree(jq, jnp.float32)["w"], jnp.asarray(gs),
+                  backend="pallas", interpret=True, block_m=8, block_n=8)
+    w = params_from_numpy(jax.tree.map(np.asarray, jq), device="cpu")["w"]
+    assert isinstance(w, QuantizedLinear) and w.scale.shape == (E, K, 1)
+    tg = torch.from_numpy(gs)
+    np.testing.assert_allclose(gmm(torch.from_numpy(x), w, tg).numpy(), np.asarray(ref),
+                               atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("sizes,block_m", [([0, 32, 0, 1], 8), ([3, 0, 70, 1], 64),
