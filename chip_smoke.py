@@ -15,7 +15,10 @@ exits non-zero and no phase's failure is caught.
      PyTorch call computes the SSD scan), beside the card's lower bound for
      the same work. The grouped matmul also on int8 experts; the w8a16
      matmul with the per-output-channel scale, the int8 tree's row scales
-     and a transposed weight, then at mixtral's wq and head shapes.
+     and a transposed weight at the edges of its three kernels, then at
+     mixtral's decode wq / wk / wo / head and prefill wq shapes, each row
+     with the kernel, split count and grid its plan chose, and every case
+     called twice for bit-equal results.
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
      the CPU (plain versions), on the same two sequences of 20 tokens: the
      engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, then
@@ -54,7 +57,8 @@ exits non-zero and no phase's failure is caught.
      does not fit on one card): phase 4's serving run (the w8a16, grouped
      matmul and chunked attention launch counters > 0; weights' GB, init
      seconds and peak memory printed), then phase 5's generation API on the
-     same weights.
+     same weights; where a generation stream leaves the engine's, both
+     paths' top-2 logits at the first diverging token (printed only).
   8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
@@ -496,16 +500,22 @@ def w8a16_bound(M, K, N, G, dtype):
 def run_w8a16(dev, flush, results):
     from repro_torch.kernels.quant_matmul import (w8a16_matmul, w8a16_matmul_cuda,
                                                   w8a16_matmul_reference)
+    from repro_torch.kernels.quant_matmul.kernel import plan_for
     from repro_torch.kernels.quant_matmul.ops import quantize_int8
     # small edge cases: the CPU tests' shapes with the per-output-channel
     # scale (the TPU kernel's own function); ragged M / N / K with the row
     # scale per input row and per head; the transposed-stride weight of a
-    # tied head with its col scale
+    # tied head with its col scale; the edges of the three kernels (the
+    # last streaming M and the first tensor-core one, k-major past 16 rows,
+    # ragged N and K on the tensor cores, 8 groups of 128 at N = 1024)
     tols = {torch.float32: 1e-3, torch.bfloat16: 5e-2}   # tests/test_kernels_quant.py / _gmm
     for dtype in (torch.float32, torch.bfloat16):
         for M, K, N, form in ((16, 64, 32, "col"), (32, 128, 64, "col"), (8, 32, 16, "col"),
                               (5, 100, 130, "rows"), (70, 96, 128, "heads"),
-                              (4, 160, 300, "transposed")):
+                              (4, 160, 300, "transposed"), (16, 256, 512, "heads"),
+                              (17, 256, 512, "heads"), (40, 160, 300, "transposed"),
+                              (100, 33, 50, "rows"), (4, 512, 1024, "heads8"),
+                              (80, 512, 1024, "heads8")):
             g = torch.Generator(device=dev).manual_seed(M + K + N)
             x = torch.randn((M, K), generator=g, device=dev).to(dtype)
             w = torch.randn((N, K) if form == "transposed" else (K, N), generator=g, device=dev)
@@ -515,29 +525,38 @@ def run_w8a16(dev, flush, results):
                 row = None
             else:
                 col = None
-                _, _, q, row = w8a16_case(dev, M=M, K=K, N=N, G=1 if form == "rows" else 4,
-                                          dtype=dtype, seed=M)
+                G = {"rows": 1, "heads": 4, "heads8": 8}[form]
+                _, _, q, row = w8a16_case(dev, M=M, K=K, N=N, G=G, dtype=dtype, seed=M)
             out = w8a16_matmul(x, q, col, row_scale=row)
             err = max_err(out, w8a16_matmul_reference(x, q, col, row))
             assert err <= tols[dtype] and out.dtype == dtype and torch.isfinite(out).all(), \
                 f"w8a16 edge case {M}x{K}x{N} {form} {dtype}: err {err} > {tols[dtype]}"
-            log(f"  w8a16 edge M={M} K={K} N={N} {form} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3g} (tol {tols[dtype]})")
-    # full-width mixtral shapes: wq at decode (4 rows, row scale per head of
-    # 128), the head at decode (lm_head (4096, 32000), row scale per input
-    # row) and wq over a prefill pack of 256 rows
-    for name, M, N, G in (("decode wq", 4, 4096, 32), ("decode head", 4, 32000, 1),
+            assert torch.equal(out, w8a16_matmul(x, q, col, row_scale=row)), \
+                f"w8a16 edge case {M}x{K}x{N} {form} {dtype}: a repeat gave other bits"
+            log(f"  w8a16 edge M={M} K={K} N={N} {form} {str(dtype)[6:]} "
+                f"({plan_for(x, q).path}): max_abs_err={err:.3g} (tol {tols[dtype]})")
+    # full-width mixtral shapes: at decode (4 rows) wq (row scale per head of
+    # 128), wk / wv (8 heads of 128), wo (one scale per input row) and the
+    # head (lm_head (4096, 32000), one per row); wq over a prefill pack of
+    # 256 rows
+    for name, M, N, G in (("decode wq", 4, 4096, 32), ("decode wk", 4, 1024, 8),
+                          ("decode wo", 4, 4096, 1), ("decode head", 4, 32000, 1),
                           ("prefill wq", 256, 4096, 32)):
         K = 4096
         for dtype in (torch.float32, torch.bfloat16):
             x, w, q, row = w8a16_case(dev, M=M, K=K, N=N, G=G, dtype=dtype, seed=M + N)
+            plan = plan_for(x, q)
             out = w8a16_matmul(x, q, row_scale=row)
             err = max_err(out, w8a16_matmul_reference(x, q, None, row))
             # fp32: reduction order over K; bf16: the kernel and the plain
-            # version round fp32 sums taken in different orders, so an
-            # output may land one bf16 step away: 2^-5 for |o| < 8
+            # version round fp32 sums taken in different orders (and the
+            # tensor-core path takes q * row_scale as two bf16 parts, within
+            # 2^-14), so an output may land one bf16 step away: 2^-5 for
+            # |o| < 8
             tol = 1e-3 if dtype == torch.float32 else 2 ** -5
             assert err <= tol, f"w8a16 {name} {dtype}: err {err} > {tol}"
+            assert torch.equal(out, w8a16_matmul(x, q, row_scale=row)), \
+                f"w8a16 {name} {dtype}: a repeat gave other bits"
             ms = cuda_ms(lambda: w8a16_matmul_cuda(x, q, None, row), flush=flush)
             op_ms = cuda_ms(lambda: w8a16_matmul(x, q, row_scale=row), flush=flush,
                             queued=False)
@@ -546,13 +565,15 @@ def run_w8a16(dev, flush, results):
             bms, by = w8a16_bound(M, K, N, G, dtype)
             row_ = dict(kernel="w8a16_matmul", case=name, dtype=str(dtype)[6:],
                         shape=f"x({M},{K}) q({K},{N}) int8 row_scale({K},{G})",
+                        path=plan.path, splits=plan.splits, grid=list(plan.grid),
                         max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                         library_ms=library_ms, bound_ms=bms, bound_by=by)
             results.append(row_)
-            log(f"  w8a16 {name} {row_['dtype']} {row_['shape']}: kernel_ms={ms:.4f} "
+            log(f"  w8a16 {name} {row_['dtype']} {row_['shape']} path={plan.path} "
+                f"splits={plan.splits} grid={plan.grid}: kernel_ms={ms:.4f} "
                 f"op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
                 f"(torch.matmul on the {str(dtype)[6:]} weights) bound_ms={bms:.6f} ({by}) "
-                f"max_abs_err={err:.3g}")
+                f"max_abs_err={err:.3g}, repeat bit-equal")
             del x, w, q, row, out
             torch.cuda.empty_cache()
 
@@ -913,12 +934,24 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
     reqs = [Request(req_id=f"r{i}", prompt_tokens=p, max_new_tokens=32)
             for i, p in enumerate(prompts(rng))]
     eng.step_records.clear()
+    # the engine's logits rows stay on the device, by reference, for the
+    # streams' comparison with the generation API (no copy, no sync)
+    records, chunk_call = [], model.decode_chunk
+
+    def recorded(*args):
+        out = chunk_call(*args)
+        records.append((args[3], args[4], out[0]))          # starts, nvalid, logits
+        return out
+
+    model.decode_chunk = recorded
     for fn in (chunked_prefill_cuda, gmm_tiles_cuda, w8a16_matmul_cuda):
         fn.launches = 0
+    w8a16_matmul_cuda.launches_by_path = dict.fromkeys(w8a16_matmul_cuda.launches_by_path, 0)
     t0 = time.perf_counter()
     eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del model.decode_chunk
     launches = {"chunked_prefill_attention": chunked_prefill_cuda.launches,
                 "moe_gmm": gmm_tiles_cuda.launches, "w8a16_matmul": w8a16_matmul_cuda.launches}
     assert all(r.finished and len(r.generated) == 32 for r in reqs), "a request did not finish"
@@ -947,20 +980,35 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
         f"{serve['decode_step_ms_mean']:.3f} ms, prefill step "
         f"{serve['prefill_step_ms_mean']:.3f} ms, peak device memory "
         f"{serve['peak_mem_gb']:.2f} GB ({depth_note(cfg)})")
-    log(f"  launches on the serving run: {launches}")
+    log(f"  launches on the serving run: {launches}"
+        + (f", w8a16 by path {w8a16_matmul_cuda.launches_by_path}" if int8 else ""))
+    if int8:
+        serve["w8a16_launches_by_path"] = dict(w8a16_matmul_cuda.launches_by_path)
+    # logits row of request b's token t: the call whose row ends at its
+    # prompt length + t (the prompts' ranges do not overlap)
+    lens = [len(r.prompt_tokens) for r in reqs]
+    eng_logits = {}
+    for st, nv, lg in records:
+        for i, (s0, n) in enumerate(zip(st.tolist(), nv.tolist())):
+            for b, L in enumerate(lens):
+                if n > 0 and L <= s0 + n < L + 32:
+                    eng_logits[(b, s0 + n - L)] = lg[i]
+    del records
     if profile:
         preqs = [Request(req_id=f"p{i}", prompt_tokens=p, max_new_tokens=profile_tokens)
                  for i, p in enumerate(prompts(rng))]
         serve["profile"] = profile_window(lambda: eng.generate(preqs),
                                           f"4 requests x {profile_tokens} tokens")
     streams = [(r.prompt_tokens, list(r.generated)) for r in reqs]
-    return serve, launches, streams
+    return serve, launches, streams, eng_logits
 
 
-def run_generation(dev, model, params, streams, profile: bool):
+def run_generation(dev, model, params, streams, profile: bool, eng_logits=None):
     """Phases 5 and 7: LM.prefill of the serving run's prompts (right-padded,
     flash attention), then GEN_STEPS greedy decode_steps over the paged pool
-    (paged decode kernel), on the serving run's weights."""
+    (paged decode kernel), on the serving run's weights. With the engine's
+    logits rows, where a greedy stream leaves the engine's, the first
+    diverging token's top-2 logits on both paths."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -984,9 +1032,10 @@ def run_generation(dev, model, params, streams, profile: bool):
         dense = model.init_cache(B, maxp * ps, torch.bfloat16, device=dev)
         paged = model.init_cache(B, maxp * ps, torch.bfloat16, kind="paged", page_size=ps,
                                  num_pages=B * maxp + 1, device=dev)
-        out, times = [], []
+        out, times, logits = [], [], []
         t0 = time.perf_counter()
         lg, dense = model.prefill(params, {"tokens": tokens}, dense, ctx, last_pos=last)
+        logits.append(lg)
         nxt = lg.argmax(-1)
         fill_pool_from_ring(paged, dense, pt, ps)
         del dense
@@ -997,18 +1046,19 @@ def run_generation(dev, model, params, streams, profile: bool):
             t0 = time.perf_counter()
             lg, paged = model.decode_step(params, nxt[:, None].to(torch.int32), paged, pos, ctx,
                                           page_table=pt, lengths=pos + 1)
+            logits.append(lg)
             nxt = lg.argmax(-1)
             out.append(nxt.cpu())             # reads the token back, as a server must
             times.append(time.perf_counter() - t0)
             pos = pos + 1
-        return torch.stack(out, 1), times
+        return torch.stack(out, 1), times, logits
 
     with torch.inference_mode():
         generate(2)                           # warm-up: allocator pools, cuBLAS handles
         torch.cuda.synchronize()
         for fn in counted:
             fn.launches = 0
-        gen, times = generate(GEN_STEPS)
+        gen, times, gen_logits = generate(GEN_STEPS)
         torch.cuda.synchronize()
         launches = {"flash_attention": flash_attention_cuda.launches,
                     "paged_attention": paged_attention_cuda.launches,
@@ -1037,11 +1087,56 @@ def run_generation(dev, model, params, streams, profile: bool):
     log(f"  leading greedy tokens equal to the engine's stream on the same weights, per "
         f"request: {agree} of its 32 (printed only: bf16 near-ties may split two different "
         f"kernels)")
+    if eng_logits is not None:
+        res["divergence"] = divergence_report(streams, gen_logits, eng_logits, agree)
+    del gen_logits
     if profile:
         with torch.inference_mode():
             res["profile"] = profile_window(lambda: generate(8),
                                             "prefill + 8 decode_steps of the generation path")
     return res, launches
+
+
+def divergence_report(streams, gen_logits, eng_logits, agree):
+    """For each request whose generation stream leaves the engine's: the
+    first diverging token, and on each path the top-2 tokens, their logits,
+    the margin between them and one bf16 step at the top logit (the logits
+    are bf16), and the largest gap between the two paths' logit rows at that
+    position. The contexts are equal up to that token, so the rows compare
+    like with like, and that gap is how far the two paths' bf16 rounding
+    (their kernels' orders of summation over every layer) moves a logit
+    there. A margin above it on either path is no rounding tie: a fault of
+    one path."""
+    import math
+    report = []
+    for b, (_, eng) in enumerate(streams):
+        t = agree[b]
+        if t >= len(eng):
+            continue
+        rows = {"generation": gen_logits[t][b].float(), "engine": eng_logits[(b, t)].float()}
+        entry = dict(request=b, token=t, max_abs_logit_gap=float(
+            (rows["generation"] - rows["engine"]).abs().max()))
+        for name, lg in rows.items():
+            v, i = torch.topk(lg, 2)
+            top = float(v[0])
+            step = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+            entry[name] = dict(top2=[int(i[0]), int(i[1])],
+                               top2_logits=[float(v[0]), float(v[1])],
+                               margin=float(v[0] - v[1]), bf16_step=step)
+        entry["within_rounding"] = all(entry[p]["margin"] <= entry["max_abs_logit_gap"]
+                                       for p in rows)
+        report.append(entry)
+        g, e = entry["generation"], entry["engine"]
+        log(f"  request {b} leaves the engine's stream at token {t}: generation top-2 "
+            f"{g['top2']} logits {g['top2_logits']} margin {g['margin']:.6g}; engine top-2 "
+            f"{e['top2']} logits {e['top2_logits']} margin {e['margin']:.6g}; one bf16 step "
+            f"{g['bf16_step']:.6g} / {e['bf16_step']:.6g}; largest gap between the two rows "
+            f"{entry['max_abs_logit_gap']:.6g}; "
+            + ("both margins within the gap: a tie within the paths' bf16 rounding"
+               if entry["within_rounding"] else "a margin above the gap: not a rounding tie"))
+    if not report:
+        log("  every generation stream equals the engine's over its 32 tokens")
+    return report
 
 
 def copy_cache_row(dst, src, b):
@@ -1282,7 +1377,7 @@ def main() -> int:
     log("phase 4: serving run")
     t0 = time.perf_counter()
     model, params, info = build_mixtral(dev, SERVE_LAYERS, int8=False)
-    serve, launches, streams = run_serving(dev, args.profile, model, params)
+    serve, launches, streams, _ = run_serving(dev, args.profile, model, params)
     serve.update(info)
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
 
@@ -1308,10 +1403,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     model, params, info = build_mixtral(dev, 32, int8=True)
-    int8_serve, int8_launches, streams = run_serving(dev, args.profile, model, params,
-                                                     int8=True, profile_tokens=4)
+    int8_serve, int8_launches, streams, eng_logits = run_serving(
+        dev, args.profile, model, params, int8=True, profile_tokens=4)
     int8_serve.update(info)
-    int8_generation, _ = run_generation(dev, model, params, streams, profile=False)
+    int8_generation, _ = run_generation(dev, model, params, streams, profile=False,
+                                        eng_logits=eng_logits)
+    del eng_logits
     del model, params
     launches["w8a16_matmul"] = int8_launches["w8a16_matmul"]
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")

@@ -21,6 +21,7 @@ from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                  paged_attention_reference)
 from repro_torch.kernels.quant_matmul import (w8a16_matmul, w8a16_matmul_cuda,
                                               w8a16_matmul_reference)
+from repro_torch.kernels.quant_matmul.kernel import is_k_major, plan_for
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_reference, ssd_scan, ssd_scan_cuda
 from repro_torch.models import RunCtx, build_model
 from repro_torch.models.params import map_tree
@@ -404,12 +405,23 @@ W8A16_CASES = [
     (67, 40, 72, True, 2, False),
     (9, 33, 50, False, 0, False),
     (4, 160, 300, True, 0, True),
+    # the edges of the three paths (kernel.py's _plan): the last streaming
+    # M and the first tensor-core / tiled one, k-major past 16 rows (aligned
+    # and ragged K), ragged N and K on the tensor-core path, wk's 8 groups
+    # of 128 at N = 1024 at decode and at prefill, split-K decode and prefill
+    (16, 256, 512, False, 4, False),
+    (17, 256, 512, False, 4, False),
+    (40, 160, 300, True, 0, True),
+    (33, 100, 72, True, 0, True),
+    (100, 33, 50, False, 1, False),
+    (4, 512, 1024, False, 8, False),
+    (80, 512, 1024, False, 8, False),
+    (1, 4096, 256, False, 2, False),
+    (70, 600, 136, False, 4, False),      # tensor cores with K split in two, ragged
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", W8A16_CASES)
-def test_w8a16_kernel_matches_plain(cuda, dtype, case):
+def _w8a16_operands(cuda, dtype, case):
     M, K, N, with_col, G, transposed = case
     rng = np.random.default_rng(M + K + N)
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
@@ -421,7 +433,14 @@ def test_w8a16_kernel_matches_plain(cuda, dtype, case):
            if with_col else None)
     row = (torch.from_numpy(rng.uniform(0.001, 0.02, (K, G)).astype(np.float32)).to(cuda)
            if G else None)
-    if not (with_col or G):
+    return x, q, col, row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", W8A16_CASES)
+def test_w8a16_kernel_matches_plain(cuda, dtype, case):
+    x, q, col, row = _w8a16_operands(cuda, dtype, case)
+    if col is None and row is None:
         x = x / 64                                 # keep the outputs of size ~1
     n0 = w8a16_matmul_cuda.launches
     out = w8a16_matmul(x, q, col, row_scale=row)
@@ -432,6 +451,50 @@ def test_w8a16_kernel_matches_plain(cuda, dtype, case):
     # bf16 as tests/test_kernels_gmm.py: one rounding of outputs of size ~1
     tol = 1e-3 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", W8A16_CASES)
+def test_w8a16_reaches_planned_path(cuda, dtype, case):
+    """Each call launches the kernel its plan names (streaming at M <= 16,
+    tensor cores for bf16 above, the fp32 tiled kernel for fp32 above), and
+    a second call gives the same bits: the split-K partial sums are added
+    in a fixed order, with no atomics."""
+    x, q, col, row = _w8a16_operands(cuda, dtype, case)
+    plan = plan_for(x, q)
+    want = ("stream_k" if is_k_major(q) else "stream_n") if x.shape[0] <= 16 else \
+        ("mma" if dtype == torch.bfloat16 else "tiled")
+    assert plan.path == want
+    before = dict(w8a16_matmul_cuda.launches_by_path)
+    a = w8a16_matmul(x, q, col, row_scale=row)
+    b = w8a16_matmul(x, q, col, row_scale=row)
+    torch.cuda.synchronize()
+    after = w8a16_matmul_cuda.launches_by_path
+    assert {p: after[p] - before[p] for p in after} == {p: 2 * (p == want) for p in after}
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,G", [(4, 4096, 32), (4, 1024, 8), (4, 32000, 1), (256, 4096, 32)])
+def test_w8a16_full_width_bit_equal_repeats(cuda, dtype, M, N, G):
+    """mixtral's wq, wk and head at decode (split K over >= 2 blocks a SM)
+    and wq over a prefill pack: two calls give the same bits, and the result
+    is within the phase's tolerance of the plain version (fp32: reduction
+    order; bf16: one rounding of outputs of size < 8, 2^-5)."""
+    K = 4096
+    rng = np.random.default_rng(N + M)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
+    w = quantize_leaf(torch.from_numpy(
+        (rng.standard_normal((K, G, N // G)) * K ** -0.5).astype(np.float32)).to(cuda))
+    q, row = w.q.reshape(K, N), w.scale.reshape(K, G)
+    if M <= 16:
+        assert plan_for(x, q).splits > 1
+    a = w8a16_matmul(x, q, row_scale=row)
+    b = w8a16_matmul(x, q, row_scale=row)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    tol = 1e-3 if dtype == torch.float32 else 2 ** -5
+    assert float((a.float() - w8a16_matmul_reference(x, q, None, row).float()).abs().max()) <= tol
 
 
 def test_w8a16_cuda_tensor_goes_to_kernel_or_raises(cuda):

@@ -31,6 +31,9 @@ from repro_torch.configs import tiny_config
 from repro_torch.core import EngineConfig, InferenceEngine, Request
 from repro_torch.kernels.quant_matmul import (quantize_int8, w8a16_matmul, w8a16_matmul_cuda,
                                               w8a16_matmul_reference)
+from repro_torch.kernels.quant_matmul.kernel import (GRID_LIMITS, KMAJOR_BLOCK_N, MMA_TILE,
+                                                     RESIDENT, STREAM_BLOCK_N, TILED_TILE,
+                                                     XS_FLOATS, _plan, is_k_major, split_ranges)
 from repro_torch.models import RunCtx, build_model
 from repro_torch.models.common import linear, rmsnorm
 from repro_torch.models.params import init_params, init_params_int8, params_from_numpy
@@ -336,3 +339,57 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     loads or builds anything."""
     with pytest.raises(ValueError, match="CUDA"):
         w8a16_matmul_cuda(torch.zeros((4, 8)), torch.zeros((8, 16), dtype=torch.int8))
+
+
+# mixtral-8x7b's w8a16 shapes (K, N, k-major): wq / wo, wk / wv, the n-major
+# lm_head, and the tied head read through the embedding's transpose
+# (qwen2.5-3b's vocab at mixtral's width)
+PLAN_SHAPES = {"wq": (4096, 4096, False), "wk": (4096, 1024, False),
+               "head": (4096, 32000, False), "tied_head": (4096, 151936, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 256])
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_w8a16_plan(shape, M, dtype):
+    """The kernel and grid the wrapper picks, on an H100's 132 SMs: M <= 16
+    streams (n- or k-major by the weight's strides), above it bf16 takes
+    the tensor cores and fp32 the tiled kernel; the split ranges cover K
+    once (and, streaming, each fits the staging buffer); the grid covers
+    the output, stays within CUDA's limits and, at decode, runs >= 2
+    blocks a SM and no more than one wave of resident blocks unless the
+    staging or that minimum needs more."""
+    K, N, k_major = PLAN_SHAPES[shape]
+    plan = _plan(M, K, N, dtype, k_major, 132)
+    assert all(1 <= g <= lim for g, lim in zip(plan.grid, GRID_LIMITS))
+    if M > 16 and dtype == torch.float32:
+        assert plan.path == "tiled" and plan.splits == 1
+        assert plan.grid == (-(-N // TILED_TILE[1]), -(-M // TILED_TILE[0]), 1)
+        return
+    if M > 16:
+        # tensor cores: K split only while the tiles leave SMs idle
+        nb, mb, splits = plan.grid
+        assert plan.path == "mma" and splits == plan.splits
+        assert (nb, mb) == (-(-N // MMA_TILE[1]), -(-M // MMA_TILE[0]))
+        assert splits == 1 or (nb * mb * splits <= 132 and K // splits >= 256)
+    else:
+        assert plan.path == ("stream_k" if k_major else "stream_n")
+        nb, splits, mb = plan.grid
+        assert splits == plan.splits and mb * plan.rows >= M and (mb - 1) * plan.rows < M
+        assert nb * (KMAJOR_BLOCK_N if k_major else STREAM_BLOCK_N) >= N
+        assert nb * splits * mb >= 2 * 132
+        fit = -(-(-(-K // 16)) // (XS_FLOATS // (plan.rows * 16)))   # x's staging needs
+        if splits > max(fit, -(-2 * 132 // (nb * mb))):
+            assert nb * splits * mb <= RESIDENT[plan.path] * 132
+        assert max(b - a for a, b in split_ranges(K, splits)) * plan.rows <= XS_FLOATS
+    ranges = split_ranges(K, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a < b for a, b in ranges) and all(
+        ranges[i][1] == ranges[i + 1][0] for i in range(splits - 1))
+
+
+def test_w8a16_k_major_test():
+    """The transposed tied embedding is k-major; a projection and its
+    contiguous copy are not."""
+    q = torch.zeros((64, 32), dtype=torch.int8)
+    assert is_k_major(q.T) and not is_k_major(q) and not is_k_major(q.T.contiguous())
