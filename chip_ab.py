@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""Compare two trees of the port on one card, in turns: for each tree,
+w8a16's phase-2 shapes, phase 4 (mixtral at 8 layers, bf16, the serving
+run) and phase 7 (the full 32-layer mixtral on int8 weights: the serving
+run, then the generation API) of that tree's own ``chip_smoke.py``.
+
+    python3 chip_ab.py TREE TAG [OUT_DIR]     # one tree, one process
+
+Run it in turns (parent, change, change, parent) on one machine: host
+dispatch moves the serving numbers far more between machines than on
+one. Each run writes OUT_DIR/ab_TAG.json (OUT_DIR defaults to the current
+directory) and prints one ``AB-RESULT`` line.
+"""
+import gc
+import json
+import sys
+from pathlib import Path
+
+
+def main() -> int:
+    root, tag = Path(sys.argv[1]).resolve(), sys.argv[2]
+    out_dir = Path(sys.argv[3]) if len(sys.argv) > 3 else Path(".")
+    sys.path.insert(0, str(root))
+    import torch
+    import chip_smoke as cs        # the tree's own: it puts the tree's src/ first
+    from repro_torch.kernels import build
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 2
+    build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print("AB", tag, root, cs.card_line(), flush=True)
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    torch.cuda._sleep(1000)        # load the lazily loaded modules before any timing
+    flush.zero_()
+    torch.cuda.synchronize()
+    cs.cuda_ms(flush.zero_, flush=flush)
+    res = []
+    cs.run_w8a16(dev, flush, res)
+    del flush
+    out = dict(tag=tag, w8a16=[dict(case=r["case"], dtype=r["dtype"], ms=r["ms"])
+                               for r in res if r["kernel"] == "w8a16_matmul"])
+    model, params, _ = cs.build_mixtral(dev, cs.SERVE_LAYERS, int8=False)
+    serve, *_ = cs.run_serving(dev, False, model, params)
+    out["phase4"] = serve
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, _ = cs.build_mixtral(dev, 32, int8=True)
+    serve7, _, streams, eng_logits = cs.run_serving(dev, False, model, params, int8=True)
+    gen7, _ = cs.run_generation(dev, model, params, streams, profile=False,
+                                eng_logits=eng_logits)
+    out["phase7"] = serve7
+    out["phase7_gen"] = {k: v for k, v in gen7.items() if k != "divergence"}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"ab_{tag}.json").write_text(json.dumps(out, indent=1, default=str))
+    print("AB-RESULT", tag, json.dumps(dict(
+        p4_tok_s=serve["tok_s"], p4_decode_ms=serve["decode_step_ms_mean"],
+        p4_prefill_ms=serve["prefill_step_ms_mean"], p7_tok_s=serve7["tok_s"],
+        p7_decode_ms=serve7["decode_step_ms_mean"], p7_prefill_ms=serve7["prefill_step_ms_mean"],
+        p7_gen_decode_ms=gen7["decode_step_ms_mean"], p7_gen_tok_s=gen7["decode_tok_s"],
+        w8a16={f"{r['case']} {r['dtype']}": round(r["ms"], 5) for r in out["w8a16"]})),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

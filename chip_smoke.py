@@ -399,21 +399,37 @@ def gmm_case(dev, *, tokens, E, K, N, dtype, seed=0):
 
 def run_gmm(dev, flush, results):
     from repro_torch.kernels.moe_gmm import gmm, gmm_reference
+    from repro_torch.kernels.moe_gmm.kernel import plan_for
     from repro_torch.quant import quantize_leaf
     for dtype in (torch.float32, torch.bfloat16):
-        for sizes, K, N in (([8, 8, 8, 8], 16, 24), ([0, 32, 0, 1], 16, 24), ([33], 16, 24),
-                            ([1, 1, 1, 1, 29], 16, 24), ([0, 70, 0, 1], 40, 130)):
+        # the CPU tests' cases (unit weights: outputs of size ~sqrt(K)),
+        # then the edges of the three paths with weights scaled like the
+        # model's init (outputs ~ N(0, 1)): one row, 16 on one expert (the
+        # last streaming M), 17 (the first tensor-core / tiled one), 512
+        # with 300 on one expert; ragged K and N
+        for sizes, K, N, scaled in (([8, 8, 8, 8], 16, 24, False), ([0, 32, 0, 1], 16, 24, False),
+                                    ([33], 16, 24, False), ([1, 1, 1, 1, 29], 16, 24, False),
+                                    ([0, 70, 0, 1], 40, 130, False), ([0, 1, 0, 0], 40, 130, True),
+                                    ([0, 0, 16], 48, 272, True), ([17, 0, 0], 48, 272, True),
+                                    ([300, 100, 50, 62], 200, 130, True)):
             g = torch.Generator(device=dev).manual_seed(len(sizes))
             gs = torch.tensor(sizes, device=dev)
             x = torch.randn((int(gs.sum()), K), generator=g, device=dev).to(dtype)
-            w = torch.randn((len(sizes), K, N), generator=g, device=dev).to(dtype)
+            w = torch.randn((len(sizes), K, N), generator=g, device=dev)
+            w = (w * K ** -0.5 if scaled else w).to(dtype)
             tol = 1e-4 if dtype == torch.float32 else 5e-2
             # the float experts, then the same experts in int8
-            errs = [max_err(gmm(x, wk, gs), gmm_reference(x, wk, gs))
-                    for wk in (w, quantize_leaf(w))]
+            errs = []
+            for wk in (w, quantize_leaf(w)):
+                out = gmm(x, wk, gs)
+                errs.append(max_err(out, gmm_reference(x, wk, gs)))
+                assert torch.equal(out, gmm(x, wk, gs)), \
+                    f"gmm edge case {sizes} {dtype}: a repeat gave other bits"
             assert max(errs) <= tol, f"gmm edge case {sizes} {dtype}: err {errs} > {tol}"
-            log(f"  gmm edge sizes={sizes} K={K} N={N} {str(dtype)[6:]}: "
-                f"max_abs_err={errs[0]:.3g}, int8 experts {errs[1]:.3g} (tol {tol})")
+            path = plan_for(int(gs.sum()), x, w).path
+            log(f"  gmm edge sizes={sizes} K={K} N={N} {str(dtype)[6:]} ({path}): "
+                f"max_abs_err={errs[0]:.3g}, int8 experts {errs[1]:.3g} (tol {tol}), "
+                f"repeats bit-equal")
     # fp32: reduction order over K; bf16: one rounding of outputs |o| < 5.
     # Then the same cases on int8 experts (scale per expert and input row,
     # as the int8 tree has them) against the plain version on the same
@@ -422,8 +438,9 @@ def run_gmm(dev, flush, results):
     # so an output may land one bf16 step away: 2^-5 for |o| < 8
     tols = {(False, torch.float32): 1e-3, (False, torch.bfloat16): 3e-2,
             (True, torch.float32): 1e-3, (True, torch.bfloat16): 2 ** -5}
+    # tokens: the engine's decode sweep (4 slots), 8 tokens, a prefill pack
     for int8 in (False, True):
-        for tokens in (8, 256):
+        for tokens in (4, 8, 256):
             for K, N in ((4096, 14336), (14336, 4096)):
                 for dtype in (torch.float32, torch.bfloat16):
                     run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=dtype,
@@ -432,7 +449,7 @@ def run_gmm(dev, flush, results):
 
 def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
     from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda, tile_layout
-    from repro_torch.kernels.moe_gmm.kernel import BLOCK_M
+    from repro_torch.kernels.moe_gmm.kernel import block_m_for, plan_for
     from repro_torch.quant import quantize_leaf
     x, w, gs = gmm_case(dev, tokens=tokens, E=8, K=K, N=N, dtype=dtype, seed=tokens)
     wk = quantize_leaf(w) if int8 else w
@@ -441,16 +458,19 @@ def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
     err = max_err(out, gmm_reference(x, wk, gs))
     kind = " int8" if int8 else ""
     assert err <= tol, f"gmm{kind} {tokens} tok {K}->{N} {dtype}: err {err}"
-    dst, te, tr, Mp = tile_layout(gs, M, BLOCK_M)
+    assert torch.equal(out, gmm(x, wk, gs)), \
+        f"gmm{kind} {tokens} tok {K}->{N} {dtype}: a repeat gave other bits"
+    bm = block_m_for(M)
+    dst, te, tr, Mp = tile_layout(gs, M, bm)
     x_pad = x.new_empty((Mp, x.shape[1]))
     x_pad[dst] = x
+    wq = wk.q if int8 else w
+    plan = plan_for(M, x_pad, wq)
     # the kernel alone on the padded layout made here, then the
     # public op (layout, scatter, kernel, gather) as a caller sees it
-    if int8:
-        scale = wk.scale.reshape(wk.q.shape[:2])
-        ms = cuda_ms(lambda: gmm_tiles_cuda(x_pad, wk.q, te, tr, w_scale=scale), flush=flush)
-    else:
-        ms = cuda_ms(lambda: gmm_tiles_cuda(x_pad, w, te, tr), flush=flush)
+    scale = wk.scale.reshape(wk.q.shape[:2]) if int8 else None
+    ms = cuda_ms(lambda: gmm_tiles_cuda(x_pad, wq, te, tr, bm, w_scale=scale, rows=M),
+                 flush=flush)
     op_ms = cuda_ms(lambda: gmm(x, wk, gs), flush=flush, queued=False)
     # the plain version reads the group sizes back to the host
     plain_ms = cuda_ms(lambda: gmm_reference(x, wk, gs), flush=flush, queued=False)
@@ -465,12 +485,14 @@ def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
     bms, by = bound_ms(nbytes, 2.0 * M * K * N, dtype)
     row = dict(kernel="moe_gmm", case=f"{tokens}tok {K}->{N}{kind}", dtype=str(dtype)[6:],
                shape=f"x({M},{K}) w(8,{K},{N}){kind} experts_active={active}",
+               path=plan.path, splits=plan.splits, grid=list(plan.grid),
                max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bms, bound_by=by)
     results.append(row)
-    log(f"  gmm{kind} {tokens} tokens top-2 K={K} N={N} {row['dtype']}: "
-        f"kernel_ms={ms:.4f} op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) max_abs_err={err:.3g}")
+    log(f"  gmm{kind} {tokens} tokens top-2 K={K} N={N} {row['dtype']} path={plan.path} "
+        f"splits={plan.splits} grid={plan.grid}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) max_abs_err={err:.3g}, "
+        f"repeat bit-equal")
     del x, w, wk, x_pad, out
     torch.cuda.empty_cache()
 
@@ -946,7 +968,8 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
     model.decode_chunk = recorded
     for fn in (chunked_prefill_cuda, gmm_tiles_cuda, w8a16_matmul_cuda):
         fn.launches = 0
-    w8a16_matmul_cuda.launches_by_path = dict.fromkeys(w8a16_matmul_cuda.launches_by_path, 0)
+    for fn in (gmm_tiles_cuda, w8a16_matmul_cuda):
+        fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
     t0 = time.perf_counter()
     eng.generate(reqs)
     torch.cuda.synchronize()
@@ -959,6 +982,11 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
     assert launches["chunked_prefill_attention"] > 0 and launches["moe_gmm"] > 0 \
         and (launches["w8a16_matmul"] > 0) == int8, \
         f"a kernel never ran on the serving path: {launches}"
+    # bf16 activations: decode sweeps (<= 4 rows x top-2) stream, prefill
+    # packs take the tensor cores
+    gmm_paths = gmm_tiles_cuda.launches_by_path
+    assert gmm_paths["stream"] > 0 and gmm_paths["mma"] > 0 and gmm_paths["tiled"] == 0, \
+        f"the serving run's gmm calls left their planned paths: {gmm_paths}"
     ms = [request_metrics(r) for r in reqs]
     n_tok = sum(m.n_tokens for m in ms)
     recs = list(eng.step_records)
@@ -980,8 +1008,10 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
         f"{serve['decode_step_ms_mean']:.3f} ms, prefill step "
         f"{serve['prefill_step_ms_mean']:.3f} ms, peak device memory "
         f"{serve['peak_mem_gb']:.2f} GB ({depth_note(cfg)})")
-    log(f"  launches on the serving run: {launches}"
+    log(f"  launches on the serving run: {launches}, gmm by path "
+        f"{gmm_tiles_cuda.launches_by_path}"
         + (f", w8a16 by path {w8a16_matmul_cuda.launches_by_path}" if int8 else ""))
+    serve["gmm_launches_by_path"] = dict(gmm_tiles_cuda.launches_by_path)
     if int8:
         serve["w8a16_launches_by_path"] = dict(w8a16_matmul_cuda.launches_by_path)
     # logits row of request b's token t: the call whose row ends at its
@@ -1058,6 +1088,7 @@ def run_generation(dev, model, params, streams, profile: bool, eng_logits=None):
         torch.cuda.synchronize()
         for fn in counted:
             fn.launches = 0
+        gmm_tiles_cuda.launches_by_path = dict.fromkeys(gmm_tiles_cuda.launches_by_path, 0)
         gen, times, gen_logits = generate(GEN_STEPS)
         torch.cuda.synchronize()
         launches = {"flash_attention": flash_attention_cuda.launches,
@@ -1078,12 +1109,14 @@ def run_generation(dev, model, params, streams, profile: bool, eng_logits=None):
     res = dict(layers=model.cfg.n_layers, prompt_tokens=lens, padded_to=S, new_tokens=GEN_STEPS,
                prefill_ms=prefill_ms, decode_step_ms_mean=step_ms,
                decode_tok_s=B / (step_ms / 1e3), tok_s=B * (GEN_STEPS + 1) / total,
-               launches=launches, leading_tokens_equal_engine=agree)
+               launches=launches, leading_tokens_equal_engine=agree,
+               gmm_launches_by_path=dict(gmm_tiles_cuda.launches_by_path))
     log(f"  prefill of {B} prompts {lens} right-padded to {S} tokens: {prefill_ms:.3f} ms "
         f"(ring copied into the pool included); {GEN_STEPS} decode_steps over the paged "
         f"pool: {step_ms:.3f} ms per step, {res['decode_tok_s']:.2f} tok/s in decode, "
         f"{res['tok_s']:.2f} tok/s over the whole generation ({depth_note(model.cfg)})")
-    log(f"  launches on the generation run: {launches}")
+    log(f"  launches on the generation run: {launches}, gmm by path "
+        f"{res['gmm_launches_by_path']}")
     log(f"  leading greedy tokens equal to the engine's stream on the same weights, per "
         f"request: {agree} of its 32 (printed only: bf16 near-ties may split two different "
         f"kernels)")

@@ -47,7 +47,10 @@
 //    same bits every time. It is launched as a programmatic dependent
 //    (griddepcontrol), so its launch overlaps the streaming grid's tail.
 //    Unaligned or ragged operands (a stride, a pointer or N not a multiple
-//    of 16 bytes) take a scalar load path inside the same kernels.
+//    of 16 bytes) take a scalar load path inside the same kernels. The
+//    split ranges, the cp.async copies, the byte permute, the split reduce
+//    and the mma.sync helpers live in gemm_common.cuh, shared with the
+//    grouped expert matmul (moe_gmm.cu).
 //  - mma (M > 16 with bf16 x, prefill). Bound by operations, so the work
 //    goes to the tensor cores: 128 x 64 output tiles (a weight tile is
 //    dequantized once for 128 rows), 8 warps of 32 x 32, mma.sync.m16n8k16
@@ -78,7 +81,7 @@
 //    FMAs over 32-deep K tiles of x and of the dequantized weights staged
 //    in shared memory, so an fp32 call stays IEEE fp32 throughout.
 
-#include "common.cuh"
+#include "gemm_common.cuh"
 
 namespace {
 
@@ -173,53 +176,6 @@ constexpr int kStreamStages = 8;   // a thread's ring of K rows in shared memory
 constexpr int kKMajorThreads = 256;                            // k-major block
 constexpr int kKMajorCols = 4;                                 // columns a warp (k-major)
 constexpr int kKMajorBlockN = kKMajorThreads / 32 * kKMajorCols;  // 32 columns a block
-constexpr int kXsFloats = 4096;   // staged x: rows x split length <= 16 KB of fp32
-constexpr int kSplitRows = 16;    // split ranges start at multiples of 16 rows of K
-constexpr int kReduceCols = 32;   // split reduce: 32 columns x 8 lanes over the splits
-constexpr int kReduceLanes = 8;
-
-// Rows [kb, ke) of K for one split: the splits cut ceil(K / 16) units of 16
-// rows as evenly as integers allow (the wrapper's split_ranges mirrors it).
-__device__ __forceinline__ void split_range(int K, int splits, int split, int& kb, int& ke) {
-  const long long units = (K + kSplitRows - 1) / kSplitRows;
-  kb = static_cast<int>(min(static_cast<long long>(K), split * units / splits * kSplitRows));
-  ke = static_cast<int>(min(static_cast<long long>(K), (split + 1) * units / splits * kSplitRows));
-}
-
-// 16 int8 values -> fp32, exactly: each byte, its sign bit flipped (b + 128
-// in 0..255), goes into the low mantissa byte of 2^23, and 2^23 + 128 comes
-// off again.
-__device__ __forceinline__ void dequant16(const int4 v, float (&f)[16]) {
-  const unsigned w[4] = {static_cast<unsigned>(v.x) ^ 0x80808080u,
-                         static_cast<unsigned>(v.y) ^ 0x80808080u,
-                         static_cast<unsigned>(v.z) ^ 0x80808080u,
-                         static_cast<unsigned>(v.w) ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[4 * i + b] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7440 | b)) - 8388736.f;
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes past ``valid`` (0..16) are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // The final value of one output: with one split straight into out (col
 // scale applied, cast), else the partial sum into the split's workspace row.
@@ -455,35 +411,6 @@ __global__ void __launch_bounds__(kKMajorThreads)
   }
 }
 
-// out[m, n] = (sum over splits of ws[s, m, n]) * col_scale[n], in a fixed
-// order: lane j of a column sums splits j, j + 8, ... in turn, then the 8
-// lane sums are added in lane order. grid (ceil(N / 32), M).
-template <typename TX>
-__global__ void __launch_bounds__(kReduceCols * kReduceLanes)
-    w8a16_split_reduce_kernel(const float* __restrict__ ws, int splits,
-                              const float* __restrict__ col_scale, TX* __restrict__ out, int M,
-                              int N) {
-  __shared__ float red[kReduceLanes][kReduceCols];
-  const int c = threadIdx.x % kReduceCols, j = threadIdx.x / kReduceCols;
-  const int m = blockIdx.y, n = blockIdx.x * kReduceCols + c;
-  // launched as a programmatic dependent of the streaming kernel: wait for
-  // that grid to finish and its workspace writes to be visible
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  float s = 0.f;
-  if (n < N)
-    for (int sp = j; sp < splits; sp += kReduceLanes)
-      s += ws[(static_cast<long long>(sp) * M + m) * N + n];
-  red[j][c] = s;
-  __syncthreads();
-  if (j == 0 && n < N) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < kReduceLanes; ++i) t += red[i][c];
-    out[static_cast<long long>(m) * N + n] =
-        from_f32<TX>(col_scale != nullptr ? t * col_scale[n] : t);
-  }
-}
-
 // ---------------------------------------------------------------- mma
 constexpr int kTcM = 128;
 constexpr int kTcN = 64;
@@ -497,41 +424,6 @@ using TcBTile = __nv_bfloat16[kTcK][kTcN + kTcPad];   // dequantized weight tile
 constexpr int kTcWTile = kTcN * kTcWRow;              // int8 tile: [k][n] or [n][k]
 constexpr int kTcSmem = kTcStages * (static_cast<int>(sizeof(TcXTile)) + kTcWTile) +
                         4 * static_cast<int>(sizeof(TcBTile));   // 2 buffers x (hi, lo)
-
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// w -> hi = w truncated to bf16 (its upper 16 bits) and lo = w - hi truncated
-// the same way: hi + lo is within 2^-14 of w, and the split is byte
-// permutes and a subtraction, no conversion instruction
-__device__ __forceinline__ float bf16_trunc(float w) {
-  return __uint_as_float(__float_as_uint(w) & 0xFFFF0000u);
-}
-// w0, w1 -> the bf16 pairs (hi, lo) of both, w0 in the low halves
-__device__ __forceinline__ void split_pair(float w0, float w1, unsigned& hi, unsigned& lo) {
-  hi = __byte_perm(__float_as_uint(w0), __float_as_uint(w1), 0x7632);
-  lo = __byte_perm(__float_as_uint(w0 - bf16_trunc(w0)), __float_as_uint(w1 - bf16_trunc(w1)),
-                   0x7632);
-}
 
 // grid (ceil(N / 64), ceil(M / 128), splits), bf16 x and out; with splits
 // > 1, block z sums its split's rows of K into ws (fp32, no col scale).
@@ -766,33 +658,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
 enum Path : int { kTiled = 0, kStreamN = 1, kStreamK = 2, kMma = 3 };
 
-// out = the split reduce of ws, launched as a programmatic dependent of the
-// kernel before it on the stream (it starts while that grid drains, hiding
-// its launch latency, and waits for that grid's writes before reading ws)
-template <typename TX>
-int launch_reduce(const float* ws, int splits, const float* col_scale, TX* out, int M, int N,
-                  cudaStream_t s) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kReduceCols - 1) / kReduceCols, M);
-  cfg.blockDim = dim3(kReduceCols * kReduceLanes);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(
-      cudaLaunchKernelEx(&cfg, w8a16_split_reduce_kernel<TX>, ws, splits, col_scale, out, M, N));
-}
-
 template <typename TX, int RM>
 int launch_stream(int path, dim3 grid, int splits, const TX* x, long long ldx, const int8_t* q,
                   long long q_sk, long long q_sn, const float* row_scale, int groups,
                   const float* col_scale, float* ws, TX* out, int M, int K, int N,
                   cudaStream_t s) {
-  // the longest split's slice of x must fit the staging buffer
-  const long long units = (K + kSplitRows - 1) / kSplitRows;
-  if (splits < 1 || RM * ((units + splits - 1) / splits) * kSplitRows > kXsFloats) return -1;
+  if (!split_fits(K, splits, RM)) return -1;   // the split's slice of x must fit the staging buffer
   float* part = splits > 1 ? ws : nullptr;
   if (path == kStreamN)
     w8a16_stream_n_kernel<TX, RM><<<grid, kStreamThreads, 0, s>>>(
@@ -801,7 +672,9 @@ int launch_stream(int path, dim3 grid, int splits, const TX* x, long long ldx, c
     w8a16_stream_k_kernel<TX, RM><<<grid, kKMajorThreads, 0, s>>>(
         x, ldx, q, q_sk, q_sn, row_scale, groups, col_scale, part, out, M, K, N, splits);
   const int err = static_cast<int>(cudaGetLastError());
-  return err != 0 || splits <= 1 ? err : launch_reduce<TX>(ws, splits, col_scale, out, M, N, s);
+  return err != 0 || splits <= 1
+             ? err
+             : launch_split_reduce<TX>(ws, splits, col_scale, out, M, N, nullptr, 0, 0, s);
 }
 
 }  // namespace
@@ -868,7 +741,9 @@ extern "C" int w8a16_launch(int path, int rows, int gx, int gy, int gz, int spli
               xt, ldx, q8, q_sk, q_sn, rs, groups, cs, splits > 1 ? wsf : nullptr, ot, M, K, N,
               splits);
           const int err = static_cast<int>(cudaGetLastError());
-          return err != 0 || splits <= 1 ? err : launch_reduce<TX>(wsf, splits, cs, ot, M, N, s);
+          return err != 0 || splits <= 1
+                     ? err
+                     : launch_split_reduce<TX>(wsf, splits, cs, ot, M, N, nullptr, 0, 0, s);
         } else {
           return -1;
         }

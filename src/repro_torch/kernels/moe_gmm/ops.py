@@ -4,10 +4,10 @@ CUDA tensors, the plain version for CPU tensors (no fallback between them).
 ``gmm(x, w, group_sizes)`` computes ``out[m] = x[m] @ w[expert_of(m)]`` for
 rows sorted by expert; ``w`` is an (E, K, N) tensor or a ``QuantizedLinear``
 of the int8 tree (q (E, K, N) int8, scale (E, K, 1) per expert and input
-row), which the kernel dequantizes as it stages each weight tile. The
-kernel reads the rows from a tile-aligned padded buffer (each expert starts
-on a ``block_m`` boundary; static worst case Mp = M + E*block_m, rounded to
-whole tiles). ``GroupedRows`` builds that
+row). The kernel reads the rows from a tile-aligned padded buffer (each
+expert starts on a ``block_m`` boundary; static worst case Mp =
+(ceil(M / block_m) + E) * block_m), whose row tile the kernel's plan sets
+from M: 16 rows for M <= 16 (decode), else 64. ``GroupedRows`` builds that
 layout once, so a caller with several matmuls over the same rows (the MoE
 layer's three) scatters into it once and gathers out of it once.
 """
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.moe_gmm.kernel import BLOCK_M, gmm_tiles_cuda
+from repro_torch.kernels.moe_gmm.kernel import block_m_for, gmm_tiles_cuda
 from repro_torch.kernels.moe_gmm.ref import expert_of_rows, gmm_reference
 from repro_torch.quant.quantize import QuantizedLinear
 
@@ -54,8 +54,10 @@ class GroupedRows:
         self.group_sizes = group_sizes
         self.cuda = x.device.type != "cpu"
         if self.cuda:
+            self.M = x.shape[0]
+            self.block_m = block_m_for(self.M)
             self.dst, self.tile_expert, self.tile_rows, self.Mp = tile_layout(
-                group_sizes, x.shape[0], BLOCK_M)
+                group_sizes, self.M, self.block_m)
 
     def pack(self, x):
         if not self.cuda:
@@ -67,10 +69,11 @@ class GroupedRows:
     def matmul(self, xb, w):
         if not self.cuda:
             return gmm_reference(xb, w, self.group_sizes)
+        tiles = (self.tile_expert, self.tile_rows, self.block_m)
         if isinstance(w, QuantizedLinear):
-            return gmm_tiles_cuda(xb, w.q, self.tile_expert, self.tile_rows,
-                                  w_scale=w.scale.reshape(w.q.shape[:2]))
-        return gmm_tiles_cuda(xb, w, self.tile_expert, self.tile_rows)
+            return gmm_tiles_cuda(xb, w.q, *tiles, w_scale=w.scale.reshape(w.q.shape[:2]),
+                                  rows=self.M)
+        return gmm_tiles_cuda(xb, w, *tiles, rows=self.M)
 
     def unpack(self, yb):
         return yb[self.dst] if self.cuda else yb

@@ -49,7 +49,8 @@ def moe_dropless(p, xf, cfg: ModelConfig, ctx: RunCtx):
     xs = xf[tok[order]]
     gs = torch.bincount(e, minlength=E)
     # one layout for the three matmuls: on the card the rows are scattered
-    # once into the kernel's tile-aligned buffer and gathered once at the
+    # once into the kernel's tile-aligned buffer (its row tile from the
+    # kernel's plan: (1 + E) x 16 rows at decode) and gathered once at the
     # end; the activation runs over the buffer's padding rows too (garbage
     # the kernel never reads) rather than gathering the real rows out
     rows = GroupedRows(gs, xs)

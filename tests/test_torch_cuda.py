@@ -13,7 +13,9 @@ from repro_torch.configs import tiny_config
 from repro_torch.core import EngineConfig, InferenceEngine, Request
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                  mha_reference)
-from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda
+from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda, tile_layout
+from repro_torch.kernels.moe_gmm.kernel import block_m_for
+from repro_torch.kernels.moe_gmm.kernel import plan_for as gmm_plan_for
 from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                  chunked_prefill_cuda,
                                                  chunked_prefill_reference, paged_attention,
@@ -530,6 +532,113 @@ def test_gmm_int8_kernel_matches_plain(cuda, dtype, sizes, K, N):
     assert gmm_tiles_cuda.launches == n0 + 1 and out.dtype == dtype
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(out.float(), gmm_reference(x, w, gs).float(), atol=tol, rtol=tol)
+
+
+# the edges of gmm's three paths (kernels/moe_gmm/kernel.py's _plan): empty
+# experts, all rows on one expert, M = 1, 16 (the last streaming M), 17 (the
+# first tensor-core / tiled one), 512 with 300 rows on one expert, ragged K
+# and N (scalar loads), a split-K tensor-core call
+GMM_PATH_CASES = [
+    # group sizes, K, N
+    ([0, 1, 0, 0], 64, 256),
+    ([0, 0, 16, 0], 64, 256),
+    ([3, 0, 5, 0, 8], 96, 512),
+    ([0, 17, 0], 64, 256),
+    ([300, 100, 0, 50, 62], 128, 384),
+    ([2, 0, 3], 40, 130),
+    ([0, 20, 9], 40, 130),
+    ([5, 12], 1024, 256),
+    ([30, 0, 11], 2048, 256),
+]
+
+
+def _gmm_operands(cuda, dtype, int8, sizes, K, N):
+    rng = np.random.default_rng(sum(sizes) + K + N)
+    gs = torch.tensor(sizes, device=cuda)
+    M, E = int(gs.sum()), len(sizes)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.standard_normal((E, K, N)) * K ** -0.5).astype(np.float32))
+    w = quantize_leaf(w.to(cuda)) if int8 else w.to(cuda, dtype)
+    return x, w, gs
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GMM_PATH_CASES)
+def test_gmm_reaches_planned_path(cuda, dtype, int8, case):
+    """Each call launches the kernel its plan names (streaming at M <= 16,
+    tensor cores for bf16 x above, the fp32 tiled kernel for fp32 x above),
+    within the tolerances of test_gmm_kernel_matches_plain, and a second
+    call gives the same bits: the split-K partial sums are added in a fixed
+    order, with no atomics."""
+    sizes, K, N = case
+    x, w, gs = _gmm_operands(cuda, dtype, int8, sizes, K, N)
+    M = x.shape[0]
+    want = "stream" if M <= 16 else ("mma" if dtype == torch.bfloat16 else "tiled")
+    assert gmm_plan_for(M, x, w.q if int8 else w).path == want
+    before = dict(gmm_tiles_cuda.launches_by_path)
+    n0 = gmm_tiles_cuda.launches
+    a = gmm(x, w, gs)
+    b = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    after = gmm_tiles_cuda.launches_by_path
+    assert {p: after[p] - before[p] for p in after} == {p: 2 * (p == want) for p in after}
+    assert gmm_tiles_cuda.launches == n0 + 2 and a.dtype == dtype
+    assert torch.equal(a, b)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(a.float(), gmm_reference(x, w, gs).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("tokens,K,N", [(4, 4096, 14336), (8, 14336, 4096),
+                                        (256, 4096, 14336), (256, 14336, 4096)])
+def test_gmm_full_width_bit_equal_repeats(cuda, int8, tokens, K, N):
+    """mixtral's expert matmuls in bf16 at decode (the engine's 4 tokens, 8
+    tokens: split K) and over a prefill pack of 256 tokens, top-2 over 8
+    experts: two calls give the same bits, within chip_smoke.py's phase-2
+    tolerance of the plain version (one rounding of outputs of size < 8)."""
+    g = torch.Generator(device=cuda).manual_seed(tokens + K)
+    e = torch.topk(torch.randn((tokens, 8), generator=g, device=cuda), 2, dim=-1).indices
+    gs = torch.bincount(e.reshape(-1), minlength=8)
+    x = torch.randn((2 * tokens, K), generator=g, device=cuda).bfloat16()
+    w = torch.randn((8, K, N), generator=g, device=cuda).mul_(K ** -0.5)
+    w = quantize_leaf(w) if int8 else w.bfloat16()
+    M = x.shape[0]
+    plan = gmm_plan_for(M, x, w.q if int8 else w)
+    assert plan.path == ("stream" if M <= 16 else "mma")
+    if M <= 16:
+        assert plan.splits > 1
+    a = gmm(x, w, gs)
+    b = gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    tol = 2 ** -5 if int8 else 3e-2
+    assert float((a.float() - gmm_reference(x, w, gs).float()).abs().max()) <= tol
+
+
+def test_gmm_cuda_tensor_goes_to_kernel_or_raises(cuda):
+    """Operands the kernel cannot take raise; none falls back to the plain
+    version."""
+    gs = torch.tensor([3, 0, 5], device=cuda)
+    x = torch.randn((8, 64), device=cuda)
+    w = torch.randn((3, 64, 32), device=cuda)
+    dst, te, tr, Mp = tile_layout(gs, 8, block_m_for(8))
+    xp = x.new_zeros((Mp, 64))
+    xp[dst] = x
+    n0 = gmm_tiles_cuda.launches
+    with pytest.raises(ValueError, match="dtype"):
+        gmm(x.half(), w, gs)
+    with pytest.raises(ValueError, match="w_scale"):
+        gmm_tiles_cuda(xp, w.to(torch.int8), te, tr, block_m_for(8), rows=8)
+    with pytest.raises(ValueError, match="block_m"):
+        gmm_tiles_cuda(xp, w, te, tr, 64, rows=8)
+    with pytest.raises(ValueError, match="rows"):
+        gmm_tiles_cuda(xp[:-1], w, te, tr, block_m_for(8), rows=8)
+    assert gmm_tiles_cuda.launches == n0
+    out = gmm_tiles_cuda(xp, w, te, tr, block_m_for(8), rows=8)
+    torch.cuda.synchronize()
+    assert gmm_tiles_cuda.launches == n0 + 1
+    torch.testing.assert_close(out[dst], gmm_reference(x, w, gs), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "gemma2-27b", "mamba2-1.3b"])
