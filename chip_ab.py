@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Compare two trees of the port on one card, in turns: for each tree,
-w8a16's phase-2 shapes, phase 4 (mixtral at 8 layers, bf16, the serving
-run) and phase 7 (the full 32-layer mixtral on int8 weights: the serving
-run, then the generation API) of that tree's own ``chip_smoke.py``.
+the phase-2 shapes of chunked attention, paged decode and w8a16, phase 4
+(mixtral at 8 layers, bf16, the serving run) and phase 7 (the full
+32-layer mixtral on int8 weights: the serving run, then the generation
+API) of that tree's own ``chip_smoke.py``.
 
     python3 chip_ab.py TREE TAG [OUT_DIR]     # one tree, one process
 
@@ -37,10 +38,13 @@ def main() -> int:
     torch.cuda.synchronize()
     cs.cuda_ms(flush.zero_, flush=flush)
     res = []
+    cs.run_attention(dev, flush, res)
+    cs.run_paged_decode(dev, flush, res)
     cs.run_w8a16(dev, flush, res)
     del flush
-    out = dict(tag=tag, w8a16=[dict(case=r["case"], dtype=r["dtype"], ms=r["ms"])
-                               for r in res if r["kernel"] == "w8a16_matmul"])
+    kernels = ("chunked_prefill_attention", "paged_attention", "w8a16_matmul")
+    out = dict(tag=tag, **{k: [dict(case=r["case"], dtype=r["dtype"], ms=r["ms"])
+                               for r in res if r["kernel"] == k] for k in kernels})
     model, params, _ = cs.build_mixtral(dev, cs.SERVE_LAYERS, int8=False)
     serve, *_ = cs.run_serving(dev, False, model, params)
     out["phase4"] = serve
@@ -60,7 +64,8 @@ def main() -> int:
         p4_prefill_ms=serve["prefill_step_ms_mean"], p7_tok_s=serve7["tok_s"],
         p7_decode_ms=serve7["decode_step_ms_mean"], p7_prefill_ms=serve7["prefill_step_ms_mean"],
         p7_gen_decode_ms=gen7["decode_step_ms_mean"], p7_gen_tok_s=gen7["decode_tok_s"],
-        w8a16={f"{r['case']} {r['dtype']}": round(r["ms"], 5) for r in out["w8a16"]})),
+        **{k: {f"{r['case']} {r['dtype']}": round(r["ms"], 5) for r in out[k]}
+           for k in kernels})),
         flush=True)
     return 0
 

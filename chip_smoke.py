@@ -7,7 +7,9 @@ exits non-zero and no phase's failure is caught.
      in parallel) and print what ptxas reports (registers, spills).
   2. each kernel against its plain PyTorch version on the card: the small
      edge cases of the CPU tests, and the main paths' shapes at full
-     Mixtral width (the SSD scan at mamba2's and jamba's), in fp32 and
+     Mixtral width (the SSD scan at mamba2's and jamba's; chunked
+     attention also at a verify width of 4 tokens and over a 4096-key
+     context), in fp32 and
      bf16, with the kernel's device time (its launch wrapper alone), the
      public op's time as a caller sees it (host work included), the plain
      version's and a PyTorch yardstick's times (the yardstick, SDPA or a
@@ -16,9 +18,10 @@ exits non-zero and no phase's failure is caught.
      the same work. The grouped matmul also on int8 experts; the w8a16
      matmul with the per-output-channel scale, the int8 tree's row scales
      and a transposed weight at the edges of its three kernels, then at
-     mixtral's decode wq / wk / wo / head and prefill wq shapes, each row
-     with the kernel, split count and grid its plan chose, and every case
-     called twice for bit-equal results.
+     mixtral's decode wq / wk / wo / head and prefill wq shapes. Chunked
+     attention, the grouped matmul and the w8a16 matmul print with each
+     case the kernel, split count and grid their plans chose, and call it
+     twice for bit-equal results.
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
      the CPU (plain versions), on the same two sequences of 20 tokens: the
      engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, then
@@ -37,7 +40,8 @@ exits non-zero and no phase's failure is caught.
      on 4 requests (prompts of 100-300 tokens, 32 new tokens, greedy,
      page_size 16). Every request must finish, the allocator invariants
      hold, and both kernels' launch counters (set to 0 just before) must
-     be > 0. Prints tok/s, TTFT and TBT.
+     be > 0, by the planned paths only (gmm: stream and mma; chunked
+     attention: split and mma; neither tiled). Prints tok/s, TTFT and TBT.
   5. the model's generation path on phase 4's weights: ``LM.prefill`` of
      the same 4 prompts (right-padded to 297, flash attention), then
      GEN_STEPS = 32 greedy ``decode_step``s over the paged pool (paged
@@ -201,38 +205,55 @@ def run_attention(dev, flush, results):
     from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                      chunked_prefill_cuda,
                                                      chunked_prefill_reference)
+    from repro_torch.kernels.paged_attention.kernel import plan_for
     # small edge cases of the CPU tests: mid-page starts, ragged lengths, an
-    # idle (length 0) row, windows, softcap, head_dim 16, page sizes 4/8/16
-    for dtype in (torch.float32, torch.bfloat16):
-        for ps, window, softcap in ((4, 0, 0.0), (8, 5, 0.0), (16, 3, 2.0)):
-            args = attention_case(dev, B=4, C=8, H=4, Hkv=2, D=16, ps=ps, maxp=8,
-                                  num_pages=33, starts=[5, 0, 13, 0], nvalid=[8, 6, 3, 0],
-                                  dtype=dtype, window=window, softcap=softcap, seed=ps)
-            *t, kw = args
-            out = chunked_prefill_attention(*t, **kw)
-            plain = chunked_prefill_reference(*t, **kw)
-            err = max_err(out, plain)
-            tol = 1e-5 if dtype == torch.float32 else 1e-2
-            assert err <= tol and not out[3].any() and torch.isfinite(out).all(), \
-                f"attention edge case ps={ps} w={window} {dtype}: err {err} > {tol}"
-            log(f"  attention edge ps={ps} window={window} softcap={softcap} "
-                f"{str(dtype)[6:]}: max_abs_err={err:.3g} (tol {tol})")
-    # serving-path shapes at full Mixtral width
+    # idle (length 0) row, windows, softcap, head_dim 16, page sizes 4/8/16;
+    # chunks of 8 (16 folded rows: the split kernel) and 24 (48 rows: bf16
+    # on the tensor cores, fp32 on the tiles)
+    for C in (8, 24):
+        for dtype in (torch.float32, torch.bfloat16):
+            for ps, window, softcap in ((4, 0, 0.0), (8, 5, 0.0), (16, 3, 2.0)):
+                args = attention_case(dev, B=4, C=C, H=4, Hkv=2, D=16, ps=ps, maxp=8,
+                                      num_pages=33, starts=[5, 0, 13, 0], nvalid=[8, 6, 3, 0],
+                                      dtype=dtype, window=window, softcap=softcap, seed=ps)
+                *t, kw = args
+                out = chunked_prefill_attention(*t, **kw)
+                plain = chunked_prefill_reference(*t, **kw)
+                err = max_err(out, plain)
+                tol = 1e-5 if dtype == torch.float32 else 1e-2
+                assert err <= tol and not out[3].any() and torch.isfinite(out).all(), \
+                    f"attention edge case C={C} ps={ps} w={window} {dtype}: err {err} > {tol}"
+                assert torch.equal(out, chunked_prefill_attention(*t, **kw)), \
+                    f"attention edge case C={C} ps={ps} w={window} {dtype}: a repeat gave other bits"
+                plan = plan_for(t[0], t[1], t[3])
+                log(f"  attention edge C={C} ps={ps} window={window} softcap={softcap} "
+                    f"{str(dtype)[6:]} ({plan.path}, splits={plan.splits}, grid={plan.grid}): "
+                    f"max_abs_err={err:.3g} (tol {tol}), repeat bit-equal")
+    # serving-path shapes at full Mixtral width: the decode sweep, a verify
+    # width of 4 tokens, the decode sweep over a long context (~4096 visible
+    # keys a row, 256 pages), the prefill pack
     shapes = {
         "decode": dict(B=4, C=1, starts=[131, 219, 299, 166], nvalid=[1, 1, 1, 1]),
+        "decode C=4": dict(B=4, C=4, starts=[128, 216, 296, 163], nvalid=[4, 4, 4, 4]),
+        "decode long": dict(B=4, C=1, starts=[4000, 4095, 3900, 4050], nvalid=[1, 1, 1, 1],
+                            maxp=256, num_pages=1040),
         "prefill": dict(B=2, C=128, starts=[0, 128], nvalid=[128, 100]),
     }
     # fp32: reduction order only; bf16: one rounding of outputs |o| < 4
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for name, sh in shapes.items():
+        sh = dict(dict(maxp=32, num_pages=256), **sh)
         for dtype in (torch.float32, torch.bfloat16):
-            *t, kw = attention_case(dev, H=32, Hkv=8, D=128, ps=16, maxp=32, num_pages=256,
-                                    dtype=dtype, seed=1, **sh)
+            *t, kw = attention_case(dev, H=32, Hkv=8, D=128, ps=16, dtype=dtype, seed=1, **sh)
             q, kp, vp, pt, lengths, qpos = t
+            plan = plan_for(q, kp, pt)
             out = chunked_prefill_attention(*t, **kw)
             plain = chunked_prefill_reference(*t, **kw)
             err = max_err(out, plain)
             assert err <= tols[dtype], f"attention {name} {dtype}: err {err} > {tols[dtype]}"
+            assert torch.equal(out, chunked_prefill_attention(*t, **kw)), \
+                f"attention {name} {dtype}: a repeat gave other bits"
+            del out, plain
             starts = qpos[:, 0].contiguous()
             # the kernel alone (its launch wrapper on int32 inputs made here),
             # then the public op as the model calls it, host work included
@@ -246,12 +267,16 @@ def run_attention(dev, flush, results):
             row = dict(kernel="chunked_prefill_attention", case=name, dtype=str(dtype)[6:],
                        shape=f"q{tuple(q.shape)} pool{tuple(kp.shape)} lengths "
                              f"{lengths.tolist()}",
+                       path=plan.path, splits=plan.splits, grid=list(plan.grid),
                        max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bms, bound_by=by)
             results.append(row)
-            log(f"  attention {name} {row['dtype']}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
+            log(f"  attention {name} {row['dtype']} {row['shape']} path={plan.path} "
+                f"splits={plan.splits} grid={plan.grid}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.6f} "
-                f"({by}) max_abs_err={err:.3g}")
+                f"({by}) max_abs_err={err:.3g}, repeat bit-equal")
+            del q, kp, vp, pt, lengths, qpos, t
+            torch.cuda.empty_cache()
 
 
 def flash_bound(q, k, dtype, *, causal, window, q_offset=0):
@@ -968,7 +993,6 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
     model.decode_chunk = recorded
     for fn in (chunked_prefill_cuda, gmm_tiles_cuda, w8a16_matmul_cuda):
         fn.launches = 0
-    for fn in (gmm_tiles_cuda, w8a16_matmul_cuda):
         fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
     t0 = time.perf_counter()
     eng.generate(reqs)
@@ -987,6 +1011,11 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
     gmm_paths = gmm_tiles_cuda.launches_by_path
     assert gmm_paths["stream"] > 0 and gmm_paths["mma"] > 0 and gmm_paths["tiled"] == 0, \
         f"the serving run's gmm calls left their planned paths: {gmm_paths}"
+    # bf16 q and pool: decode sweeps (4 folded rows a KV head) split, prefill
+    # packs take the tensor cores
+    attn_paths = chunked_prefill_cuda.launches_by_path
+    assert attn_paths["split"] > 0 and attn_paths["mma"] > 0 and attn_paths["tiled"] == 0, \
+        f"the serving run's attention calls left their planned paths: {attn_paths}"
     ms = [request_metrics(r) for r in reqs]
     n_tok = sum(m.n_tokens for m in ms)
     recs = list(eng.step_records)
@@ -1009,9 +1038,10 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
         f"{serve['prefill_step_ms_mean']:.3f} ms, peak device memory "
         f"{serve['peak_mem_gb']:.2f} GB ({depth_note(cfg)})")
     log(f"  launches on the serving run: {launches}, gmm by path "
-        f"{gmm_tiles_cuda.launches_by_path}"
+        f"{gmm_tiles_cuda.launches_by_path}, chunked attention by path {attn_paths}"
         + (f", w8a16 by path {w8a16_matmul_cuda.launches_by_path}" if int8 else ""))
     serve["gmm_launches_by_path"] = dict(gmm_tiles_cuda.launches_by_path)
+    serve["attention_launches_by_path"] = dict(attn_paths)
     if int8:
         serve["w8a16_launches_by_path"] = dict(w8a16_matmul_cuda.launches_by_path)
     # logits row of request b's token t: the call whose row ends at its
@@ -1345,8 +1375,16 @@ def profile_window(fn, what: str):
         f"({100 * busy_ms / (wall * 1e3):.1f}%); top kernels by device time:")
     for k, t, n in rows[:12]:
         log(f"    {t:10.3f} ms  x{n:<6d} {k[:90]}")
+    # the port's own kernels (csrc/: anonymous namespaces, no ATen types in
+    # their signatures), wherever they rank: each one's share of the busy time
+    port = [(k, t, n) for k, t, n in rows
+            if k.split("(anonymous namespace)::")[0] in ("", "void ") and "at::" not in k]
+    log("  the port's kernels, share of busy time: " + "; ".join(
+        f"{k.split('::')[1].split('(')[0]} {t:.3f} ms x{n} ({100 * t / busy_ms:.2f}%)"
+        for k, t, n in port))
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-                top=[dict(name=k, ms=t, count=n) for k, t, n in rows[:25]])
+                top=[dict(name=k, ms=t, count=n) for k, t, n in rows[:25]],
+                port=[dict(name=k, ms=t, count=n) for k, t, n in port])
 
 
 # ------------------------------------------------------------------ main

@@ -10,33 +10,53 @@
 // reduced with an fp32 online softmax; a row with no visible key (lengths
 // 0: idle decode slots, padding rows of the prefill pack) gives zeros.
 //
-// What bounds it on the card: bytes. Each block reads its KV pages once and
-// does 4*D flops per (query row, key) pair, far below the H100's ~295
-// flop/byte ridge at the engine's chunk sizes; decode (C = 1, G = 4 rows
-// per KV head) is pure page streaming.
+// The fold r = c * G + g (the TPU kernel's (chunk, G) row axis) lets one
+// staged KV tile serve every query head of its GQA group and every token of
+// the chunk; the public layout stays (B, C, H, D). A block reads its own
+// starts / lengths / page ids; key positions map to (page, slot) one by
+// one, so any page size works.
 //
-// Design:
-//  - grid = (tiles of kRows folded query rows, KV head, batch row); the
-//    fold r = c*G + g (the TPU kernel's (chunk, G) row axis) lets one
-//    staged KV page serve every query head of its GQA group and every
-//    token of the chunk. The public layout stays (B, C, H, D).
-//  - the TPU grid walks pages in order with state in VMEM scratch; here a
-//    block walks its pages in a loop instead, keeping the running max and
-//    sum per row in shared memory and the output accumulator in registers
-//    (each thread owns one head-dim column of kRows / (128 / D) rows).
-//  - a block reads its own starts / lengths / page ids, visits only pages
-//    below ceil(length / ps), stops at the last page its tile's queries can
-//    see causally, and skips pages wholly outside the window (the test of
-//    kernel.py:188-190, taken at the tile's first query position).
-//  - KV is staged kKeys keys at a time in shared memory as fp32 (rows
-//    padded by one word against bank conflicts), so any page size works.
-//  - CUDA-core fp32 FMAs. Tensor cores (mma.sync / wgmma) and TMA staging
-//    are later work.
+// What bounds it on the card: bytes at decode (C * G folded rows a KV head
+// read every visible key once: 2 * C * G flop a byte, far below the H100's
+// ~295 flop/byte ridge), launch latency at the serving path's sizes (its
+// byte bound is about a microsecond). The TPU grid (B, Hkv, pages) walks a
+// row's pages in order; here the host-side plan (kernels/paged_attention/
+// kernel.py's _plan) picks one of three kernels:
+//
+//  - split (C * G <= kSplitMaxRows = 32 folded rows: the decode sweep,
+//    verify chunks; any dtype), flash-decoding. A grid of B * Hkv blocks
+//    would leave most of the 132 SMs idle (32 at the decode sweep), so the
+//    pool row's key positions are cut into `splits` ranges of whole
+//    kSplitKeys tiles: grid (splits, Hkv, B). A block exits at once when
+//    its range holds no key the chunk can see (past min(length, start + C),
+//    or wholly before its first query's window); otherwise it streams its
+//    tiles through a two-stage cp.async ring, scores all folded rows of its
+//    KV head against them in fp32 (a warp a row, a lane a key), and writes
+//    the rows' partial max, sum and P V (fp32). A second kernel, launched as
+//    a programmatic dependent, merges each row's live splits in a fixed
+//    order, one output value a thread, so repeats are bit-equal.
+//  - mma (bf16 q and pool above that: prefill packs), FA2 on
+//    mma.sync.m16n8k16. A block takes 64 folded rows of one KV head (16 a
+//    warp; the Q fragment stays in registers), walks 64-key tiles from its
+//    first query's window to its last query's position through a cp.async
+//    double buffer, computes S = Q K^T from a zero accumulator, applies
+//    scale, softcap and the mask in registers, runs the online softmax with
+//    quad shuffles, and adds each tile's P V, summed from zero, to the fp32
+//    accumulator after the rescale. P enters the tensor cores as truncated
+//    hi + lo bf16 parts (two products, within 2^-16 of P): P rounded once
+//    to bf16 is off by up to 2^-9 of itself, as much as a bf16 step of an
+//    output near 2-4, so outputs would land a step from the fp32 plain
+//    version's.
+//  - tiled (fp32 or mixed dtypes above that; an fp32 case stays IEEE fp32
+//    on the CUDA cores): the port's first kernel, kept as it was. A block
+//    takes kRows folded rows and walks its row's pages in a loop, staging
+//    kKeys keys at a time as fp32 in shared memory.
 
-#include "common.cuh"
+#include "gemm_common.cuh"   // cp_async16, ldmatrix_x4[_trans], mma_bf16[_zero], split_pair
 
 namespace {
 
+// ------------------------------------------------------------------ tiled
 constexpr int kThreads = 128;
 constexpr int kRows = 32;   // folded query rows per block
 constexpr int kKeys = 16;   // keys staged in shared memory per step
@@ -182,27 +202,678 @@ int launch(const void* q, const void* kp, const void* vp, const void* page_table
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------------ split
+constexpr int kSplitThreads = 128;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitKeys = 32;      // keys a staged tile: one a lane in the softmax
+constexpr int kSplitMaxRows = 32;   // folded query rows a split block takes at most
+
+// Key positions [lo, hi) that some query of a row's chunk can see: below its
+// length, its last query's position + 1 and the pool row's capacity, and
+// with a window inside its first query's window.
+__device__ __forceinline__ void chunk_keys(int length, int start, int C, int cap, int window,
+                                           int& lo, int& hi) {
+  hi = max(min(min(length, start + C), cap), 0);
+  lo = window > 0 ? max(start - window + 1, 0) : 0;
+}
+
+// Tiles of kSplitKeys in a pool row of cap positions (at least one).
+__host__ __device__ __forceinline__ long long split_units(int cap) {
+  return cap > kSplitKeys ? (cap + kSplitKeys - 1) / kSplitKeys : 1;
+}
+
+// Key positions [k0, k1) of split s: the split_units(cap) whole tiles cut
+// as evenly as integers allow (kernels/paged_attention/kernel.py's
+// split_ranges mirrors it; splits <= units, so none is empty).
+__device__ __forceinline__ void split_keys(int cap, int splits, int s, int& k0, int& k1) {
+  const long long units = split_units(cap);
+  k0 = static_cast<int>(min(static_cast<long long>(cap), s * units / splits * kSplitKeys));
+  k1 = static_cast<int>(min(static_cast<long long>(cap), (s + 1) * units / splits * kSplitKeys));
+}
+
+// The splits [s_lo, s_hi) whose ranges meet [lo, hi) (none where lo >= hi):
+// split s meets it iff its last tile floor((s + 1) U / S) - 1 reaches tile
+// floor(lo / kSplitKeys) and its first tile floor(s U / S) lies before
+// tile ceil(hi / kSplitKeys), both monotone in s (kernel.py's live_splits
+// mirrors it)
+__device__ __forceinline__ void live_splits(int lo, int hi, int cap, int splits, int& s_lo,
+                                            int& s_hi) {
+  if (lo >= hi) {
+    s_lo = s_hi = 0;
+    return;
+  }
+  const long long units = split_units(cap);
+  s_lo = static_cast<int>(((lo / kSplitKeys + 1) * static_cast<long long>(splits) + units - 1) /
+                          units) - 1;
+  s_hi = static_cast<int>(((hi + kSplitKeys - 1) / kSplitKeys * static_cast<long long>(splits) +
+                           units - 1) / units);
+}
+
+// 8 consecutive staged elements -> fp32 (16-byte aligned)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 c = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = c.x; f[5] = c.y; f[6] = c.z; f[7] = c.w;
+}
+
+// Shared memory of the split kernel: a ring of 2 stages of K and V tiles
+// (rows padded by 16 bytes: 16-byte lane loads on distinct banks), then q
+// (fp32), the probabilities and the rows' rescale factors.
+template <typename TKV, int D>
+struct SplitSmem {
+  static constexpr int kRow = D + 16 / static_cast<int>(sizeof(TKV));   // elements a key row
+  static constexpr int kTile = kSplitKeys * kRow;                        // elements a K / V tile
+  static constexpr int kQRow = D + 4;                                    // floats a query row
+  static constexpr int kRing = 4 * kTile * static_cast<int>(sizeof(TKV));
+  __host__ __device__ static constexpr int bytes(int R) {
+    return kRing + R * (kQRow + kSplitKeys + 1) * 4;
+  }
+};
+
+// grid (splits, Hkv, B); MR >= C * G rows. part_acc (B, Hkv, splits, C*G,
+// D) and part_ml (..., 2) fp32; a block that exits early writes nothing.
+template <typename TQ, typename TKV, int D, int MR>
+__global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
+    const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __restrict__ vp,
+    const int* __restrict__ page_table, const int* __restrict__ lengths,
+    const int* __restrict__ starts, float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int C, int H, int Hkv, int ps, int maxp, int splits, float scale, float softcap,
+    int window) {
+  using S = SplitSmem<TKV, D>;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(TKV));            // elements a 16-byte chunk
+  constexpr int kChunksRow = D / kPer;                                // chunks a key row
+  constexpr int kRowsWarp = (MR + kSplitWarps - 1) / kSplitWarps;     // score rows a warp
+  constexpr int kGroups = kSplitThreads / D;                          // P V row groups
+  constexpr int kRowsPV = (MR + kGroups - 1) / kGroups;               // P V rows a thread
+  static_assert(kSplitThreads % D == 0 && D % 8 == 0, "head_dim must divide the block");
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv, R = C * G, cap = maxp * ps;
+  const int start = starts[b];
+  int lo, hi, s_lo, s_hi;
+  chunk_keys(lengths[b], start, C, cap, window, lo, hi);
+  live_splits(lo, hi, cap, splits, s_lo, s_hi);
+  if (split < s_lo || split >= s_hi) return;   // nothing here is visible
+  int k0, k1;
+  split_keys(cap, splits, split, k0, k1);
+  const int kb = max(k0, lo / kSplitKeys * kSplitKeys), ke = min(k1, hi);
+  const int tiles = (ke - kb + kSplitKeys - 1) / kSplitKeys;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  TKV* ring = reinterpret_cast<TKV*>(smem);                        // [stage][K | V][key][kRow]
+  float* qs = reinterpret_cast<float*>(smem + S::kRing);           // [row][kQRow]
+  float* pr = qs + R * S::kQRow;                                   // [row][key]
+  float* alpha_s = pr + R * kSplitKeys;                            // [row]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t prow = static_cast<size_t>(b) * maxp;
+
+  // stage tile t (keys kb + kSplitKeys t ...) in ring stage buf, one 16-byte
+  // copy a chunk, zero-filled outside [lo, ke): no row holds garbage
+  auto load_tile = [&](int t, int buf) {
+    TKV* ks = ring + buf * 2 * S::kTile;
+    TKV* vs = ks + S::kTile;
+    const int base = kb + t * kSplitKeys;
+    for (int i = tid; i < kSplitKeys * kChunksRow; i += kSplitThreads) {
+      const int j = i / kChunksRow, c = i % kChunksRow * kPer;
+      const int pos = base + j;
+      const bool ok = pos >= lo && pos < ke;
+      size_t off = 0;
+      if (ok) {
+        const size_t page = static_cast<size_t>(page_table[prow + pos / ps]);
+        off = ((page * ps + pos % ps) * Hkv + h) * D + c;
+      }
+      cp_async16(ks + j * S::kRow + c, kp + off, ok ? 16 : 0);
+      cp_async16(vs + j * S::kRow + c, vp + off, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  load_tile(0, 0);
+  for (int i = tid; i < R * D; i += kSplitThreads) {
+    const int r = i / D, d = i % D;
+    qs[r * S::kQRow + d] =
+        to_f32(q[((static_cast<size_t>(b) * C + r / G) * H + h * G + r % G) * D + d]);
+  }
+  // softmax state of the warp's rows warp + 4 i (every lane holds it)
+  float m_run[kRowsWarp], l_run[kRowsWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsWarp; ++i) {
+    m_run[i] = kNegBig;
+    l_run[i] = 0.f;
+  }
+  // P V: the thread's column dcol of rows rgroup + kGroups i
+  const int dcol = tid % D, rgroup = tid / D;
+  float acc[kRowsPV];
+#pragma unroll
+  for (int i = 0; i < kRowsPV; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // tile t (and q) visible to every thread, and every thread done with
+    // tile t - 1, whose stage the next load takes
+    __syncthreads();
+    if (t + 1 < tiles) load_tile(t + 1, (t + 1) & 1);
+    const TKV* ks = ring + (t & 1) * 2 * S::kTile;
+    const TKV* vs = ks + S::kTile;
+    const int pos = kb + t * kSplitKeys + lane;
+
+    float s[kRowsWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsWarp; ++i) s[i] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 8) {
+      float kf[8];
+      load8(ks + lane * S::kRow + d, kf);
+#pragma unroll
+      for (int i = 0; i < kRowsWarp; ++i) {
+        const int r = warp + i * kSplitWarps;
+        if (r < R) {
+          const float4 a = *reinterpret_cast<const float4*>(qs + r * S::kQRow + d);
+          const float4 c = *reinterpret_cast<const float4*>(qs + r * S::kQRow + d + 4);
+          float x = s[i];
+          x = fmaf(a.x, kf[0], x);
+          x = fmaf(a.y, kf[1], x);
+          x = fmaf(a.z, kf[2], x);
+          x = fmaf(a.w, kf[3], x);
+          x = fmaf(c.x, kf[4], x);
+          x = fmaf(c.y, kf[5], x);
+          x = fmaf(c.z, kf[6], x);
+          s[i] = fmaf(c.w, kf[7], x);
+        }
+      }
+    }
+    // masked scores and the online softmax, a warp a row, a lane a key
+#pragma unroll
+    for (int i = 0; i < kRowsWarp; ++i) {
+      const int r = warp + i * kSplitWarps;
+      if (r >= R) break;
+      const int q_pos = start + r / G;
+      const bool ok = pos >= lo && pos < ke && pos <= q_pos &&
+                      (window <= 0 || pos > q_pos - window);
+      float x = -INFINITY;
+      if (ok) {
+        x = s[i] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      }
+      float mx = x;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, o));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float p = ok ? expf(x - m_new) : 0.f;
+      float sum = p;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(~0u, sum, o);
+      const float alpha = expf(m_run[i] - m_new);
+      l_run[i] = fmaf(alpha, l_run[i], sum);
+      m_run[i] = m_new;
+      pr[r * kSplitKeys + lane] = p;
+      if (lane == 0) alpha_s[r] = alpha;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < kRowsPV; ++i) {
+      const int r = rgroup + i * kGroups;
+      if (r < R) acc[i] *= alpha_s[r];
+    }
+#pragma unroll 2
+    for (int j = 0; j < kSplitKeys; j += 4) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = to_f32(vs[(j + u) * S::kRow + dcol]);
+#pragma unroll
+      for (int i = 0; i < kRowsPV; ++i) {
+        const int r = rgroup + i * kGroups;
+        if (r < R) {
+          const float4 p = *reinterpret_cast<const float4*>(pr + r * kSplitKeys + j);
+          float a = fmaf(p.x, v[0], acc[i]);
+          a = fmaf(p.y, v[1], a);
+          a = fmaf(p.z, v[2], a);
+          acc[i] = fmaf(p.w, v[3], a);
+        }
+      }
+    }
+  }
+  // the merge may launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+
+  const size_t part = (static_cast<size_t>(b) * Hkv + h) * splits + split;
+#pragma unroll
+  for (int i = 0; i < kRowsPV; ++i) {
+    const int r = rgroup + i * kGroups;
+    if (r < R) part_acc[(part * R + r) * D + dcol] = acc[i];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kRowsWarp; ++i) {
+      const int r = warp + i * kSplitWarps;
+      if (r < R) {
+        part_ml[(part * R + r) * 2] = m_run[i];
+        part_ml[(part * R + r) * 2 + 1] = l_run[i];
+      }
+    }
+  }
+}
+
+// grid (ceil(C * G * D / kSplitThreads), Hkv, B): one output value a
+// thread (folded row i / D, column i % D) from its row's live splits: each
+// split's P V rescaled to their common max and summed in split order, so a
+// call gives the same bits every time; a row with no visible key (every
+// sum 0) gives 0. A programmatic dependent of the split kernel.
+template <typename TQ>
+__global__ void __launch_bounds__(kSplitThreads) chunked_merge_kernel(
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    const int* __restrict__ lengths, const int* __restrict__ starts, TQ* __restrict__ out,
+    int C, int H, int Hkv, int D, int ps, int maxp, int splits, int window) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv, R = C * G;
+  const int i = blockIdx.x * kSplitThreads + threadIdx.x;
+  int lo, hi, s_lo, s_hi;
+  chunk_keys(lengths[b], starts[b], C, maxp * ps, window, lo, hi);
+  live_splits(lo, hi, maxp * ps, splits, s_lo, s_hi);
+  // wait for the split kernel to finish and its writes to be visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (i >= R * D) return;
+  const int r = i / D, d = i % D;
+  // split s of this row: (max, sum) at ml[2 s R], P V at acc[s R D]
+  const size_t row = ((static_cast<size_t>(b) * Hkv + h) * splits + s_lo) * R + r;
+  const float* ml = part_ml + row * 2;
+  const float* acc = part_acc + row * D + d;
+  float M = -INFINITY;
+  for (int s = 0; s < s_hi - s_lo; ++s) M = fmaxf(M, ml[2 * s * R]);
+  float L = 0.f, a = 0.f;
+  for (int s = 0; s < s_hi - s_lo; ++s) {
+    const float w = expf(ml[2 * s * R] - M);
+    L = fmaf(ml[2 * s * R + 1], w, L);
+    a = fmaf(acc[static_cast<size_t>(s) * R * D], w, a);
+  }
+  out[((static_cast<size_t>(b) * C + r / G) * H + h * G + r % G) * D + d] =
+      from_f32<TQ>(L > 0.f ? a / L : 0.f);
+}
+
+template <typename TQ, typename TKV, int D, int MR>
+int launch_split(const TQ* q, const TKV* kp, const TKV* vp, const int* page_table,
+                 const int* lengths, const int* starts, TQ* out, float* part_acc, float* part_ml,
+                 int B, int C, int H, int Hkv, int ps, int maxp, int splits, float scale,
+                 float softcap, int window, cudaStream_t s) {
+  using S = SplitSmem<TKV, D>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(chunked_split_kernel<TQ, TKV, D, MR>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, S::bytes(MR));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int R = C * (H / Hkv);
+  chunked_split_kernel<TQ, TKV, D, MR><<<dim3(splits, Hkv, B), kSplitThreads, S::bytes(R), s>>>(
+      q, kp, vp, page_table, lengths, starts, part_acc, part_ml, C, H, Hkv, ps, maxp, splits,
+      scale, softcap, window);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  // the merge, as a programmatic dependent: it starts while the split
+  // kernel drains, hiding its launch latency
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((R * D + kSplitThreads - 1) / kSplitThreads, Hkv, B);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr_pdl[1];
+  attr_pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr_pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr_pdl;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, chunked_merge_kernel<TQ>,
+                                             static_cast<const float*>(part_acc),
+                                             static_cast<const float*>(part_ml), lengths, starts,
+                                             out, C, H, Hkv, D, ps, maxp, splits, window));
+}
+
+// ------------------------------------------------------------------ mma
+constexpr int kMmaThreads = 128;   // 4 warps, 16 folded rows each
+constexpr int kMmaRows = 64;       // folded query rows a block
+constexpr int kMmaKeys = 64;       // keys a staged tile
+constexpr int kMmaPad = 8;         // bf16 padding a staged row: ldmatrix rows on distinct banks
+
+// the q tile, then 2 stages of K and V tiles, bf16
+template <int D>
+__host__ __device__ constexpr int mma_smem() {
+  return (kMmaRows + 4 * kMmaKeys) * (D + kMmaPad) * 2;
+}
+
+// grid (ceil(C * G / 64), Hkv, B); bf16 q, pool and out.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) chunked_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ page_table,
+    const int* __restrict__ lengths, const int* __restrict__ starts,
+    __nv_bfloat16* __restrict__ out, int C, int H, int Hkv, int ps, int maxp, float scale,
+    float softcap, int window) {
+  constexpr int kRow = D + kMmaPad;       // elements a staged row
+  constexpr int kChunks = D / 8;          // 16-byte chunks a row
+  constexpr int kKSteps = D / 16;         // k16 steps of Q K^T
+  constexpr int kNT = D / 8;              // n8 tiles of the output
+  static_assert(D % 16 == 0 && kMmaRows * kChunks % kMmaThreads == 0, "head_dim");
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [row][kRow]
+  __nv_bfloat16* ks = qs + kMmaRows * kRow;            // [stage][key][kRow]
+  __nv_bfloat16* vs = ks + 2 * kMmaKeys * kRow;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kMmaRows;
+  const int G = H / Hkv, R = C * G, cap = maxp * ps;
+  const int length = lengths[b], start = starts[b];
+  // the keys the tile's queries can see: up to its last query's position
+  // (causal), from its first query's window on
+  const int q_lo = start + r0 / G, q_hi = start + (min(r0 + kMmaRows, R) - 1) / G;
+  const int kv_hi = max(min(min(length, q_hi + 1), cap), 0);
+  const int kv_lo = window > 0 ? max(q_lo - window + 1, 0) : 0;
+  const int t0 = kv_lo / kMmaKeys;
+  const int tiles = kv_hi > kv_lo ? (kv_hi + kMmaKeys - 1) / kMmaKeys - t0 : 0;
+  const size_t prow = static_cast<size_t>(b) * maxp;
+
+  // stage key tile t0 + t in buffer buf, zero-filled outside [kv_lo, kv_hi)
+  auto load_kv = [&](int t, int buf) {
+    const int base = (t0 + t) * kMmaKeys;
+#pragma unroll
+    for (int u = 0; u < kMmaKeys * kChunks / kMmaThreads; ++u) {
+      const int i = tid + u * kMmaThreads;
+      const int j = i / kChunks, c = i % kChunks * 8;
+      const int pos = base + j;
+      const bool ok = pos >= kv_lo && pos < kv_hi;
+      size_t off = 0;
+      if (ok) {
+        const size_t page = static_cast<size_t>(page_table[prow + pos / ps]);
+        off = ((page * ps + pos % ps) * Hkv + h) * D + c;
+      }
+      cp_async16(ks + (buf * kMmaKeys + j) * kRow + c, kp + off, ok ? 16 : 0);
+      cp_async16(vs + (buf * kMmaKeys + j) * kRow + c, vp + off, ok ? 16 : 0);
+    }
+  };
+
+  if (tiles > 0) {
+#pragma unroll
+    for (int u = 0; u < kMmaRows * kChunks / kMmaThreads; ++u) {
+      const int i = tid + u * kMmaThreads;
+      const int row = i / kChunks, c = i % kChunks * 8;
+      const int r = r0 + row;
+      const bool ok = r < R;
+      const __nv_bfloat16* src =
+          ok ? q + ((static_cast<size_t>(b) * C + r / G) * H + h * G + r % G) * D + c : q;
+      cp_async16(qs + row * kRow + c, src, ok ? 16 : 0);
+    }
+    load_kv(0, 0);
+  }
+  cp_async_commit();
+
+  // the thread's rows of the tile: wrow and wrow + 8 (accumulator fragment
+  // rows lane / 4 and lane / 4 + 8 of its warp's 16)
+  const int wrow = warp * 16 + lane / 4;
+  int qpos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) qpos[hh] = start + (r0 + wrow + 8 * hh) / G;
+  float o[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) o[n][v] = 0.f;
+  float m_r[2] = {kNegBig, kNegBig}, l_r[2] = {0.f, 0.f};   // l: this thread's columns
+  unsigned qa[kKSteps][4];
+
+  for (int t = 0; t < tiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // tile t (and q) visible to every thread, and every warp done with
+    // tile t - 1, whose buffer the next load takes
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        ldmatrix_x4(qa[kk], qs + (warp * 16 + lane % 16) * kRow + kk * 16 + lane / 16 * 8);
+    }
+    if (t + 1 < tiles) load_kv(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const __nv_bfloat16* kt = ks + (t & 1) * kMmaKeys * kRow;
+    const __nv_bfloat16* vt = vs + (t & 1) * kMmaKeys * kRow;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, from a zero accumulator. B
+    // fragments of two n8 tiles from K [key][d]: matrices (keys 0-7 | 8-15)
+    // x (d 0-7 | 8-15) of the k16 step, rows addressed by lanes
+    float s[8][4];
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned r[4];
+        ldmatrix_x4(r, kt + (np * 16 + lane / 16 * 8 + lane % 8) * kRow + kk * 16 +
+                           lane / 8 % 2 * 8);
+        const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        if (kk == 0) {
+          mma_bf16_zero(s[2 * np], qa[kk], b0);
+          mma_bf16_zero(s[2 * np + 1], qa[kk], b1);
+        } else {
+          mma_bf16(s[2 * np], qa[kk], b0);
+          mma_bf16(s[2 * np + 1], qa[kk], b1);
+        }
+      }
+
+    // scale, softcap and mask in registers; -inf marks a masked pair.
+    // Fragment (n8 tile nt, v): row wrow + 8 (v / 2), key 8 nt + 2 (lane % 4) + v % 2
+    const int kbase = (t0 + t) * kMmaKeys + 2 * (lane % 4);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int pos = kbase + nt * 8 + (v & 1), hh = v >> 1;
+        const bool ok = pos < kv_hi && pos <= qpos[hh] &&
+                        (window <= 0 || pos > qpos[hh] - window);
+        float x = -INFINITY;
+        if (ok) {
+          x = s[nt][v] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        }
+        s[nt][v] = x;
+        mx[hh] = fmaxf(mx[hh], x);
+      }
+    // online softmax: a row's 64 scores lie on the 4 lanes of a quad
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(~0u, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(~0u, mx[hh], 2));
+      const float m_new = fmaxf(m_r[hh], mx[hh]);
+      alpha[hh] = expf(m_r[hh] - m_new);
+      m_r[hh] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float p = s[nt][v] == -INFINITY ? 0.f : expf(s[nt][v] - m_r[v >> 1]);
+        s[nt][v] = p;
+        rs[v >> 1] += p;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l_r[hh] = fmaf(alpha[hh], l_r[hh], rs[hh]);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // P as the A operand of 4 k16 steps (keys 16 j ..), hi + lo bf16 parts:
+    // the S fragments of n8 tiles 2j and 2j + 1 are exactly A's registers
+    unsigned ph[4][4], pl[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      split_pair(s[2 * j][0], s[2 * j][1], ph[j][0], pl[j][0]);
+      split_pair(s[2 * j][2], s[2 * j][3], ph[j][1], pl[j][1]);
+      split_pair(s[2 * j + 1][0], s[2 * j + 1][1], ph[j][2], pl[j][2]);
+      split_pair(s[2 * j + 1][2], s[2 * j + 1][3], ph[j][3], pl[j][3]);
+    }
+    // P V, 16 columns of d at a time, summed from zero over the tile (lo
+    // parts first) and added to o in fp32: the tensor cores truncate as they
+    // add, so one chain over the whole walk would drift
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      float d0[4], d1[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // B fragments of two n8 tiles from V [key][d], transposed by
+        // ldmatrix: matrices (keys 0-7 | 8-15) x (d 0-7 | 8-15)
+        unsigned r[4];
+        ldmatrix_x4_trans(r, vt + (j * 16 + lane / 8 % 2 * 8 + lane % 8) * kRow + dp * 16 +
+                                 lane / 16 * 8);
+        const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        if (j == 0) {
+          mma_bf16_zero(d0, pl[j], b0);
+          mma_bf16_zero(d1, pl[j], b1);
+        } else {
+          mma_bf16(d0, pl[j], b0);
+          mma_bf16(d1, pl[j], b1);
+        }
+        mma_bf16(d0, ph[j], b0);
+        mma_bf16(d1, ph[j], b1);
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        o[2 * dp][v] += d0[v];
+        o[2 * dp + 1][v] += d1[v];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float L = l_r[hh];
+    L += __shfl_xor_sync(~0u, L, 1);
+    L += __shfl_xor_sync(~0u, L, 2);
+    const int r = r0 + wrow + 8 * hh;
+    if (r >= R) continue;
+    __nv_bfloat16* dst =
+        out + ((static_cast<size_t>(b) * C + r / G) * H + h * G + r % G) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const float v0 = L > 0.f ? o[n][2 * hh] / L : 0.f;
+      const float v1 = L > 0.f ? o[n][2 * hh + 1] / L : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+template <int D>
+int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* kp, const __nv_bfloat16* vp,
+               const int* page_table, const int* lengths, const int* starts,
+               __nv_bfloat16* out, int B, int C, int H, int Hkv, int ps, int maxp, float scale,
+               float softcap, int window, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      chunked_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem<D>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int R = C * (H / Hkv);
+  chunked_mma_kernel<D><<<dim3((R + kMmaRows - 1) / kMmaRows, Hkv, B), kMmaThreads,
+                          mma_smem<D>(), s>>>(q, kp, vp, page_table, lengths, starts, out, C, H,
+                                              Hkv, ps, maxp, scale, softcap, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Path : int { kTiled = 0, kSplit = 1, kMma = 2 };
+
+template <typename TQ, typename TKV, int D>
+int launch_path(int path, int splits, const void* q, const void* kp, const void* vp,
+                const void* page_table, const void* lengths, const void* starts, void* out,
+                void* part_acc, void* part_ml, int B, int C, int H, int Hkv, int ps, int maxp,
+                float scale, float softcap, int window, cudaStream_t s) {
+  const auto* qt = static_cast<const TQ*>(q);
+  const auto* kt = static_cast<const TKV*>(kp);
+  const auto* vt = static_cast<const TKV*>(vp);
+  const auto* pt = static_cast<const int*>(page_table);
+  const auto* ln = static_cast<const int*>(lengths);
+  const auto* st = static_cast<const int*>(starts);
+  auto* ot = static_cast<TQ*>(out);
+  const int R = C * (H / Hkv);
+  switch (path) {
+    case kTiled:
+      return launch<TQ, TKV, D>(q, kp, vp, page_table, lengths, starts, out, B, C, H, Hkv, ps,
+                                maxp, scale, softcap, window, s);
+    case kSplit: {
+      if (splits < 1 || splits > split_units(maxp * ps) || part_acc == nullptr ||
+          part_ml == nullptr)
+        return -1;
+      auto* acc = static_cast<float*>(part_acc);
+      auto* ml = static_cast<float*>(part_ml);
+      if (R <= 4)
+        return launch_split<TQ, TKV, D, 4>(qt, kt, vt, pt, ln, st, ot, acc, ml, B, C, H, Hkv,
+                                           ps, maxp, splits, scale, softcap, window, s);
+      if (R <= 16)   // row classes: predicated-off rows still cost issue slots
+        return launch_split<TQ, TKV, D, 16>(qt, kt, vt, pt, ln, st, ot, acc, ml, B, C, H, Hkv,
+                                            ps, maxp, splits, scale, softcap, window, s);
+      if (R <= kSplitMaxRows)
+        return launch_split<TQ, TKV, D, kSplitMaxRows>(qt, kt, vt, pt, ln, st, ot, acc, ml, B,
+                                                       C, H, Hkv, ps, maxp, splits, scale,
+                                                       softcap, window, s);
+      return -1;
+    }
+    case kMma:
+      if constexpr (std::is_same_v<TQ, __nv_bfloat16> && std::is_same_v<TKV, __nv_bfloat16>)
+        return launch_mma<D>(qt, kt, vt, pt, ln, st, ot, B, C, H, Hkv, ps, maxp, scale, softcap,
+                             window, s);
+      return -1;
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
 
-// Returns the CUDA error of the launch (0 on success), -1 for an unsupported
-// dtype or head dim. Layouts: q/out (B, C, H, D); k/v pools (P, ps, Hkv, D);
-// page_table (B, maxp) int32; lengths, starts (B,) int32; all contiguous.
-extern "C" int chunked_prefill_launch(const void* q, const void* kp, const void* vp,
-                                      const void* page_table, const void* lengths,
-                                      const void* starts, void* out, int B, int C, int H,
+// The constants the wrapper's plan mirrors, in this order: the split
+// kernel's key tile and most folded rows, the mma kernel's folded rows and
+// key tile, the tiled kernel's folded rows.
+extern "C" void chunked_prefill_constants(int* c) {
+  c[0] = kSplitKeys;
+  c[1] = kSplitMaxRows;
+  c[2] = kMmaRows;
+  c[3] = kMmaKeys;
+  c[4] = kRows;
+}
+
+// Returns the CUDA error of the launches (0 on success), -1 for a path,
+// dtype, head dim or split count the kernels do not take. path: 0 tiled, 1
+// split (its merge follows on the stream), 2 mma (bf16 only). Layouts: q /
+// out (B, C, H, D); k / v pools (P, ps, Hkv, D); page_table (B, maxp)
+// int32; lengths, starts (B,) int32; split: part_acc (B, Hkv, splits, C*H/Hkv,
+// D) and part_ml (B, Hkv, splits, C*H/Hkv, 2) fp32 scratch, null otherwise;
+// all contiguous, q and the pools 16-byte aligned on the split and mma
+// paths.
+extern "C" int chunked_prefill_launch(int path, int splits, const void* q, const void* kp,
+                                      const void* vp, const void* page_table,
+                                      const void* lengths, const void* starts, void* out,
+                                      void* part_acc, void* part_ml, int B, int C, int H,
                                       int Hkv, int D, int ps, int maxp, float scale,
                                       float softcap, int window, int q_dtype, int kv_dtype,
                                       void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   return dispatch_dtype(q_dtype, [&](auto tq) {
     using TQ = std::remove_pointer_t<decltype(tq)>;
     return dispatch_dtype(kv_dtype, [&](auto tkv) {
       using TKV = std::remove_pointer_t<decltype(tkv)>;
       switch (D) {
-        case 16: return launch<TQ, TKV, 16>(q, kp, vp, page_table, lengths, starts, out, B, C,
-                                            H, Hkv, ps, maxp, scale, softcap, window, s);
-        case 128: return launch<TQ, TKV, 128>(q, kp, vp, page_table, lengths, starts, out, B,
-                                              C, H, Hkv, ps, maxp, scale, softcap, window, s);
+        case 16:
+          return launch_path<TQ, TKV, 16>(path, splits, q, kp, vp, page_table, lengths, starts,
+                                          out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
+                                          softcap, window, s);
+        case 128:
+          return launch_path<TQ, TKV, 128>(path, splits, q, kp, vp, page_table, lengths, starts,
+                                           out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
+                                           softcap, window, s);
         default: return -1;
       }
     });

@@ -4,6 +4,8 @@ card (marker ``cuda``) and skips without one; the file imports only torch
 and numpy, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+(``-k attention`` for the chunked attention kernels alone.)
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                  chunked_prefill_reference, paged_attention,
                                                  paged_attention_cuda,
                                                  paged_attention_reference)
+from repro_torch.kernels.paged_attention.kernel import plan_for as attn_plan_for
 from repro_torch.kernels.quant_matmul import (w8a16_matmul, w8a16_matmul_cuda,
                                               w8a16_matmul_reference)
 from repro_torch.kernels.quant_matmul.kernel import is_k_major, plan_for
@@ -73,6 +76,107 @@ def test_attention_kernel_matches_plain(cuda, dtype, ps, D, window, softcap):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
     assert not out[3].any(), "a length-0 row must give zeros"
+
+
+# (C, G, q dtype, pool dtype, the path the plan names): <= 32 folded rows
+# (C * G) split in any dtype (4, 16 and 32 rows: the kernel's three row
+# classes); above, bf16 q and pool take the tensor cores, anything else the
+# fp32 tiles
+ATTN_PATH_CASES = [
+    (1, 2, torch.float32, torch.float32, "split"),
+    (8, 2, torch.bfloat16, torch.bfloat16, "split"),
+    (4, 4, torch.float32, torch.bfloat16, "split"),
+    (8, 4, torch.bfloat16, torch.bfloat16, "split"),
+    (24, 2, torch.bfloat16, torch.bfloat16, "mma"),
+    (40, 4, torch.bfloat16, torch.bfloat16, "mma"),      # 160 rows: 3 tiles, the last ragged
+    (24, 2, torch.float32, torch.float32, "tiled"),
+    (24, 2, torch.bfloat16, torch.float32, "tiled"),
+]
+
+
+@pytest.mark.parametrize("ps,D,window,softcap", [(4, 16, 0, 0.0), (8, 16, 5, 0.0),
+                                                 (16, 128, 3, 2.0), (8, 128, 0, 0.0)])
+@pytest.mark.parametrize("case", ATTN_PATH_CASES)
+def test_attention_reaches_planned_path(cuda, case, ps, D, window, softcap):
+    """Each call launches the kernel its plan names, within
+    test_attention_kernel_matches_plain's tolerances of the plain version at
+    every position (padding rows and the idle row included), and a second
+    call gives the same bits (the split path merges its splits in a fixed
+    order)."""
+    C, G, q_dtype, kv_dtype, want = case
+    q, kp, vp, pt, lengths, qpos = _attn_case(ps + C, ps=ps, D=D, C=C, H=2 * G, Hkv=2)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, pt, lengths, qpos)]
+    args[0] = args[0].to(q_dtype)
+    args[1], args[2] = args[1].to(kv_dtype), args[2].to(kv_dtype)
+    kw = dict(scale=D ** -0.5, softcap=softcap, window=window)
+    assert attn_plan_for(args[0], args[1], args[3]).path == want
+    before = dict(chunked_prefill_cuda.launches_by_path)
+    a = chunked_prefill_attention(*args, **kw)
+    b = chunked_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    after = chunked_prefill_cuda.launches_by_path
+    assert {p: after[p] - before[p] for p in after} == {p: 2 * (p == want) for p in after}
+    assert torch.equal(a, b) and a.dtype == q_dtype
+    tol = 1e-5 if q_dtype == kv_dtype == torch.float32 else 1e-2
+    plain = chunked_prefill_reference(*args, **kw)
+    torch.testing.assert_close(a.float(), plain.float(), atol=tol, rtol=tol)
+    assert not a[3].any(), "a length-0 row must give zeros"
+
+
+@pytest.mark.parametrize("name,B,C,starts,nvalid,maxp,want", [
+    ("decode", 4, 1, [131, 219, 299, 166], [1, 1, 1, 1], 32, "split"),
+    ("decode C=4", 4, 4, [128, 216, 296, 163], [4, 4, 4, 4], 32, "split"),
+    ("decode long", 4, 1, [4000, 4095, 3900, 4050], [1, 1, 1, 1], 256, "split"),
+    ("prefill", 2, 128, [0, 128], [128, 100], 32, "mma"),
+])
+def test_attention_full_width_bit_equal_repeats(cuda, name, B, C, starts, nvalid, maxp, want):
+    """chip_smoke.py's phase-2 shapes at Mixtral's width (32 query heads over
+    8 KV heads of 128, pages of 16) in bf16: two calls give the same bits,
+    within the phase's tolerance of the plain version (one rounding of
+    outputs |o| < 4)."""
+    g = torch.Generator(device=cuda).manual_seed(B * C + maxp)
+    P = B * maxp + 1
+    q = torch.randn((B, C, 32, 128), generator=g, device=cuda).bfloat16()
+    kp, vp = (torch.randn((P, 16, 8, 128), generator=g, device=cuda).bfloat16()
+              for _ in range(2))
+    pt = (torch.randperm(P - 1, generator=g, device=cuda) + 1).reshape(B, maxp).int()
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    lengths = st + torch.tensor(nvalid, dtype=torch.int32, device=cuda)
+    qpos = st[:, None] + torch.arange(C, dtype=torch.int32, device=cuda)[None]
+    plan = attn_plan_for(q, kp, pt)
+    assert plan.path == want
+    a = chunked_prefill_attention(q, kp, vp, pt, lengths, qpos)
+    b = chunked_prefill_attention(q, kp, vp, pt, lengths, qpos)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = chunked_prefill_reference(q, kp, vp, pt, lengths, qpos)
+    assert float((a.float() - plain.float()).abs().max()) <= 2e-2
+
+
+def test_attention_cuda_tensor_goes_to_kernel_or_raises(cuda, monkeypatch):
+    """A call no kernel takes raises; none reaches the plain version."""
+    from repro_torch.kernels.paged_attention import ops
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ops, "chunked_prefill_reference", plain)
+    q, kp, vp, pt, lengths, qpos = (torch.from_numpy(a).to(cuda)
+                                    for a in _attn_case(1, ps=8, D=16))
+    n0 = chunked_prefill_cuda.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        chunked_prefill_attention(q[..., :8].contiguous(), kp[..., :8].contiguous(),
+                                  vp[..., :8].contiguous(), pt, lengths, qpos)
+    with pytest.raises(ValueError, match="dtype"):
+        chunked_prefill_attention(q.half(), kp, vp, pt, lengths, qpos)
+    flat = torch.empty(kp.numel() + 1, device=cuda)      # a pool 4 bytes off alignment
+    kp_off = flat[1:].view(kp.shape).copy_(kp)
+    with pytest.raises(ValueError, match="aligned"):
+        chunked_prefill_attention(q, kp_off, vp, pt, lengths, qpos)
+    assert chunked_prefill_cuda.launches == n0
+    out = chunked_prefill_attention(q, kp, vp, pt, lengths, qpos)
+    torch.cuda.synchronize()
+    assert chunked_prefill_cuda.launches == n0 + 1 and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -43,8 +43,8 @@ def test_every_module_imports_without_jax():
 
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b|from repro\.)")
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                     ROOT / "chip_ab.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_tune.py"]
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
     assert hits == []
