@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Compare two trees of the port on one card, in turns: for each tree,
-the phase-2 shapes of chunked attention, paged decode and w8a16, phase 4
+the phase-2 shapes of chunked attention, flash attention, paged decode,
+the grouped matmul (gmm) and w8a16, phase 4
 (mixtral at 8 layers, bf16, the serving run) and phase 7 (the full
 32-layer mixtral on int8 weights: the serving run, then the generation
 API) of that tree's own ``chip_smoke.py``.
@@ -39,10 +40,13 @@ def main() -> int:
     cs.cuda_ms(flush.zero_, flush=flush)
     res = []
     cs.run_attention(dev, flush, res)
+    cs.run_flash(dev, flush, res)
     cs.run_paged_decode(dev, flush, res)
+    cs.run_gmm(dev, flush, res)
     cs.run_w8a16(dev, flush, res)
     del flush
-    kernels = ("chunked_prefill_attention", "paged_attention", "w8a16_matmul")
+    kernels = ("chunked_prefill_attention", "flash_attention", "paged_attention", "moe_gmm",
+               "w8a16_matmul")
     out = dict(tag=tag, **{k: [dict(case=r["case"], dtype=r["dtype"], ms=r["ms"])
                                for r in res if r["kernel"] == k] for k in kernels})
     model, params, _ = cs.build_mixtral(dev, cs.SERVE_LAYERS, int8=False)

@@ -2,9 +2,11 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, in phases; any failure
 exits non-zero and no phase's failure is caught.
 
-  1. print the card's name and power limit; build the six CUDA kernels
-     from src/repro_torch/csrc with nvcc for sm_90a (one nvcc per source,
-     in parallel) and print what ptxas reports (registers, spills).
+  1. print the card's name and power limit; build the five CUDA sources of
+     src/repro_torch/csrc (the six TPU kernels' ports: paged decode is the
+     chunked attention source's split path in decode mode) with nvcc for
+     sm_90a (one nvcc per source, in parallel) and print what ptxas reports
+     (registers, spills).
   2. each kernel against its plain PyTorch version on the card: the small
      edge cases of the CPU tests, and the main paths' shapes at full
      Mixtral width (the SSD scan at mamba2's and jamba's; chunked
@@ -19,9 +21,9 @@ exits non-zero and no phase's failure is caught.
      matmul with the per-output-channel scale, the int8 tree's row scales
      and a transposed weight at the edges of its three kernels, then at
      mixtral's decode wq / wk / wo / head and prefill wq shapes. Chunked
-     attention, the grouped matmul and the w8a16 matmul print with each
-     case the kernel, split count and grid their plans chose, and call it
-     twice for bit-equal results.
+     attention, flash attention, paged decode, the grouped matmul and the
+     w8a16 matmul print with each case the kernel, split count and grid
+     their plans chose, and call it twice for bit-equal results.
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
      the CPU (plain versions), on the same two sequences of 20 tokens: the
      engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, then
@@ -46,7 +48,8 @@ exits non-zero and no phase's failure is caught.
      the same 4 prompts (right-padded to 297, flash attention), then
      GEN_STEPS = 32 greedy ``decode_step``s over the paged pool (paged
      decode kernel), so 33 tokens per request. The flash and paged decode
-     launch counters (set to 0 just before) must be > 0. Prints prefill
+     launch counters (set to 0 just before) must be > 0, flash's by its
+     planned path only (bf16: mma, never tiled). Prints prefill
      ms, decode step ms, tok/s, and how many leading tokens of each greedy
      stream equal phase 4's (printed only: bf16 near-ties may split two
      different kernels; phase 3 holds the fp32 agreement).
@@ -296,6 +299,7 @@ def run_flash(dev, flush, results):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                      mha_reference)
+    from repro_torch.kernels.flash_attention.kernel import plan_for
     # small edge cases of the CPU tests (head_dim 16): GQA / MQA, window,
     # softcap, q_offset, non-causal, ragged Sq / Skv of no tile multiple
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels_flash.py
@@ -312,8 +316,12 @@ def run_flash(dev, flush, results):
             err = max_err(out, mha_reference(q, k, v, **kw))
             assert err <= tols[dtype] and torch.isfinite(out).all(), \
                 f"flash edge case {Sq}x{Skv} {kw} {dtype}: err {err} > {tols[dtype]}"
-            log(f"  flash edge Sq={Sq} Skv={Skv} H={H}/{Hkv} {kw} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3g} (tol {tols[dtype]})")
+            assert torch.equal(out, flash_attention(q, k, v, **kw)), \
+                f"flash edge case {Sq}x{Skv} {kw} {dtype}: a repeat gave other bits"
+            plan = plan_for(q, k)
+            log(f"  flash edge Sq={Sq} Skv={Skv} H={H}/{Hkv} {kw} {str(dtype)[6:]} "
+                f"({plan.path}, grid={plan.grid}): max_abs_err={err:.3g} (tol {tols[dtype]}), "
+                f"repeat bit-equal")
     # the generation path's prefill at full width: 4 prompts right-padded to
     # 297 tokens, Mixtral's heads (causal); then gemma2's heads with its
     # window (cut to 128 to bite at 297 tokens) and attention softcap
@@ -324,10 +332,13 @@ def run_flash(dev, flush, results):
             k, v = (torch.randn((4, 297, Hkv, 128), generator=g, device=dev).to(dtype)
                     for _ in range(2))
             kw = dict(causal=True, window=window, softcap=softcap, scale=128 ** -0.5)
+            plan = plan_for(q, k)
             out = flash_attention(q, k, v, **kw)
             plain = mha_reference(q, k, v, **kw)
             err = max_err(out, plain)
             assert err <= tols[dtype], f"flash {name} {dtype}: err {err} > {tols[dtype]}"
+            assert torch.equal(out, flash_attention(q, k, v, **kw)), \
+                f"flash {name} {dtype}: a repeat gave other bits"
             del out, plain
             ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), flush=flush)
             op_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), flush=flush, queued=False)
@@ -346,12 +357,14 @@ def run_flash(dev, flush, results):
             row = dict(kernel="flash_attention", case=name, dtype=str(dtype)[6:],
                        shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} causal window={window} "
                              f"softcap={softcap}",
+                       path=plan.path, grid=list(plan.grid),
                        max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bms, bound_by=by)
             results.append(row)
-            log(f"  flash {name} {row['dtype']} {row['shape']}: kernel_ms={ms:.4f} "
-                f"op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                f"bound_ms={bms:.6f} ({by}) max_abs_err={err:.3g}")
+            log(f"  flash {name} {row['dtype']} {row['shape']} path={plan.path} "
+                f"grid={plan.grid}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={library_ms:.4f} bound_ms={bms:.6f} ({by}) max_abs_err={err:.3g}, "
+                f"repeat bit-equal")
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
 
@@ -359,6 +372,7 @@ def run_flash(dev, flush, results):
 def run_paged_decode(dev, flush, results):
     from repro_torch.kernels.paged_attention import (paged_attention, paged_attention_cuda,
                                                      paged_attention_reference)
+    from repro_torch.kernels.paged_attention.kernel import plan_for
     tols = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # tests/test_kernels_paged.py
     # small edge cases: page sizes 4 / 8 / 16, head_dim 16, a length-0 row,
     # windows, softcap
@@ -373,8 +387,12 @@ def run_paged_decode(dev, flush, results):
             err = max_err(out, paged_attention_reference(q[:, 0], kp, vp, pt, lengths, **kw))
             assert err <= tols[dtype] and not out[1].any() and torch.isfinite(out).all(), \
                 f"paged decode edge case ps={ps} w={window} {dtype}: err {err} > {tols[dtype]}"
+            assert torch.equal(out, paged_attention(q[:, 0], kp, vp, pt, lengths, **kw)), \
+                f"paged decode edge case ps={ps} w={window} {dtype}: a repeat gave other bits"
+            plan = plan_for(q, kp, pt)
             log(f"  paged decode edge ps={ps} window={window} softcap={softcap} "
-                f"{str(dtype)[6:]}: max_abs_err={err:.3g} (tol {tols[dtype]})")
+                f"{str(dtype)[6:]} ({plan.path}, splits={plan.splits}): max_abs_err={err:.3g} "
+                f"(tol {tols[dtype]}), length-0 row zeros, repeat bit-equal")
     # the generation path's decode at full Mixtral width (row 1's decode
     # shape), and the same with a window and softcap
     for name, window, softcap in (("decode", 0, 0.0), ("decode window", 128, 50.0)):
@@ -385,9 +403,12 @@ def run_paged_decode(dev, flush, results):
                                     softcap=softcap, seed=1)
             q4, kp, vp, pt, lengths, qpos = t
             q = q4[:, 0].contiguous()
+            plan = plan_for(q4, kp, pt)
             out = paged_attention(q, kp, vp, pt, lengths, **kw)
             err = max_err(out, paged_attention_reference(q, kp, vp, pt, lengths, **kw))
             assert err <= tols[dtype], f"paged decode {name} {dtype}: err {err} > {tols[dtype]}"
+            assert torch.equal(out, paged_attention(q, kp, vp, pt, lengths, **kw)), \
+                f"paged decode {name} {dtype}: a repeat gave other bits"
             ms = cuda_ms(lambda: paged_attention_cuda(q, kp, vp, pt, lengths, **kw), flush=flush)
             op_ms = cuda_ms(lambda: paged_attention(q, kp, vp, pt, lengths, **kw), flush=flush,
                             queued=False)
@@ -399,12 +420,14 @@ def run_paged_decode(dev, flush, results):
             row = dict(kernel="paged_attention", case=name, dtype=str(dtype)[6:],
                        shape=f"q{tuple(q.shape)} pool{tuple(kp.shape)} lengths "
                              f"{lengths.tolist()} window={window} softcap={softcap}",
+                       path=plan.path, splits=plan.splits, grid=list(plan.grid),
                        max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bms, bound_by=by)
             results.append(row)
-            log(f"  paged {name} {row['dtype']}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
+            log(f"  paged {name} {row['dtype']} path={plan.path} splits={plan.splits} "
+                f"grid={plan.grid}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.6f} "
-                f"({by}) max_abs_err={err:.3g}")
+                f"({by}) max_abs_err={err:.3g}, repeat bit-equal")
 
 
 def gmm_case(dev, *, tokens, E, K, N, dtype, seed=0):
@@ -1118,7 +1141,8 @@ def run_generation(dev, model, params, streams, profile: bool, eng_logits=None):
         torch.cuda.synchronize()
         for fn in counted:
             fn.launches = 0
-        gmm_tiles_cuda.launches_by_path = dict.fromkeys(gmm_tiles_cuda.launches_by_path, 0)
+        for fn in (gmm_tiles_cuda, flash_attention_cuda):
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
         gen, times, gen_logits = generate(GEN_STEPS)
         torch.cuda.synchronize()
         launches = {"flash_attention": flash_attention_cuda.launches,
@@ -1127,6 +1151,9 @@ def run_generation(dev, model, params, streams, profile: bool, eng_logits=None):
                     "w8a16_matmul": w8a16_matmul_cuda.launches}
     assert launches["flash_attention"] > 0 and launches["paged_attention"] > 0, \
         f"a kernel never ran on the generation path: {launches}"
+    flash_paths = dict(flash_attention_cuda.launches_by_path)
+    assert flash_paths["mma"] == launches["flash_attention"], \
+        f"flash attention left its planned path (bf16: mma): {flash_paths}"
     assert gen.shape == (B, GEN_STEPS + 1) and ((gen >= 0) & (gen < 32000)).all()
     prefill_ms, step_ms = 1e3 * times[0], 1e3 * float(np.mean(times[1:]))
     total = sum(times)
@@ -1140,13 +1167,15 @@ def run_generation(dev, model, params, streams, profile: bool, eng_logits=None):
                prefill_ms=prefill_ms, decode_step_ms_mean=step_ms,
                decode_tok_s=B / (step_ms / 1e3), tok_s=B * (GEN_STEPS + 1) / total,
                launches=launches, leading_tokens_equal_engine=agree,
-               gmm_launches_by_path=dict(gmm_tiles_cuda.launches_by_path))
+               gmm_launches_by_path=dict(gmm_tiles_cuda.launches_by_path),
+               flash_launches_by_path=flash_paths)
     log(f"  prefill of {B} prompts {lens} right-padded to {S} tokens: {prefill_ms:.3f} ms "
         f"(ring copied into the pool included); {GEN_STEPS} decode_steps over the paged "
         f"pool: {step_ms:.3f} ms per step, {res['decode_tok_s']:.2f} tok/s in decode, "
         f"{res['tok_s']:.2f} tok/s over the whole generation ({depth_note(model.cfg)})")
     log(f"  launches on the generation run: {launches}, gmm by path "
-        f"{res['gmm_launches_by_path']}")
+        f"{res['gmm_launches_by_path']}, flash attention by path {flash_paths} (paged decode: "
+        f"the split path only)")
     log(f"  leading greedy tokens equal to the engine's stream on the same weights, per "
         f"request: {agree} of its 32 (printed only: bf16 near-ties may split two different "
         f"kernels)")
@@ -1492,7 +1521,7 @@ def main() -> int:
              "src/repro/kernels/moe_gmm/kernel.py:29", "8tok 4096->14336"),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:112", "prefill"),
-            ("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
+            ("paged_attention", "src/repro_torch/csrc/chunked_prefill.cu",
              "src/repro/kernels/paged_attention/kernel.py:107", "decode"),
             ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan/kernel.py:65", "mamba2 pack"),

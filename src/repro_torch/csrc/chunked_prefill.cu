@@ -1,6 +1,8 @@
 // Chunked paged attention on Hopper (sm_90a): causal GQA attention of a
 // chunk of C query tokens per batch row over the paged KV pool. Serves the
-// engine's prefill pack (C = chunk) and its decode sweep (C = 1).
+// engine's prefill pack (C = chunk) and its decode sweep (C = 1), and, through
+// its split path in decode mode, LM.decode_step over a paged cache
+// (paged_attention_cuda: one token a row at position lengths[b] - 1).
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention/kernel.py,
 // chunked_prefill_pallas (body _chunked_prefill_kernel). Same function:
@@ -9,6 +11,10 @@
 // kv_pos > q_pos - window; scores are scaled, optionally softcapped, and
 // reduced with an fp32 online softmax; a row with no visible key (lengths
 // 0: idle decode slots, padding rows of the prefill pack) gives zeros.
+// In decode mode it also replaces paged_attention_pallas (same file, body
+// _paged_kernel): row b's one query at q_pos = lengths[b] - 1 sees kv_pos <
+// lengths[b] and, with a window, kv_pos > lengths[b] - 1 - window, which is
+// the chunked function at C = 1.
 //
 // The fold r = c * G + g (the TPU kernel's (chunk, G) row axis) lets one
 // staged KV tile serve every query head of its GQA group and every token of
@@ -36,23 +42,17 @@
 //    a programmatic dependent, merges each row's live splits in a fixed
 //    order, one output value a thread, so repeats are bit-equal.
 //  - mma (bf16 q and pool above that: prefill packs), FA2 on
-//    mma.sync.m16n8k16. A block takes 64 folded rows of one KV head (16 a
-//    warp; the Q fragment stays in registers), walks 64-key tiles from its
-//    first query's window to its last query's position through a cp.async
-//    double buffer, computes S = Q K^T from a zero accumulator, applies
-//    scale, softcap and the mask in registers, runs the online softmax with
-//    quad shuffles, and adds each tile's P V, summed from zero, to the fp32
-//    accumulator after the rescale. P enters the tensor cores as truncated
-//    hi + lo bf16 parts (two products, within 2^-16 of P): P rounded once
-//    to bf16 is off by up to 2^-9 of itself, as much as a bf16 step of an
-//    output near 2-4, so outputs would land a step from the fp32 plain
-//    version's.
+//    mma.sync.m16n8k16 (attention_mma.cuh, shared with flash_attention.cu).
+//    A block takes 64 folded rows of one KV head, walks 64-key tiles from
+//    its first query's window to its last query's position through a
+//    cp.async double buffer, and keeps the softmax and P V in registers; P
+//    enters the tensor cores as hi + lo bf16 parts.
 //  - tiled (fp32 or mixed dtypes above that; an fp32 case stays IEEE fp32
 //    on the CUDA cores): the port's first kernel, kept as it was. A block
 //    takes kRows folded rows and walks its row's pages in a loop, staging
 //    kKeys keys at a time as fp32 in shared memory.
 
-#include "gemm_common.cuh"   // cp_async16, ldmatrix_x4[_trans], mma_bf16[_zero], split_pair
+#include "attention_mma.cuh"   // the mma body; cp_async16 (gemm_common.cuh)
 
 namespace {
 
@@ -60,7 +60,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kRows = 32;   // folded query rows per block
 constexpr int kKeys = 16;   // keys staged in shared memory per step
-constexpr float kNegBig = -1.0e30f;
 
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
@@ -217,6 +216,13 @@ __device__ __forceinline__ void chunk_keys(int length, int start, int C, int cap
   lo = window > 0 ? max(start - window + 1, 0) : 0;
 }
 
+// Row b's first query position: starts[b], or with no starts (decode mode,
+// paged_attention_cuda's one new token a row) lengths[b] - 1, so that a
+// row of length 0 sits at -1 and sees nothing.
+__device__ __forceinline__ int row_start(const int* starts, const int* lengths, int b) {
+  return starts != nullptr ? starts[b] : lengths[b] - 1;
+}
+
 // Tiles of kSplitKeys in a pool row of cap positions (at least one).
 __host__ __device__ __forceinline__ long long split_units(int cap) {
   return cap > kSplitKeys ? (cap + kSplitKeys - 1) / kSplitKeys : 1;
@@ -299,7 +305,7 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int G = H / Hkv, R = C * G, cap = maxp * ps;
-  const int start = starts[b];
+  const int start = row_start(starts, lengths, b);
   int lo, hi, s_lo, s_hi;
   chunk_keys(lengths[b], start, C, cap, window, lo, hi);
   live_splits(lo, hi, cap, splits, s_lo, s_hi);
@@ -480,7 +486,7 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_merge_kernel(
   const int G = H / Hkv, R = C * G;
   const int i = blockIdx.x * kSplitThreads + threadIdx.x;
   int lo, hi, s_lo, s_hi;
-  chunk_keys(lengths[b], starts[b], C, maxp * ps, window, lo, hi);
+  chunk_keys(lengths[b], row_start(starts, lengths, b), C, maxp * ps, window, lo, hi);
   live_splits(lo, hi, maxp * ps, splits, s_lo, s_hi);
   // wait for the split kernel to finish and its writes to be visible
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -536,18 +542,8 @@ int launch_split(const TQ* q, const TKV* kp, const TKV* vp, const int* page_tabl
 }
 
 // ------------------------------------------------------------------ mma
-constexpr int kMmaThreads = 128;   // 4 warps, 16 folded rows each
-constexpr int kMmaRows = 64;       // folded query rows a block
-constexpr int kMmaKeys = 64;       // keys a staged tile
-constexpr int kMmaPad = 8;         // bf16 padding a staged row: ldmatrix rows on distinct banks
-
-// the q tile, then 2 stages of K and V tiles, bf16
-template <int D>
-__host__ __device__ constexpr int mma_smem() {
-  return (kMmaRows + 4 * kMmaKeys) * (D + kMmaPad) * 2;
-}
-
-// grid (ceil(C * G / 64), Hkv, B); bf16 q, pool and out.
+// grid (ceil(C * G / 64), Hkv, B); bf16 q, pool and out. The body is
+// attention_mma.cuh's, with a key's K/V row found through the page table.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads, 2) chunked_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
@@ -555,218 +551,15 @@ __global__ void __launch_bounds__(kMmaThreads, 2) chunked_mma_kernel(
     const int* __restrict__ lengths, const int* __restrict__ starts,
     __nv_bfloat16* __restrict__ out, int C, int H, int Hkv, int ps, int maxp, float scale,
     float softcap, int window) {
-  constexpr int kRow = D + kMmaPad;       // elements a staged row
-  constexpr int kChunks = D / 8;          // 16-byte chunks a row
-  constexpr int kKSteps = D / 16;         // k16 steps of Q K^T
-  constexpr int kNT = D / 8;              // n8 tiles of the output
-  static_assert(D % 16 == 0 && kMmaRows * kChunks % kMmaThreads == 0, "head_dim");
   extern __shared__ __align__(16) unsigned char smem[];
-  auto* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [row][kRow]
-  __nv_bfloat16* ks = qs + kMmaRows * kRow;            // [stage][key][kRow]
-  __nv_bfloat16* vs = ks + 2 * kMmaKeys * kRow;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kMmaRows;
-  const int G = H / Hkv, R = C * G, cap = maxp * ps;
-  const int length = lengths[b], start = starts[b];
-  // the keys the tile's queries can see: up to its last query's position
-  // (causal), from its first query's window on
-  const int q_lo = start + r0 / G, q_hi = start + (min(r0 + kMmaRows, R) - 1) / G;
-  const int kv_hi = max(min(min(length, q_hi + 1), cap), 0);
-  const int kv_lo = window > 0 ? max(q_lo - window + 1, 0) : 0;
-  const int t0 = kv_lo / kMmaKeys;
-  const int tiles = kv_hi > kv_lo ? (kv_hi + kMmaKeys - 1) / kMmaKeys - t0 : 0;
-  const size_t prow = static_cast<size_t>(b) * maxp;
-
-  // stage key tile t0 + t in buffer buf, zero-filled outside [kv_lo, kv_hi)
-  auto load_kv = [&](int t, int buf) {
-    const int base = (t0 + t) * kMmaKeys;
-#pragma unroll
-    for (int u = 0; u < kMmaKeys * kChunks / kMmaThreads; ++u) {
-      const int i = tid + u * kMmaThreads;
-      const int j = i / kChunks, c = i % kChunks * 8;
-      const int pos = base + j;
-      const bool ok = pos >= kv_lo && pos < kv_hi;
-      size_t off = 0;
-      if (ok) {
-        const size_t page = static_cast<size_t>(page_table[prow + pos / ps]);
-        off = ((page * ps + pos % ps) * Hkv + h) * D + c;
-      }
-      cp_async16(ks + (buf * kMmaKeys + j) * kRow + c, kp + off, ok ? 16 : 0);
-      cp_async16(vs + (buf * kMmaKeys + j) * kRow + c, vp + off, ok ? 16 : 0);
-    }
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int* pages = page_table + static_cast<size_t>(b) * maxp;
+  auto kv_row = [&](int pos) {
+    return ((static_cast<size_t>(pages[pos / ps]) * ps + pos % ps) * Hkv + h) * D;
   };
-
-  if (tiles > 0) {
-#pragma unroll
-    for (int u = 0; u < kMmaRows * kChunks / kMmaThreads; ++u) {
-      const int i = tid + u * kMmaThreads;
-      const int row = i / kChunks, c = i % kChunks * 8;
-      const int r = r0 + row;
-      const bool ok = r < R;
-      const __nv_bfloat16* src =
-          ok ? q + ((static_cast<size_t>(b) * C + r / G) * H + h * G + r % G) * D + c : q;
-      cp_async16(qs + row * kRow + c, src, ok ? 16 : 0);
-    }
-    load_kv(0, 0);
-  }
-  cp_async_commit();
-
-  // the thread's rows of the tile: wrow and wrow + 8 (accumulator fragment
-  // rows lane / 4 and lane / 4 + 8 of its warp's 16)
-  const int wrow = warp * 16 + lane / 4;
-  int qpos[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) qpos[hh] = start + (r0 + wrow + 8 * hh) / G;
-  float o[kNT][4];
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) o[n][v] = 0.f;
-  float m_r[2] = {kNegBig, kNegBig}, l_r[2] = {0.f, 0.f};   // l: this thread's columns
-  unsigned qa[kKSteps][4];
-
-  for (int t = 0; t < tiles; ++t) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    // tile t (and q) visible to every thread, and every warp done with
-    // tile t - 1, whose buffer the next load takes
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldmatrix_x4(qa[kk], qs + (warp * 16 + lane % 16) * kRow + kk * 16 + lane / 16 * 8);
-    }
-    if (t + 1 < tiles) load_kv(t + 1, (t + 1) & 1);
-    cp_async_commit();
-    const __nv_bfloat16* kt = ks + (t & 1) * kMmaKeys * kRow;
-    const __nv_bfloat16* vt = vs + (t & 1) * kMmaKeys * kRow;
-
-    // S = Q K^T: 16 rows x 64 keys a warp, from a zero accumulator. B
-    // fragments of two n8 tiles from K [key][d]: matrices (keys 0-7 | 8-15)
-    // x (d 0-7 | 8-15) of the k16 step, rows addressed by lanes
-    float s[8][4];
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned r[4];
-        ldmatrix_x4(r, kt + (np * 16 + lane / 16 * 8 + lane % 8) * kRow + kk * 16 +
-                           lane / 8 % 2 * 8);
-        const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        if (kk == 0) {
-          mma_bf16_zero(s[2 * np], qa[kk], b0);
-          mma_bf16_zero(s[2 * np + 1], qa[kk], b1);
-        } else {
-          mma_bf16(s[2 * np], qa[kk], b0);
-          mma_bf16(s[2 * np + 1], qa[kk], b1);
-        }
-      }
-
-    // scale, softcap and mask in registers; -inf marks a masked pair.
-    // Fragment (n8 tile nt, v): row wrow + 8 (v / 2), key 8 nt + 2 (lane % 4) + v % 2
-    const int kbase = (t0 + t) * kMmaKeys + 2 * (lane % 4);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int pos = kbase + nt * 8 + (v & 1), hh = v >> 1;
-        const bool ok = pos < kv_hi && pos <= qpos[hh] &&
-                        (window <= 0 || pos > qpos[hh] - window);
-        float x = -INFINITY;
-        if (ok) {
-          x = s[nt][v] * scale;
-          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        }
-        s[nt][v] = x;
-        mx[hh] = fmaxf(mx[hh], x);
-      }
-    // online softmax: a row's 64 scores lie on the 4 lanes of a quad
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(~0u, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(~0u, mx[hh], 2));
-      const float m_new = fmaxf(m_r[hh], mx[hh]);
-      alpha[hh] = expf(m_r[hh] - m_new);
-      m_r[hh] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const float p = s[nt][v] == -INFINITY ? 0.f : expf(s[nt][v] - m_r[v >> 1]);
-        s[nt][v] = p;
-        rs[v >> 1] += p;
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) l_r[hh] = fmaf(alpha[hh], l_r[hh], rs[hh]);
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // P as the A operand of 4 k16 steps (keys 16 j ..), hi + lo bf16 parts:
-    // the S fragments of n8 tiles 2j and 2j + 1 are exactly A's registers
-    unsigned ph[4][4], pl[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      split_pair(s[2 * j][0], s[2 * j][1], ph[j][0], pl[j][0]);
-      split_pair(s[2 * j][2], s[2 * j][3], ph[j][1], pl[j][1]);
-      split_pair(s[2 * j + 1][0], s[2 * j + 1][1], ph[j][2], pl[j][2]);
-      split_pair(s[2 * j + 1][2], s[2 * j + 1][3], ph[j][3], pl[j][3]);
-    }
-    // P V, 16 columns of d at a time, summed from zero over the tile (lo
-    // parts first) and added to o in fp32: the tensor cores truncate as they
-    // add, so one chain over the whole walk would drift
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      float d0[4], d1[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // B fragments of two n8 tiles from V [key][d], transposed by
-        // ldmatrix: matrices (keys 0-7 | 8-15) x (d 0-7 | 8-15)
-        unsigned r[4];
-        ldmatrix_x4_trans(r, vt + (j * 16 + lane / 8 % 2 * 8 + lane % 8) * kRow + dp * 16 +
-                                 lane / 16 * 8);
-        const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        if (j == 0) {
-          mma_bf16_zero(d0, pl[j], b0);
-          mma_bf16_zero(d1, pl[j], b1);
-        } else {
-          mma_bf16(d0, pl[j], b0);
-          mma_bf16(d1, pl[j], b1);
-        }
-        mma_bf16(d0, ph[j], b0);
-        mma_bf16(d1, ph[j], b1);
-      }
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        o[2 * dp][v] += d0[v];
-        o[2 * dp + 1][v] += d1[v];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float L = l_r[hh];
-    L += __shfl_xor_sync(~0u, L, 1);
-    L += __shfl_xor_sync(~0u, L, 2);
-    const int r = r0 + wrow + 8 * hh;
-    if (r >= R) continue;
-    __nv_bfloat16* dst =
-        out + ((static_cast<size_t>(b) * C + r / G) * H + h * G + r % G) * D + 2 * (lane % 4);
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      const float v0 = L > 0.f ? o[n][2 * hh] / L : 0.f;
-      const float v1 = L > 0.f ? o[n][2 * hh + 1] / L : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
+  mma_attention_block<D, true>(q, kp, vp, out, b, h, blockIdx.x * kMmaRows, C, H, H / Hkv,
+                               starts[b], min(lengths[b], maxp * ps), scale, softcap, window,
+                               kv_row, smem);
 }
 
 template <int D>
@@ -848,10 +641,10 @@ extern "C" void chunked_prefill_constants(int* c) {
 // dtype, head dim or split count the kernels do not take. path: 0 tiled, 1
 // split (its merge follows on the stream), 2 mma (bf16 only). Layouts: q /
 // out (B, C, H, D); k / v pools (P, ps, Hkv, D); page_table (B, maxp)
-// int32; lengths, starts (B,) int32; split: part_acc (B, Hkv, splits, C*H/Hkv,
-// D) and part_ml (B, Hkv, splits, C*H/Hkv, 2) fp32 scratch, null otherwise;
-// all contiguous, q and the pools 16-byte aligned on the split and mma
-// paths.
+// int32; lengths, starts (B,) int32 (split: starts may be null, the decode
+// mode of row_start); split: part_acc (B, Hkv, splits, C*H/Hkv, D) and
+// part_ml (B, Hkv, splits, C*H/Hkv, 2) fp32 scratch, null otherwise; all
+// contiguous, q and the pools 16-byte aligned on the split and mma paths.
 extern "C" int chunked_prefill_launch(int path, int splits, const void* q, const void* kp,
                                       const void* vp, const void* page_table,
                                       const void* lengths, const void* starts, void* out,
@@ -859,7 +652,7 @@ extern "C" int chunked_prefill_launch(int path, int splits, const void* q, const
                                       int Hkv, int D, int ps, int maxp, float scale,
                                       float softcap, int window, int q_dtype, int kv_dtype,
                                       void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return -1;
+  if (Hkv <= 0 || H % Hkv != 0 || (starts == nullptr && path != kSplit)) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   return dispatch_dtype(q_dtype, [&](auto tq) {
     using TQ = std::remove_pointer_t<decltype(tq)>;

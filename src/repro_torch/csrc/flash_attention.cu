@@ -13,31 +13,34 @@
 // What bounds it on the card: at the prefill shapes of the serving path
 // (a few hundred tokens, D = 128) the operations (4*D per visible
 // (query, key) pair) and the bytes (q, k, v, o once) give bounds of the same
-// order, a few microseconds each; this kernel runs fp32 FMAs on the CUDA
-// cores, so the operations bound it (67 TFLOP/s, not the tensor cores' 989).
+// order, a few microseconds each. The host-side plan
+// (kernels/flash_attention/kernel.py's _plan) picks one of two kernels:
 //
-// Design:
-//  - grid = (tiles of kBQ query rows, query head, batch row). The TPU grid
-//    carries m / l / acc across its innermost kv axis in VMEM scratch; here
-//    a block walks its kv tiles in a loop with that state in registers.
-//  - a block visits only the kv tiles its rows can see: up to the tile of
-//    its last row's position (causal) and from the tile of its first row's
-//    window start (kernel.py:57-63), which is the causal 2x saving; every
-//    element is still masked as kernel.py:76-81 does.
-//  - the ragged Sq / Skv edges are masked here: no padding to tile
-//    multiples. Keys past Skv are staged as zeros and masked.
-//  - register tiling: thread (rg, cg) of 16 x 8 owns 4 query rows; it holds
-//    a 4 x 4 block of the tile's scores (keys cg*4..) and a 4 x D/8 block of
-//    the output accumulator. Row max and sum reduce over the 8 threads of a
-//    row group with warp shuffles. q and k sit transposed in shared memory
-//    so each step reads one float4 of each; the probabilities go through
-//    shared memory (over k's buffer, free once the scores are taken) for
-//    the P V product.
-//  - shared memory at D = 128: 68 KB (q 34 KB, k or p 18 KB, v 16 KB), so
-//    three blocks fit on an SM. fp32 or bf16 in, fp32 math, out in q's type.
-//    Tensor cores (mma.sync / wgmma) and TMA staging are later work.
+//  - mma (bf16 q, k and v): FA2 on mma.sync.m16n8k16, attention_mma.cuh's
+//    body, shared with chunked_prefill.cu. The GQA group is folded into the
+//    row axis (r = s * G + g), so a block of 64 folded rows of one KV head
+//    stages each K/V tile once for all G query heads (the TPU grid reads it
+//    G times, once per query head); grid (ceil(Sq * G / 64), Hkv, B). A
+//    block walks only the 64-key tiles its rows can see, through a cp.async
+//    double buffer, masks each element in registers, and keeps the softmax
+//    state and P V in registers; P enters the tensor cores as hi + lo bf16
+//    parts, each tile's P V summed from zero and added in fp32. Ragged Sq,
+//    Skv and Sq * G edges are masked or zero-filled in the kernel, never
+//    padded.
+//  - tiled (fp32: it stays IEEE fp32 on the CUDA cores), the port's first
+//    kernel, kept as it was; grid (tiles of kBQ query rows, query head,
+//    batch row). The TPU grid carries m / l / acc across its innermost kv
+//    axis in VMEM scratch; here a block walks its kv tiles in a loop with
+//    that state in registers, visiting only the tiles its rows can see (up
+//    to its last row's position when causal, from its first row's window
+//    start), and masks every element as kernel.py:76-81 does. Thread
+//    (rg, cg) of 16 x 8 owns 4 query rows: a 4 x 4 block of the tile's
+//    scores and a 4 x D/8 block of the output; row max and sum reduce over
+//    the 8 threads of a row group with warp shuffles. q and k sit transposed
+//    in shared memory as fp32, the probabilities go through shared memory
+//    (over k's buffer) for the P V product; 68 KB at D = 128.
 
-#include "common.cuh"
+#include "attention_mma.cuh"   // the mma body (cp_async16, mma.sync helpers)
 
 namespace {
 
@@ -49,7 +52,6 @@ constexpr int kRowsPer = kBQ / (kThreads / kColGroups);  // 4 rows per thread
 constexpr int kKeysPer = kBK / kColGroups;               // 4 keys per thread
 constexpr int kQStride = kBQ + 4;                 // float4-aligned padded rows
 constexpr int kKStride = kBK + 4;
-constexpr float kNegBig = -1.0e30f;
 static_assert(kRowsPer == 4 && kKeysPer == 4, "the float4 tiling assumes 4 x 4");
 
 template <int D>
@@ -219,17 +221,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int H, int Hkv, float scale, float softcap, int causal, int window, int q_offset,
-           cudaStream_t stream) {
+int launch_tiled(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+                 int H, int Hkv, float scale, float softcap, int causal, int window,
+                 int q_offset, cudaStream_t stream) {
   constexpr int bytes = static_cast<int>(sizeof(Smem<D>));
-  static bool configured = false;  // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -237,23 +235,94 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   return static_cast<int>(cudaGetLastError());
 }
 
+// grid (ceil(Sq * G / 64), Hkv, B); bf16 q, k, v and out. The body is
+// attention_mma.cuh's, with key pos's K/V row at (b, pos, h) of k / v.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kMmaThreads, 2) flash_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq, int Skv,
+    int H, int Hkv, float scale, float softcap, int window, int q_offset) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // blocks start in the order of their linear index: the row block is the
+  // slowest axis of that order, last rows first, so the blocks that walk the
+  // most key tiles (causal: the last rows) start first and the light ones
+  // fill the tail
+  const unsigned lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const unsigned heads = gridDim.y * gridDim.z;
+  const int rb = gridDim.x - 1 - lin / heads;
+  const int h = lin % heads % gridDim.y, b = lin % heads / gridDim.y;
+  const size_t row0 = static_cast<size_t>(b) * Skv;
+  auto kv_row = [&](int pos) { return ((row0 + pos) * Hkv + h) * D; };
+  mma_attention_block<D, kCausal>(q, k, v, out, b, h, rb * kMmaRows, Sq, H, H / Hkv,
+                                  q_offset, Skv, scale, softcap, window, kv_row, smem);
+}
+
+template <int D, bool kCausal>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+               int H, int Hkv, float scale, float softcap, int window, int q_offset,
+               cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_mma_kernel<D, kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem<D>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long rows = static_cast<long long>(Sq) * (H / Hkv);
+  const dim3 grid(static_cast<unsigned>((rows + kMmaRows - 1) / kMmaRows), Hkv, B);
+  flash_mma_kernel<D, kCausal><<<grid, kMmaThreads, mma_smem<D>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hkv,
+      scale, softcap, window, q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Path : int { kTiled = 0, kMma = 1 };
+
+template <typename T, int D>
+int launch_path(int path, const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                int Skv, int H, int Hkv, float scale, float softcap, int causal, int window,
+                int q_offset, cudaStream_t s) {
+  switch (path) {
+    case kTiled:
+      return launch_tiled<T, D>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap, causal,
+                                window, q_offset, s);
+    case kMma:
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        return causal ? launch_mma<D, true>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
+                                            window, q_offset, s)
+                      : launch_mma<D, false>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
+                                             window, q_offset, s);
+      }
+      return -1;
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
 
-// Returns the CUDA error of the launch (0 on success), -1 for an unsupported
-// dtype or head dim. Layouts: q / out (B, Sq, H, D); k / v (B, Skv, Hkv, D);
-// all contiguous, one dtype.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int Sq, int Skv, int H, int Hkv, int D,
+// The constants the wrapper's plan mirrors, in this order: the tiled
+// kernel's query rows a block, the mma kernel's folded rows and key tile.
+extern "C" void flash_attention_constants(int* c) {
+  c[0] = kBQ;
+  c[1] = kMmaRows;
+  c[2] = kMmaKeys;
+}
+
+// Returns the CUDA error of the launch (0 on success), -1 for a path, dtype
+// or head dim the kernels do not take. path: 0 tiled, 1 mma (bf16 only).
+// Layouts: q / out (B, Sq, H, D); k / v (B, Skv, Hkv, D); all contiguous,
+// one dtype, 16-byte aligned on the mma path.
+extern "C" int flash_attention_launch(int path, const void* q, const void* k, const void* v,
+                                      void* out, int B, int Sq, int Skv, int H, int Hkv, int D,
                                       float scale, float softcap, int causal, int window,
                                       int q_offset, int dtype, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   return dispatch_dtype(dtype, [&](auto t) {
     using T = std::remove_pointer_t<decltype(t)>;
     switch (D) {
-      case 16: return launch<T, 16>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap, causal,
-                                    window, q_offset, s);
-      case 128: return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap, causal,
-                                      window, q_offset, s);
+      case 16: return launch_path<T, 16>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
+                                         causal, window, q_offset, s);
+      case 128: return launch_path<T, 128>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale,
+                                           softcap, causal, window, q_offset, s);
       default: return -1;
     }
   });

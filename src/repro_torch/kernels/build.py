@@ -22,8 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("chunked_prefill", "flash_attention", "moe_gmm", "paged_attention", "quant_matmul",
-           "ssd_scan")
+KERNELS = ("chunked_prefill", "flash_attention", "moe_gmm", "quant_matmul", "ssd_scan")
 
 
 def _nvcc() -> str:

@@ -1,12 +1,14 @@
-"""Bindings of the CUDA paged attention kernels, which replace the TPU
-kernels of ``repro/kernels/paged_attention/kernel.py``:
+"""Bindings of the CUDA paged attention kernels of
+``csrc/chunked_prefill.cu``, which replace the TPU kernels of
+``repro/kernels/paged_attention/kernel.py``:
 
-- ``chunked_prefill_cuda`` (``csrc/chunked_prefill.cu``) replaces
-  ``chunked_prefill_pallas``: a chunk of C queries per row, the engine's
-  path;
-- ``paged_attention_cuda`` (``csrc/paged_attention.cu``) replaces
-  ``paged_attention_pallas``: one query token per row, ``LM.decode_step``
-  over a paged cache.
+- ``chunked_prefill_cuda`` replaces ``chunked_prefill_pallas``: a chunk of
+  C queries per row, the engine's path;
+- ``paged_attention_cuda`` replaces ``paged_attention_pallas``: one query
+  token per row, ``LM.decode_step`` over a paged cache. It is the chunked
+  function at C = 1 with the query at position lengths[b] - 1, so it runs
+  the ``split`` path in the kernels' decode mode (no starts: each block
+  takes lengths[b] - 1 itself, so no device op computes it first).
 
 ``_plan`` picks one of chunked_prefill.cu's three kernels from what the
 host knows, the shapes and dtypes (lengths and starts stay on the device,
@@ -19,19 +21,20 @@ so nothing is read back; blocks whose keys no query can see exit at once):
   ``SPLIT_BLOCKS_PER_SM`` blocks a SM where the capacity allows, then a
   fixed-order merge of each row's live splits. The threshold is measured
   (``chip_tune.py``: Mixtral's width over 512 positions, bf16, one H100 at
-  700 W): split takes 0.0153 / 0.0188 / 0.0217 / 0.0261 / 0.0310 ms at 4 /
-  8 / 16 / 20 / 32 rows, the tensor-core kernel 0.0309-0.0326 ms at any of
-  them;
+  700 W): split takes 0.0157 / 0.0192 / 0.0222 / 0.0266 / 0.0314 ms at 4 /
+  8 / 16 / 20 / 32 rows, the tensor-core kernel 0.0249-0.0268 ms at any of
+  them, so it wins from 20 rows; no caller sends 17-32 rows yet (verify
+  chunks of 5-8 tokens), and the threshold stays at 32 until one does;
 - ``mma`` for bf16 q and pool above that (prefill packs): ``mma.sync``
   tensor-core tiles of ``MMA_ROWS`` folded rows;
 - ``tiled`` for fp32 or mixed dtypes above that: IEEE fp32 on the CUDA
   cores, ``TILED_ROWS`` folded rows a block.
 
 Each wrapper validates its operands, allocates the output (and scratch),
-launches on the current stream and raises if the launch failed. Its
-``launches`` counts the calls that launched the kernel, so a run can show
-that its path went through it; ``chunked_prefill_cuda.launches_by_path``
-counts them by path.
+launches on the current stream and raises if the launch failed; a call no
+kernel takes raises ValueError. Its ``launches`` counts the calls that
+launched the kernel, so a run can show that its path went through it;
+``chunked_prefill_cuda.launches_by_path`` counts the chunked calls by path.
 """
 from __future__ import annotations
 
@@ -45,7 +48,6 @@ from repro_torch.kernels.build import load_library
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 128)    # the tiny test configs' and Mixtral / Qwen / Gemma2's
-MAX_GROUP = 8            # query heads per kv head in paged_attention_cuda (kMaxG)
 PATHS = ("tiled", "split", "mma")   # codes 0..2 of csrc/chunked_prefill.cu
 # constants of csrc/chunked_prefill.cu (checked at load, in
 # chunked_prefill_constants' order)
@@ -163,18 +165,6 @@ def _launcher():
     return fn
 
 
-@functools.cache
-def _decode_launcher():
-    lib = load_library("paged_attention")
-    lib.paged_attention_splits.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.paged_attention_splits.restype = ctypes.c_int
-    fn = lib.paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib.paged_attention_splits, fn
-
-
 def _check(cond: bool, msg: str, who: str = "chunked_prefill_cuda") -> None:
     if not cond:
         raise ValueError(f"{who}: {msg}")
@@ -207,15 +197,44 @@ def _check_pool(q, k_pages, v_pages, page_table, lengths, who):
     return Hkv, D, ps, maxp
 
 
+def _launch(plan, q, k_pages, v_pages, page_table, lengths, starts, out, *, scale, softcap,
+            window, who):
+    """Launch ``plan`` for q / out (B, C, H, D) over the pool; ``starts``
+    None is the split path's decode mode."""
+    B, C, H, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    dev = q.device
+    if plan.path != "tiled":   # 16-byte cp.async copies of q and the pool rows
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+               "q and the pools must be 16-byte aligned", who)
+    part_acc = part_ml = None
+    if plan.path == "split":   # (B, Hkv, splits, C * G) rows of P V (D), then of (max, sum)
+        rows = B * Hkv * plan.splits * C * (H // Hkv)
+        part_acc = torch.empty(rows * (D + 2), dtype=torch.float32, device=dev)
+        part_ml = part_acc[rows * D:]
+    with torch.cuda.device(dev):
+        err = _launcher()(
+            PATHS.index(plan.path), plan.splits, q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+            None if starts is None else starts.data_ptr(), out.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            B, C, H, Hkv, D, ps, page_table.shape[1], float(scale), float(softcap), int(window),
+            DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{who}: kernel launch failed (code {err}, plan {plan})")
+
+
 def chunked_prefill_cuda(q, k_pages, v_pages, page_table, lengths, starts, *,
                          scale: float, softcap: float = 0.0, window: int = 0):
     """q (B, C, H, D) at positions starts[b] + c attends causally over the
     paged pool (P, ps, Hkv, D), which already holds the chunk's own KV.
     fp32 or bf16 in (q and the pool may differ), fp32 softmax, output in
     q's dtype; the kernel is the one ``plan_for`` names."""
-    B, C, H, D = q.shape
-    Hkv, D, ps, maxp = _check_pool(q, k_pages, v_pages, page_table, lengths,
-                                   "chunked_prefill_cuda")
+    who = "chunked_prefill_cuda"
+    B = q.shape[0]
+    _check_pool(q, k_pages, v_pages, page_table, lengths, who)
     dev = q.device
     _check(starts.device == dev and starts.is_contiguous(),
            f"starts must be contiguous on {dev}")
@@ -225,25 +244,8 @@ def chunked_prefill_cuda(q, k_pages, v_pages, page_table, lengths, starts, *,
     if out.numel() == 0:
         return out
     plan = plan_for(q, k_pages, page_table)
-    if plan.path != "tiled":   # 16-byte cp.async copies of q and the pool rows
-        _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
-               "q and the pools must be 16-byte aligned")
-    part_acc = part_ml = None
-    if plan.path == "split":   # (B, Hkv, splits, C * G) rows of P V (D), then of (max, sum)
-        rows = B * Hkv * plan.splits * C * (H // Hkv)
-        part_acc = torch.empty(rows * (D + 2), dtype=torch.float32, device=dev)
-        part_ml = part_acc[rows * D:]
-    with torch.cuda.device(dev):
-        err = _launcher()(
-            PATHS.index(plan.path), plan.splits, q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
-            out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
-            None if part_ml is None else part_ml.data_ptr(),
-            B, C, H, Hkv, D, ps, maxp, float(scale), float(softcap), int(window),
-            DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"chunked_prefill kernel launch failed (code {err}, plan {plan})")
+    _launch(plan, q, k_pages, v_pages, page_table, lengths, starts, out, scale=scale,
+            softcap=softcap, window=window, who=who)
     chunked_prefill_cuda.launches += 1
     chunked_prefill_cuda.launches_by_path[plan.path] += 1
     return out
@@ -258,31 +260,22 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
     """q (B, H, D), one new token per row, attends to its row's pool
     entries at positions < lengths[b] (and, with a window, > lengths[b] - 1
     - window). fp32 or bf16 in (q and the pool may differ), fp32 math,
-    output in q's dtype. One call launches the split pass and its combine
-    on the current stream."""
+    output in q's dtype. One call launches the split kernel and its merge
+    on the current stream (``plan_for`` at C = 1 names the splits)."""
     who = "paged_attention_cuda"
     _check(q.dim() == 3, f"q must be (B, H, D), got {tuple(q.shape)}", who)
     B, H, D = q.shape
-    Hkv, D, ps, maxp = _check_pool(q, k_pages, v_pages, page_table, lengths, who)
-    _check(H // Hkv <= MAX_GROUP, f"{H // Hkv} query heads per kv head > {MAX_GROUP}", who)
+    Hkv = _check_pool(q, k_pages, v_pages, page_table, lengths, who)[0]
+    _check(H // Hkv <= SPLIT_MAX_ROWS,
+           f"{H // Hkv} query heads per kv head > {SPLIT_MAX_ROWS}, the split path's most", who)
 
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    splits, launch = _decode_launcher()
-    nsplit = splits(ps, maxp)
-    dev = q.device
-    part_acc = torch.empty((B, Hkv, nsplit, H // Hkv, D), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((B, Hkv, nsplit, H // Hkv, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            B, H, Hkv, D, ps, maxp, float(scale), float(softcap), int(window),
-            DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed (code {err})")
+    q4 = q.view(B, 1, H, D)
+    plan = plan_for(q4, k_pages, page_table)
+    _launch(plan, q4, k_pages, v_pages, page_table, lengths, None, out.view(B, 1, H, D),
+            scale=scale, softcap=softcap, window=window, who=who)
     paged_attention_cuda.launches += 1
     return out
 

@@ -15,6 +15,7 @@ from repro_torch.configs import tiny_config
 from repro_torch.core import EngineConfig, InferenceEngine, Request
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                  mha_reference)
+from repro_torch.kernels.flash_attention.kernel import plan_for as flash_plan_for
 from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda, tile_layout
 from repro_torch.kernels.moe_gmm.kernel import block_m_for
 from repro_torch.kernels.moe_gmm.kernel import plan_for as gmm_plan_for
@@ -223,13 +224,81 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
                for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
     n0 = flash_attention_cuda.launches
+    path = "tiled" if dtype == torch.float32 else "mma"    # bf16 on the tensor cores
+    p0 = flash_attention_cuda.launches_by_path[path]
     out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == n0 + 1 and out.dtype == dtype
+    assert flash_attention_cuda.launches_by_path[path] == p0 + 1
     plain = mha_reference(q, k, v, **kw)
     # tests/test_kernels_flash.py's tolerances: fp32 2e-5, bf16 2e-2
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+
+
+# the mma path's edges: Sq * G and Skv of no 64 multiple, G = 8, a window
+# narrower than a block's positions, non-causal with a window and an
+# offset, a 1024-token causal prompt
+FLASH_MMA_CASES = [
+    # B, Sq, Skv, H, Hkv, D, causal, window, softcap, q_offset
+    (2, 37, 53, 8, 2, 128, True, 0, 0.0, 16),
+    (1, 71, 71, 16, 2, 128, True, 0, 0.0, 0),
+    (2, 50, 50, 16, 2, 16, True, 5, 30.0, 0),
+    (1, 45, 130, 4, 2, 128, False, 20, 0.0, 85),
+    (1, 129, 129, 8, 1, 16, False, 0, 50.0, 0),
+    (1, 1024, 1024, 8, 2, 128, True, 0, 0.0, 0),
+    (1, 300, 300, 4, 2, 128, True, 128, 50.0, 0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_MMA_CASES)
+def test_flash_mma_matches_plain(cuda, case):
+    """bf16 on the mma path against the plain version, its plan's grid,
+    launches_by_path, and bit-equal repeats."""
+    B, Sq, Skv, H, Hkv, D, causal, window, softcap, qoff = case
+    rng = np.random.default_rng(Sq + Skv + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda).bfloat16()
+               for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    plan = flash_plan_for(q, k)
+    assert (plan.path, plan.grid) == ("mma", (-(-Sq * (H // Hkv) // 64), Hkv, B))
+    p0 = dict(flash_attention_cuda.launches_by_path)
+    a = flash_attention(q, k, v, **kw)
+    b = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_by_path == dict(p0, mma=p0["mma"] + 2)
+    assert torch.equal(a, b)
+    plain = mha_reference(q, k, v, **kw)
+    torch.testing.assert_close(a.float(), plain.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_cuda_tensor_goes_to_kernel_or_raises(cuda, monkeypatch):
+    """A call no kernel takes raises; none reaches the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ops, "mha_reference", plain)
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda).bfloat16()
+               for s in ((1, 40, 4, 128), (1, 40, 2, 128), (1, 40, 2, 128)))
+    n0 = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :64], k[..., :64], v[..., :64])
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half())
+    flat = torch.empty(k.numel() + 1, dtype=torch.bfloat16, device=cuda)  # 2 bytes off
+    k_off = flat[1:].view(k.shape).copy_(k)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, k_off, v)
+    big = [torch.zeros((70000, 1, h, 128), dtype=torch.bfloat16, device=cuda) for h in (4, 2, 2)]
+    with pytest.raises(ValueError, match="grid"):
+        flash_attention(*big)
+    assert flash_attention_cuda.launches == n0
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == n0 + 1 and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -254,6 +323,67 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, ps, D, window, softcap):
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
     assert not out[1].any(), "a length-0 row must give zeros"
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("H,Hkv,window,softcap", [(32, 2, 0, 0.0), (8, 2, 33, 0.0),
+                                                  (32, 8, 128, 50.0)])
+def test_paged_decode_split_route(cuda, q_dtype, kv_dtype, H, Hkv, window, softcap):
+    """Paged decode on the chunked kernel's split path in decode mode: G up
+    to 16, lengths at a split boundary, 0 and the pool row's capacity, fp32
+    q over a bf16 pool, bit-equal repeats; the chunked counters stay put."""
+    rng = np.random.default_rng(H + window)
+    B, D, ps, maxp = 5, 128, 16, 12
+    P = B * maxp + 1
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32)).to(cuda, q_dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal((P, ps, Hkv, D)).astype(np.float32))
+              .to(cuda, kv_dtype) for _ in range(2))
+    pt = torch.from_numpy(rng.permutation(P - 1)[:B * maxp].reshape(B, maxp).astype(np.int32)
+                          + 1).to(cuda)
+    lengths = torch.tensor([32, 0, 64, 97, maxp * ps], dtype=torch.int32, device=cuda)
+    kw = dict(scale=D ** -0.5, softcap=softcap, window=window)
+    plan = attn_plan_for(q[:, None], kp, pt)
+    assert plan.path == "split" and plan.grid == (plan.splits, Hkv, B)
+    n0, c0 = paged_attention_cuda.launches, dict(chunked_prefill_cuda.launches_by_path)
+    a = paged_attention(q, kp, vp, pt, lengths, **kw)
+    b = paged_attention(q, kp, vp, pt, lengths, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == n0 + 2
+    assert chunked_prefill_cuda.launches_by_path == c0
+    assert torch.equal(a, b) and a.dtype == q_dtype
+    plain = paged_attention_reference(q, kp, vp, pt, lengths, **kw)
+    tol = 2e-5 if (q_dtype, kv_dtype) == (torch.float32, torch.float32) else 3e-2
+    torch.testing.assert_close(a.float(), plain.float(), atol=tol, rtol=tol)
+    assert not a[1].any(), "a length-0 row must give zeros"
+
+
+def test_paged_decode_cuda_tensor_goes_to_kernel_or_raises(cuda, monkeypatch):
+    """A group past the split path's 32 folded rows, or a pool off 16-byte
+    alignment, raises; nothing reaches the plain version."""
+    from repro_torch.kernels.paged_attention import ops
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ops, "paged_attention_reference", plain)
+    rng = np.random.default_rng(3)
+    kp, vp = (torch.from_numpy(rng.standard_normal((9, 16, 1, 16)).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    pt = torch.arange(1, 9, dtype=torch.int32, device=cuda).reshape(2, 4)
+    lengths = torch.tensor([5, 40], dtype=torch.int32, device=cuda)
+    n0 = paged_attention_cuda.launches
+    with pytest.raises(ValueError, match="split path"):
+        paged_attention(torch.zeros((2, 33, 16), device=cuda), kp, vp, pt, lengths)
+    flat = torch.empty(kp.numel() + 1, device=cuda)
+    kp_off = flat[1:].view(kp.shape).copy_(kp)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_attention(torch.zeros((2, 32, 16), device=cuda), kp_off, vp, pt, lengths)
+    assert paged_attention_cuda.launches == n0
+    out = paged_attention(torch.ones((2, 32, 16), device=cuda), kp, vp, pt, lengths)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == n0 + 1 and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("name", ["gemma2-27b", "mixtral-8x7b"])
