@@ -9,9 +9,9 @@ exits non-zero and no phase's failure is caught.
      (registers, spills).
   2. each kernel against its plain PyTorch version on the card: the small
      edge cases of the CPU tests, and the main paths' shapes at full
-     Mixtral width (the SSD scan at mamba2's and jamba's; chunked
-     attention also at a verify width of 4 tokens and over a 4096-key
-     context), in fp32 and
+     Mixtral width (the SSD scan at mamba2's and jamba's, with a
+     4096-token mamba2 prefill; chunked attention also at a verify width
+     of 4 tokens and over a 4096-key context), in fp32 and
      bf16, with the kernel's device time (its launch wrapper alone), the
      public op's time as a caller sees it (host work included), the plain
      version's and a PyTorch yardstick's times (the yardstick, SDPA or a
@@ -21,9 +21,10 @@ exits non-zero and no phase's failure is caught.
      matmul with the per-output-channel scale, the int8 tree's row scales
      and a transposed weight at the edges of its three kernels, then at
      mixtral's decode wq / wk / wo / head and prefill wq shapes. Chunked
-     attention, flash attention, paged decode, the grouped matmul and the
-     w8a16 matmul print with each case the kernel, split count and grid
-     their plans chose, and call it twice for bit-equal results.
+     attention, flash attention, paged decode, the grouped matmul, the
+     w8a16 matmul and the SSD scan print with each case the kernel, split
+     count or column block and grid their plans chose, and call it twice
+     for bit-equal results.
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
      the CPU (plain versions), on the same two sequences of 20 tokens: the
      engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, then
@@ -56,7 +57,8 @@ exits non-zero and no phase's failure is caught.
   6. mamba2-1.3b at full width and depth (48 layers), random bf16 weights
      from a seed, through ``InferenceEngine.generate`` as in phase 4 (every
      request finishes, allocator invariants, the SSD kernel's launch counter
-     > 0), then its generation API on the same weights: ``prefill`` of each
+     > 0, all on its ``mma`` path), then its generation API on the same
+     weights (again ``mma`` only): ``prefill`` of each
      prompt at its own length, 32 batched ``decode_step``s, and how many
      leading tokens equal the engine's stream (printed only).
   7. mixtral-8x7b at full width and full depth (32 layers) on int8 weights
@@ -682,6 +684,7 @@ def ssd_bound(x, Bm, init, dtype):
 
 def run_ssd(dev, flush, results):
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_reference, ssd_scan, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.kernel import plan_for
     # small edge cases of the CPU and card tests: tests/test_kernels_ssd.py's
     # shapes (ragged L), tests/test_mamba.py's (P 4 / N 5, P 3 / N 4, chunk 4)
     # with a carried state, the tiny configs' widths with groups and a ragged
@@ -708,14 +711,18 @@ def run_ssd(dev, flush, results):
             scan_ok = bool(((out.float() - plain).abs() <= tol * (1 + plain.abs())).all())
             assert err <= 1e-4 and scan_ok and out.dtype == dtype and torch.isfinite(y).all(), \
                 f"ssd edge case L={L} H={H} P={P} N={N} {dtype}: err {err} / {scan_err}"
+            plan = plan_for(x, Bm)
             log(f"  ssd edge L={L} H={H}/{G} P={P} N={N} chunk={chunk} init={init} "
-                f"nvalid={nvalid} {str(dtype)[6:]}: max_abs_err y/state={err:.3g} (tol 1e-4), "
+                f"nvalid={nvalid} {str(dtype)[6:]} path={plan.path} pb={plan.pb} "
+                f"grid={plan.grid}: max_abs_err y/state={err:.3g} (tol 1e-4), "
                 f"ssd_scan out={scan_err:.3g} (atol = rtol {tol})")
-    # full-width shapes: mamba2's prefill of one 297-token prompt, the
-    # engine's prefill pack (2 rows of 128 tokens, one ragged, from carried
-    # states; one half-padded SSD chunk of 256), jamba's 128 heads with N 16
+    # full-width shapes: mamba2's prefill of one 297-token prompt and of a
+    # 4096-token one, the engine's prefill pack (2 rows of 128 tokens, one
+    # ragged, from carried states; one half-padded SSD chunk of 256),
+    # jamba's 128 heads with N 16
     for name, sh in (
             ("mamba2 prefill", dict(B=1, L=297, H=64, P=64, N=128, G=1)),
+            ("mamba2 prefill 4096", dict(B=1, L=4096, H=64, P=64, N=128, G=1)),
             ("mamba2 pack", dict(B=2, L=128, H=64, P=64, N=128, G=1, init=True,
                                  nvalid=[128, 100])),
             ("jamba pack", dict(B=2, L=128, H=128, P=64, N=16, G=1, init=True,
@@ -723,6 +730,7 @@ def run_ssd(dev, flush, results):
         for dtype in (torch.float32, torch.bfloat16):
             x, dt, A, Bm, Cm, s0 = ssd_case(dev, dtype=dtype, seed=3, **sh)
             H = x.shape[2]
+            plan = plan_for(x, Bm)
             y, s = ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0)
             Br, Cr = Bm.expand(-1, -1, H, -1), Cm.expand(-1, -1, H, -1)
             y_ref, s_ref = ssd_reference(x, dt, A, Br, Cr, 256, init_state=s0)
@@ -730,23 +738,27 @@ def run_ssd(dev, flush, results):
             # fp32 on both sides over 64-token tiles vs 256-token chunks:
             # reduction order only, on outputs of size up to ~40
             assert err <= 2e-3 and torch.isfinite(y).all(), f"ssd {name} {dtype}: err {err}"
-            del y, s, y_ref, s_ref
+            y2, s2 = ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0)
+            assert torch.equal(y, y2) and torch.equal(s, s2), f"ssd {name} {dtype}: repeat differs"
+            del y, s, y_ref, s_ref, y2, s2
             ms = cuda_ms(lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0), flush=flush)
             op_ms = cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0),
                             flush=flush, queued=False)
             plain_ms = cuda_ms(lambda: ssd_reference(x, dt, A, Br, Cr, 256, init_state=s0),
                                flush=flush)
             bms, by = ssd_bound(x, Bm, s0 is not None, dtype)
-            row = dict(kernel="ssd_scan", case=name, dtype=str(dtype)[6:],
+            row = dict(kernel="ssd_scan", case=name, dtype=str(dtype)[6:], path=plan.path,
+                       pb=plan.pb, grid=plan.grid,
                        shape=f"x{tuple(x.shape)} B/C{tuple(Bm.shape)} d_state "
                              f"{Bm.shape[-1]} init_state={s0 is not None} "
                              f"nvalid={sh.get('nvalid')}",
                        max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                        library_ms=None, bound_ms=bms, bound_by=by)
             results.append(row)
-            log(f"  ssd {name} {row['dtype']} {row['shape']}: kernel_ms={ms:.4f} "
-                f"op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no single "
-                f"PyTorch call) bound_ms={bms:.6f} ({by}) max_abs_err={err:.3g}")
+            log(f"  ssd {name} {row['dtype']} {row['shape']} path={plan.path} pb={plan.pb} "
+                f"grid={plan.grid}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms=none (no single PyTorch call) bound_ms={bms:.6f} ({by}) "
+                f"max_abs_err={err:.3g}, repeat bit-equal")
             del x, Bm, Cm, Br, Cr
             torch.cuda.empty_cache()
 
@@ -1276,14 +1288,18 @@ def run_mamba(dev, profile: bool):
     eng.step_records.clear()
     torch.cuda.reset_peak_memory_stats()
     ssd_scan_cuda.launches = 0
+    ssd_scan_cuda.launches_by_path = dict.fromkeys(ssd_scan_cuda.launches_by_path, 0)
     t0 = time.perf_counter()
     eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ssd_scan_cuda.launches
+    by_path = dict(ssd_scan_cuda.launches_by_path)
     assert all(r.finished and len(r.generated) == 32 for r in reqs), "a request did not finish"
     eng.allocator.check_invariants()
     assert launches > 0, "the SSD kernel never ran on the mamba2 serving path"
+    assert by_path == dict.fromkeys(by_path, 0) | {"mma": launches}, \
+        f"bf16 SSD launches off the mma path: {by_path}"
     ms = [request_metrics(r) for r in reqs]
     n_tok = sum(m.n_tokens for m in ms)
     recs = list(eng.step_records)
@@ -1297,14 +1313,14 @@ def run_mamba(dev, profile: bool):
         decode_step_ms_mean=1e3 * float(np.mean(dec)) if dec else None,
         prefill_step_ms_mean=1e3 * float(np.mean(pre)) if pre else None,
         decode_steps=len(dec), prefill_steps=len(pre), launches={"ssd_scan": launches},
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        launches_by_path={"ssd_scan": by_path}, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"  served {len(reqs)} requests x 32 new tokens (prompts {serve['prompt_tokens']}) "
         f"in {wall:.3f} s over {len(recs)} steps: {serve['tok_s']:.2f} tok/s, "
         f"TTFT ms {[round(x, 2) for x in serve['ttft_ms']]}, "
         f"TBT ms {[round(x, 3) for x in serve['tbt_ms']]}, decode step "
         f"{serve['decode_step_ms_mean']:.3f} ms, prefill-pack step "
         f"{serve['prefill_step_ms_mean']:.3f} ms, peak device memory "
-        f"{serve['peak_mem_gb']:.2f} GB; ssd_scan launches {launches}")
+        f"{serve['peak_mem_gb']:.2f} GB; ssd_scan launches {launches} by path {by_path}")
     if profile:
         preqs = [Request(req_id=f"q{i}", prompt_tokens=p, max_new_tokens=8)
                  for i, p in enumerate(ps)]
@@ -1347,11 +1363,14 @@ def run_mamba(dev, profile: bool):
     with torch.inference_mode():
         generate(2)                           # warm-up
         torch.cuda.synchronize()
-        n0 = ssd_scan_cuda.launches
+        n0, p0 = ssd_scan_cuda.launches, dict(ssd_scan_cuda.launches_by_path)
         gen, times = generate(GEN_STEPS)
         torch.cuda.synchronize()
         gen_launches = ssd_scan_cuda.launches - n0
+        gen_by_path = {k: v - p0[k] for k, v in ssd_scan_cuda.launches_by_path.items()}
     assert gen_launches > 0, "the SSD kernel never ran on the mamba2 generation path"
+    assert gen_by_path == dict.fromkeys(gen_by_path, 0) | {"mma": gen_launches}, \
+        f"bf16 SSD launches off the mma path: {gen_by_path}"
     assert gen.shape == (B, GEN_STEPS + 1) and ((gen >= 0) & (gen < cfg.vocab)).all()
     agree = []
     for b, eng_stream in enumerate(streams):
@@ -1363,11 +1382,13 @@ def run_mamba(dev, profile: bool):
     generation = dict(prompt_tokens=lens, new_tokens=GEN_STEPS, prefill_ms=prefill_ms,
                       decode_step_ms_mean=step_ms, decode_tok_s=B / (step_ms / 1e3),
                       tok_s=B * (GEN_STEPS + 1) / sum(times),
-                      launches={"ssd_scan": gen_launches}, leading_tokens_equal_engine=agree)
+                      launches={"ssd_scan": gen_launches},
+                      launches_by_path={"ssd_scan": gen_by_path},
+                      leading_tokens_equal_engine=agree)
     log(f"  generation API: prefill of the {B} prompts {lens} one by one at their own "
         f"lengths: {prefill_ms:.3f} ms in all; {GEN_STEPS} batched decode_steps: "
         f"{step_ms:.3f} ms per step, {generation['decode_tok_s']:.2f} tok/s in decode; "
-        f"ssd_scan launches {gen_launches}")
+        f"ssd_scan launches {gen_launches} by path {gen_by_path}")
     log(f"  leading greedy tokens equal to the engine's stream, per request: {agree} of its 32 "
         f"(printed only: bf16 near-ties may split the chunked and the whole-prompt scan)")
     if profile:

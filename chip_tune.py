@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention kernels' design choices on one card.
+"""Time the attention and SSD kernels' design choices on one card.
 
 Chunked attention's plan constants, the measurements behind
 ``SPLIT_MAX_ROWS`` and ``SPLIT_BLOCKS_PER_SM`` in
@@ -16,15 +16,31 @@ sources, each with one choice undone (``expf`` for ``ex2``, ``tanhf`` for
 the softcap's ``ex2`` and reciprocal, blocks in grid order instead of last
 rows first, P as its hi part alone) or one stage removed (the Q K^T or P V
 products, as a probe of what bounds the kernel), are built with nvcc under
-``build/flash_variants/`` and timed beside the unchanged source at phase
+``build/flash_attention_variants/`` and timed beside the unchanged source at phase
 2's two bf16 prefill shapes, each with its max |out - plain|.
+
+The SSD scan's tensor-core path, the measurements behind ``_plan``'s
+column width and the choices in ``csrc/ssd_scan.cu``: at phase 2's four
+bf16 shapes (mamba2's pack, 297- and 4096-token prefills, jamba's pack),
+the unchanged source at pb = 16, 32 and 64, then, at the planned pb,
+copies of it with one choice undone each (M as its hi part alone, ``expf``
+for ``ex2``, the next tile's copies issued after the tile instead of under
+its second half) or one stage removed (C S, the scores, M x, the state
+update, the B / C copies, the y stores, all four products: probes of what
+bounds the kernel), built under
+``build/ssd_scan_variants/``, each with its max |y - plain| and |state -
+plain|; a copy that stamps ``clock64()`` at each phase of one block gives
+the cycles a tile takes by phase at the 4096-token prefill; and the planned
+kernel over one mamba2 row of 64 to 4096 tokens gives the cost of a tile.
 
 Each time is ``chip_smoke.cuda_ms`` of the launch alone (cold L2, host
 dispatch queued out of the events).
 
-    python3 chip_tune.py            # on the card, from the repository root
+    python3 chip_tune.py [chunked] [flash] [ssd]   # on the card, from the repository root;
+                                                   # no argument: all three
 """
 import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -69,33 +85,136 @@ FLASH_VARIANTS = {
 }
 
 
-def build_flash_variants() -> dict:
+# (file, text of the source, its replacement) for each SSD variant
+_LOAD_MID = "      stage();\n      load(t + 1);\n"
+_LOOP_END = ("  }\n\n#pragma unroll\n  for (int u = 0; u < TM; ++u)\n#pragma unroll\n"
+             "    for (int v = 0; v < TN; ++v)\n#pragma unroll\n      for (int e = 0; e < 4; ++e) {\n"
+             "        const int n = (wm * TM + u) * 16 + gr + 8 * (e >> 1);\n"
+             "        const int p = p0 + (wn * TN + v) * 8 + 2 * gc + (e & 1);\n"
+             "        if (n < N && p < P) final_state")
+SSD_VARIANTS = {
+    "base": [],
+    "m_hi_only": [("ssd_scan.cu", "        mma_bf16(yd[2 * dp], ml, b0);\n"
+                   "        mma_bf16(yd[2 * dp + 1], ml, b1);\n", "")],
+    "expf": [("ssd_scan.cu", '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
+              "  y = expf(x * 0.6931471805599453f);")],
+    "late_load": [("ssd_scan.cu", _LOAD_MID, "      stage();\n"),
+                  ("ssd_scan.cu", _LOOP_END,
+                   "    if (t + 1 < tiles) load(t + 1);\n" + _LOOP_END)],
+    # probes of what bounds the kernel: one stage removed (outputs wrong)
+    "no_c_s": [("ssd_scan.cu", "      for (int dp = 0; dp < NT / 2; ++dp) {\n        const int off",
+                "      for (int dp = 0; dp < 0; ++dp) {\n        const int off")],
+    "no_scores": [("ssd_scan.cu", "      for (int np = 0; np < 4; ++np) {\n        if (np > warp) "
+                   "continue;\n        unsigned r[4];",
+                   "      for (int np = 0; np < 0; ++np) {\n        if (np > warp) "
+                   "continue;\n        unsigned r[4];")],
+    "no_m_x": [("ssd_scan.cu", "      for (int dp = 0; dp < NT / 2; ++dp) {\n        unsigned r[4];",
+                "      for (int dp = 0; dp < 0; ++dp) {\n        unsigned r[4];")],
+    "no_state": [("ssd_scan.cu", "      for (int u = 0; u < TM; ++u) {\n        const int mt",
+                  "      for (int u = 0; u < 0; ++u) {\n        const int mt")],
+    "no_bc_loads": [("ssd_scan.cu", "for (int i = tid; i < kT * 2 * NK; i += kMmaThreads) {",
+                     "for (int i = tid; i < 0; i += kMmaThreads) {")],
+    "no_y_store": [("ssd_scan.cu", "      if (t0 + i >= L) continue;",
+                    "      if (t0 + i >= 0) continue;")],
+}
+SSD_VARIANTS["no_products"] = [e for v in ("no_c_s", "no_scores", "no_m_x", "no_state")
+                               for e in SSD_VARIANTS[v]]
+# clock64() stamps of block (0, 0), lane 0 of each warp, at the phase
+# boundaries of its first 64 tiles, read back by ssd_timeline()
+_STAMP = ("    if (blockIdx.x == 0 && blockIdx.y == 0 && lane == 0 && t < 64) "
+          "g_clk[warp][t][{}] = clock64();\n")
+_ANCHORS = [  # (text, stamp after it (True) or before it (False))
+    ("    // tile t and the staged state visible to every thread\n    __syncthreads();\n", True),
+    ("      total = ex2(last);\n      __syncwarp();\n    }\n", True),
+    ("    // (2) S <- 2^cum_last S", False),
+    ("    // (3) scores C B^T", False),
+    ("    // B, C and the staged state are read", False),
+    ("    // (4) M_ij = scores 2^(cum_i - cum_j) dt_j", False),
+    ("    // (5) y_diag = M x", False),
+    (_LOOP_END, False),
+]
+TIMELINE_PHASES = ("wait+barrier", "scan", "C S", "state", "scores", "barrier+stage+load", "M",
+                   "M x + y")
+SSD_VARIANTS["timeline"] = [
+    ("ssd_scan.cu", "// grid (H * ceil(P / PB), B): block x",
+     "__device__ unsigned long long g_clk[4][64][8];\n\n// grid (H * ceil(P / PB), B): block x"),
+    ("ssd_scan.cu", 'extern "C" void ssd_scan_constants(int* c) {',
+     'extern "C" int ssd_timeline(unsigned long long* out) {\n'
+     "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk)));\n}\n\n"
+     'extern "C" void ssd_scan_constants(int* c) {')] + [
+    ("ssd_scan.cu", text, text + _STAMP.format(k) if after else _STAMP.format(k) + text)
+    for k, (text, after) in enumerate(_ANCHORS)]
+
+
+def build_variants(source: str, variants: dict, bind, sizes_of=("",)) -> dict:
     """Each variant's launch function, built from a patched copy of the
-    sources (one nvcc per variant, all at once)."""
+    sources under build/<source>_variants/ (one nvcc per variant, all at
+    once); prints the SASS size of its kernels whose names hold one of
+    ``sizes_of``."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention.kernel import bind
-    out = build.BUILD_DIR.parent / "flash_variants"
+    out = build.BUILD_DIR.parent / f"{source}_variants"
     procs = {}
-    for name, edits in FLASH_VARIANTS.items():
+    for name, edits in variants.items():
         d = out / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for src in [*build.CSRC.glob("*.cuh"), build.CSRC / "flash_attention.cu"]:
+        for src in [*build.CSRC.glob("*.cuh"), build.CSRC / f"{source}.cu"]:
             shutil.copy(src, d)
         for fname, old, new in edits:
             text = (d / fname).read_text()
             assert text.count(old) == 1, f"variant {name}: its text is not in {fname} once"
             (d / fname).write_text(text.replace(old, new))
         procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / "flash_attention.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / f"{source}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         assert proc.returncode == 0, f"variant {name} failed to build:\n{log}"
         fns[name] = bind(ctypes.CDLL(str(out / name / "lib.so")))
+        regs = ptxas_usage(log)
+        print(f"TUNE {source} variant {name}: " + "; ".join(
+            f"{k} {v} SASS instructions, {regs.get(k, '?')}"
+            for k, v in sass_sizes(out / name / "lib.so").items() if any(t in k for t in sizes_of)),
+            flush=True)
     return fns
+
+
+def ptxas_usage(log: str) -> dict:
+    """Each kernel's registers and spill stores from nvcc's -Xptxas=-v log."""
+    usage, name, spill = {}, None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)(I.*?E)E", ln)
+        if m:
+            name = m.group(1) + m.group(2)
+        elif name and "spill stores" in ln:
+            spill = ln.split(",")[1].strip()
+        elif name and "Used" in ln and "registers" in ln:
+            usage[name] = f"{ln.split('Used')[1].split(',')[0].strip()}, {spill}"
+            name = None
+    return usage
+
+
+def sass_sizes(lib) -> dict:
+    """Instructions of each kernel in a library (cuobjdump -sass), by the
+    kernel's name with its template arguments."""
+    from repro_torch.kernels import build
+    text = subprocess.run([str(Path(build._nvcc()).with_name("cuobjdump")), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    sizes, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : .*?([a-z_]+_kernel)(I.*?E)E", ln)
+        if m:
+            name = m.group(1) + m.group(2)
+            sizes[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            sizes[name] += 1
+    return sizes
+
+
+def build_flash_variants() -> dict:
+    from repro_torch.kernels.flash_attention.kernel import bind
+    return build_variants("flash_attention", FLASH_VARIANTS, bind)
 
 
 def tune_flash(dev, flush) -> None:
@@ -124,16 +243,107 @@ def tune_flash(dev, flush) -> None:
                       f"max_abs_err {err:.3g}", flush=True)
 
 
+def tune_ssd(dev, flush) -> None:
+    from repro_torch.kernels.ssd_scan import ssd_reference
+    from repro_torch.kernels.ssd_scan.kernel import PATHS, bind, plan_for
+    fns = build_variants("ssd_scan", SSD_VARIANTS, bind,
+                         sizes_of=("mma_kernelILi64ELi8E", "mma_kernelILi32ELi8E",
+                                   "mma_kernelILi64ELi1E"))
+    for name, sh in (
+            ("mamba2 pack", dict(B=2, L=128, H=64, P=64, N=128, G=1, init=True,
+                                 nvalid=[128, 100])),
+            ("mamba2 prefill", dict(B=1, L=297, H=64, P=64, N=128, G=1)),
+            ("mamba2 prefill 4096", dict(B=1, L=4096, H=64, P=64, N=128, G=1)),
+            ("jamba pack", dict(B=2, L=128, H=128, P=64, N=16, G=1, init=True,
+                                nvalid=[128, 100]))):
+        x, dt, A, Bm, Cm, s0 = cs.ssd_case(dev, dtype=torch.bfloat16, seed=3, **sh)
+        B, L, H, P = x.shape
+        G, N = Bm.shape[2:]
+        plan = plan_for(x, Bm)
+        y_ref, s_ref = ssd_reference(x, dt, A, Bm.expand(-1, -1, H, -1),
+                                     Cm.expand(-1, -1, H, -1), 256, init_state=s0)
+        y = torch.empty((B, L, H, P), dtype=torch.float32, device=dev)
+        fin = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+        runs = [("base", pb) for pb in (16, 32, 64)] + [(v, plan.pb) for v in SSD_VARIANTS
+                                                        if v != "base"]
+        for rnd in range(1 if L > 1000 else 2):
+            for variant, pb in runs:
+                def call():
+                    err = fns[variant](
+                        PATHS.index("mma"), pb, plan.nk, x.data_ptr(), dt.data_ptr(),
+                        A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                        None if s0 is None else s0.data_ptr(), y.data_ptr(), fin.data_ptr(),
+                        B, L, H, P, N, G, *x.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2],
+                        1, torch.cuda.current_stream(dev).cuda_stream)
+                    assert err == 0, f"variant {variant} pb {pb}: launch failed (code {err})"
+                call()
+                torch.cuda.synchronize()
+                err_y, err_s = cs.max_err(y, y_ref), cs.max_err(fin, s_ref)
+                ms = cs.cuda_ms(call, flush=flush)
+                print(f"TUNE ssd {name} round {rnd} {variant} pb={pb} (plan pb={plan.pb}): "
+                      f"{ms:.5f} ms max_abs_err y {err_y:.3g} state {err_s:.3g}", flush=True)
+    # one block's phases at the 4096-token prefill (block (0, 0), 64 tiles)
+    from repro_torch.kernels import build
+    x, dt, A, Bm, Cm, _ = cs.ssd_case(dev, B=1, L=4096, H=64, P=64, N=128, G=1,
+                                      dtype=torch.bfloat16, seed=3)
+    y = torch.empty((1, 4096, 64, 64), dtype=torch.float32, device=dev)
+    fin = torch.empty((1, 64, 64, 128), dtype=torch.float32, device=dev)
+    plan = plan_for(x, Bm)
+    for variant in [v for v in SSD_VARIANTS if v.startswith("timeline")]:
+        lib = ctypes.CDLL(str(build.BUILD_DIR.parent / "ssd_scan_variants" / variant / "lib.so"))
+        for _ in range(3):
+            fns[variant](PATHS.index("mma"), plan.pb, plan.nk, x.data_ptr(), dt.data_ptr(),
+                         A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), None, y.data_ptr(),
+                         fin.data_ptr(), 1, 4096, 64, 64, 128, 1, *x.stride()[:2],
+                         *Bm.stride()[:2], *Cm.stride()[:2], 1,
+                         torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        clk = (ctypes.c_ulonglong * (4 * 64 * 8))()
+        assert lib.ssd_timeline(clk) == 0
+        stamps = torch.tensor(list(clk), dtype=torch.float64).reshape(4, 64, 8)
+        phase = torch.empty(4, 63, 8, dtype=torch.float64)     # tiles 1-63, each phase's cycles
+        phase[:, :, 0] = stamps[:, 1:, 0] - stamps[:, :-1, 7]   # from the tile before's end
+        phase[:, :, 1:] = stamps[:, 1:, 1:] - stamps[:, 1:, :-1]
+        for w in range(4):
+            print(f"TUNE ssd {variant} 4096 warp {w}: cycles a tile by phase (mean of tiles "
+                  "1-63): " + ", ".join(f"{n} {v:.0f}" for n, v in zip(
+                      TIMELINE_PHASES, phase[w].mean(0).tolist()))
+                  + f"; whole tile {float((stamps[w, 63, 7] - stamps[w, 0, 7]) / 63):.0f}",
+                  flush=True)
+
+    # the cost of a tile: one mamba2 row (256 blocks at pb 16) over 1 to 64 tiles
+    fn = fns["base"]
+    for L in (64, 128, 256, 512, 1024, 2048, 4096):
+        x, dt, A, Bm, Cm, _ = cs.ssd_case(dev, B=1, L=L, H=64, P=64, N=128, G=1,
+                                          dtype=torch.bfloat16, seed=3)
+        y = torch.empty((1, L, 64, 64), dtype=torch.float32, device=dev)
+        fin = torch.empty((1, 64, 64, 128), dtype=torch.float32, device=dev)
+        plan = plan_for(x, Bm)
+        ms = cs.cuda_ms(lambda: fn(
+            PATHS.index("mma"), plan.pb, plan.nk, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), None, y.data_ptr(), fin.data_ptr(), 1, L, 64, 64, 128,
+            1, *x.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2], 1,
+            torch.cuda.current_stream(dev).cuda_stream), flush=flush)
+        print(f"TUNE ssd tiles L={L} ({-(-L // 64)} tiles) pb={plan.pb}: {ms:.5f} ms", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_tune: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels.paged_attention import chunked_prefill_cuda
     from repro_torch.kernels.paged_attention import kernel as pk
+    parts = sys.argv[1:] or ["chunked", "flash", "ssd"]
     dev = torch.device("cuda", 0)
     print("card:", cs.card_line(), flush=True)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     cs.cuda_ms(flush.zero_, flush=flush)
+    if "ssd" in parts:
+        tune_ssd(dev, flush)
+    if "flash" in parts:
+        tune_flash(dev, flush)
+    if "chunked" not in parts:
+        return 0
     defaults = pk.SPLIT_MAX_ROWS, pk.SPLIT_BLOCKS_PER_SM
 
     def time_case(name, C, maxp, num_pages, rows_and_blocks):
@@ -159,7 +369,6 @@ def main() -> int:
     for maxp, num_pages in ((32, 256), (256, 1040)):
         time_case(f"positions={maxp * 16}", 1, maxp, num_pages,
                   [(defaults[0], b) for b in (2, 4, 8, 16)])
-    tune_flash(dev, flush)
     return 0
 
 

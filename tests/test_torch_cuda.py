@@ -29,6 +29,7 @@ from repro_torch.kernels.quant_matmul import (w8a16_matmul, w8a16_matmul_cuda,
                                               w8a16_matmul_reference)
 from repro_torch.kernels.quant_matmul.kernel import is_k_major, plan_for
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_reference, ssd_scan, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.kernel import plan_for as ssd_scan_plan_for
 from repro_torch.models import RunCtx, build_model
 from repro_torch.models.params import map_tree
 from repro_torch.quant import quantize_leaf, quantize_params_int8
@@ -454,8 +455,8 @@ def test_engine_on_card_matches_cpu(cuda):
 
 # the cases of tests/test_kernels_ssd.py and tests/test_mamba.py, the tiny
 # configs' widths (P 16, N 16, chunk 16), jamba's (P 64, N 16) with groups,
-# and one full-width mamba2 shape: the engine's prefill pack of 2 x 128
-# tokens (one half-padded chunk of 256) from a carried state
+# and full-width mamba2 shapes: the engine's prefill pack of 2 x 128 tokens
+# (one half-padded chunk of 256) and a 1024-token prefill from carried states
 SSD_CASES = [
     # B, L, H, P, N, G, chunk, init_state, ragged rows (nvalid)
     (2, 32, 3, 8, 4, 3, 8, False, None),
@@ -467,6 +468,7 @@ SSD_CASES = [
     (2, 40, 8, 16, 16, 1, 16, True, [40, 13]),
     (1, 130, 128, 64, 16, 1, 256, True, None),
     (2, 128, 64, 64, 128, 1, 256, True, [128, 100]),
+    (1, 1024, 64, 64, 128, 1, 256, True, None),
 ]
 
 
@@ -475,7 +477,9 @@ SSD_CASES = [
 def test_ssd_kernel_matches_plain(cuda, dtype, case):
     """y and the final state of the kernel against the plain version on the
     same inputs; ragged rows have dt = 0 past their live tokens (padded
-    tokens must leave the state untouched)."""
+    tokens must leave the state untouched). bf16 launches the mma path and
+    fp32 the tiled one, through launches_by_path; repeats at full width
+    (P 64) are bit-equal."""
     B, L, H, P, N, G, chunk, with_state, nvalid = case
     rng = np.random.default_rng(L + H + P + N)
     x = rng.standard_normal((B, L, H, P)).astype(np.float32)
@@ -490,10 +494,16 @@ def test_ssd_kernel_matches_plain(cuda, dtype, case):
     for k in ("x", "B_", "C"):
         t[k] = t[k].to(dtype)
     init = torch.from_numpy(s0).to(cuda) if with_state else None
-    n0 = ssd_scan_cuda.launches
+    n0, p0 = ssd_scan_cuda.launches, dict(ssd_scan_cuda.launches_by_path)
     y, s = ssd_chunked(**t, chunk=chunk, init_state=init)
     torch.cuda.synchronize()
     assert ssd_scan_cuda.launches == n0 + 1 and y.dtype == s.dtype == torch.float32
+    path = "mma" if dtype == torch.bfloat16 else "tiled"
+    assert ssd_scan_plan_for(t["x"], t["B_"]).path == path
+    assert ssd_scan_cuda.launches_by_path == dict(p0, **{path: p0[path] + 1})
+    if P == 64:
+        y2, s2 = ssd_chunked(**t, chunk=chunk, init_state=init)
+        assert torch.equal(y, y2) and torch.equal(s, s2)
     rep = H // G
     y_ref, s_ref = ssd_reference(t["x"], t["dt"], t["A"], t["B_"].repeat_interleave(rep, 2),
                                  t["C"].repeat_interleave(rep, 2), chunk, init_state=init)
