@@ -12,7 +12,9 @@ exits non-zero and no phase's failure is caught.
      Mixtral width (the SSD scan at mamba2's and jamba's, with a
      4096-token mamba2 prefill; chunked attention also at a verify width
      of 4 tokens and over a 4096-key context), in fp32 and
-     bf16, with the kernel's device time (its launch wrapper alone), the
+     bf16, and in bf16 at phase 8's shapes (chunked attention's 64- and
+     32-row decode sweeps and its prefill pack over a 1024-page pool, gmm
+     at 64 and 32 tokens), with the kernel's device time (its launch wrapper alone), the
      public op's time as a caller sees it (host work included), the plain
      version's and a PyTorch yardstick's times (the yardstick, SDPA or a
      plain matmul on float weights, is never called by the port; no single
@@ -68,12 +70,31 @@ exits non-zero and no phase's failure is caught.
      seconds and peak memory printed), then phase 5's generation API on the
      same weights; where a generation stream leaves the engine's, both
      paths' top-2 logits at the first diverging token (printed only).
-  8. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+  8. (run between phases 5 and 6, on phase 4's weights) the serving stack:
+     client -> gateway (``scale_gateway_config``: binary frames, pooled
+     connections) -> least-loaded router -> replica threads -> engines
+     (page_size 16, 1024 pages, max_seq 2080, prefill chunk 128, greedy,
+     bf16 KV). 64 requests of ``sample_workload(WorkloadSpec(n_requests=64,
+     vocab=32000, seed=0))`` (OpenOrca-like lengths) at concurrency 64, 32
+     new tokens each, after one warm-up request a replica: on one replica
+     of 64 slots, then on two of 32 sharing the weights. Every request
+     finishes with 32 tokens, no replica fails over, every replica served,
+     every page is free again, the Figure-4 t-stamps are ordered, and the
+     chunked attention and gmm launches (counters set to 0 just before)
+     took exactly the paths their plans name for the two call shapes. An
+     exception in a replica thread is re-raised here. Prints tok/s, TTFT
+     and TBT p50/p99, TTFT's legs, each replica's step times and peak
+     memory. Then a manual failover: two replicas, 16 requests, r0 failed
+     after 64 token events; every request finishes (streams against the
+     unfailed run printed only).
+  9. a ``kernels`` JSON line (with each kernel's launches behind the stack
+     as ``stack_launches``), then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
 Options: --out FILE writes every measurement as JSON; --profile adds
-torch.profiler windows over short serving runs and over decode steps of
-the generation paths (kernel time by name and the device's busy share).
+torch.profiler windows over short serving runs, over decode steps of the
+generation paths and over a run of each stack layout (kernel time by name,
+the device's busy share, and the stack's device and wall time a step).
 """
 from __future__ import annotations
 
@@ -98,6 +119,12 @@ LOGIT_ATOL = 2e-3                  # the repo's chunked-vs-dense logit bound
 SERVE_LAYERS = 8                   # depth cut: 32 -> 8 layers (~23.7 GB bf16)
 GEN_STEPS = 32                     # greedy decode_steps of phase 5
 SLEEP_CYCLES = 200_000_000         # ~0.1-0.2 s of SM clock: time to enqueue 10 calls
+STACK_REQUESTS = 64                # phase 8: concurrent requests of the OpenOrca-like mix
+STACK_NEW = 32                     # new tokens a request
+STACK_LAYOUTS = ((1, 64), (2, 32))  # (replicas, max_slots a replica) on one card
+STACK_FAILOVER = (16, 64)          # failover run: requests, token events before the failure
+STACK_PAGES, STACK_MAX_SEQ = 1024, 2080   # a replica's pool; the longest prompt + 32
+STACK_PACK = (2, 128)              # the engine's prefill pack at 64 and at 32 slots
 
 
 def log(msg: str) -> None:
@@ -156,15 +183,25 @@ def max_err(a, b) -> float:
 
 # ------------------------------------------------------------------ phase 2
 def attention_case(dev, *, B, C, H, Hkv, D, ps, maxp, num_pages, starts, nvalid, dtype,
-                   window=0, softcap=0.0, seed=0):
+                   window=0, softcap=0.0, seed=0, used_only=False):
+    """Random q and pool. Every page-table entry gets a distinct pool page,
+    or, with ``used_only``, only those below the row's length, the rest
+    page 0 as the engine leaves them (a pool smaller than B * maxp)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, C, H, D), generator=g, device=dev).to(dtype)
     kp = torch.randn((num_pages, ps, Hkv, D), generator=g, device=dev).to(dtype)
     vp = torch.randn((num_pages, ps, Hkv, D), generator=g, device=dev).to(dtype)
-    perm = torch.randperm(num_pages - 1, generator=g, device=dev)[:B * maxp] + 1
-    pt = perm.reshape(B, maxp).to(torch.int32)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     lengths = st + torch.tensor(nvalid, dtype=torch.int32, device=dev)
+    if used_only:
+        need = (lengths + ps - 1) // ps
+        perm = torch.randperm(num_pages - 1, generator=g, device=dev)[:int(need.sum())] + 1
+        used = torch.arange(maxp, device=dev)[None] < need[:, None]
+        pt = torch.zeros((B, maxp), dtype=torch.int32, device=dev)
+        pt[used] = perm.to(torch.int32)
+    else:
+        perm = torch.randperm(num_pages - 1, generator=g, device=dev)[:B * maxp] + 1
+        pt = perm.reshape(B, maxp).to(torch.int32)
     qpos = st[:, None] + torch.arange(C, device=dev, dtype=torch.int32)[None]
     return q, kp, vp, pt, lengths, qpos, dict(scale=D ** -0.5, softcap=softcap, window=window)
 
@@ -244,11 +281,31 @@ def run_attention(dev, flush, results):
                             maxp=256, num_pages=1040),
         "prefill": dict(B=2, C=128, starts=[0, 128], nvalid=[128, 100]),
     }
+    dtypes = {name: (torch.float32, torch.bfloat16) for name in shapes}
+    # phase 8's shapes, bf16 as it serves: its decode sweeps (64 and 32
+    # slots, the rows at the workload's prompt lengths + 31, their last
+    # step) and its prefill pack (a first chunk, and the last, partial chunk
+    # of the longest prompt), over a replica's pool with only the pages a
+    # row holds in its page table
+    from repro_torch.data.workload import WorkloadSpec, sample_workload
+    plens = [len(p) for p in sample_workload(WorkloadSpec(n_requests=STACK_REQUESTS,
+                                                          vocab=32000, seed=0))[0]]
+    stack = dict(maxp=-(-STACK_MAX_SEQ // 16), num_pages=STACK_PAGES, used_only=True)
+    for _, slots in STACK_LAYOUTS:
+        shapes[f"stack decode B={slots}"] = dict(
+            stack, B=slots, C=1, starts=[n + STACK_NEW - 2 for n in plens[:slots]],
+            nvalid=[1] * slots)
+    last = max(plens)
+    rows, chunk = STACK_PACK
+    shapes["stack prefill pack"] = dict(
+        stack, B=rows, C=chunk, starts=[0, (last - 1) // chunk * chunk],
+        nvalid=[chunk, last - (last - 1) // chunk * chunk])
+    dtypes.update({name: (torch.bfloat16,) for name in shapes if name.startswith("stack")})
     # fp32: reduction order only; bf16: one rounding of outputs |o| < 4
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for name, sh in shapes.items():
         sh = dict(dict(maxp=32, num_pages=256), **sh)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes[name]:
             *t, kw = attention_case(dev, H=32, Hkv=8, D=128, ps=16, dtype=dtype, seed=1, **sh)
             q, kp, vp, pt, lengths, qpos = t
             plan = plan_for(q, kp, pt)
@@ -271,7 +328,9 @@ def run_attention(dev, flush, results):
             bms, by = attention_bound(q, kp, lengths, qpos, dtype, kw["window"])
             row = dict(kernel="chunked_prefill_attention", case=name, dtype=str(dtype)[6:],
                        shape=f"q{tuple(q.shape)} pool{tuple(kp.shape)} lengths "
-                             f"{lengths.tolist()}",
+                             + (f"{lengths.tolist()}" if q.shape[0] <= 4 else
+                                f"{int(lengths.min())}..{int(lengths.max())} "
+                                f"(sum {int(lengths.sum())})"),
                        path=plan.path, splits=plan.splits, grid=list(plan.grid),
                        max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bms, bound_by=by)
@@ -495,6 +554,12 @@ def run_gmm(dev, flush, results):
                 for dtype in (torch.float32, torch.bfloat16):
                     run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=dtype,
                                  int8=int8, tol=tols[int8, dtype])
+    # phase 8's decode sweeps (64 and 32 slots), bf16 as it serves; its
+    # prefill pack (256 tokens) is the case above
+    for _, tokens in STACK_LAYOUTS:
+        for K, N in ((4096, 14336), (14336, 4096)):
+            run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=torch.bfloat16,
+                         int8=False, tol=tols[False, torch.bfloat16])
 
 
 def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
@@ -1398,6 +1463,293 @@ def run_mamba(dev, profile: bool):
     return serve, generation
 
 
+# ------------------------------------------------------------------ phase 8
+
+def pct(values, q: float) -> float:
+    return float(np.percentile(values, q))
+
+
+def stack_plans(dev, cfg, slots: int, chunk_rows: int, chunk: int, ps: int, maxp: int):
+    """The paths the two kernels' plans name for an engine's two call
+    shapes: the decode sweep (slots, 1) and the prefill pack (chunk_rows,
+    chunk); gmm sees top_k rows a token."""
+    from repro_torch.kernels.moe_gmm import kernel as gk
+    from repro_torch.kernels.paged_attention import kernel as ak
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf = torch.bfloat16
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    attn = {ak._plan(B, C, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ps, maxp, bf, bf,
+                     n_sm).path for B, C in ((slots, 1), (chunk_rows, chunk))}
+    gmm = {gk._plan(T * k, K, N, E, bf, bf, n_sm).path
+           for T in (slots, chunk_rows * chunk)
+           for K, N in ((cfg.d_model, cfg.moe.d_expert), (cfg.moe.d_expert, cfg.d_model))}
+    return attn, gmm
+
+
+def run_stack(dev, model, params, profile: bool):
+    """Phase 8: the serving stack (client -> gateway -> router -> replica
+    threads -> engines) on phase 4's weights. 64 requests of the
+    OpenOrca-like mix at concurrency 64, 32 greedy tokens each, on one
+    replica of 64 slots and on two of 32 sharing the weights; then a manual
+    failover under 16 requests. Nothing here is caught: an exception in a
+    replica thread is re-raised once its run ends."""
+    import asyncio
+    from repro_torch.core import (EngineConfig, Gateway, InferenceEngine, Replica,
+                                  ReplicaRouter, RouterConfig, request_metrics,
+                                  scale_gateway_config)
+    from repro_torch.core.client import merge_engine_timestamps, run_workload
+    from repro_torch.data.workload import WorkloadSpec, sample_workload
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
+    from repro_torch.kernels.paged_attention import chunked_prefill_cuda, paged_attention_cuda
+    from repro_torch.kernels.quant_matmul import w8a16_matmul_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    counted = {"chunked_prefill_attention": chunked_prefill_cuda, "moe_gmm": gmm_tiles_cuda,
+               "flash_attention": flash_attention_cuda, "paged_attention": paged_attention_cuda,
+               "ssd_scan": ssd_scan_cuda, "w8a16_matmul": w8a16_matmul_cuda}
+    cfg = model.cfg
+    spec = WorkloadSpec(n_requests=STACK_REQUESTS, vocab=cfg.vocab, seed=0)
+    prompts, _ = sample_workload(spec)
+    warm_prompt = np.arange(1, 41, dtype=np.int32)
+
+    def fleet(n_replicas: int, slots: int):
+        """Started replicas over one set of weights; each thread's target is
+        wrapped so that its exception is kept for the main thread."""
+        errors, reps = [], []
+        for i in range(n_replicas):
+            eng = InferenceEngine(model, params, EngineConfig(
+                max_slots=slots, page_size=16, num_pages=STACK_PAGES, max_seq=STACK_MAX_SEQ,
+                prefill_chunk=STACK_PACK[1], greedy=True, cache_dtype=torch.bfloat16,
+                device=str(dev)))
+            rep = Replica(f"r{i}", eng)
+
+            def guarded(loop=rep._loop, rid=rep.replica_id):
+                try:
+                    loop()
+                except BaseException as e:
+                    errors.append((rid, e))
+                    raise
+
+            rep._loop = guarded
+            reps.append(rep.start())
+        return reps, errors
+
+    def serve(n_replicas: int, slots: int, batch, *, fail_after=None, profile_what=None):
+        """One gateway over a fresh fleet: a warm-up request for each replica
+        (a thread's first matmul creates its cuBLAS handle), then ``batch``
+        at full concurrency with the kernels' counters set to 0 just before
+        and read just after."""
+        reps, errors = fleet(n_replicas, slots)
+        router = ReplicaRouter(reps, RouterConfig(policy="least_loaded"))
+        gw = Gateway(router, scale_gateway_config())
+        router.start_monitor()
+        out = dict(replicas=n_replicas, max_slots=slots)
+        try:
+            async def drive():
+                await run_workload(gw, [warm_prompt] * n_replicas, concurrency=n_replicas,
+                                   max_new_tokens=2, timeout_s=120)
+                gw.requests.clear()
+                for r in reps:
+                    r.engine.step_records.clear()
+                    r.total_completed = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+
+                async def killer():
+                    while sum(r.n_generated for r in gw.requests.values()) < fail_after:
+                        await asyncio.sleep(0.0005)
+                    with reps[0]._lock:
+                        out["failed_inflight"] = sorted(reps[0]._inflight)
+                    t = time.perf_counter()
+                    router.handle_failure(reps[0], reason="manual")
+                    out["handle_failure_ms"] = 1e3 * (time.perf_counter() - t)
+
+                for fn in counted.values():
+                    fn.launches = 0
+                    if hasattr(fn, "launches_by_path"):
+                        fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+                run = run_workload(gw, batch, concurrency=len(batch),
+                                   max_new_tokens=STACK_NEW, timeout_s=300)
+                if fail_after is None:
+                    return await run
+                res, _ = await asyncio.gather(run, killer())
+                return res
+
+            def once():
+                res = asyncio.run(drive())
+                torch.cuda.synchronize()
+                return res
+
+            if profile_what is not None:
+                holder = []
+                out["profile"] = profile_window(lambda: holder.append(once()), profile_what)
+                res = holder[0]
+            else:
+                res = once()
+            out["launches"] = {k: fn.launches for k, fn in counted.items()}
+            out["launches_by_path"] = {
+                "chunked_prefill_attention": dict(chunked_prefill_cuda.launches_by_path),
+                "moe_gmm": dict(gmm_tiles_cuda.launches_by_path)}
+            out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            router.stop_monitor()
+            for r in reps:
+                r.stop()
+        if errors:
+            rid, e = errors[0]
+            raise RuntimeError(f"replica {rid}'s serving thread raised") from e
+        merge_engine_timestamps(res.requests, gw)
+        return res, router, reps, out
+
+    def check(res, reps, n):
+        assert len(res.requests) == n
+        bad = [(r.req_id, r.error, r.n_generated) for r in res.requests
+               if not (r.finished and r.error is None and r.n_generated == STACK_NEW)]
+        assert not bad, f"requests that did not finish with {STACK_NEW} tokens: {bad}"
+        for r in res.requests:
+            assert r.t0 <= r.t1 <= r.t2 <= r.t4 <= r.t5 <= r.t6, f"{r.req_id}: t-stamps out of order"
+            assert r.t2 <= r.t3 <= r.t6, f"{r.req_id}: t-stamps out of order"
+        assert all(r.total_completed > 0 for r in reps if r.healthy), \
+            f"a replica served nothing: {[(r.replica_id, r.total_completed) for r in reps]}"
+        for r in reps:
+            a = r.engine.allocator
+            a.check_invariants()
+            assert a.free_pages == a.num_pages - 1 and a.live_pages == 0, \
+                f"{r.replica_id}: {a.free_pages} free pages of {a.num_pages - 1} after the run"
+
+    layouts = []
+    streams = {}
+    for n_replicas, slots in STACK_LAYOUTS:
+        wall0 = time.perf_counter()
+        res, router, reps, out = serve(n_replicas, slots, prompts)
+        check(res, reps, STACK_REQUESTS)
+        assert router.failover_events == [] and router.auto_failovers == 0, \
+            f"a replica failed over during the run: {router.failover_events}"
+        eng0 = reps[0].engine
+        # phase 2 held both kernels against their plain versions at these shapes
+        assert (eng0.chunk_rows, eng0.chunk) == STACK_PACK, (eng0.chunk_rows, eng0.chunk)
+        attn_plan, gmm_plan = stack_plans(dev, cfg, slots, eng0.chunk_rows, eng0.chunk, 16,
+                                          eng0.cfg.max_pages_per_seq)
+        used = {k: {p for p, n in v.items() if n > 0} for k, v in out["launches_by_path"].items()}
+        assert out["launches"]["chunked_prefill_attention"] > 0 and out["launches"]["moe_gmm"] > 0, \
+            f"a kernel never ran behind the stack: {out['launches']}"
+        assert used["chunked_prefill_attention"] == attn_plan and used["moe_gmm"] == gmm_plan, \
+            f"the stack's kernel calls left their planned paths: {out['launches_by_path']}, " \
+            f"planned attention {sorted(attn_plan)}, gmm {sorted(gmm_plan)}"
+        ms = [request_metrics(r) for r in res.requests]
+        wall = res.t_end - res.t_start
+        ttft = [m.ttft_user * 1e3 for m in ms]
+        tbt = [m.tbt * 1e3 for m in ms]
+        # the user-side TTFT t5 - t0 in four legs: client -> gateway (t1 -
+        # t0), gateway admission + route + replica inbox + engine queue (t2 -
+        # t1), engine to the first token (t4 - t2), first token back to the
+        # client (t5 - t4)
+        legs = {"client_to_gateway": [r.t1 - r.t0 for r in res.requests],
+                "gateway_route_queue": [r.t2 - r.t1 for r in res.requests],
+                "engine_first_token": [r.t4 - r.t2 for r in res.requests],
+                "token_return": [r.t5 - r.t4 for r in res.requests]}
+        total = sum(r.t5 - r.t0 for r in res.requests)
+        out.update(
+            wall_s=wall, tok_s=sum(m.n_tokens for m in ms) / wall,
+            ttft_ms_p50=pct(ttft, 50), ttft_ms_p99=pct(ttft, 99),
+            tbt_ms_p50=pct(tbt, 50), tbt_ms_p99=pct(tbt, 99),
+            ttft_leg_ms_p50={k: 1e3 * pct(v, 50) for k, v in legs.items()},
+            ttft_share={k: sum(v) / total for k, v in legs.items()},
+            served={r.replica_id: r.total_completed for r in reps},
+            preemptions=sum(r.engine.scheduler.n_preemptions for r in reps),
+            planned_paths={"chunked_prefill_attention": sorted(attn_plan),
+                           "moe_gmm": sorted(gmm_plan)},
+            phase_s=time.perf_counter() - wall0)
+        per = []
+        for r in reps:
+            recs = list(r.engine.step_records)
+            dec = [x.duration for x in recs if x.prefill_rows == 0 and x.decode_rows > 0]
+            pre = [x.duration for x in recs if x.prefill_rows > 0]
+            per.append(dict(replica=r.replica_id, steps=len(recs),
+                            decode_steps=len(dec), prefill_steps=len(pre),
+                            decode_step_ms_mean=1e3 * float(np.mean(dec)) if dec else None,
+                            prefill_step_ms_mean=1e3 * float(np.mean(pre)) if pre else None))
+        out["per_replica"] = per
+        layouts.append(out)
+        streams[n_replicas] = {r.req_id: list(r.generated) for r in res.requests}
+        log(f"  {n_replicas} x {slots} slots: {STACK_REQUESTS} requests x {STACK_NEW} tokens "
+            f"at concurrency {STACK_REQUESTS} in {wall:.3f} s: {out['tok_s']:.2f} tok/s, TTFT "
+            f"p50/p99 {out['ttft_ms_p50']:.1f} / {out['ttft_ms_p99']:.1f} ms, TBT p50/p99 "
+            f"{out['tbt_ms_p50']:.2f} / {out['tbt_ms_p99']:.2f} ms, served {out['served']}, "
+            f"preemptions {out['preemptions']}, peak device memory {out['peak_mem_gb']:.2f} GB")
+        log("    TTFT legs p50 ms " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["ttft_leg_ms_p50"].items()) + "; share of TTFT "
+            + ", ".join(f"{k} {100 * v:.1f}%" for k, v in out["ttft_share"].items()))
+        for p in per:
+            log(f"    {p['replica']}: {p['steps']} steps, decode step "
+                f"{p['decode_step_ms_mean'] or float('nan'):.3f} ms x{p['decode_steps']}, "
+                f"prefill-pack step {p['prefill_step_ms_mean'] or float('nan'):.3f} ms "
+                f"x{p['prefill_steps']}")
+        log(f"    launches {out['launches']}, by path {out['launches_by_path']} (planned: "
+            f"attention {sorted(attn_plan)}, gmm {sorted(gmm_plan)})")
+        torch.cuda.empty_cache()
+
+    n_fail, after = STACK_FAILOVER
+    res, router, reps, fo = serve(2, 32, prompts[:n_fail], fail_after=after)
+    check(res, reps, n_fail)
+    (ev,) = router.failover_events
+    assert ev.reason == "manual" and router.auto_failovers == 0 and not reps[0].healthy
+    assert 0 < ev.n_requests <= len(fo["failed_inflight"]), \
+        f"the failure moved {ev.n_requests} requests of {fo['failed_inflight']}"
+    # the stall a moved request's user saw: its longest gap between two
+    # tokens (the kill, the re-dispatch and the re-prefill on r1)
+    moved = [r for r in res.requests if r.req_id in fo["failed_inflight"]]
+    stall = [1e3 * float(np.max(np.diff(r.token_times))) for r in moved]
+    others = [1e3 * float(np.median(np.diff(r.token_times))) for r in res.requests
+              if r.req_id not in fo["failed_inflight"]]
+    ref = streams[2]
+    equal = sum(r.generated == ref[r.req_id] for r in res.requests)
+    fo.update(requests=n_fail, after_token_events=after, redispatched=ev.n_requests,
+              heartbeat_gap_ms=1e3 * ev.latency_s, moved_max_token_gap_ms=stall,
+              unmoved_median_token_gap_ms=float(np.median(others)) if others else None,
+              streams_equal_unfailed=equal)
+    log(f"  failover: r0 failed by hand after {after} token events with "
+        f"{len(fo['failed_inflight'])} requests in flight, re-dispatched to r1 by "
+        f"handle_failure in {fo['handle_failure_ms']:.1f} ms (r0's last step began "
+        f"{1e3 * ev.latency_s:.1f} ms before); the moved requests' longest gap between two "
+        f"tokens {max(stall):.1f} ms (the others' median gap "
+        f"{fo['unmoved_median_token_gap_ms'] or float('nan'):.2f} ms); all {n_fail} finished; "
+        f"streams equal to the unfailed 2 x 32 run's: {equal} of {n_fail} (printed only: a "
+        f"bf16 re-prefill can split a near-tie)")
+    stack = dict(config=cfg.name, layers=cfg.n_layers, requests=STACK_REQUESTS,
+                 new_tokens=STACK_NEW, prompt_tokens=[len(p) for p in prompts],
+                 workload="sample_workload(WorkloadSpec(n_requests=64, vocab=32000, seed=0))",
+                 gateway="scale", policy="least_loaded", layouts=layouts, failover=fo)
+    if profile:
+        # both layouts on the full batch, each in its own window: the device
+        # time a step against each replica's wall time a step (step_records,
+        # the token readback's wait included) says whether the 2 x 32 steps
+        # grew on the host or on the device (the window also holds the warm-up)
+        stack["profile"] = []
+        for n_replicas, slots in STACK_LAYOUTS:
+            _, _, reps, prof = serve(
+                n_replicas, slots, prompts,
+                profile_what=f"{n_replicas} x {slots} slots, {STACK_REQUESTS} requests x "
+                             f"{STACK_NEW} tokens")
+            w = prof["profile"]
+            steps = {r.replica_id: [x.duration for x in r.engine.step_records] for r in reps}
+            n_steps = sum(len(v) for v in steps.values())
+            w.update(layout=f"{n_replicas}x{slots}", steps=n_steps,
+                     device_ms_per_step=w["device_busy_ms"] / n_steps,
+                     replica_step_ms_mean={k: 1e3 * float(np.mean(v)) for k, v in steps.items()},
+                     replica_in_step_share={k: 1e3 * sum(v) / w["wall_ms"]
+                                            for k, v in steps.items()})
+            log(f"    {n_replicas} x {slots}: {n_steps} engine steps, device "
+                f"{w['device_ms_per_step']:.3f} ms a step; each replica's wall ms a step "
+                + ", ".join(f"{k} {v:.3f}" for k, v in w["replica_step_ms_mean"].items())
+                + ", share of the window inside step() "
+                + ", ".join(f"{k} {100 * v:.1f}%" for k, v in w["replica_in_step_share"].items()))
+            stack["profile"].append(w)
+    # the kernels line takes the 1 x 64 run's counts: one replica thread, so
+    # the wrappers' plain += counted every launch
+    return stack, layouts[0]["launches"]
+
+
 def profile_window(fn, what: str):
     """torch.profiler over one call of ``fn``: device time by kernel name
     and the device's busy share of the window."""
@@ -1506,10 +1858,17 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     generation, gen_launches = run_generation(dev, model, params, streams, args.profile)
-    del model, params
     launches.update(flash_attention=gen_launches["flash_attention"],
                     paged_attention=gen_launches["paged_attention"])
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 8: the serving stack (client -> gateway -> router -> replicas) on phase 4's "
+        "weights, 64 concurrent requests")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    stack, stack_launches = run_stack(dev, model, params, args.profile)
+    del model, params
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 6: full-depth mamba2 serving (bf16), then its generation API")
     t0 = time.perf_counter()
@@ -1554,6 +1913,7 @@ def main() -> int:
                             launches=launches[name], max_abs_err=row["max_abs_err"],
                             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"],
+                            stack_launches=stack_launches[name],
                             shape=f"{case} bf16: {row['shape']}"))
     if args.out:
         out = Path(args.out)
@@ -1567,7 +1927,7 @@ def main() -> int:
                                        generation=generation, mamba_serve=mamba_serve,
                                        mamba_generation=mamba_generation,
                                        int8_serve=int8_serve, int8_generation=int8_generation,
-                                       kernels=kernels),
+                                       stack=stack, kernels=kernels),
                                   indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

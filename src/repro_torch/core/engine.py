@@ -22,11 +22,13 @@ capture an SSM layer's state.
 
 On the card the attention, expert matmuls and SSD scan run the port's CUDA
 kernels. The engine runs on ``cuda`` unless ``EngineConfig.device`` says
-otherwise. Speculative decoding, fault injection and the enc-dec / VLM
+otherwise. The fault injector's per-step hook, the host-overhead knob and the
+step fence are the reference's; speculative decoding and the enc-dec / VLM
 serving paths of the reference come with later slices.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -59,8 +61,12 @@ class EngineConfig:
     enable_prefix_cache: bool = True  # shared-prefix KV reuse
     enable_speculative: bool = False  # not ported yet: True raises
     eos_id: int = -1                  # -1: no EOS (length-controlled)
+    host_overhead_s: float = 0.0      # baseline-engine emulation knob (benchmarks)
     profile_steps: bool = True        # keep one StepRecord per iteration in a
                                       # bounded ring
+    profile_fence: bool = False       # synchronize the device before timestamping
+                                      # each step (true device wall time; off
+                                      # by default: it serializes dispatch)
     step_records_cap: int = 4096      # ring-buffer capacity for step records
     cache_dtype: torch.dtype = torch.float32
     device: Optional[str] = None      # None: cuda (raises without a card)
@@ -97,7 +103,7 @@ def sample_tokens(logits, generator: torch.Generator, temperature: float, top_p:
 
 
 class InferenceEngine:
-    """Single-replica engine."""
+    """Single-replica engine. Thread-safety is owned by core.replica."""
 
     def __init__(self, model: LM, params, cfg: EngineConfig, ctx: Optional[RunCtx] = None,
                  tracer: Optional[Tracer] = None):
@@ -132,6 +138,13 @@ class InferenceEngine:
         self.page_table = np.zeros((cfg.max_slots, cfg.max_pages_per_seq), np.int32)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(cfg.seed)
+        # resilience hooks: a FaultInjector evaluated at the top of every step
+        # (None costs one attribute check), the replica id it matches fault
+        # events against, and the brown-out flag that speculative drafting
+        # will read once it is ported
+        self.injector = None
+        self.fault_key: Optional[str] = None
+        self.degraded = False
         self.steps = 0
         self.decode_tokens = 0
         self.prefill_tokens = 0
@@ -209,15 +222,19 @@ class InferenceEngine:
         then one decode sweep — at most ``token_budget`` tokens total.
         With ``profile_steps`` each iteration leaves one :class:`StepRecord`
         in the ``step_records`` ring buffer."""
+        if self.injector is not None:
+            self.injector.on_engine_step(self)
         if not self.cfg.profile_steps:
             return self._step()
         t0 = now()
         preempt0 = self.scheduler.n_preemptions
         cow0 = self.allocator.cow_copies
         prefill0, decode0 = self.prefill_tokens, self.decode_tokens
-        # no device fence needed: every model call ends by reading its
-        # sampled tokens back to the host
+        # every model call ends by reading its sampled tokens back to the
+        # host; the fence also waits for queued work such as COW copies
         events = self._step()
+        if self.cfg.profile_fence and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         alloc = self.allocator
         self.step_records.append(StepRecord(
             step=self.steps, t0=t0, t1=now(), budget=self.token_budget,
@@ -241,6 +258,8 @@ class InferenceEngine:
         cfg = self.cfg
         tr = self.tracer
         events: List[TokenEvent] = []
+        if cfg.host_overhead_s > 0:
+            time.sleep(cfg.host_overhead_s)
         self.steps += 1
         iter_tokens = 0
         self._last_admitted = self._last_prefill_rows = self._last_decode_rows = 0

@@ -6,6 +6,10 @@ Libraries are built at first use into ``build/kernels/`` at the repository
 root, keyed by a hash of the sources and flags, so a changed source never
 loads a stale library. ``build`` starts one ``nvcc`` per source, all at
 once. Nothing here runs at import time: the CPU tests import every module.
+
+Replica threads can reach a kernel for the first time together, so
+``load_library`` builds and loads under one lock, and each build writes to a
+temporary file named for its process and thread.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -23,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("chunked_prefill", "flash_attention", "moe_gmm", "quant_matmul", "ssd_scan")
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -52,7 +58,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             continue
         cmd = [_nvcc(), *NVCC_FLAGS]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
@@ -70,7 +76,13 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 @functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if it is missing."""
+def _load(name: str) -> ctypes.CDLL:
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if it is missing; one build
+    and one load per process, whichever threads ask at once."""
+    with _LOAD_LOCK:
+        return _load(name)

@@ -62,7 +62,11 @@ def test_module_list_is_complete():
               "repro_torch.kernels.ssd_scan.kernel", "repro_torch.kernels.ssd_scan.ops",
               "repro_torch.kernels.ssd_scan.ref", "repro_torch.quant.quantize",
               "repro_torch.kernels.quant_matmul.kernel", "repro_torch.kernels.quant_matmul.ops",
-              "repro_torch.kernels.quant_matmul.ref"):
+              "repro_torch.kernels.quant_matmul.ref", "repro_torch.core.replica",
+              "repro_torch.core.router", "repro_torch.core.gateway", "repro_torch.core.client",
+              "repro_torch.core.serde", "repro_torch.core.safety", "repro_torch.core.faults",
+              "repro_torch.core.dashboard", "repro_torch.data.workload",
+              "repro_torch.launch.serve"):
         assert m in names
     for m in names:
         importlib.import_module(m)
