@@ -12,9 +12,15 @@ exits non-zero and no phase's failure is caught.
      Mixtral width (the SSD scan at mamba2's and jamba's, with a
      4096-token mamba2 prefill; chunked attention also at a verify width
      of 4 tokens and over a 4096-key context), in fp32 and
-     bf16, and in bf16 at phase 8's shapes (chunked attention's 64- and
-     32-row decode sweeps and its prefill pack over a 1024-page pool, gmm
-     at 64 and 32 tokens), with the kernel's device time (its launch wrapper alone), the
+     bf16, and in bf16 at the shapes the later phases serve: phase 8's
+     (chunked attention's 64- and 32-row decode sweeps and its prefill pack
+     over a 1024-page pool, gmm at 64 and 32 tokens), phase 9's (every
+     ``decode_chunk`` shape of 1, 8 and 32 slots: decode and verify sweeps
+     at C = 1, 2, 3 and 5 and the pack, for attention and for gmm at B * C
+     tokens), the generation API's prefill (gmm at 4 x 297 tokens), and
+     phase 7's (int8 experts at its speculative run's B * C tokens and its
+     prefill, w8a16 projections and head at its B * C rows), with the
+     kernel's device time (its launch wrapper alone), the
      public op's time as a caller sees it (host work included), the plain
      version's and a PyTorch yardstick's times (the yardstick, SDPA or a
      plain matmul on float weights, is never called by the port; no single
@@ -28,9 +34,11 @@ exits non-zero and no phase's failure is caught.
      count or column block and grid their plans chose, and call it twice
      for bit-equal results.
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
-     the CPU (plain versions), on the same two sequences of 20 tokens: the
-     engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, then
-     a decode sweep), ``forward`` at every position, ``prefill`` of the
+     the CPU (plain versions), on the same two sequences of 22 tokens: the
+     engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, a
+     decode sweep, then a speculative verify sweep with ``all_logits`` at C
+     = 5 over rows feeding 5 / 2 tokens, compared at every valid
+     position), ``forward`` at every position, ``prefill`` of the
      first 16 then 4 ``decode_step``s over the dense ring, and the same 4
      over the paged pool filled from the ring. Card vs CPU within
      LOGIT_ATOL with the same argmax; on the card, every path's logits also
@@ -69,7 +77,9 @@ exits non-zero and no phase's failure is caught.
      matmul and chunked attention launch counters > 0; weights' GB, init
      seconds and peak memory printed), then phase 5's generation API on the
      same weights; where a generation stream leaves the engine's, both
-     paths' top-2 logits at the first diverging token (printed only).
+     paths' top-2 logits at the first diverging token (printed only); then
+     phase 9's runs at 8 slots and 32 new tokens (the w8a16 head and
+     projections at M * C rows; its launches too must be > 0).
   8. (run between phases 5 and 6, on phase 4's weights) the serving stack:
      client -> gateway (``scale_gateway_config``: binary frames, pooled
      connections) -> least-loaded router -> replica threads -> engines
@@ -87,18 +97,37 @@ exits non-zero and no phase's failure is caught.
      memory. Then a manual failover: two replicas, 16 requests, r0 failed
      after 64 token events; every request finishes (streams against the
      unfailed run printed only).
-  9. a ``kernels`` JSON line (with each kernel's launches behind the stack
-     as ``stack_launches``), then ``{"ok": true, "device": {...}}`` last.
+  9. (run after phase 8, on phase 4's weights) speculative serving: 1, 8
+     and 32 requests of ``sample_workload(WorkloadSpec(...,
+     extractive_frac=0.5, boilerplate_frac=0.5, seed=0))`` (the extractive
+     / boilerplate mix prompt-lookup drafts from) at ``max_slots`` 1, 8 and
+     32, 64 greedy tokens each, once with speculation off and once with
+     ``spec_k`` = 4. Every request finishes, the allocator invariants hold
+     and every page is free again; the engine drafted and ran verify
+     sweeps; chunked attention launched in sweeps of C = 2, 3 and 5; gmm
+     and chunked attention took exactly the paths their plans name for the
+     run's call shapes. Prints tok/s and wall time off and on, the
+     acceptance rate, steps, ms a verify sweep against a plain decode
+     sweep, and how many leading tokens of each stream equal the run
+     without speculation (printed only).
+ 10. every call shape of chunked attention, gmm and w8a16 in phases 4-9
+     (recorded at the public ops) must be one phase 2 held against the
+     plain version; then a ``kernels`` JSON line (with each kernel's
+     launches behind the stack as ``stack_launches`` and in the
+     speculative runs as ``spec_launches``), then ``{"ok": true,
+     "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
 Options: --out FILE writes every measurement as JSON; --profile adds
 torch.profiler windows over short serving runs, over decode steps of the
-generation paths and over a run of each stack layout (kernel time by name,
-the device's busy share, and the stack's device and wall time a step).
+generation paths, over a run of each stack layout and over a speculative
+run at each slot count (kernel time by name, the device's busy share, and
+the stack's device and wall time a step).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
@@ -125,6 +154,11 @@ STACK_LAYOUTS = ((1, 64), (2, 32))  # (replicas, max_slots a replica) on one car
 STACK_FAILOVER = (16, 64)          # failover run: requests, token events before the failure
 STACK_PAGES, STACK_MAX_SEQ = 1024, 2080   # a replica's pool; the longest prompt + 32
 STACK_PACK = (2, 128)              # the engine's prefill pack at 64 and at 32 slots
+VERIFY_WIDTHS = (2, 3, 5)          # the verify sweep's chunk widths at spec_k = 4
+SPEC_SLOTS = (1, 8, 32)            # phase 9: max_slots of each run, as many requests
+SPEC_NEW = 64                      # new tokens a request
+INT8_SPEC_SLOTS = 8                # phase 7's speculative run: max_slots, as many requests
+PROMPT_LENS = (113, 178, 241, 297)  # phases 4-7: the serving and generation prompts
 
 
 def log(msg: str) -> None:
@@ -179,6 +213,64 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+# ------------------------------------------------------------ call shapes
+# Phase 2 adds the shape of every call it holds against the plain version
+# to CHECKED. Phases 4 to 9 run under ``served_shapes``, which adds the
+# shape of every call the serving paths make to the three kernels they
+# share to SERVED. The script fails if a served shape was never checked.
+CHECKED = {k: set() for k in ("chunked_prefill_attention", "moe_gmm", "w8a16_matmul")}
+SERVED = {k: set() for k in CHECKED}
+
+
+def attention_key(q, kp, pt) -> tuple:
+    """(B, C, H, Hkv, D, page size, pages a row, q dtype, KV dtype)"""
+    B, C, H, D = q.shape
+    return (B, C, H, kp.shape[2], D, kp.shape[1], pt.shape[1], str(q.dtype)[6:],
+            str(kp.dtype)[6:])
+
+
+def gmm_key(rows: int, K: int, N: int, dtype, int8: bool) -> tuple:
+    return (rows, K, N, str(dtype)[6:], int8)
+
+
+def w8a16_key(x, w_q, col_scale, row_scale) -> tuple:
+    """(M, K, N, row-scale groups or 0, a column scale, k-major weight, dtype)"""
+    from repro_torch.kernels.quant_matmul.kernel import is_k_major
+    return (*x.shape, w_q.shape[1], 0 if row_scale is None else row_scale.shape[1],
+            col_scale is not None, is_k_major(w_q), str(x.dtype)[6:])
+
+
+@contextlib.contextmanager
+def served_shapes():
+    """While open, the public ops' calls of chunked attention, the grouped
+    matmul and the w8a16 matmul add their shapes to SERVED and go on to the
+    kernel's wrapper unchanged (which counts the launch)."""
+    from repro_torch.kernels.moe_gmm import ops as gops
+    from repro_torch.kernels.paged_attention import ops as aops
+    from repro_torch.kernels.quant_matmul import ops as wops
+    attn, gmm, w8 = aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda
+
+    def attn_rec(q, kp, vp, pt, *args, **kw):
+        SERVED["chunked_prefill_attention"].add(attention_key(q, kp, pt))
+        return attn(q, kp, vp, pt, *args, **kw)
+
+    def gmm_rec(xb, w, *args, w_scale=None, rows=None, **kw):
+        SERVED["moe_gmm"].add(gmm_key(rows, xb.shape[1], w.shape[2], xb.dtype,
+                                      w_scale is not None))
+        return gmm(xb, w, *args, w_scale=w_scale, rows=rows, **kw)
+
+    def w8_rec(x, w_q, col_scale=None, row_scale=None):
+        SERVED["w8a16_matmul"].add(w8a16_key(x, w_q, col_scale, row_scale))
+        return w8(x, w_q, col_scale, row_scale)
+
+    aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda = \
+        attn_rec, gmm_rec, w8_rec
+    try:
+        yield
+    finally:
+        aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda = attn, gmm, w8
 
 
 # ------------------------------------------------------------------ phase 2
@@ -243,6 +335,72 @@ def sdpa_call(q, kp, vp, pt, lengths, qpos, scale, window=0):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask[:, None], scale=scale)
 
 
+def stack_attention_shapes() -> dict:
+    """Phase 8's shapes, bf16 as it serves: its decode sweeps (64 and 32
+    slots, the rows at the workload's prompt lengths + 31, their last step)
+    and its prefill pack (a first chunk, and the last, partial chunk of the
+    longest prompt), over a replica's pool with only the pages a row holds
+    in its page table."""
+    from repro_torch.data.workload import WorkloadSpec, sample_workload
+    plens = [len(p) for p in sample_workload(WorkloadSpec(n_requests=STACK_REQUESTS,
+                                                          vocab=32000, seed=0))[0]]
+    stack = dict(maxp=-(-STACK_MAX_SEQ // 16), num_pages=STACK_PAGES, used_only=True)
+    shapes = {}
+    for _, slots in STACK_LAYOUTS:
+        shapes[f"stack decode B={slots}"] = dict(
+            stack, B=slots, C=1, starts=[n + STACK_NEW - 2 for n in plens[:slots]],
+            nvalid=[1] * slots)
+    shapes["stack prefill pack"] = dict(stack, **pack_rows(max(plens), *STACK_PACK))
+    return shapes
+
+
+def pack_rows(last: int, rows: int, chunk: int) -> dict:
+    """A prefill pack of ``rows`` chunks: first chunks, then the last,
+    partial chunk of a prompt of ``last`` tokens."""
+    tail = (last - 1) // chunk * chunk
+    return dict(B=rows, C=chunk, starts=[0] * (rows - 1) + [tail],
+                nvalid=[chunk] * (rows - 1) + [last - tail])
+
+
+def spec_workload():
+    """Phase 9's prompts (the extractive / boilerplate mix; phase 7's
+    speculative run serves the first INT8_SPEC_SLOTS) and the max_seq of
+    every engine of phases 9 and 7's speculative run."""
+    from repro_torch.data.workload import WorkloadSpec, sample_workload
+    prompts, _ = sample_workload(WorkloadSpec(
+        n_requests=max(SPEC_SLOTS), vocab=32000, extractive_frac=0.5,
+        boilerplate_frac=0.5, seed=0))
+    return prompts, -(-(max(len(p) for p in prompts) + SPEC_NEW + 1) // 16) * 16
+
+
+def spec_call_shapes(slots: int) -> list:
+    """The (B, C) shapes of ``decode_chunk`` in a phase-9 engine of
+    ``slots`` slots, speculation on or off: the decode sweep, the verify
+    sweeps at the ladder's widths (every slot a row), the prefill pack."""
+    return ([(slots, C) for C in (1,) + VERIFY_WIDTHS]
+            + [(min(slots, STACK_PACK[0]), STACK_PACK[1])])
+
+
+def spec_attention_shapes() -> dict:
+    """Phases 9 and 7's speculative shapes, bf16 as they serve: every
+    ``spec_call_shapes`` of 1, 8 and 32 slots over the engines' 1024-page
+    pool and max_seq, a sweep's rows at the workload's prompt lengths + 31
+    (every row feeding C tokens), the pack's last row the last chunk of the
+    longest prompt, only a row's own pages in its page table."""
+    prompts, max_seq = spec_workload()
+    plens = [len(p) for p in prompts]
+    pool = dict(maxp=max_seq // 16, num_pages=STACK_PAGES, used_only=True)
+    shapes = {}
+    for slots in SPEC_SLOTS:
+        lens = plens[:slots]
+        for B, C in spec_call_shapes(slots):
+            rows = (pack_rows(max(lens), B, C) if C == STACK_PACK[1] else
+                    dict(B=B, C=C, starts=[n + SPEC_NEW // 2 - C for n in lens],
+                         nvalid=[C] * B))
+            shapes.setdefault(f"spec B={B} C={C}", dict(pool, **rows))
+    return shapes
+
+
 def run_attention(dev, flush, results):
     from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                      chunked_prefill_cuda,
@@ -261,6 +419,7 @@ def run_attention(dev, flush, results):
                 *t, kw = args
                 out = chunked_prefill_attention(*t, **kw)
                 plain = chunked_prefill_reference(*t, **kw)
+                CHECKED["chunked_prefill_attention"].add(attention_key(t[0], t[1], t[3]))
                 err = max_err(out, plain)
                 tol = 1e-5 if dtype == torch.float32 else 1e-2
                 assert err <= tol and not out[3].any() and torch.isfinite(out).all(), \
@@ -282,25 +441,9 @@ def run_attention(dev, flush, results):
         "prefill": dict(B=2, C=128, starts=[0, 128], nvalid=[128, 100]),
     }
     dtypes = {name: (torch.float32, torch.bfloat16) for name in shapes}
-    # phase 8's shapes, bf16 as it serves: its decode sweeps (64 and 32
-    # slots, the rows at the workload's prompt lengths + 31, their last
-    # step) and its prefill pack (a first chunk, and the last, partial chunk
-    # of the longest prompt), over a replica's pool with only the pages a
-    # row holds in its page table
-    from repro_torch.data.workload import WorkloadSpec, sample_workload
-    plens = [len(p) for p in sample_workload(WorkloadSpec(n_requests=STACK_REQUESTS,
-                                                          vocab=32000, seed=0))[0]]
-    stack = dict(maxp=-(-STACK_MAX_SEQ // 16), num_pages=STACK_PAGES, used_only=True)
-    for _, slots in STACK_LAYOUTS:
-        shapes[f"stack decode B={slots}"] = dict(
-            stack, B=slots, C=1, starts=[n + STACK_NEW - 2 for n in plens[:slots]],
-            nvalid=[1] * slots)
-    last = max(plens)
-    rows, chunk = STACK_PACK
-    shapes["stack prefill pack"] = dict(
-        stack, B=rows, C=chunk, starts=[0, (last - 1) // chunk * chunk],
-        nvalid=[chunk, last - (last - 1) // chunk * chunk])
-    dtypes.update({name: (torch.bfloat16,) for name in shapes if name.startswith("stack")})
+    served = dict(stack_attention_shapes(), **spec_attention_shapes())
+    shapes.update(served)
+    dtypes.update({name: (torch.bfloat16,) for name in served})
     # fp32: reduction order only; bf16: one rounding of outputs |o| < 4
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for name, sh in shapes.items():
@@ -313,6 +456,7 @@ def run_attention(dev, flush, results):
             plain = chunked_prefill_reference(*t, **kw)
             err = max_err(out, plain)
             assert err <= tols[dtype], f"attention {name} {dtype}: err {err} > {tols[dtype]}"
+            CHECKED["chunked_prefill_attention"].add(attention_key(q, kp, pt))
             assert torch.equal(out, chunked_prefill_attention(*t, **kw)), \
                 f"attention {name} {dtype}: a repeat gave other bits"
             del out, plain
@@ -532,6 +676,7 @@ def run_gmm(dev, flush, results):
             for wk in (w, quantize_leaf(w)):
                 out = gmm(x, wk, gs)
                 errs.append(max_err(out, gmm_reference(x, wk, gs)))
+                CHECKED["moe_gmm"].add(gmm_key(x.shape[0], K, N, dtype, wk is not w))
                 assert torch.equal(out, gmm(x, wk, gs)), \
                     f"gmm edge case {sizes} {dtype}: a repeat gave other bits"
             assert max(errs) <= tol, f"gmm edge case {sizes} {dtype}: err {errs} > {tol}"
@@ -554,12 +699,20 @@ def run_gmm(dev, flush, results):
                 for dtype in (torch.float32, torch.bfloat16):
                     run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=dtype,
                                  int8=int8, tol=tols[int8, dtype])
-    # phase 8's decode sweeps (64 and 32 slots), bf16 as it serves; its
-    # prefill pack (256 tokens) is the case above
-    for _, tokens in STACK_LAYOUTS:
+    # the other token counts of the bf16 main paths (a call routes B * C
+    # tokens, a row's padded positions too): phase 8's decode sweeps (64
+    # and 32 slots), phase 9's decode_chunk calls at 1 / 8 / 32 slots, the
+    # generation API's prefill (4 prompts padded to the longest: phases 5
+    # and 7); on int8 experts phase 7's speculative run and its prefill
+    gen = len(PROMPT_LENS) * max(PROMPT_LENS)
+    spec = {B * C for slots in SPEC_SLOTS for B, C in spec_call_shapes(slots)}
+    int8_spec = {B * C for B, C in spec_call_shapes(INT8_SPEC_SLOTS)}
+    served = ({(T, False) for T in spec | {slots for _, slots in STACK_LAYOUTS} | {gen}}
+              | {(T, True) for T in int8_spec | {gen}})
+    for tokens, int8 in sorted(served - {(T, i) for T in (4, 8, 256) for i in (False, True)}):
         for K, N in ((4096, 14336), (14336, 4096)):
             run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=torch.bfloat16,
-                         int8=False, tol=tols[False, torch.bfloat16])
+                         int8=int8, tol=tols[int8, torch.bfloat16])
 
 
 def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
@@ -573,6 +726,7 @@ def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
     err = max_err(out, gmm_reference(x, wk, gs))
     kind = " int8" if int8 else ""
     assert err <= tol, f"gmm{kind} {tokens} tok {K}->{N} {dtype}: err {err}"
+    CHECKED["moe_gmm"].add(gmm_key(M, K, N, dtype, int8))
     assert torch.equal(out, gmm(x, wk, gs)), \
         f"gmm{kind} {tokens} tok {K}->{N} {dtype}: a repeat gave other bits"
     bm = block_m_for(M)
@@ -668,6 +822,7 @@ def run_w8a16(dev, flush, results):
             err = max_err(out, w8a16_matmul_reference(x, q, col, row))
             assert err <= tols[dtype] and out.dtype == dtype and torch.isfinite(out).all(), \
                 f"w8a16 edge case {M}x{K}x{N} {form} {dtype}: err {err} > {tols[dtype]}"
+            CHECKED["w8a16_matmul"].add(w8a16_key(x, q, col, row))
             assert torch.equal(out, w8a16_matmul(x, q, col, row_scale=row)), \
                 f"w8a16 edge case {M}x{K}x{N} {form} {dtype}: a repeat gave other bits"
             log(f"  w8a16 edge M={M} K={K} N={N} {form} {str(dtype)[6:]} "
@@ -675,12 +830,24 @@ def run_w8a16(dev, flush, results):
     # full-width mixtral shapes: at decode (4 rows) wq (row scale per head of
     # 128), wk / wv (8 heads of 128), wo (one scale per input row) and the
     # head (lm_head (4096, 32000), one per row); wq over a prefill pack of
-    # 256 rows
-    for name, M, N, G in (("decode wq", 4, 4096, 32), ("decode wk", 4, 1024, 8),
-                          ("decode wo", 4, 4096, 1), ("decode head", 4, 32000, 1),
-                          ("prefill wq", 256, 4096, 32)):
+    # 256 rows. Then, bf16 as it serves, phase 7's other row counts: the
+    # projections at its speculative run's B * C rows (decode and verify
+    # sweeps of 8 slots, the pack) and at the generation API's prefill (4
+    # prompts padded to the longest), the head at the sweeps' B * C rows
+    # and at the pack's B (its rows' last positions)
+    proj = (("wq", 4096, 32), ("wk", 1024, 8), ("wo", 4096, 1))
+    both = (torch.float32, torch.bfloat16)
+    cases = [(f"decode {n}", 4, N, G, both) for n, N, G in proj + (("head", 32000, 1),)]
+    cases.append(("prefill wq", 256, 4096, 32, both))
+    shapes = spec_call_shapes(INT8_SPEC_SLOTS)
+    rows = {B * C for B, C in shapes} | {len(PROMPT_LENS) * max(PROMPT_LENS)}
+    head_rows = {B if C == STACK_PACK[1] else B * C for B, C in shapes}
+    cases += [(f"{n} M={M}", M, N, G, (torch.bfloat16,)) for M in sorted(rows)
+              for n, N, G in proj if (n, M) != ("wq", 256)]
+    cases += [(f"head M={M}", M, 32000, 1, (torch.bfloat16,)) for M in sorted(head_rows)]
+    for name, M, N, G, dtypes in cases:
         K = 4096
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             x, w, q, row = w8a16_case(dev, M=M, K=K, N=N, G=G, dtype=dtype, seed=M + N)
             plan = plan_for(x, q)
             out = w8a16_matmul(x, q, row_scale=row)
@@ -692,6 +859,7 @@ def run_w8a16(dev, flush, results):
             # |o| < 8
             tol = 1e-3 if dtype == torch.float32 else 2 ** -5
             assert err <= tol, f"w8a16 {name} {dtype}: err {err} > {tol}"
+            CHECKED["w8a16_matmul"].add(w8a16_key(x, q, None, row))
             assert torch.equal(out, w8a16_matmul(x, q, row_scale=row)), \
                 f"w8a16 {name} {dtype}: a repeat gave other bits"
             ms = cuda_ms(lambda: w8a16_matmul_cuda(x, q, None, row), flush=flush)
@@ -871,13 +1039,21 @@ def run_card_vs_cpu(dev, int8: bool = False):
     n0 = (w8a16_matmul_cuda.launches, gmm_tiles_cuda.launches)
     rng = np.random.default_rng(0)
     ps, maxp, C, gen = 16, 2, 16, 4
-    seq = rng.integers(1, 32000, (2, C + gen)).astype(np.int32)
+    W = VERIFY_WIDTHS[-1]
+    seq = rng.integers(1, 32000, (2, C + gen + 2)).astype(np.int32)
     pt = np.stack([np.arange(1, 1 + maxp), np.arange(1 + maxp, 1 + 2 * maxp)]).astype(np.int32)
     # decode_chunk: a pack of 16 / 11 prompt tokens, then a decode sweep
-    # feeding each row its next token (positions 16 and 11)
+    # feeding each row its next token (positions 16 and 11), then a verify
+    # sweep with all_logits at C = 5 whose rows feed 5 / 2 tokens
+    # (positions 17-21 and 12-13; row 1's last 3 columns are padding)
+    verify = np.zeros((2, W), np.int32)
+    verify[0], verify[1, :2] = seq[0, 17:17 + W], seq[1, 12:14]
+    vstarts, vnvalid = np.array([17, 12], np.int32), np.array([W, 2], np.int32)
+    vvalid = torch.from_numpy(np.arange(W)[None, :] < vnvalid[:, None])
     calls = [(seq[:, :C], np.array([0, 0], np.int32), np.array([16, 11], np.int32)),
              (np.array([[seq[0, 16]], [seq[1, 11]]], np.int32), np.array([16, 11], np.int32),
-              np.array([1, 1], np.int32))]
+              np.array([1, 1], np.int32)),
+             (verify, vstarts, vnvalid)]
     logits = {}
     for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
         out = {}
@@ -887,8 +1063,16 @@ def run_card_vs_cpu(dev, int8: bool = False):
             t_pt = torch.from_numpy(pt).to(where)
             for i, (tok, st, nv) in enumerate(calls):
                 t = [torch.from_numpy(a).to(where) for a in (tok, st, nv, np.arange(2), st == 0)]
-                lg, cache = model.decode_chunk(p, t[0], cache, *t[1:], RunCtx(), t_pt)
-                out[f"decode_chunk {i}"] = lg
+                all_logits = tok is verify
+                lg, cache = model.decode_chunk(p, t[0], cache, *t[1:], RunCtx(), t_pt,
+                                               all_logits=all_logits)
+                if all_logits:
+                    # padding positions too must be finite; the valid ones are compared
+                    assert lg.shape == (2, W, 32000) and torch.isfinite(lg).all(), \
+                        f"decode_chunk(all_logits=True) on {key}: shape {tuple(lg.shape)}"
+                    out["decode_chunk all_logits"] = lg[vvalid.to(where)]
+                else:
+                    out[f"decode_chunk {i}"] = lg
             tokens = torch.from_numpy(seq).to(where)
             out["forward"], _ = model.forward(p, {"tokens": tokens}, RunCtx())
             dense = model.init_cache(2, maxp * ps, device=where)
@@ -919,18 +1103,20 @@ def run_card_vs_cpu(dev, int8: bool = False):
     card, fwd = logits["card"], logits["card"]["forward"]
     pairs = [(card["decode_chunk 0"][0], fwd[0, 15]), (card["decode_chunk 0"][1], fwd[1, 10]),
              (card["decode_chunk 1"][0], fwd[0, 16]), (card["decode_chunk 1"][1], fwd[1, 11]),
-             (card["prefill"], fwd[:, C - 1])]
+             (card["prefill"], fwd[:, C - 1]),
+             (card["decode_chunk all_logits"], torch.cat([fwd[0, 17:17 + W], fwd[1, 12:14]]))]
     for i in range(gen):
         pairs += [(card[f"decode_step {kind} {i}"], fwd[:, C + i]) for kind in ("dense", "paged")]
     cross = max(max_err(a, b) for a, b in pairs)
     assert cross < LOGIT_ATOL, f"paths disagree with forward on the card by {cross}"
     kind = "int8 weights (w8a16 launches {}, gmm {})".format(*launched) if int8 else "fp32"
-    log(f"  depth-2 full-width {kind}, card vs CPU: decode_chunk (pack of 27 tokens, then a "
-        f"decode sweep), forward (2 x 20 tokens), prefill (2 x 16) + 4 decode_steps over the "
-        f"dense ring and over the paged pool: max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, "
-        f"argmax equal")
-    log(f"  on the card, decode_chunk / prefill / decode_step vs forward at the same "
-        f"positions: max |dlogit| = {cross:.3g} < {LOGIT_ATOL}")
+    log(f"  depth-2 full-width {kind}, card vs CPU: decode_chunk (pack of 27 tokens, a "
+        f"decode sweep, then a verify sweep with all_logits at C = {W} over rows feeding "
+        f"{W} / 2 tokens), forward (2 x {C + gen + 2} tokens), prefill (2 x 16) + 4 "
+        f"decode_steps over the dense ring and over the paged pool: max |dlogit| = "
+        f"{worst:.3g} < {LOGIT_ATOL}, argmax equal at every valid position")
+    log(f"  on the card, decode_chunk (all_logits too) / prefill / decode_step vs forward at "
+        f"the same positions: max |dlogit| = {cross:.3g} < {LOGIT_ATOL}")
     return worst, cross
 
 
@@ -1021,8 +1207,7 @@ def run_mamba_card_vs_cpu(dev):
 
 
 def prompts(rng, n=4):
-    lens = [113, 178, 241, 297][:n]
-    return [rng.integers(1, 32000, L).astype(np.int32) for L in lens]
+    return [rng.integers(1, 32000, L).astype(np.int32) for L in PROMPT_LENS[:n]]
 
 
 def depth_note(cfg) -> str:
@@ -1085,8 +1270,8 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
     # streams' comparison with the generation API (no copy, no sync)
     records, chunk_call = [], model.decode_chunk
 
-    def recorded(*args):
-        out = chunk_call(*args)
+    def recorded(*args, **kw):
+        out = chunk_call(*args, **kw)
         records.append((args[3], args[4], out[0]))          # starts, nvalid, logits
         return out
 
@@ -1461,6 +1646,176 @@ def run_mamba(dev, profile: bool):
             generation["profile"] = profile_window(
                 lambda: generate(8), "mamba2 prefill of 4 prompts + 8 decode_steps")
     return serve, generation
+
+
+# ------------------------------------------------------------------ phase 9
+def spec_plans(dev, cfg, shapes, ps: int, maxp: int):
+    """The paths chunked attention's and gmm's plans name for the
+    ``decode_chunk`` call shapes (B, C) of a run, bf16 (gmm sees top_k rows
+    a token: padded positions of a verify row are routed too)."""
+    from repro_torch.kernels.moe_gmm import kernel as gk
+    from repro_torch.kernels.paged_attention import kernel as ak
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf = torch.bfloat16
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    attn = {ak._plan(B, C, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ps, maxp, bf, bf,
+                     n_sm).path for B, C in shapes}
+    gmm = {gk._plan(B * C * k, K, N, E, bf, bf, n_sm).path for B, C in shapes
+           for K, N in ((cfg.d_model, cfg.moe.d_expert), (cfg.moe.d_expert, cfg.d_model))}
+    return attn, gmm
+
+
+def run_spec(dev, model, params, *, slots_list=SPEC_SLOTS, new_tokens: int = SPEC_NEW,
+             int8: bool = False, profile: bool = False):
+    """Phase 9 (and phase 7's speculative run): greedy serving of the
+    extractive / boilerplate mix (``sample_workload(WorkloadSpec(...,
+    extractive_frac=0.5, boilerplate_frac=0.5, seed=0))``, the first
+    ``slots`` prompts) at each ``max_slots`` with as many requests, once
+    with speculation off and once with ``spec_k`` = 4. Every request
+    finishes, the allocator invariants hold and every page is free again;
+    with speculation the engine ran verify sweeps and drafted, chunked
+    attention launched inside ``decode_chunk`` calls of every width that
+    ran (C = 2, 3 and 5 over the runs), and the chunked attention and gmm
+    launches (and w8a16's on ``int8`` weights; counters set to 0 just
+    before each run) took exactly the paths their plans name for the run's
+    call shapes. Prints tok/s and wall time off and on, the acceptance
+    rate, steps, ms a verify sweep against a plain decode sweep, and how
+    many leading tokens of each stream equal the run without speculation
+    (printed only: bf16 near-ties can split two kernel paths)."""
+    from repro_torch.core import EngineConfig, InferenceEngine, Request
+    from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
+    from repro_torch.kernels.paged_attention import chunked_prefill_cuda
+    from repro_torch.kernels.quant_matmul import w8a16_matmul_cuda
+    counted = {"chunked_prefill_attention": chunked_prefill_cuda, "moe_gmm": gmm_tiles_cuda,
+               "w8a16_matmul": w8a16_matmul_cuda}
+    cfg = model.cfg
+    prompts, max_seq = spec_workload()
+    totals = dict.fromkeys(counted, 0)
+    runs, widths_seen = [], set()
+    for slots in slots_list:
+        batch = prompts[:slots]
+        pair = {}
+        for spec in (False, True):
+            eng = InferenceEngine(model, params, EngineConfig(
+                max_slots=slots, page_size=16, num_pages=STACK_PAGES, max_seq=max_seq,
+                prefill_chunk=STACK_PACK[1], greedy=True, cache_dtype=torch.bfloat16,
+                enable_speculative=spec, spec_k=4, device=str(dev)))
+            # warm-up request: allocator pools and cuBLAS handles, not measured
+            eng.generate([Request(req_id="warm", prompt_tokens=batch[0][:40],
+                                  max_new_tokens=8)])
+            eng.step_records.clear()
+            spec0 = (eng.spec_steps, eng.drafted_tokens, eng.accepted_tokens)
+            # each decode_chunk call's shape and the attention launches inside it
+            shapes, launched_at, chunk_call = set(), {}, model.decode_chunk
+
+            def recorded(*args, **kw):
+                n0 = chunked_prefill_cuda.launches
+                out = chunk_call(*args, **kw)
+                B, C = args[1].shape
+                shapes.add((B, C))
+                launched_at[C] = launched_at.get(C, 0) + chunked_prefill_cuda.launches - n0
+                return out
+
+            reqs = [Request(req_id=f"{'s' if spec else 'b'}{slots}-{i}", prompt_tokens=p,
+                            max_new_tokens=new_tokens) for i, p in enumerate(batch)]
+            model.decode_chunk = recorded
+            for fn in counted.values():
+                fn.launches = 0
+                fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+            try:
+                t0 = time.perf_counter()
+                eng.generate(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                del model.decode_chunk
+            launches = {k: fn.launches for k, fn in counted.items()}
+            by_path = {k: dict(fn.launches_by_path) for k, fn in counted.items()}
+            bad = [(r.req_id, len(r.generated)) for r in reqs
+                   if not (r.finished and len(r.generated) == new_tokens)]
+            assert not bad, f"spec={spec} slots={slots}: requests that did not finish: {bad}"
+            a = eng.allocator
+            a.check_invariants()
+            assert a.free_pages == a.num_pages - 1 and a.live_pages == 0, \
+                f"spec={spec} slots={slots}: {a.free_pages} free pages of {a.num_pages - 1}"
+            steps = (eng.spec_steps - spec0[0], eng.drafted_tokens - spec0[1],
+                     eng.accepted_tokens - spec0[2])
+            if spec:
+                assert steps[0] > 0 and steps[1] > 0, \
+                    f"slots={slots}: the engine never drafted (spec_steps, drafted) {steps[:2]}"
+                for C, n in launched_at.items():
+                    if C in VERIFY_WIDTHS:
+                        assert n > 0, f"slots={slots}: no attention launch in a C={C} sweep"
+                widths_seen |= {C for C in launched_at if C in VERIFY_WIDTHS}
+                for k in counted:
+                    totals[k] += launches[k]
+            assert launches["chunked_prefill_attention"] > 0 and launches["moe_gmm"] > 0 \
+                and (launches["w8a16_matmul"] > 0) == int8, \
+                f"spec={spec} slots={slots}: a kernel never ran: {launches}"
+            attn_plan, gmm_plan = spec_plans(dev, cfg, shapes, 16, eng.cfg.max_pages_per_seq)
+            used = {k: {p for p, n in v.items() if n > 0} for k, v in by_path.items()}
+            assert used["chunked_prefill_attention"] == attn_plan \
+                and used["moe_gmm"] == gmm_plan, \
+                f"spec={spec} slots={slots}: launches left their planned paths: {by_path}, " \
+                f"planned attention {sorted(attn_plan)}, gmm {sorted(gmm_plan)} for call " \
+                f"shapes {sorted(shapes)}"
+            recs = list(eng.step_records)
+            verify = [x.duration for x in recs if x.prefill_rows == 0 and x.drafted_tokens > 0]
+            plain = [x.duration for x in recs
+                     if x.prefill_rows == 0 and x.decode_rows > 0 and x.drafted_tokens == 0]
+            n_tok = sum(len(r.generated) for r in reqs)
+            pair[spec] = dict(
+                spec=spec, wall_s=wall, tok_s=n_tok / wall, steps=len(recs),
+                spec_steps=steps[0], drafted_tokens=steps[1], accepted_tokens=steps[2],
+                acceptance_rate=steps[2] / steps[1] if steps[1] else None,
+                verify_sweep_ms_mean=1e3 * float(np.mean(verify)) if verify else None,
+                verify_sweeps=len(verify),
+                decode_sweep_ms_mean=1e3 * float(np.mean(plain)) if plain else None,
+                decode_sweeps=len(plain), call_shapes=sorted(shapes),
+                attention_launches_by_width=dict(sorted(launched_at.items())),
+                launches=launches, launches_by_path=by_path,
+                streams=[list(r.generated) for r in reqs])
+            if spec and profile:
+                preqs = [Request(req_id=f"p{slots}-{i}", prompt_tokens=p, max_new_tokens=16)
+                         for i, p in enumerate(batch)]
+                pair[spec]["profile"] = profile_window(
+                    lambda: eng.generate(preqs),
+                    f"speculative, {slots} slots, {slots} requests x 16 tokens")
+            del eng
+            torch.cuda.empty_cache()
+        off, on = pair[False], pair[True]
+        lead = []
+        for x, y in zip(off["streams"], on["streams"]):
+            n = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v), len(x))
+            lead.append(n)
+        run = dict(slots=slots, requests=len(batch), new_tokens=new_tokens,
+                   prompt_tokens=[len(p) for p in batch], off=off, on=on,
+                   speedup=on["tok_s"] / off["tok_s"], leading_equal=lead,
+                   streams_equal=sum(n == new_tokens for n in lead))
+        for d in (off, on):
+            del d["streams"]
+        runs.append(run)
+        fmt = (lambda v: "n/a" if v is None else f"{v:.3f}")
+        log(f"  {slots} slots x {len(batch)} requests x {new_tokens} tokens ({cfg.name}, "
+            f"{'int8' if int8 else 'bf16'}): spec off {off['tok_s']:.2f} tok/s in "
+            f"{off['wall_s']:.3f} s over {off['steps']} steps; spec_k=4 {on['tok_s']:.2f} "
+            f"tok/s in {on['wall_s']:.3f} s over {on['steps']} steps ({run['speedup']:.3f}x); "
+            f"acceptance {on['accepted_tokens']} / {on['drafted_tokens']} = "
+            f"{fmt(on['acceptance_rate'])}, {on['spec_steps']} verify sweeps")
+        log(f"    ms a step: verify sweep {fmt(on['verify_sweep_ms_mean'])} "
+            f"x{on['verify_sweeps']}, plain decode sweep with speculation on "
+            f"{fmt(on['decode_sweep_ms_mean'])} x{on['decode_sweeps']}, off "
+            f"{fmt(off['decode_sweep_ms_mean'])} x{off['decode_sweeps']}; call shapes "
+            f"{on['call_shapes']}, attention launches by width "
+            f"{on['attention_launches_by_width']}")
+        log(f"    launches by path {on['launches_by_path']}")
+        log(f"    leading tokens equal to the run without speculation: {lead} "
+            f"({run['streams_equal']} of {len(batch)} streams equal; printed only)")
+    return dict(config=cfg.name, layers=cfg.n_layers, weights="int8" if int8 else "bf16",
+                workload="the first %d of sample_workload(WorkloadSpec(n_requests=%d, "
+                         "vocab=32000, extractive_frac=0.5, boilerplate_frac=0.5, seed=0))"
+                         % (max(slots_list), len(prompts)),
+                max_seq=max_seq, runs=runs, widths_seen=sorted(widths_seen)), totals
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1847,6 +2202,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
+    # every main path from here on records its kernels' call shapes
+    recording = contextlib.ExitStack()
+    recording.enter_context(served_shapes())
+
     log("phase 4: serving run")
     t0 = time.perf_counter()
     model, params, info = build_mixtral(dev, SERVE_LAYERS, int8=False)
@@ -1867,8 +2226,17 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     stack, stack_launches = run_stack(dev, model, params, args.profile)
-    del model, params
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 9: speculative serving (prompt-lookup drafts, verify at C = 2 / 3 / 5) on "
+        "phase 4's weights, spec off and on at 1, 8 and 32 slots")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec, spec_launches = run_spec(dev, model, params, profile=args.profile)
+    assert set(spec["widths_seen"]) == set(VERIFY_WIDTHS), \
+        f"the verify sweeps ran at widths {spec['widths_seen']}, not all of {VERIFY_WIDTHS}"
+    del model, params
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 6: full-depth mamba2 serving (bf16), then its generation API")
     t0 = time.perf_counter()
@@ -1889,9 +2257,22 @@ def main() -> int:
     int8_generation, _ = run_generation(dev, model, params, streams, profile=False,
                                         eng_logits=eng_logits)
     del eng_logits
+    # the int8 head and projections at M * C rows of the verify sweeps
+    int8_spec, int8_spec_launches = run_spec(dev, model, params,
+                                             slots_list=(INT8_SPEC_SLOTS,), new_tokens=32,
+                                             int8=True)
+    spec_launches["w8a16_matmul"] = int8_spec_launches["w8a16_matmul"]
     del model, params
     launches["w8a16_matmul"] = int8_launches["w8a16_matmul"]
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    recording.close()
+
+    unchecked = {k: sorted(SERVED[k] - CHECKED[k]) for k in SERVED}
+    log("call shapes of the main paths (phases 4-9) against phase 2's: "
+        + "; ".join(f"{k} {len(SERVED[k])} served, {len(CHECKED[k])} checked"
+                    for k in SERVED))
+    assert not any(unchecked.values()), \
+        f"main-path call shapes phase 2 never held against the plain version: {unchecked}"
 
     kernels = []
     for name, route_src, replaces, case in (
@@ -1914,6 +2295,7 @@ def main() -> int:
                             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"],
                             stack_launches=stack_launches[name],
+                            spec_launches=spec_launches.get(name, 0),
                             shape=f"{case} bf16: {row['shape']}"))
     if args.out:
         out = Path(args.out)
@@ -1927,7 +2309,9 @@ def main() -> int:
                                        generation=generation, mamba_serve=mamba_serve,
                                        mamba_generation=mamba_generation,
                                        int8_serve=int8_serve, int8_generation=int8_generation,
-                                       stack=stack, kernels=kernels),
+                                       stack=stack, spec=spec, int8_spec=int8_spec,
+                                       served_shapes={k: sorted(v) for k, v in SERVED.items()},
+                                       kernels=kernels),
                                   indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -8,7 +8,11 @@ Chunked attention's plan constants, the measurements behind
 pool row of 512 positions, each chunk width C = 1, 2, 4, 5 and 8 (C * G = 4
 to 32 folded rows) is timed on the split path and on the tensor-core path;
 over 512 and 4096 positions the decode sweep is timed at 2, 4, 8 and 16
-split blocks a SM.
+split blocks a SM; and the speculative verify sweeps at the ladder's
+widths C = 2, 3 and 5 (8 / 12 / 20 folded rows), at phase 9's 1, 8 and 32
+slots (``chip_smoke.spec_attention_shapes``) and at 64 slots over phase 8's
+1024-page pool, are timed on both paths, each beside its bound and SDPA's
+time on the same inputs.
 
 Flash attention's tensor-core path, the measurements behind the choices in
 ``csrc/attention_mma.cuh`` and ``csrc/flash_attention.cu``: copies of those
@@ -331,7 +335,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_tune: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels.paged_attention import chunked_prefill_cuda
+    from repro_torch.kernels.paged_attention import chunked_prefill_cuda, chunked_prefill_reference
     from repro_torch.kernels.paged_attention import kernel as pk
     parts = sys.argv[1:] or ["chunked", "flash", "ssd"]
     dev = torch.device("cuda", 0)
@@ -362,9 +366,43 @@ def main() -> int:
                   f"blocks_per_sm={blocks}: {ms:.5f} ms", flush=True)
         pk.SPLIT_MAX_ROWS, pk.SPLIT_BLOCKS_PER_SM = defaults
 
-    # the split threshold: each width on the split path, then on the tensor cores
+    # the split threshold: each width on the split path (the kernel takes up
+    # to SPLIT_ROWS), then on the tensor cores
     for C in (1, 2, 4, 5, 8):
-        time_case("width", C, 32, 256, [(defaults[0], defaults[1]), (0, defaults[1])])
+        time_case("width", C, 32, 256, [(pk.SPLIT_ROWS, defaults[1]), (0, defaults[1])])
+    # the verify sweeps' widths on both paths, in turns split, mma, mma,
+    # split: at phase 9's slots, then at the stack's 64 rows (each row
+    # ending where its decode sweep's row ends)
+    shapes = {n: sh for n, sh in cs.spec_attention_shapes().items()
+              if sh["C"] in cs.VERIFY_WIDTHS}
+    dec = cs.stack_attention_shapes()[f"stack decode B={cs.STACK_LAYOUTS[0][1]}"]
+    for C in cs.VERIFY_WIDTHS:
+        shapes[f"stack B={dec['B']} C={C}"] = dict(
+            dec, C=C, starts=[s + 1 - C for s in dec["starts"]], nvalid=[C] * dec["B"])
+    for name, sh in shapes.items():
+        C = sh["C"]
+        *t, kw = cs.attention_case(dev, H=32, Hkv=8, D=128, ps=16, dtype=torch.bfloat16,
+                                   seed=1, **sh)
+        q, kp, vp, pt, lengths, qpos = t
+        starts = qpos[:, 0].contiguous()
+        plain = chunked_prefill_reference(*t, **kw)
+        times, errs = {"split": [], "mma": []}, {}
+        for max_rows in (pk.SPLIT_ROWS, 0, 0, pk.SPLIT_ROWS):
+            pk.SPLIT_MAX_ROWS = max_rows
+            path = pk.plan_for(q, kp, pt).path
+            errs[path] = cs.max_err(chunked_prefill_cuda(q, kp, vp, pt, lengths, starts, **kw),
+                                    plain)
+            times[path].append(cs.cuda_ms(
+                lambda: chunked_prefill_cuda(q, kp, vp, pt, lengths, starts, **kw), flush=flush))
+        pk.SPLIT_MAX_ROWS = defaults[0]
+        bms, by = cs.attention_bound(q, kp, lengths, qpos, torch.bfloat16)
+        sdpa = cs.cuda_ms(cs.sdpa_call(*t, kw["scale"]), flush=flush)
+        print(f"TUNE verify {name} rows={C * 4}: split {times['split']} mma {times['mma']} ms "
+              f"(in turns split, mma, mma, split); max |out - plain| {errs}; bound {bms:.6f} "
+              f"ms ({by}); sdpa {sdpa:.5f} ms; planned {pk.plan_for(q, kp, pt).path}",
+              flush=True)
+        del q, kp, vp, pt, lengths, qpos, t, plain
+        torch.cuda.empty_cache()
     # the split count: 512 and 4096 positions a row
     for maxp, num_pages in ((32, 256), (256, 1040)):
         time_case(f"positions={maxp * 16}", 1, maxp, num_pages,

@@ -6,7 +6,10 @@ dense family, with QKV bias), ``gemma2-27b`` (alternating sliding-window
 and global attention, attention and logit softcaps, tied and scaled
 embeddings, gelu), ``mamba2-1.3b`` (the SSM family: SSD layers only) and
 ``jamba-v0.1-52b`` (the hybrid family: mamba and attention layers, MoE on
-every other layer).
+every other layer), and the other decoder-only configurations of the
+reference: ``yi-6b`` and ``phi3-mini-3.8b`` (dense, GQA and MHA),
+``dbrx-132b`` (16 experts top-4) and ``deepseek-moe-16b`` (a dense first
+layer, then 64 routed experts top-6 beside 2 shared ones).
 """
 from __future__ import annotations
 
@@ -36,6 +39,10 @@ _MODULES = {
     "mamba2-1.3b": "mamba2_1_3b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "yi-6b": "yi_6b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "dbrx-132b": "dbrx_132b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)

@@ -1,6 +1,5 @@
 # The paper's primary contribution: the end-to-end serving system
 # (gateway + router + replicas + continuous-batching engine + paged KV).
-# Speculative decoding (the reference's core.spec) comes with a later slice.
 from repro_torch.core.engine import EngineConfig, InferenceEngine, TokenEvent, sample_tokens
 from repro_torch.core.faults import FaultEvent, FaultInjector, FaultPlan, TransientSubmitError
 from repro_torch.core.gateway import Gateway, GatewayConfig, baseline_gateway_config, scale_gateway_config
@@ -11,6 +10,7 @@ from repro_torch.core.replica import Replica
 from repro_torch.core.router import FailoverEvent, NoReplicaAvailable, ReplicaRouter, RouterConfig
 from repro_torch.core.scheduler import ContinuousBatchScheduler
 from repro_torch.core.serde import CODECS
+from repro_torch.core.spec import PromptLookupDraft, target_probs, verify_draft
 from repro_torch.core.timeline import LogHistogram, SLOConfig, StepRecord, TimelineAggregator
 
 __all__ = [
@@ -23,6 +23,7 @@ __all__ = [
     "request_metrics", "summarize", "MetricsSink", "Replica",
     "NoReplicaAvailable", "ReplicaRouter", "RouterConfig",
     "ContinuousBatchScheduler", "CODECS",
+    "PromptLookupDraft", "target_probs", "verify_draft",
     "Span", "Tracer", "LogHistogram", "SLOConfig", "StepRecord",
     "TimelineAggregator",
 ]

@@ -20,11 +20,18 @@ names its slot and whether it carries the sequence's first chunk (which
 resets that state). The prefix cache is off for them, since a page does not
 capture an SSM layer's state.
 
+Speculative decoding (``enable_speculative``) runs on the same chunk path:
+a slot's decode row feeds [last_token, d_1 .. d_k], prompt-lookup drafts of
+its own history (``core.spec``), the head scores every fed position and
+``verify_draft`` keeps the accepted prefix plus one token; the KV of
+rejected drafts is rolled back by truncating the slot's page tail. It is
+off for SSM and hybrid models, whose recurrent state cannot be rolled back.
+
 On the card the attention, expert matmuls and SSD scan run the port's CUDA
 kernels. The engine runs on ``cuda`` unless ``EngineConfig.device`` says
 otherwise. The fault injector's per-step hook, the host-overhead knob and the
-step fence are the reference's; speculative decoding and the enc-dec / VLM
-serving paths of the reference come with later slices.
+step fence are the reference's; the enc-dec / VLM serving paths of the
+reference come with a later slice.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.core.kv_cache import PagedAllocator, PrefixCache
 from repro_torch.core.metrics import Request, now
 from repro_torch.core.observability import Tracer
 from repro_torch.core.scheduler import ContinuousBatchScheduler, SlotState
+from repro_torch.core.spec import PromptLookupDraft, gumbel, verify_draft
 from repro_torch.core.timeline import StepRecord
 from repro_torch.models import LM, RunCtx
 from repro_torch.models.common import resolve_device
@@ -59,7 +67,14 @@ class EngineConfig:
     greedy: bool = False
     scheduler: str = "max_utilization"
     enable_prefix_cache: bool = True  # shared-prefix KV reuse
-    enable_speculative: bool = False  # not ported yet: True raises
+    enable_speculative: bool = False  # prompt-lookup drafting + multi-token
+                                      # verify on the chunk path (off for
+                                      # ssm/hybrid: conv + recurrent carry
+                                      # advance on every fed token and
+                                      # cannot be rolled back per position)
+    spec_k: int = 4                   # max draft tokens per slot per step
+    spec_ngram_max: int = 3           # prompt-lookup suffix n-gram bounds
+    spec_ngram_min: int = 1
     eos_id: int = -1                  # -1: no EOS (length-controlled)
     host_overhead_s: float = 0.0      # baseline-engine emulation knob (benchmarks)
     profile_steps: bool = True        # keep one StepRecord per iteration in a
@@ -96,9 +111,7 @@ def sample_tokens(logits, generator: torch.Generator, temperature: float, top_p:
     p = torch.softmax(sl, dim=-1)
     keep = (torch.cumsum(p, dim=-1) - p) < top_p             # first always kept
     sl = torch.where(keep, sl, torch.full_like(sl, -torch.inf))
-    u = torch.rand(sl.shape, generator=generator, device=sl.device)
-    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    choice = torch.argmax(sl + g, dim=-1)
+    choice = torch.argmax(sl + gumbel(sl.shape, generator, sl.device), dim=-1)
     return torch.gather(si, 1, choice[:, None])[:, 0].to(torch.int32)
 
 
@@ -107,8 +120,6 @@ class InferenceEngine:
 
     def __init__(self, model: LM, params, cfg: EngineConfig, ctx: Optional[RunCtx] = None,
                  tracer: Optional[Tracer] = None):
-        if cfg.enable_speculative:
-            raise NotImplementedError("speculative decoding is not ported yet")
         self.device = resolve_device(cfg.device)
         embed = params["embed"]["w"]
         wdev = (embed.q if isinstance(embed, QuantizedLinear) else embed).device
@@ -129,6 +140,24 @@ class InferenceEngine:
         has_ssm = any("M" in g.pattern for g in model.cfg.layer_groups)
         self.prefix_cache = (PrefixCache(self.allocator)
                              if cfg.enable_prefix_cache and not has_ssm else None)
+        # speculative decoding rolls KV back by a pure length decrement:
+        # sound for paged attention (pages are append-only and masked by
+        # ``lengths``), unsound for an SSM layer's conv + recurrent carry
+        self.spec_on = cfg.enable_speculative and cfg.spec_k > 0 and not has_ssm
+        self.spec_kmax = cfg.spec_k
+        self.draft_source = (PromptLookupDraft(cfg.spec_ngram_max, cfg.spec_ngram_min)
+                             if self.spec_on else None)
+        # the verify sweep's width ladder, C = 1 + k for k in {1, 2, 4, ...,
+        # kmax}: a sweep takes the narrowest width that holds its longest
+        # draft, so its compute (M * C whatever the rows' drafts) follows
+        # the drafts' volume instead of always paying 1 + kmax
+        self._spec_widths: List[int] = []
+        if self.spec_on:
+            k = 1
+            while k < self.spec_kmax:
+                self._spec_widths.append(1 + k)
+                k *= 2
+            self._spec_widths.append(1 + self.spec_kmax)
         self.scheduler = ContinuousBatchScheduler(
             cfg.max_slots, self.allocator, policy=cfg.scheduler, max_seq=cfg.max_seq,
             prefix_cache=self.prefix_cache, tracer=tracer)
@@ -140,8 +169,8 @@ class InferenceEngine:
         self._gen.manual_seed(cfg.seed)
         # resilience hooks: a FaultInjector evaluated at the top of every step
         # (None costs one attribute check), the replica id it matches fault
-        # events against, and the brown-out flag that speculative drafting
-        # will read once it is ported
+        # events against, and the brown-out flag that disables speculative
+        # drafting while set
         self.injector = None
         self.fault_key: Optional[str] = None
         self.degraded = False
@@ -149,6 +178,9 @@ class InferenceEngine:
         self.decode_tokens = 0
         self.prefill_tokens = 0
         self.deadline_exceeded = 0        # requests cancelled past deadline
+        self.spec_steps = 0               # iterations that ran the verify sweep
+        self.drafted_tokens = 0           # draft tokens fed through verify
+        self.accepted_tokens = 0          # draft tokens accepted (committed)
         self.prefix_cached_tokens = 0     # prefill tokens skipped via cache hits
         self.iter_token_counts: deque = deque(maxlen=4096)
         # iteration profiler: one StepRecord per step() in a bounded ring;
@@ -159,18 +191,29 @@ class InferenceEngine:
         self._last_decode_rows = 0
 
     # ------------------------------------------------------------- model call
-    def _run(self, tokens, starts, nvalid, slots, first, page_table) -> np.ndarray:
+    def _run(self, tokens, starts, nvalid, slots, first, page_table,
+             spec: bool = False) -> np.ndarray:
         """One fused iteration over a packed batch of per-sequence chunks
         (decode == chunk of 1). Returns the next token per row (0 for
-        inactive rows) on the host."""
+        inactive rows) on the host. With ``spec`` (the speculative decode
+        sweep) every row fed [last_token, d_1 .. d_k], the head scores every
+        fed position and ``verify_draft`` turns the logits into the accepted
+        prefix's length and the token to commit after it: returns (2, rows),
+        (n_acc, next token), in one readback."""
         tk, st, nv, sl, fi, pt = (torch.from_numpy(a).to(self.device)
                                   for a in (tokens, starts, nvalid, slots, first, page_table))
+        cfg = self.cfg
         with torch.inference_mode():
             logits, self.cache = self.model.decode_chunk(
-                self.params, tk, self.cache, st, nv, sl, fi, self.ctx, pt)
-            nxt = sample_tokens(logits, self._gen, self.cfg.temperature, self.cfg.top_p,
-                                self.cfg.greedy)
+                self.params, tk, self.cache, st, nv, sl, fi, self.ctx, pt, all_logits=spec)
+            if spec:
+                n_acc, nxt = verify_draft(logits, tk, nv, self._gen, cfg.temperature,
+                                          cfg.top_p, cfg.greedy)
+            else:
+                nxt = sample_tokens(logits, self._gen, cfg.temperature, cfg.top_p, cfg.greedy)
             nxt = torch.where(nv > 0, nxt, 0)
+            if spec:
+                nxt = torch.stack([n_acc, nxt])
         return nxt.cpu().numpy()
 
     def _copy_pages(self, src: List[int], dst: List[int]) -> None:
@@ -230,6 +273,7 @@ class InferenceEngine:
         preempt0 = self.scheduler.n_preemptions
         cow0 = self.allocator.cow_copies
         prefill0, decode0 = self.prefill_tokens, self.decode_tokens
+        drafted0, accepted0 = self.drafted_tokens, self.accepted_tokens
         # every model call ends by reading its sampled tokens back to the
         # host; the fence also waits for queued work such as COW copies
         events = self._step()
@@ -244,7 +288,8 @@ class InferenceEngine:
             prefill_tokens=self.prefill_tokens - prefill0,
             decode_rows=self._last_decode_rows,
             decode_tokens=self.decode_tokens - decode0,
-            drafted_tokens=0, accepted_tokens=0,      # no speculative decoding yet
+            drafted_tokens=self.drafted_tokens - drafted0,
+            accepted_tokens=self.accepted_tokens - accepted0,
             occupancy=len(self.scheduler.running),
             max_slots=self.cfg.max_slots,
             queue_depth=len(self.scheduler.waiting),
@@ -286,6 +331,7 @@ class InferenceEngine:
             if r.t2 == 0.0:
                 r.t2 = now()
             st.admitted_at = now()
+            st.spec_k = self.spec_kmax if self.spec_on else 0
             self.prefix_cached_tokens += st.cached_tokens
             if tr:
                 tr.end(r.req_id, "queue", cached_tokens=st.cached_tokens,
@@ -379,18 +425,38 @@ class InferenceEngine:
         decode_sts = [st for st in plan.decode if _live(st) and st.last_token >= 0]
         decode_sts += [st for st, _ in grants
                        if _live(st) and not st.prefilling and st.last_token >= 0]
+        # prompt-lookup drafting for slots the plan granted draft tokens:
+        # match the slot's recent suffix against its own prompt+output
+        # history; cap so the draft tail never runs past max_seq
+        drafts: Dict[int, List[int]] = {}
+        if self.spec_on and not self.degraded:             # brown-out: no drafting
+            for st in decode_sts:
+                g = min(plan.draft.get(st.slot, 0), cfg.max_seq - 1 - st.fed)
+                if g > 0:
+                    d = self.draft_source.propose(st.all_tokens, g)
+                    if d:
+                        drafts[st.slot] = d
         dec_copies: List[Tuple[int, int]] = []
         for st in list(decode_sts):
             if st.slot not in self.scheduler.running:      # preempted by an earlier grow
                 decode_sts.remove(st)
                 continue
-            if not self.scheduler.grow_for_decode(st.slot):
+            k_i = len(drafts.get(st.slot, ()))
+            grown = self.scheduler.grow_for_tokens(st.slot, st.fed + 1 + k_i)
+            if not grown and k_i:
+                drafts.pop(st.slot, None)                  # retry draft-free
+                k_i = 0
+                grown = self.scheduler.grow_for_decode(st.slot)
+            if not grown:
                 decode_sts.remove(st)                      # paused/unschedulable
                 continue
             if self.prefix_cache is not None:
-                blk = st.fed // cfg.page_size
+                # the row writes kv positions [fed, fed + k_i]: a draft can
+                # reach into a shared or registered page past the first
+                lo = st.fed // cfg.page_size
+                hi = (st.fed + k_i) // cfg.page_size
                 n_cow = len(dec_copies)
-                writable = self.scheduler.make_writable(st.slot, blk, blk, dec_copies)
+                writable = self.scheduler.make_writable(st.slot, lo, hi, dec_copies)
                 if tr and len(dec_copies) > n_cow:
                     tr.event(st.request.req_id, "cow",
                              n_pages=len(dec_copies) - n_cow)
@@ -399,6 +465,8 @@ class InferenceEngine:
                     continue
             self.page_table[st.slot] = self.allocator.page_table_row(st.slot)
         decode_sts = [st for st in decode_sts if st.slot in self.scheduler.running]
+        live = {st.slot for st in decode_sts}
+        drafts = {s: d for s, d in drafts.items() if s in live}
         if dec_copies:
             self._apply_copies(dec_copies)                 # before the decode writes
         if not decode_sts:
@@ -412,6 +480,10 @@ class InferenceEngine:
             if s not in self.scheduler.running:
                 self.page_table[s] = 0
         self._last_decode_rows = len(decode_sts)
+        if drafts:
+            iter_tokens = self._spec_sweep(decode_sts, drafts, events, iter_tokens)
+            self.iter_token_counts.append(iter_tokens)
+            return events
         t_dec0 = now()
         tokens = np.zeros((M, 1), np.int32)
         starts = np.zeros((M,), np.int32)
@@ -434,7 +506,7 @@ class InferenceEngine:
             st.request.generated.append(tok)
             if tr:
                 # consecutive decode iterations coalesce into one span per
-                # decode run (broken by preemption/prefill spans)
+                # decode run (broken by preemption/spec/prefill spans)
                 tr.add(st.request.req_id, "decode", t_dec0, t_emit,
                        merge=True, n_iters=1, tokens=1)
             fin = self._check_finished(st, tok)
@@ -443,6 +515,80 @@ class InferenceEngine:
                 self._finish(st)
         self.iter_token_counts.append(iter_tokens)
         return events
+
+    def _spec_sweep(self, decode_sts: List[SlotState], drafts: Dict[int, List[int]],
+                    events: List[TokenEvent], iter_tokens: int) -> int:
+        """One speculative decode iteration over all decode-ready slots
+        (draft-free slots ride along as rows of one valid token). Feeds
+        [last_token, d_1 .. d_k] per row, commits the accepted prefix plus
+        the bonus/corrected token, and rolls rejected KV back by truncating
+        the slot's page tail (pages are append-only; positions at or past
+        ``fed`` are never read and are overwritten by the next write)."""
+        cfg = self.cfg
+        tr = self.tracer
+        t_sw0 = now()
+        M = cfg.max_slots
+        kcap = max(len(d) for d in drafts.values())
+        C = next(w for w in self._spec_widths if w >= 1 + kcap)
+        tokens = np.zeros((M, C), np.int32)
+        starts = np.zeros((M,), np.int32)
+        nvalid = np.zeros((M,), np.int32)
+        for st in decode_sts:
+            d = drafts.get(st.slot, [])
+            tokens[st.slot, 0] = st.last_token
+            tokens[st.slot, 1:1 + len(d)] = d
+            starts[st.slot] = st.fed
+            nvalid[st.slot] = 1 + len(d)
+        n_acc, out = self._run(tokens, starts, nvalid, np.arange(M, dtype=np.int32),
+                               np.zeros((M,), bool), self.page_table, spec=True)
+        t_emit = now()
+        self.spec_steps += 1
+        for st in decode_sts:
+            d = drafts.get(st.slot, [])
+            k_i = len(d)
+            na = int(n_acc[st.slot])
+            committed = d[:na] + [int(out[st.slot])]
+            iter_tokens += 1 + k_i         # all fed tokens count, rejected too
+            self.drafted_tokens += k_i
+            self.accepted_tokens += na
+            if k_i:
+                # adapt k additively: +1 on full acceptance, -1 only when
+                # the whole draft was rejected, hold on partial acceptance
+                # (it still amortizes the sweep); a slot that keeps drafting
+                # garbage shrinks toward k = 1, which narrows the sweep too
+                if na == k_i:
+                    st.spec_k = min(self.spec_kmax, st.spec_k + 1)
+                elif na == 0:
+                    st.spec_k = max(1, st.spec_k - 1)
+            fin = False
+            n_committed = 0
+            for tok in committed:
+                st.fed += 1                # commits the KV of the PREVIOUS token
+                st.last_token = tok
+                st.all_tokens.append(tok)
+                st.request.generated.append(tok)
+                self.decode_tokens += 1
+                n_committed += 1
+                fin = self._check_finished(st, tok)
+                events.append(TokenEvent(st.request, tok, t_emit, fin))
+                if fin:
+                    self._finish(st)       # frees every page, rollback included
+                    break
+            if tr:
+                if k_i:
+                    tr.add(st.request.req_id, "spec_verify", t_sw0, t_emit,
+                           merge=True, n_iters=1, drafted=k_i, accepted=na,
+                           tokens=n_committed)
+                else:                      # draft-free row riding the sweep
+                    tr.add(st.request.req_id, "decode", t_sw0, t_emit,
+                           merge=True, n_iters=1, tokens=n_committed)
+            if not fin and na < k_i:
+                # roll the rejected tail back: keep pages through the next
+                # decode write (position fed), drop pages grown only for
+                # rejected drafts. Never touches registered prompt blocks:
+                # they precede fed by construction
+                self.scheduler.shrink_to_tokens(st.slot, st.fed + 1)
+        return iter_tokens
 
     def _check_finished(self, st: SlotState, tok: int) -> bool:
         r = st.request
@@ -478,6 +624,11 @@ class InferenceEngine:
             "preemptions": float(self.scheduler.n_preemptions),
             "deadline_exceeded": float(self.deadline_exceeded),
             "kv_utilization": self.allocator.utilization(),
+            "spec_steps": float(self.spec_steps),
+            "drafted_tokens": float(self.drafted_tokens),
+            "accepted_tokens": float(self.accepted_tokens),
+            "spec_acceptance_rate": (self.accepted_tokens / self.drafted_tokens
+                                     if self.drafted_tokens else 0.0),
         }
 
     def cancel(self, req_id: str) -> bool:

@@ -29,8 +29,9 @@
 // row's pages in order; here the host-side plan (kernels/paged_attention/
 // kernel.py's _plan) picks one of three kernels:
 //
-//  - split (C * G <= kSplitMaxRows = 32 folded rows: the decode sweep,
-//    verify chunks; any dtype), flash-decoding. A grid of B * Hkv blocks
+//  - split (up to kSplitMaxRows = 32 folded rows; the plan sends it
+//    chunked calls of at most 16: the decode sweep, short verify chunks,
+//    and paged decode at any GQA group up to 32; any dtype), flash-decoding. A grid of B * Hkv blocks
 //    would leave most of the 132 SMs idle (32 at the decode sweep), so the
 //    pool row's key positions are cut into `splits` ranges of whole
 //    kSplitKeys tiles: grid (splits, Hkv, B). A block exits at once when

@@ -14,17 +14,21 @@
 host knows, the shapes and dtypes (lengths and starts stay on the device,
 so nothing is read back; blocks whose keys no query can see exit at once):
 
-- ``split`` for at most ``SPLIT_MAX_ROWS`` = 32 folded query rows a KV
-  head (C * G: the decode sweep, C = 1; verify chunks up to 8 tokens at G
+- ``split`` for at most ``SPLIT_MAX_ROWS`` = 16 folded query rows a KV
+  head (C * G: the decode sweep, C = 1; verify chunks up to 4 tokens at G
   = 4), any dtype: flash-decoding, the pool row's key positions cut into
   ``splits`` ranges of whole ``SPLIT_KEYS`` tiles so that the grid holds
   ``SPLIT_BLOCKS_PER_SM`` blocks a SM where the capacity allows, then a
   fixed-order merge of each row's live splits. The threshold is measured
-  (``chip_tune.py``: Mixtral's width over 512 positions, bf16, one H100 at
-  700 W): split takes 0.0157 / 0.0192 / 0.0222 / 0.0266 / 0.0314 ms at 4 /
-  8 / 16 / 20 / 32 rows, the tensor-core kernel 0.0249-0.0268 ms at any of
-  them, so it wins from 20 rows; no caller sends 17-32 rows yet (verify
-  chunks of 5-8 tokens), and the threshold stays at 32 until one does;
+  (``chip_tune.py``, bf16, one H100 at 700 W): at Mixtral's width over 512
+  positions and 4 rows, split takes 0.0157 / 0.0192 / 0.0222 / 0.0266 /
+  0.0314 ms at 4 / 8 / 16 / 20 / 32 folded rows, the tensor-core kernel
+  0.0249-0.0268 ms at any of them; at the speculative verify sweep of 64
+  slots over a 1024-page pool (130 pages a row), split takes 0.161 /
+  0.183 / 0.280 ms at C = 2 / 3 / 5 (8 / 12 / 20 rows), the tensor-core
+  kernel 0.074 / 0.077 / 0.078 ms. So the tensor cores take 20 rows and
+  more. The split kernel itself holds up to ``SPLIT_ROWS`` = 32 rows:
+  paged decode (below) takes it at any GQA group up to 32;
 - ``mma`` for bf16 q and pool above that (prefill packs): ``mma.sync``
   tensor-core tiles of ``MMA_ROWS`` folded rows;
 - ``tiled`` for fp32 or mixed dtypes above that: IEEE fp32 on the CUDA
@@ -52,7 +56,7 @@ PATHS = ("tiled", "split", "mma")   # codes 0..2 of csrc/chunked_prefill.cu
 # constants of csrc/chunked_prefill.cu (checked at load, in
 # chunked_prefill_constants' order)
 SPLIT_KEYS = 32          # keys a tile of the split kernel; splits cut whole tiles
-SPLIT_MAX_ROWS = 32      # at most this many folded rows (C * G) take the split kernel
+SPLIT_ROWS = 32          # folded rows a split block holds at most
 MMA_ROWS = 64            # folded rows a block of the tensor-core kernel
 MMA_KEYS = 64            # and its key tile
 TILED_ROWS = 32          # folded rows a block of the fp32 tiled kernel
@@ -62,6 +66,9 @@ TILED_ROWS = 32          # folded rows a block of the fp32 tiled kernel
 # one H100 (bf16, 4 rows x 8 KV heads): over 4096 positions 2 / 4 / 8 / 16
 # gave 0.0598 / 0.0505 / 0.0591 / 0.0661 ms; over 512 all in 0.0151-0.0167
 SPLIT_BLOCKS_PER_SM = 4
+# the plan's threshold: at most this many folded rows (C * G) of a chunked
+# call take the split kernel (measured above)
+SPLIT_MAX_ROWS = 16
 GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
 
 
@@ -90,9 +97,7 @@ def _plan(B: int, C: int, H: int, Hkv: int, D: int, ps: int, maxp: int, q_dtype,
         raise ValueError(f"chunked_prefill_cuda: {H} query heads over {Hkv} kv heads")
     R = C * (H // Hkv)
     if R <= SPLIT_MAX_ROWS:
-        units = max(1, _cdiv(maxp * ps, SPLIT_KEYS))
-        splits = min(units, max(1, _cdiv(SPLIT_BLOCKS_PER_SM * n_sm, B * Hkv)))
-        plan = Plan("split", splits, (splits, Hkv, B))
+        plan = _split_plan(B, Hkv, ps, maxp, n_sm)
     elif q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
         plan = Plan("mma", 1, (_cdiv(R, MMA_ROWS), Hkv, B))
     else:
@@ -101,6 +106,15 @@ def _plan(B: int, C: int, H: int, Hkv: int, D: int, ps: int, maxp: int, q_dtype,
         raise ValueError(f"chunked_prefill_cuda: grid {plan.grid} of q {(B, C, H, D)} exceeds "
                          f"CUDA's limits")
     return plan
+
+
+def _split_plan(B: int, Hkv: int, ps: int, maxp: int, n_sm: int) -> Plan:
+    """The split path's grid: the pool row's positions cut into whole
+    tiles, as many splits as give ``SPLIT_BLOCKS_PER_SM`` blocks a SM over
+    the B * Hkv (row, KV head) pairs, at most one a tile."""
+    units = max(1, _cdiv(maxp * ps, SPLIT_KEYS))
+    splits = min(units, max(1, _cdiv(SPLIT_BLOCKS_PER_SM * n_sm, B * Hkv)))
+    return Plan("split", splits, (splits, Hkv, B))
 
 
 def split_ranges(cap: int, splits: int) -> list:
@@ -155,7 +169,7 @@ def _launcher():
     lib.chunked_prefill_constants.argtypes = [ctypes.c_void_p]
     lib.chunked_prefill_constants.restype = None
     lib.chunked_prefill_constants(consts)
-    want = (SPLIT_KEYS, SPLIT_MAX_ROWS, MMA_ROWS, MMA_KEYS, TILED_ROWS)
+    want = (SPLIT_KEYS, SPLIT_ROWS, MMA_ROWS, MMA_KEYS, TILED_ROWS)
     if tuple(consts) != want:
         raise RuntimeError(f"chunked_prefill library constants {tuple(consts)}, expected {want}")
     fn = lib.chunked_prefill_launch
@@ -261,19 +275,21 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
     entries at positions < lengths[b] (and, with a window, > lengths[b] - 1
     - window). fp32 or bf16 in (q and the pool may differ), fp32 math,
     output in q's dtype. One call launches the split kernel and its merge
-    on the current stream (``plan_for`` at C = 1 names the splits)."""
+    on the current stream, at any GQA group up to ``SPLIT_ROWS``
+    (``_split_plan`` names the splits)."""
     who = "paged_attention_cuda"
     _check(q.dim() == 3, f"q must be (B, H, D), got {tuple(q.shape)}", who)
     B, H, D = q.shape
     Hkv = _check_pool(q, k_pages, v_pages, page_table, lengths, who)[0]
-    _check(H // Hkv <= SPLIT_MAX_ROWS,
-           f"{H // Hkv} query heads per kv head > {SPLIT_MAX_ROWS}, the split path's most", who)
+    _check(H // Hkv <= SPLIT_ROWS,
+           f"{H // Hkv} query heads per kv head > {SPLIT_ROWS}, the split path's most", who)
 
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     q4 = q.view(B, 1, H, D)
-    plan = plan_for(q4, k_pages, page_table)
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    plan = _split_plan(B, Hkv, k_pages.shape[1], page_table.shape[1], _sm_count(index))
     _launch(plan, q4, k_pages, v_pages, page_table, lengths, None, out.view(B, 1, H, D),
             scale=scale, softcap=softcap, window=window, who=who)
     paged_attention_cuda.launches += 1

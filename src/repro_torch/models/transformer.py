@@ -163,7 +163,7 @@ class LM:
         return self._head(params, x)[:, 0], cache
 
     def decode_chunk(self, params, tokens, cache, starts, nvalid, slots, first, ctx: RunCtx,
-                     page_table):
+                     page_table, all_logits: bool = False):
         """Unified serving iteration over a paged cache: each batch row
         feeds a chunk of up to C tokens of one sequence — C == 1 is decode,
         C > 1 is a prefill chunk. KV goes straight into the paged pool.
@@ -174,7 +174,10 @@ class LM:
         be distinct); first (B,) True on a sequence's first chunk (resets
         the SSM and conv state); page_table (B, max_pages). Returns (logits
         (B, vocab) at each row's last valid position, cache) — the cache's
-        pools and SSM states updated in place.
+        pools and SSM states updated in place. With ``all_logits`` the head
+        runs on every position instead, (B, C, vocab): the verify step of
+        speculative decoding, where position j scores the token fed at
+        index j + 1 (positions at or past a row's nvalid are padding).
         """
         ctx = ctx.with_mode("chunk")
         B, C = tokens.shape
@@ -187,6 +190,8 @@ class LM:
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
                                 page_table=page_table, lengths=lengths, valid=valid, chunk=pack)
         x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
+        if all_logits:
+            return self._head(params, x), cache
         last = torch.clamp(nvalid.long(), min=1) - 1
         x_last = x[torch.arange(B, device=x.device), last]
         return self._head(params, x_last[:, None])[:, 0], cache

@@ -28,19 +28,19 @@ MIXTRAL = dict(H=32, Hkv=8, D=128, ps=16, maxp=32)   # the serving runs' pool: 5
     (1, F32, BF16, "split", (16, 8, 4)),
     (2, BF16, BF16, "split", (16, 8, 4)),      # verify widths 1 + k: 8..20 folded rows
     (3, BF16, BF16, "split", (16, 8, 4)),
-    (4, F32, BF16, "split", (16, 8, 4)),
-    (5, BF16, BF16, "split", (16, 8, 4)),
-    (8, F32, F32, "split", (16, 8, 4)),        # 32 rows: the split kernel's most
+    (4, F32, BF16, "split", (16, 8, 4)),       # 16 rows: the plan's most for split
+    (5, BF16, BF16, "mma", (1, 8, 4)),         # 20 rows: the tensor cores
+    (8, F32, F32, "tiled", (1, 8, 4)),         # 32 rows in fp32: the fp32 tiles
     (9, BF16, BF16, "mma", (1, 8, 4)),
     (9, F32, F32, "tiled", (2, 8, 4)),
     (9, BF16, F32, "tiled", (2, 8, 4)),
 ])
 def test_plan_at_engine_decode_shapes(C, q_dtype, kv_dtype, path, grid):
-    """Up to SPLIT_MAX_ROWS = 32 folded rows (C * G, G = 4) take the split
+    """Up to SPLIT_MAX_ROWS = 16 folded rows (C * G, G = 4) take the split
     kernel in any dtype: 4 rows x 8 KV heads give 32 (row, head) pairs, so
     the 512 positions are cut into all 16 tiles of 32 (4 blocks a SM would
-    ask for 17). Above it bf16 takes the tensor cores, anything else the
-    fp32 tiles."""
+    ask for 17). Above it (the verify width C = 5 and up) bf16 takes the
+    tensor cores, anything else the fp32 tiles."""
     plan = _plan(4, C, MIXTRAL["H"], MIXTRAL["Hkv"], MIXTRAL["D"], MIXTRAL["ps"],
                  MIXTRAL["maxp"], q_dtype, kv_dtype, 132)
     assert (plan.path, plan.grid) == (path, grid)

@@ -24,6 +24,7 @@ from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                  chunked_prefill_reference, paged_attention,
                                                  paged_attention_cuda,
                                                  paged_attention_reference)
+from repro_torch.kernels.paged_attention.kernel import SPLIT_MAX_ROWS, _sm_count, _split_plan
 from repro_torch.kernels.paged_attention.kernel import plan_for as attn_plan_for
 from repro_torch.kernels.quant_matmul import (w8a16_matmul, w8a16_matmul_cuda,
                                               w8a16_matmul_reference)
@@ -80,15 +81,15 @@ def test_attention_kernel_matches_plain(cuda, dtype, ps, D, window, softcap):
     assert not out[3].any(), "a length-0 row must give zeros"
 
 
-# (C, G, q dtype, pool dtype, the path the plan names): <= 32 folded rows
-# (C * G) split in any dtype (4, 16 and 32 rows: the kernel's three row
-# classes); above, bf16 q and pool take the tensor cores, anything else the
-# fp32 tiles
+# (C, G, q dtype, pool dtype, the path the plan names): <= 16 folded rows
+# (C * G) split in any dtype (4 and 16 rows: two of the kernel's three row
+# classes; paged decode at G = 32 takes the third); above, bf16 q and pool
+# take the tensor cores, anything else the fp32 tiles
 ATTN_PATH_CASES = [
     (1, 2, torch.float32, torch.float32, "split"),
     (8, 2, torch.bfloat16, torch.bfloat16, "split"),
     (4, 4, torch.float32, torch.bfloat16, "split"),
-    (8, 4, torch.bfloat16, torch.bfloat16, "split"),
+    (8, 4, torch.bfloat16, torch.bfloat16, "mma"),
     (24, 2, torch.bfloat16, torch.bfloat16, "mma"),
     (40, 4, torch.bfloat16, torch.bfloat16, "mma"),      # 160 rows: 3 tiles, the last ragged
     (24, 2, torch.float32, torch.float32, "tiled"),
@@ -330,11 +331,15 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, ps, D, window, softcap):
                                               (torch.bfloat16, torch.bfloat16),
                                               (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("H,Hkv,window,softcap", [(32, 2, 0, 0.0), (8, 2, 33, 0.0),
-                                                  (32, 8, 128, 50.0)])
+                                                  (32, 8, 128, 50.0), (40, 2, 0, 0.0),
+                                                  (32, 1, 0, 0.0)])
 def test_paged_decode_split_route(cuda, q_dtype, kv_dtype, H, Hkv, window, softcap):
     """Paged decode on the chunked kernel's split path in decode mode: G up
-    to 16, lengths at a split boundary, 0 and the pool row's capacity, fp32
-    q over a bf16 pool, bit-equal repeats; the chunked counters stay put."""
+    to 32 (G = 20 and 32 in the split block's 32-row class, which a chunked
+    call's plan no longer names), lengths at a split boundary, 0 and the
+    pool row's capacity, fp32 q over a bf16 pool, bit-equal repeats; the
+    chunked counters stay put. Up to SPLIT_MAX_ROWS the chunked plan at C =
+    1 names the same grid."""
     rng = np.random.default_rng(H + window)
     B, D, ps, maxp = 5, 128, 16, 12
     P = B * maxp + 1
@@ -345,8 +350,10 @@ def test_paged_decode_split_route(cuda, q_dtype, kv_dtype, H, Hkv, window, softc
                           + 1).to(cuda)
     lengths = torch.tensor([32, 0, 64, 97, maxp * ps], dtype=torch.int32, device=cuda)
     kw = dict(scale=D ** -0.5, softcap=softcap, window=window)
-    plan = attn_plan_for(q[:, None], kp, pt)
+    plan = _split_plan(B, Hkv, ps, maxp, _sm_count(torch.cuda.current_device()))
     assert plan.path == "split" and plan.grid == (plan.splits, Hkv, B)
+    if H // Hkv <= SPLIT_MAX_ROWS:
+        assert attn_plan_for(q[:, None], kp, pt) == plan
     n0, c0 = paged_attention_cuda.launches, dict(chunked_prefill_cuda.launches_by_path)
     a = paged_attention(q, kp, vp, pt, lengths, **kw)
     b = paged_attention(q, kp, vp, pt, lengths, **kw)

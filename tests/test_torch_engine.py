@@ -1,12 +1,18 @@
 """Port's serving engine vs the JAX ``InferenceEngine`` on tiny mixtral with
 the same weights and requests: identical greedy token streams through
-page-pressure preemption and a warm shared-prefix hit (the copy-on-write
-path), allocator invariants afterwards; the same on tiny mamba2 and jamba
+page-pressure preemption, multi-chunk prefill under the token budget and a
+warm shared-prefix hit (the copy-on-write path), allocator invariants
+afterwards. Each other decoder-only attention config (gemma2, qwen2.5, yi,
+phi3-mini, dbrx, deepseek-moe) runs the greedy streams at 64 pages, and
+gemma2, whose sliding window and softcaps meet chunk and page boundaries,
+the multi-chunk and warm-prefix cases too. The same on tiny mamba2 and jamba
 (slot-pooled SSM state, first-chunk resets, preemption), whose engines keep
 the prefix cache off. Sampling is compared in distribution, because the two
 frameworks' generators differ. Then the port's engine against the port's
 own pure-model loop (``prefill`` + ``decode_step``), as tests/test_engine.py
 holds the JAX engine."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,14 +31,23 @@ from repro_torch.models import RunCtx, build_model
 from repro_torch.models.params import params_from_numpy
 
 NAME = "mixtral-8x7b"
+# the other decoder-only attention configs, each on the 64-page greedy case
+OTHERS = ["gemma2-27b", "qwen2.5-3b", "yi-6b", "phi3-mini-3.8b", "dbrx-132b",
+          "deepseek-moe-16b"]
+WINDOWED = "gemma2-27b"
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(name):
+    jmodel = jax_build_model(jax_tiny_config(name))
+    jp = jmodel.init_params(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return jmodel, jp, build_model(tiny_config(name)), tp
 
 
 @pytest.fixture(scope="module")
 def models():
-    jmodel = jax_build_model(jax_tiny_config(NAME))
-    jp = jmodel.init_params(jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
-    return jmodel, jp, build_model(tiny_config(NAME)), tp
+    return _pair(NAME)
 
 
 def _engines(models, **kw):
@@ -57,11 +72,13 @@ def _serve(je, te, prompts, max_new):
     return tr
 
 
-@pytest.mark.parametrize("num_pages,max_new", [(10, 20), (64, 12)])
-def test_greedy_streams_match_jax(models, num_pages, max_new):
+@pytest.mark.parametrize("arch,num_pages,max_new", [
+    pytest.param(NAME, 10, 20, id="10-20"), pytest.param(NAME, 64, 12, id="64-12"),
+    *(pytest.param(n, 64, 12, id=f"{n}-64-12") for n in OTHERS)])
+def test_greedy_streams_match_jax(arch, num_pages, max_new):
     """num_pages=10 holds 9 usable pages for 3 slots of 30 tokens: the
     scheduler must preempt and resume."""
-    je, te = _engines(models, max_slots=3, page_size=8, num_pages=num_pages, max_seq=64,
+    je, te = _engines(_pair(arch), max_slots=3, page_size=8, num_pages=num_pages, max_seq=64,
                       prefill_chunk=16, greedy=True)
     r = np.random.default_rng(0)
     prompts = [r.integers(1, 256, 10).astype(np.int32) for _ in range(5)]
@@ -75,7 +92,17 @@ def test_greedy_streams_match_jax(models, num_pages, max_new):
 def test_multi_chunk_prefill_under_budget_matches_jax(models):
     """Prompts longer than the chunk prefill over several iterations while
     other slots decode, within the token budget."""
-    je, te = _engines(models, max_slots=3, page_size=8, num_pages=64, max_seq=64,
+    _check_multi_chunk(models)
+
+
+def test_multi_chunk_prefill_under_budget_matches_jax_windowed():
+    """The same on gemma2, whose window of 16 the 19- and 26-token prompts
+    cross inside a chunk."""
+    _check_multi_chunk(_pair(WINDOWED))
+
+
+def _check_multi_chunk(pair):
+    je, te = _engines(pair, max_slots=3, page_size=8, num_pages=64, max_seq=64,
                       prefill_chunk=8, token_budget=12, greedy=True)
     r = np.random.default_rng(3)
     prompts = [r.integers(1, 256, n).astype(np.int32) for n in (19, 7, 26, 11)]
@@ -89,7 +116,17 @@ def test_warm_prefix_hit_matches_jax(models):
     """A second wave sharing a prompt prefix with the first hits the prefix
     cache; the request repeating a whole prompt writes into a cached page
     and so goes through copy-on-write."""
-    je, te = _engines(models, max_slots=2, page_size=8, num_pages=48, max_seq=64,
+    _check_warm_prefix(models)
+
+
+def test_warm_prefix_hit_matches_jax_windowed():
+    """The same on gemma2: the 24-token prompt's window of 16 starts inside
+    the shared prefix pages."""
+    _check_warm_prefix(_pair(WINDOWED))
+
+
+def _check_warm_prefix(pair):
+    je, te = _engines(pair, max_slots=2, page_size=8, num_pages=48, max_seq=64,
                       prefill_chunk=8, greedy=True)
     r = np.random.default_rng(5)
     prefix = r.integers(1, 256, 16).astype(np.int32)
@@ -197,9 +234,12 @@ def test_sampling_greedy_is_argmax():
 
 
 def test_speculative_not_ported(models):
+    """Named for the refusal it once checked: ``enable_speculative`` now
+    builds an engine with speculation on. The width ladder, drafting and
+    verify are tests/test_torch_speculative.py's."""
     _, _, model, tp = models
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(model, tp, EngineConfig(device="cpu", enable_speculative=True))
+    eng = InferenceEngine(model, tp, EngineConfig(device="cpu", enable_speculative=True))
+    assert eng.spec_on
 
 
 def _ref_greedy(model, params, prompt, n):

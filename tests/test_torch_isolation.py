@@ -66,7 +66,9 @@ def test_module_list_is_complete():
               "repro_torch.core.router", "repro_torch.core.gateway", "repro_torch.core.client",
               "repro_torch.core.serde", "repro_torch.core.safety", "repro_torch.core.faults",
               "repro_torch.core.dashboard", "repro_torch.data.workload",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.core.spec",
+              "repro_torch.configs.yi_6b", "repro_torch.configs.phi3_mini_3_8b",
+              "repro_torch.configs.dbrx_132b", "repro_torch.configs.deepseek_moe_16b"):
         assert m in names
     for m in names:
         importlib.import_module(m)

@@ -1,7 +1,9 @@
 """Port's model path vs the JAX package on the same weights: primitives,
 the weight bridge, the seeded init, and ``LM.decode_chunk`` logits on tiny
-mixtral (MoE) and tiny qwen2.5 (dense, QKV bias) over ragged multi-row
-prefill packs with padding rows and a decode sweep after them."""
+mixtral (MoE), qwen2.5 (dense, QKV bias), yi (dense GQA), phi3-mini (dense
+MHA), dbrx (16 experts top-4) and deepseek-moe (a dense first layer, shared
+experts) over ragged multi-row prefill packs with padding rows and a decode
+sweep after them, and with ``all_logits`` over a speculative verify sweep."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,8 @@ from repro_torch.models.params import count_params_analytic, init_params, params
 # sides; the differences are reduction order only
 LOGIT_ATOL = 2e-3
 PRIM_TOL = 1e-5
-ARCHS = ["mixtral-8x7b", "qwen2.5-3b"]
+ARCHS = ["mixtral-8x7b", "qwen2.5-3b", "yi-6b", "phi3-mini-3.8b", "dbrx-132b",
+         "deepseek-moe-16b"]
 
 
 def _jax_model(name):
@@ -164,3 +167,54 @@ def test_decode_chunk_matches_jax(name):
             for k in ("kp", "vp"):
                 np.testing.assert_allclose(tc["attn"][k][:, 1:].numpy(),
                                            np.asarray(jc["attn"][k])[:, 1:], atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ARCHS + ["gemma2-27b"])
+def test_decode_chunk_all_logits_matches_jax(name):
+    """A ragged prefill pack, then a verify sweep at C = 5 over 4 slots whose
+    rows feed 5, 2, 0 (inactive, null page) and 1 tokens: with
+    ``all_logits`` the port's (B, C, vocab) logits are within LOGIT_ATOL of
+    JAX's at every valid position, finite at every position, and the last
+    valid position's row equals the default call's logits."""
+    jmodel, jp = _jax_model(name)
+    model = build_model(tiny_config(name))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    ps, num_pages, maxp, B, C = 4, 64, 8, 4, 5
+    rows = np.array([[1 + b * maxp + i for i in range(maxp)] for b in range(B)], np.int32)
+    r = np.random.default_rng(6)
+    plens = [11, 6, 0, 9]
+    pack = np.zeros((B, 11), np.int32)
+    for b, n in enumerate(plens):
+        pack[b, :n] = r.integers(1, 256, n)
+    verify = r.integers(1, 256, (B, C)).astype(np.int32)
+    nv_pack, nv_verify = np.asarray(plens, np.int32), np.asarray([5, 2, 0, 1], np.int32)
+    st_verify = np.where(nv_verify > 0, nv_pack, 0).astype(np.int32)
+    pt_verify = np.where((nv_verify > 0)[:, None], rows, 0).astype(np.int32)
+    jcache = jmodel.init_cache(B, 64, jnp.float32, kind="paged", page_size=ps,
+                               num_pages=num_pages)
+    tcache = model.init_cache(B, 64, kind="paged", page_size=ps, num_pages=num_pages,
+                              device="cpu")
+    jctx = JaxRunCtx(attn_backend="xla", moe_strategy="dropless")
+    slots, first = np.arange(B, dtype=np.int32), np.ones(B, bool)
+    calls = [(pack, np.zeros(B, np.int32), nv_pack, first, rows, False),
+             (verify, st_verify, nv_verify, ~first, pt_verify, True)]
+    for tok, st, nv, fi, pt, all_logits in calls:
+        lg_ref, jcache = jmodel.decode_chunk(
+            jp, jnp.asarray(tok), jcache, jnp.asarray(st), jnp.asarray(nv), jnp.asarray(slots),
+            jnp.asarray(fi), jctx, jnp.asarray(pt), all_logits=all_logits)
+        if all_logits:
+            before = [t.clone() for g in tcache["groups"] for c in g for t in c["attn"].values()]
+        lg, tcache = model.decode_chunk(tp, _t(tok), tcache, _t(st), _t(nv), _t(slots), _t(fi),
+                                        RunCtx(), _t(pt), all_logits=all_logits)
+    assert lg.shape == (B, C, model.cfg.vocab) and torch.isfinite(lg).all()
+    valid = np.arange(C)[None, :] < nv_verify[:, None]
+    err = np.abs(lg.numpy()[valid] - np.asarray(lg_ref)[valid]).max()
+    assert err < LOGIT_ATOL, err
+    # the default call on the same pools (restored) gives the last valid row
+    after = [t for g in tcache["groups"] for c in g for t in c["attn"].values()]
+    for a, b in zip(after, before):
+        a.copy_(b)
+    last, _ = model.decode_chunk(tp, _t(verify), tcache, _t(st_verify), _t(nv_verify),
+                                 _t(slots), _t(~first), RunCtx(), _t(pt_verify))
+    for b in np.flatnonzero(nv_verify):
+        torch.testing.assert_close(last[b], lg[b, nv_verify[b] - 1], atol=1e-5, rtol=0)

@@ -21,7 +21,8 @@ from repro_torch.models.params import params_from_numpy
 # attention and softmax in fp32 on both sides; the differences are
 # reduction order only (tests/test_prefill_decode.py's bound)
 LOGIT_ATOL = 2e-3
-ARCHS = ["mixtral-8x7b", "qwen2.5-3b", "gemma2-27b"]
+ARCHS = ["mixtral-8x7b", "qwen2.5-3b", "gemma2-27b", "yi-6b", "phi3-mini-3.8b", "dbrx-132b",
+         "deepseek-moe-16b"]
 JCTX = JaxRunCtx(attn_backend="xla", moe_strategy="dropless", block_q=8, block_kv=8)
 CTX = RunCtx()
 
