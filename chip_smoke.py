@@ -19,8 +19,13 @@ exits non-zero and no phase's failure is caught.
      at C = 1, 2, 3 and 5 and the pack, for attention and for gmm at B * C
      tokens), the generation API's prefill (gmm at 4 x 297 tokens), and
      phase 7's (int8 experts at its speculative run's B * C tokens and its
-     prefill, w8a16 projections and head at its B * C rows), with the
-     kernel's device time (its launch wrapper alone), the
+     prefill, w8a16 projections and head at its B * C rows), and in fp32
+     and bf16 at phase 11's (MHA at head dims 64 and 96: chunked attention's
+     decode sweeps and packs over the two engines' pools, phi-3-vision's
+     pack of 576 patch columns + 128 tokens a row; flash attention over
+     seamless-m4t's 1024-frame encoder, its cross attention at 1, 128 and
+     297 queries against 1024 keys, and both prefills; paged decode at both
+     generation APIs' last step), with the kernel's device time (its launch wrapper alone), the
      public op's time as a caller sees it (host work included), the plain
      version's and a PyTorch yardstick's times (the yardstick, SDPA or a
      plain matmul on float weights, is never called by the port; no single
@@ -110,19 +115,40 @@ exits non-zero and no phase's failure is caught.
      acceptance rate, steps, ms a verify sweep against a plain decode
      sweep, and how many leading tokens of each stream equal the run
      without speculation (printed only).
- 10. every call shape of chunked attention, gmm and w8a16 in phases 4-9
-     (recorded at the public ops) must be one phase 2 held against the
-     plain version; then a ``kernels`` JSON line (with each kernel's
-     launches behind the stack as ``stack_launches`` and in the
-     speculative runs as ``spec_launches``), then ``{"ok": true,
+ 11. (run after phase 9, phase 4's weights freed) enc-dec and VLM at full
+     width and depth, random bf16 weights from a seed, pages of 16, packs
+     of 2 x 128, greedy, bf16 KV: (a) seamless-m4t-large-v2 (24 encoder +
+     24 decoder layers) through ``InferenceEngine.generate`` on phase 4's 4
+     prompts x 32 new tokens, each request with seeded frames of 300, 640,
+     1024 and 1536 frames in ``engine.extras`` (padded, exact and cropped
+     to the 1024-frame memory), then its generation API (``prefill`` with
+     the frames, 32 ``decode_step``s over the paged pool); (b)
+     phi-3-vision-4.2b (32 layers) the same with 576 seeded patches a
+     request, whose packs must mix one request's first chunk (patch prefix
+     live) with another's later chunk; (c) both at depth 2 (encoder 2),
+     full width, fp32, card vs CPU on a first-chunk pack, that mixed pack,
+     a decode sweep, ``forward`` and ``prefill`` + 4 ``decode_step``s,
+     within LOGIT_ATOL with the same argmax. Every request finishes, the
+     allocator invariants hold, every page is free and the extras dropped;
+     chunked attention launched on split and mma only (head dims 64, 96),
+     flash (the encoder, cross attention, the prefills) on mma only, paged
+     decode on the generation APIs. Prints tok/s, TTFT, TBT, the encoder's
+     ms a pack with a first row, peak memory and weights' GB.
+ 10. every call shape of chunked attention, gmm, w8a16 and flash attention
+     in phases 4-9 and 11 (recorded at the public ops) must be one phase 2
+     held against the plain version; then a ``kernels`` JSON line (with
+     each kernel's launches behind the stack as ``stack_launches``, in the
+     speculative runs as ``spec_launches`` and in phase 11 as
+     ``encdec_launches`` / ``vlm_launches``), then ``{"ok": true,
      "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
 Options: --out FILE writes every measurement as JSON; --profile adds
 torch.profiler windows over short serving runs, over decode steps of the
-generation paths, over a run of each stack layout and over a speculative
-run at each slot count (kernel time by name, the device's busy share, and
-the stack's device and wall time a step).
+generation paths, over a run of each stack layout, over a speculative run
+at each slot count and over a short serving run of each phase-11 family
+(kernel time by name, the device's busy share, and the stack's device and
+wall time a step).
 """
 from __future__ import annotations
 
@@ -158,7 +184,12 @@ VERIFY_WIDTHS = (2, 3, 5)          # the verify sweep's chunk widths at spec_k =
 SPEC_SLOTS = (1, 8, 32)            # phase 9: max_slots of each run, as many requests
 SPEC_NEW = 64                      # new tokens a request
 INT8_SPEC_SLOTS = 8                # phase 7's speculative run: max_slots, as many requests
-PROMPT_LENS = (113, 178, 241, 297)  # phases 4-7: the serving and generation prompts
+PROMPT_LENS = (113, 178, 241, 297)  # phases 4-7 and 11: the serving and generation prompts
+# phase 11: the enc-dec and VLM engines (4 slots, pages of 16, packs of 2 x 128)
+MM_SEAMLESS, MM_VISION = "seamless-m4t-large-v2", "phi-3-vision-4.2b"
+MM_SLOTS = 4
+MM_MAX_SEQ = {MM_SEAMLESS: 512, MM_VISION: 1024}   # VLM: 576 patches + 297 + 32 fit
+MM_FRAMES = (300, 640, 1024, 1536)  # each request's frames: padded / exact / cropped to 1024
 
 
 def log(msg: str) -> None:
@@ -217,10 +248,12 @@ def max_err(a, b) -> float:
 
 # ------------------------------------------------------------ call shapes
 # Phase 2 adds the shape of every call it holds against the plain version
-# to CHECKED. Phases 4 to 9 run under ``served_shapes``, which adds the
-# shape of every call the serving paths make to the three kernels they
-# share to SERVED. The script fails if a served shape was never checked.
-CHECKED = {k: set() for k in ("chunked_prefill_attention", "moe_gmm", "w8a16_matmul")}
+# to CHECKED. Phases 4 to 9 and 11 run under ``served_shapes``, which adds
+# the shape of every call the serving paths make to chunked attention, the
+# grouped matmul, the w8a16 matmul and flash attention to SERVED. The script
+# fails if a served shape was never checked.
+CHECKED = {k: set() for k in ("chunked_prefill_attention", "moe_gmm", "w8a16_matmul",
+                              "flash_attention")}
 SERVED = {k: set() for k in CHECKED}
 
 
@@ -229,6 +262,13 @@ def attention_key(q, kp, pt) -> tuple:
     B, C, H, D = q.shape
     return (B, C, H, kp.shape[2], D, kp.shape[1], pt.shape[1], str(q.dtype)[6:],
             str(kp.dtype)[6:])
+
+
+def flash_key(q, k, causal, window, softcap) -> tuple:
+    """(B, Sq, Skv, H, Hkv, D, causal, window, softcap, dtype)"""
+    B, Sq, H, D = q.shape
+    return (B, Sq, k.shape[1], H, k.shape[2], D, bool(causal), int(window), float(softcap),
+            str(q.dtype)[6:])
 
 
 def gmm_key(rows: int, K: int, N: int, dtype, int8: bool) -> tuple:
@@ -245,12 +285,14 @@ def w8a16_key(x, w_q, col_scale, row_scale) -> tuple:
 @contextlib.contextmanager
 def served_shapes():
     """While open, the public ops' calls of chunked attention, the grouped
-    matmul and the w8a16 matmul add their shapes to SERVED and go on to the
-    kernel's wrapper unchanged (which counts the launch)."""
+    matmul, the w8a16 matmul and flash attention add their shapes to SERVED
+    and go on to the kernel's wrapper unchanged (which counts the launch)."""
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.moe_gmm import ops as gops
     from repro_torch.kernels.paged_attention import ops as aops
     from repro_torch.kernels.quant_matmul import ops as wops
     attn, gmm, w8 = aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda
+    flash = fops.flash_attention_cuda
 
     def attn_rec(q, kp, vp, pt, *args, **kw):
         SERVED["chunked_prefill_attention"].add(attention_key(q, kp, pt))
@@ -265,12 +307,18 @@ def served_shapes():
         SERVED["w8a16_matmul"].add(w8a16_key(x, w_q, col_scale, row_scale))
         return w8(x, w_q, col_scale, row_scale)
 
+    def flash_rec(q, k, v, *, causal, window=0, softcap=0.0, **kw):
+        SERVED["flash_attention"].add(flash_key(q, k, causal, window, softcap))
+        return flash(q, k, v, causal=causal, window=window, softcap=softcap, **kw)
+
     aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda = \
         attn_rec, gmm_rec, w8_rec
+    fops.flash_attention_cuda = flash_rec
     try:
         yield
     finally:
         aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda = attn, gmm, w8
+        fops.flash_attention_cuda = flash
 
 
 # ------------------------------------------------------------------ phase 2
@@ -401,6 +449,31 @@ def spec_attention_shapes() -> dict:
     return shapes
 
 
+def mm_attention_shapes() -> dict:
+    """Phase 11's chunked attention shapes, bf16 as it serves, over each
+    engine's pool (4 slots of max_seq, every row's pages its own; MHA, head
+    dim 64 or 96): the decode sweep (the prompts + 31), the prefill pack
+    (first chunks, then the last, partial chunk of the longest prompt) and,
+    for the VLM, the pack with a patch prefix: 576 + 128 columns a row, a
+    later chunk (its queries from its text start, the prefix columns dead)
+    beside a first chunk (queries from 0, the prefix live). A VLM row's
+    text positions start at 576."""
+    shapes = {}
+    for name, H, D, off in ((MM_SEAMLESS, 16, 64, 0), (MM_VISION, 32, 96, 576)):
+        maxp = MM_MAX_SEQ[name] // 16
+        pool = dict(H=H, Hkv=H, D=D, maxp=maxp, num_pages=MM_SLOTS * maxp + 1)
+        shapes[f"{name} decode"] = dict(pool, B=MM_SLOTS, C=1,
+                                        starts=[off + n + 30 for n in PROMPT_LENS],
+                                        nvalid=[1] * MM_SLOTS)
+        pack = pack_rows(max(PROMPT_LENS), *STACK_PACK)
+        shapes[f"{name} pack"] = dict(pool, **dict(pack, starts=[off + s for s in pack["starts"]]))
+        if off:
+            C = off + STACK_PACK[1]
+            shapes[f"{name} prefixed pack"] = dict(pool, B=2, C=C, starts=[128, 0],
+                                                   nvalid=[off + 50, C])
+    return shapes
+
+
 def run_attention(dev, flush, results):
     from repro_torch.kernels.paged_attention import (chunked_prefill_attention,
                                                      chunked_prefill_cuda,
@@ -440,6 +513,7 @@ def run_attention(dev, flush, results):
                             maxp=256, num_pages=1040),
         "prefill": dict(B=2, C=128, starts=[0, 128], nvalid=[128, 100]),
     }
+    shapes.update(mm_attention_shapes())       # fp32 and bf16 at phase 11's shapes
     dtypes = {name: (torch.float32, torch.bfloat16) for name in shapes}
     served = dict(stack_attention_shapes(), **spec_attention_shapes())
     shapes.update(served)
@@ -447,9 +521,9 @@ def run_attention(dev, flush, results):
     # fp32: reduction order only; bf16: one rounding of outputs |o| < 4
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for name, sh in shapes.items():
-        sh = dict(dict(maxp=32, num_pages=256), **sh)
+        sh = dict(dict(maxp=32, num_pages=256, H=32, Hkv=8, D=128), **sh)
         for dtype in dtypes[name]:
-            *t, kw = attention_case(dev, H=32, Hkv=8, D=128, ps=16, dtype=dtype, seed=1, **sh)
+            *t, kw = attention_case(dev, ps=16, dtype=dtype, seed=1, **sh)
             q, kp, vp, pt, lengths, qpos = t
             plan = plan_for(q, kp, pt)
             out = chunked_prefill_attention(*t, **kw)
@@ -529,14 +603,28 @@ def run_flash(dev, flush, results):
                 f"repeat bit-equal")
     # the generation path's prefill at full width: 4 prompts right-padded to
     # 297 tokens, Mixtral's heads (causal); then gemma2's heads with its
-    # window (cut to 128 to bite at 297 tokens) and attention softcap
-    for name, Hkv, window, softcap in (("prefill", 8, 0, 0.0), ("prefill window", 16, 128, 50.0)):
+    # window (cut to 128 to bite at 297 tokens) and attention softcap; then
+    # phase 11's calls (MHA): seamless-m4t's encoder over 1024 frames (the
+    # engine's 2-row pack, the generation API's 4 prompts), its cross
+    # attention against the 1024-frame memory (a pack, a decode sweep, the
+    # prefill) and its decoder's prefill; phi-3-vision's prefill of 576
+    # patches + 297 tokens
+    full = [("prefill", 4, 297, 297, 32, 8, 128, True, 0, 0.0),
+            ("prefill window", 4, 297, 297, 32, 16, 128, True, 128, 50.0),
+            (f"{MM_SEAMLESS} encoder pack", 2, 1024, 1024, 16, 16, 64, False, 0, 0.0),
+            (f"{MM_SEAMLESS} encoder prefill", 4, 1024, 1024, 16, 16, 64, False, 0, 0.0),
+            (f"{MM_SEAMLESS} cross pack", 2, 128, 1024, 16, 16, 64, False, 0, 0.0),
+            (f"{MM_SEAMLESS} cross decode", 4, 1, 1024, 16, 16, 64, False, 0, 0.0),
+            (f"{MM_SEAMLESS} cross prefill", 4, 297, 1024, 16, 16, 64, False, 0, 0.0),
+            (f"{MM_SEAMLESS} prefill", 4, 297, 297, 16, 16, 64, True, 0, 0.0),
+            (f"{MM_VISION} prefill", 4, 576 + 297, 576 + 297, 32, 32, 96, True, 0, 0.0)]
+    for name, B, Sq, Skv, H, Hkv, D, causal, window, softcap in full:
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=dev).manual_seed(7)
-            q = torch.randn((4, 297, 32, 128), generator=g, device=dev).to(dtype)
-            k, v = (torch.randn((4, 297, Hkv, 128), generator=g, device=dev).to(dtype)
+            q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dtype)
                     for _ in range(2))
-            kw = dict(causal=True, window=window, softcap=softcap, scale=128 ** -0.5)
+            kw = dict(causal=causal, window=window, softcap=softcap, scale=D ** -0.5)
             plan = plan_for(q, k)
             out = flash_attention(q, k, v, **kw)
             plain = mha_reference(q, k, v, **kw)
@@ -544,23 +632,28 @@ def run_flash(dev, flush, results):
             assert err <= tols[dtype], f"flash {name} {dtype}: err {err} > {tols[dtype]}"
             assert torch.equal(out, flash_attention(q, k, v, **kw)), \
                 f"flash {name} {dtype}: a repeat gave other bits"
+            CHECKED["flash_attention"].add(flash_key(q, k, causal, window, softcap))
             del out, plain
             ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), flush=flush)
             op_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), flush=flush, queued=False)
             plain_ms = cuda_ms(lambda: mha_reference(q, k, v, **kw), flush=flush)
-            # yardstick: SDPA on K/V repeated to the 32 query heads (made
-            # once, outside the timed call), the same mask as a boolean
-            G = 32 // Hkv
+            # yardstick: SDPA on K/V repeated to the query heads (made once,
+            # outside the timed call), the same mask as a boolean
+            G = H // Hkv
             qt = q.transpose(1, 2)
             kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
-            i = torch.arange(297, device=dev)
-            mask = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window)
-                                                 if window else True)
+            i, j = torch.arange(Sq, device=dev)[:, None], torch.arange(Skv, device=dev)[None]
+            mask = None
+            if causal or window:
+                mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+                mask = mask & (j <= i) if causal else mask
+                mask = mask & (j > i - window) if window else mask
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=kw["scale"]), flush=flush)
-            bms, by = flash_bound(q, k, dtype, causal=True, window=window)
+            bms, by = flash_bound(q, k, dtype, causal=causal, window=window)
             row = dict(kernel="flash_attention", case=name, dtype=str(dtype)[6:],
-                       shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} causal window={window} "
+                       shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} "
+                             f"{'causal' if causal else 'not causal'} window={window} "
                              f"softcap={softcap}",
                        path=plan.path, grid=list(plan.grid),
                        max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
@@ -599,13 +692,20 @@ def run_paged_decode(dev, flush, results):
                 f"{str(dtype)[6:]} ({plan.path}, splits={plan.splits}): max_abs_err={err:.3g} "
                 f"(tol {tols[dtype]}), length-0 row zeros, repeat bit-equal")
     # the generation path's decode at full Mixtral width (row 1's decode
-    # shape), and the same with a window and softcap
-    for name, window, softcap in (("decode", 0, 0.0), ("decode window", 128, 50.0)):
+    # shape), and the same with a window and softcap; then phase 11's
+    # generation paths (MHA, head dims 64 and 96; the VLM's positions after
+    # its 576 patches), their last step over pools of 4 x ceil((prefix + 297
+    # + 32) / 16) pages
+    mix = dict(H=32, Hkv=8, D=128, maxp=32, num_pages=256, starts=[131, 219, 299, 166])
+    mm = {name: dict(H=H, Hkv=H, D=D, maxp=maxp, num_pages=4 * maxp + 1,
+                     starts=[off + n + GEN_STEPS - 2 for n in PROMPT_LENS])
+          for name, H, D, off in ((MM_SEAMLESS, 16, 64, 0), (MM_VISION, 32, 96, 576))
+          for maxp in [-(-(off + max(PROMPT_LENS) + GEN_STEPS) // 16)]}
+    for name, window, softcap, sh in (("decode", 0, 0.0, mix), ("decode window", 128, 50.0, mix),
+                                      *((f"{n} decode", 0, 0.0, sh) for n, sh in mm.items())):
         for dtype in (torch.float32, torch.bfloat16):
-            *t, kw = attention_case(dev, B=4, C=1, H=32, Hkv=8, D=128, ps=16, maxp=32,
-                                    num_pages=256, starts=[131, 219, 299, 166],
-                                    nvalid=[1, 1, 1, 1], dtype=dtype, window=window,
-                                    softcap=softcap, seed=1)
+            *t, kw = attention_case(dev, B=4, C=1, ps=16, nvalid=[1, 1, 1, 1], dtype=dtype,
+                                    window=window, softcap=softcap, seed=1, **sh)
             q4, kp, vp, pt, lengths, qpos = t
             q = q4[:, 0].contiguous()
             plan = plan_for(q4, kp, pt)
@@ -1818,6 +1918,368 @@ def run_spec(dev, model, params, *, slots_list=SPEC_SLOTS, new_tokens: int = SPE
                 max_seq=max_seq, runs=runs, widths_seen=sorted(widths_seen)), totals
 
 
+# ------------------------------------------------------------------ phase 11
+def mm_config(name: str, n_layers: int = 0):
+    """seamless-m4t-large-v2 or phi-3-vision-4.2b at full width: full depth,
+    or decoder (and encoder) cut to ``n_layers``."""
+    import dataclasses
+
+    from repro_torch.configs import LayerGroup, get_config
+    cfg = get_config(name)
+    if not n_layers:
+        return cfg
+    enc = dataclasses.replace(cfg.encoder, n_layers=n_layers) if cfg.encoder else None
+    return cfg.scaled(name=f"{name}-{n_layers}L", n_layers=n_layers, encoder=enc,
+                      layer_groups=(LayerGroup("A", n_layers),))
+
+
+def mm_extras(cfg, n: int = MM_SLOTS, seed: int = 3) -> list:
+    """Each request's stub frontend output from a seed, as a caller puts it
+    in ``engine.extras``: ("frames", (1, MM_FRAMES[i], d_model)) or
+    ("patches", (1, n_patches, d_patch)), fp32."""
+    rng = np.random.default_rng(seed)
+    if cfg.encoder is not None:
+        return [("frames", rng.standard_normal((1, MM_FRAMES[i], cfg.d_model), np.float32))
+                for i in range(n)]
+    return [("patches", rng.standard_normal((1, cfg.vision.n_patches, cfg.vision.d_patch),
+                                            np.float32)) for _ in range(n)]
+
+
+def mm_batch_extras(cfg, extras: list, dev) -> dict:
+    """A batch's frames (B, cross_attn_memory, d), each request's cropped or
+    zero-padded as the engine's ``_row_extras`` does, or patches (B,
+    n_patches, d_patch), on ``dev``."""
+    if cfg.encoder is not None:
+        M = cfg.encoder.cross_attn_memory
+        fr = np.zeros((len(extras), M, cfg.d_model), np.float32)
+        for i, (_, v) in enumerate(extras):
+            fr[i, :min(M, v.shape[1])] = v[0, :M]
+        return {"frames": torch.from_numpy(fr).to(dev)}
+    return {"patches": torch.from_numpy(np.concatenate([v for _, v in extras])).to(dev)}
+
+
+def copy_cross(dst, src):
+    """The cross caches of ``src`` (prefill's dense cache) into ``dst``."""
+    for dg, sg in zip(dst["groups"], src["groups"]):
+        for dc, sc in zip(dg, sg):
+            for k in ("ck", "cv") if "cross" in sc else ():
+                dc["cross"][k].copy_(sc["cross"][k])
+
+
+def build_mm(dev, name: str):
+    """Full-width, full-depth ``name``, random bf16 weights from seed 0."""
+    from repro_torch.models import build_model
+    from repro_torch.models.params import map_tree
+    cfg = mm_config(name)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    map_tree(lambda t: sizes.append(t.numel() * t.element_size()), params)
+    depth = (f"{cfg.encoder.n_layers} encoder + {cfg.n_layers} decoder layers" if cfg.encoder
+             else f"{cfg.n_layers} layers, {cfg.vision.n_patches} patches of "
+                  f"{cfg.vision.d_patch}")
+    info = dict(config=cfg.name, layers=cfg.n_layers, weights="bf16",
+                weights_gb=sum(sizes) / 1e9, init_s=init_s,
+                init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  {cfg.name}: full width (d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab}), full depth ({depth}), random bf16 weights from "
+        f"seed 0: {info['weights_gb']:.2f} GB, init {init_s:.1f} s")
+    return model, params, info
+
+
+def run_mm_serving(dev, profile: bool, model, params):
+    """Phase 11 (a) / (b): InferenceEngine.generate on 4 requests x 32 greedy
+    tokens with each request's frames or patches in ``engine.extras``;
+    every request finishes, the allocator invariants hold, every page is
+    free again and the extras are dropped; chunked attention launched on
+    its split (decode) and mma (packs) paths only, flash attention (the
+    encoder and cross attention) on mma only. The VLM's run must pack a
+    first chunk beside a later one."""
+    from repro_torch.core import EngineConfig, InferenceEngine, Request, request_metrics
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import chunked_prefill_cuda
+    cfg = model.cfg
+    max_seq = MM_MAX_SEQ[cfg.name]
+    ecfg = EngineConfig(max_slots=MM_SLOTS, page_size=16,
+                        num_pages=MM_SLOTS * max_seq // 16 + 1, max_seq=max_seq,
+                        prefill_chunk=STACK_PACK[1], greedy=True, cache_dtype=torch.bfloat16,
+                        device=str(dev))
+    eng = InferenceEngine(model, params, ecfg)
+    assert eng.chunk_rows == STACK_PACK[0] and eng.prefix_cache is None
+    rng = np.random.default_rng(1)
+    extras = mm_extras(cfg)
+    # warm-up request: cuBLAS handles and allocator pools, not measured
+    eng.extras[("warm", extras[0][0])] = extras[0][1]
+    eng.generate([Request(req_id="warm", prompt_tokens=prompts(rng, 1)[0][:40],
+                          max_new_tokens=2)])
+    reqs = [Request(req_id=f"r{i}", prompt_tokens=p, max_new_tokens=32)
+            for i, p in enumerate(prompts(rng))]
+    for r, (key, v) in zip(reqs, extras):
+        eng.extras[(r.req_id, key)] = v
+    eng.step_records.clear()
+    packs, enc_events = [], []
+    chunk_call, encode = model.decode_chunk, model._encode
+
+    def recorded(*args, **kw):
+        if kw.get("frames") is not None or kw.get("patches") is not None:
+            live = args[4] > 0          # a pack's (first-chunk row, later-chunk row) flags
+            packs.append((bool((live & (args[3] == 0)).any()),
+                          bool((live & (args[3] > 0)).any())))
+        return chunk_call(*args, **kw)
+
+    def timed_encode(*args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = encode(*args, **kw)
+        b.record()
+        enc_events.append((a, b))
+        return out
+
+    model.decode_chunk, model._encode = recorded, timed_encode
+    for fn in (chunked_prefill_cuda, flash_attention_cuda):
+        fn.launches = 0
+        fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del model.decode_chunk, model._encode
+    launches = {"chunked_prefill_attention": chunked_prefill_cuda.launches,
+                "flash_attention": flash_attention_cuda.launches}
+    attn_paths = dict(chunked_prefill_cuda.launches_by_path)
+    flash_paths = dict(flash_attention_cuda.launches_by_path)
+    assert all(r.finished and len(r.generated) == 32 for r in reqs), "a request did not finish"
+    eng.allocator.check_invariants()
+    assert eng.allocator.free_pages == ecfg.num_pages - 1, "pages still held after the run"
+    assert not eng.extras, f"extras not dropped: {sorted(eng.extras)}"
+    assert attn_paths["split"] > 0 and attn_paths["mma"] > 0 and attn_paths["tiled"] == 0, \
+        f"{cfg.name}: chunked attention left its planned paths: {attn_paths}"
+    if cfg.encoder is not None:
+        assert flash_paths["mma"] > 0 and flash_paths["mma"] == launches["flash_attention"], \
+            f"{cfg.name}: the encoder / cross attention left flash's mma path: {flash_paths}"
+    mixed = sum(a and b for a, b in packs)
+    if cfg.vision is not None:
+        assert mixed > 0, f"no pack mixed a first chunk with a later one: {packs}"
+    enc_ms = [a.elapsed_time(b) for a, b in enc_events]
+    ms = [request_metrics(r) for r in reqs]
+    n_tok = sum(m.n_tokens for m in ms)
+    recs = list(eng.step_records)
+    dec = [r.duration for r in recs if r.prefill_rows == 0 and r.decode_rows > 0]
+    pre = [r.duration for r in recs if r.prefill_rows > 0]
+    serve = dict(
+        config=cfg.name, layers=cfg.n_layers, requests=len(reqs),
+        prompt_tokens=[len(r.prompt_tokens) for r in reqs], new_tokens=32,
+        extras=[list(v.shape) for _, v in extras], wall_s=wall, tok_s=n_tok / wall,
+        steps=len(recs), ttft_ms=[m.ttft * 1e3 for m in ms], tbt_ms=[m.tbt * 1e3 for m in ms],
+        decode_step_ms_mean=1e3 * float(np.mean(dec)) if dec else None,
+        prefill_step_ms_mean=1e3 * float(np.mean(pre)) if pre else None,
+        encoder_ms=enc_ms, packs_with_extras=len(packs), mixed_packs=mixed,
+        launches=launches, attention_launches_by_path=attn_paths,
+        flash_launches_by_path=flash_paths, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  served {len(reqs)} requests x 32 new tokens (prompts {serve['prompt_tokens']}, "
+        f"extras {serve['extras']}) in {wall:.3f} s over {len(recs)} steps: "
+        f"{serve['tok_s']:.2f} tok/s, TTFT ms {[round(x, 2) for x in serve['ttft_ms']]}, "
+        f"TBT ms {[round(x, 3) for x in serve['tbt_ms']]}, decode step "
+        f"{serve['decode_step_ms_mean']:.3f} ms, prefill step "
+        f"{serve['prefill_step_ms_mean']:.3f} ms, peak device memory "
+        f"{serve['peak_mem_gb']:.2f} GB")
+    if cfg.encoder is not None:
+        log(f"  the encoder over the {len(enc_ms)} packs with a first row (2 rows x "
+            f"{cfg.encoder.cross_attn_memory} frames, CUDA events around it): ms "
+            f"{[round(x, 3) for x in enc_ms]}")
+    else:
+        log(f"  {len(packs)} packs carried the patch prefix; {mixed} of them mixed a first "
+            f"chunk (starts 0, prefix live) with a later chunk (starts > 0, prefix dead)")
+    log(f"  launches on the serving run: {launches}, chunked attention by path {attn_paths} "
+        f"(head dim {cfg.head_dim}), flash by path {flash_paths}")
+    if profile:     # short: the profiler's cost grows with these models' many small ops
+        preqs = [Request(req_id=f"p{i}", prompt_tokens=p, max_new_tokens=2)
+                 for i, p in enumerate(prompts(rng, 2))]
+        for r, (key, v) in zip(preqs, extras):
+            eng.extras[(r.req_id, key)] = v
+        serve["profile"] = profile_window(lambda: eng.generate(preqs),
+                                          f"{cfg.name}: 2 requests x 2 tokens")
+    streams = [(r.prompt_tokens, list(r.generated)) for r in reqs]
+    return serve, launches, streams, extras
+
+
+def run_mm_generation(dev, model, params, streams, extras):
+    """Phase 11's generation API: ``prefill`` of the serving run's prompts
+    (right-padded) with their frames or patches into the dense cache, copied
+    into the paged pool (the cross cache too), then GEN_STEPS greedy
+    ``decode_step``s over it (paged decode; cross attention reads the cross
+    cache). Flash attention (the encoder, cross attention, the prefill) on
+    mma only, and paged decode, launched."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models import RunCtx
+    cfg = model.cfg
+    ps, off = 16, cfg.vision.n_patches if cfg.vision is not None else 0
+    M = cfg.encoder.cross_attn_memory if cfg.encoder is not None else 0
+    lens = [len(p) for p, _ in streams]
+    B, S = len(lens), max(lens)
+    maxp = -(-(off + S + GEN_STEPS) // ps)
+    toks = np.zeros((B, S), np.int32)
+    for b, (p, _) in enumerate(streams):
+        toks[b, :len(p)] = p
+    batch = dict(tokens=torch.from_numpy(toks).to(dev), **mm_batch_extras(cfg, extras, dev))
+    last = torch.tensor(lens, dtype=torch.int64, device=dev) - 1
+    pt = (torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp) + 1)
+    ctx = RunCtx()
+
+    def generate(n_steps):
+        dense = model.init_cache(B, maxp * ps, torch.bfloat16, memory_len=M, device=dev)
+        paged = model.init_cache(B, maxp * ps, torch.bfloat16, kind="paged", page_size=ps,
+                                 num_pages=B * maxp + 1, memory_len=M, device=dev)
+        out, times = [], []
+        t0 = time.perf_counter()
+        lg, dense = model.prefill(params, batch, dense, ctx, last_pos=last)
+        nxt = lg.argmax(-1)
+        fill_pool_from_ring(paged, dense, pt, ps)
+        copy_cross(paged, dense)
+        del dense
+        out.append(nxt.cpu())
+        times.append(time.perf_counter() - t0)
+        pos = last.to(torch.int32) + 1 + off
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            lg, paged = model.decode_step(params, nxt[:, None].to(torch.int32), paged, pos, ctx,
+                                          page_table=pt, lengths=pos + 1)
+            nxt = lg.argmax(-1)
+            out.append(nxt.cpu())
+            times.append(time.perf_counter() - t0)
+            pos = pos + 1
+        return torch.stack(out, 1), times
+
+    with torch.inference_mode():
+        generate(2)
+        torch.cuda.synchronize()
+        for fn in (flash_attention_cuda, paged_attention_cuda):
+            fn.launches = 0
+        flash_attention_cuda.launches_by_path = dict.fromkeys(
+            flash_attention_cuda.launches_by_path, 0)
+        gen, times = generate(GEN_STEPS)
+        torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "paged_attention": paged_attention_cuda.launches}
+    flash_paths = dict(flash_attention_cuda.launches_by_path)
+    assert launches["flash_attention"] > 0 and launches["paged_attention"] > 0, \
+        f"{cfg.name}: a kernel never ran on the generation path: {launches}"
+    assert flash_paths["mma"] == launches["flash_attention"], \
+        f"{cfg.name}: flash attention left its planned path (bf16: mma): {flash_paths}"
+    assert gen.shape == (B, GEN_STEPS + 1) and ((gen >= 0) & (gen < cfg.vocab)).all()
+    prefill_ms, step_ms = 1e3 * times[0], 1e3 * float(np.mean(times[1:]))
+    agree = []
+    for b, (_, eng) in enumerate(streams):
+        n = 0
+        while n < len(eng) and int(gen[b, n]) == eng[n]:
+            n += 1
+        agree.append(n)
+    res = dict(prompt_tokens=lens, padded_to=S, prefix=off, memory=M, new_tokens=GEN_STEPS,
+               prefill_ms=prefill_ms, decode_step_ms_mean=step_ms,
+               decode_tok_s=B / (step_ms / 1e3), tok_s=B * (GEN_STEPS + 1) / sum(times),
+               launches=launches, flash_launches_by_path=flash_paths,
+               leading_tokens_equal_engine=agree)
+    log(f"  generation API: prefill of {B} prompts {lens} right-padded to {S} "
+        + (f"after {off} patches " if off else f"with {M} frames each ")
+        + f"{prefill_ms:.3f} ms (copy into the pool included); {GEN_STEPS} decode_steps over "
+        f"the paged pool: {step_ms:.3f} ms per step, {res['decode_tok_s']:.2f} tok/s in "
+        f"decode; launches {launches}, flash by path {flash_paths}; leading greedy tokens "
+        f"equal to the engine's stream: {agree} of 32 (printed only)")
+    return res, launches
+
+
+def run_mm_card_vs_cpu(dev, name: str):
+    """Phase 11 (c): ``name`` at depth 2 (encoder depth 2 too), full width,
+    fp32, on the card and on the CPU, on the same inputs: ``decode_chunk``
+    over a pack of sequence 1's first 16 tokens, then a pack that mixes
+    sequence 0's first chunk (16 tokens) with sequence 1's later chunk
+    (starts 16, 5 tokens) with their frames / patches, then a decode sweep;
+    ``forward``; ``prefill`` of 16 tokens + 4 ``decode_step``s over the dense
+    cache. Card vs CPU within LOGIT_ATOL with the same argmax; on the card
+    the paths' logits also within LOGIT_ATOL of ``forward``'s at the same
+    positions. Returns (card vs CPU, card paths vs forward)."""
+    from repro_torch.models import RunCtx, build_model
+    from repro_torch.models.params import map_tree
+    cfg = mm_config(name, 2)
+    model = build_model(cfg)
+    params = model.init_params(0, device=dev, dtype=torch.float32)
+    cpu_params = map_tree(lambda t: t.cpu(), params)
+    off = cfg.vision.n_patches if cfg.vision is not None else 0
+    rng = np.random.default_rng(0)
+    ps, C, gen, n = 16, 16, 4, 22
+    seq = rng.integers(1, 32000, (2, n)).astype(np.int32)
+    extras = mm_extras(cfg, 2, seed=4)
+    maxp = -(-(off + n) // ps)
+    pt = np.stack([np.arange(1, 1 + maxp), np.arange(1 + maxp, 1 + 2 * maxp)]).astype(np.int32)
+    pad = np.zeros((1, C), np.int32)
+    # (tokens, starts, nvalid, slots, page-table rows, the rows' extras or None)
+    calls = [(np.concatenate([seq[1:, :C], pad]), [0, 0], [C, 0], [1, 0], [1, 0], [1, None]),
+             (np.stack([seq[0, :C], np.r_[seq[1, C:C + 5], [0] * (C - 5)]]), [0, C], [C, 5],
+              [0, 1], [0, 1], [0, 1]),
+             (np.array([[seq[0, C]], [seq[1, C + 5]]], np.int32), [C, C + 5], [1, 1], [0, 1],
+              [0, 1], None)]
+    logits = {}
+    for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
+        out = {}
+        with torch.inference_mode():
+            cache = model.init_cache(2, off + n, kind="paged", page_size=ps,
+                                     num_pages=2 * maxp + 1, device=where)
+            for i, (tok, st, nv, slots, rows, ext) in enumerate(calls):
+                st, nv = np.asarray(st, np.int32), np.asarray(nv, np.int32)
+                t = [torch.from_numpy(a).to(where)
+                     for a in (tok, st, nv, np.asarray(slots, np.int32), (st == 0) & (nv > 0),
+                               np.where(nv[:, None] > 0, pt[rows], 0).astype(np.int32))]
+                kw = {}
+                if ext is not None:
+                    kw = mm_batch_extras(cfg, [extras[j] if j is not None else
+                                               (extras[0][0], 0 * extras[0][1]) for j in ext],
+                                         where)
+                lg, cache = model.decode_chunk(p, *t[:1], cache, *t[1:5], RunCtx(), t[5], **kw)
+                out[f"decode_chunk {i}"] = lg[torch.from_numpy(nv > 0).to(where)]
+            batch = dict(tokens=torch.from_numpy(seq).to(where),
+                         **mm_batch_extras(cfg, extras, where))
+            out["forward"], _ = model.forward(p, batch, RunCtx())
+            M = cfg.encoder.cross_attn_memory if cfg.encoder is not None else 0
+            dense = model.init_cache(2, off + n, memory_len=M, device=where)
+            out["prefill"], dense = model.prefill(p, dict(batch, tokens=batch["tokens"][:, :C]),
+                                                  dense, RunCtx())
+            for i in range(gen):
+                pos = torch.full((2,), off + C + i, dtype=torch.int32, device=where)
+                out[f"decode_step {i}"], dense = model.decode_step(
+                    p, batch["tokens"][:, C + i:C + i + 1], dense, pos, RunCtx())
+        logits[key] = {k: v.float().cpu() for k, v in out.items()}
+    worst = 0.0
+    for k, a in logits["card"].items():
+        b = logits["cpu"][k]
+        assert torch.isfinite(a).all() and a.shape[-1] == cfg.vocab, k
+        err = max_err(a, b)
+        worst = max(worst, err)
+        assert err < LOGIT_ATOL, f"{name} {k}: card vs CPU logits differ by {err}"
+        assert torch.equal(a.argmax(-1), b.argmax(-1)), f"{name} {k}: argmax differs"
+    card, fwd = logits["card"], logits["card"]["forward"]
+    pairs = [(card["decode_chunk 0"][0], fwd[1, off + C - 1]),
+             (card["decode_chunk 1"][0], fwd[0, off + C - 1]),
+             (card["decode_chunk 1"][1], fwd[1, off + C + 4]),
+             (card["decode_chunk 2"][0], fwd[0, off + C]),
+             (card["decode_chunk 2"][1], fwd[1, off + C + 5]),
+             (card["prefill"], fwd[:, off + C - 1])]
+    pairs += [(card[f"decode_step {i}"], fwd[:, off + C + i]) for i in range(gen)]
+    cross = max(max_err(a, b) for a, b in pairs)
+    assert cross < LOGIT_ATOL, f"{name}: paths disagree with forward on the card by {cross}"
+    log(f"  {name} depth 2 (encoder 2), full width, fp32, card vs CPU: decode_chunk (a first "
+        f"chunk; a pack mixing a first chunk with a later one, "
+        + ("frames" if cfg.encoder is not None else f"{off}-patch prefix")
+        + f"; a decode sweep), forward, prefill + {gen} decode_steps: max |dlogit| = "
+        f"{worst:.3g} < {LOGIT_ATOL}, argmax equal; on the card vs forward at the same "
+        f"positions: {cross:.3g}")
+    return worst, cross
+
+
 # ------------------------------------------------------------------ phase 8
 
 def pct(values, q: float) -> float:
@@ -2109,7 +2571,10 @@ def profile_window(fn, what: str):
     """torch.profiler over one call of ``fn``: device time by kernel name
     and the device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the window reads the kernels' device time, and
+    # host op events (one per op of the models' many small ones) would only
+    # lengthen the trace and its post-processing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2238,6 +2703,30 @@ def main() -> int:
     del model, params
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 11: enc-dec ({MM_SEAMLESS}) and VLM ({MM_VISION}) at full width and depth: "
+        f"serving with frames / patches, the generation API, then card vs CPU at depth 2")
+    t0 = time.perf_counter()
+    mm, mm_launches = {}, {}
+    for name in (MM_SEAMLESS, MM_VISION):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, params, info = build_mm(dev, name)
+        mm_serve, serve_launches, streams, extras = run_mm_serving(dev, args.profile, model,
+                                                                   params)
+        mm_gen, gen_launches = run_mm_generation(dev, model, params, streams, extras)
+        mm_launches[name] = {k: serve_launches.get(k, 0) + gen_launches.get(k, 0)
+                             for k in set(serve_launches) | set(gen_launches)}
+        mm[name] = dict(info, serve=mm_serve, generation=mm_gen)
+        del model, params, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+    recording.close()            # (c)'s fp32 depth-2 calls check the card; they serve nothing
+    mm_checks = {name: run_mm_card_vs_cpu(dev, name) for name in (MM_SEAMLESS, MM_VISION)}
+    recording = contextlib.ExitStack()
+    recording.enter_context(served_shapes())
+    torch.cuda.empty_cache()
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
     log("phase 6: full-depth mamba2 serving (bf16), then its generation API")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -2268,7 +2757,7 @@ def main() -> int:
     recording.close()
 
     unchecked = {k: sorted(SERVED[k] - CHECKED[k]) for k in SERVED}
-    log("call shapes of the main paths (phases 4-9) against phase 2's: "
+    log("call shapes of the main paths (phases 4-9, 11) against phase 2's: "
         + "; ".join(f"{k} {len(SERVED[k])} served, {len(CHECKED[k])} checked"
                     for k in SERVED))
     assert not any(unchecked.values()), \
@@ -2296,6 +2785,8 @@ def main() -> int:
                             bound_by=row["bound_by"], library_ms=row["library_ms"],
                             stack_launches=stack_launches[name],
                             spec_launches=spec_launches.get(name, 0),
+                            encdec_launches=mm_launches[MM_SEAMLESS].get(name, 0),
+                            vlm_launches=mm_launches[MM_VISION].get(name, 0),
                             shape=f"{case} bf16: {row['shape']}"))
     if args.out:
         out = Path(args.out)
@@ -2310,6 +2801,7 @@ def main() -> int:
                                        mamba_generation=mamba_generation,
                                        int8_serve=int8_serve, int8_generation=int8_generation,
                                        stack=stack, spec=spec, int8_spec=int8_spec,
+                                       encdec_vlm=mm, encdec_vlm_card_vs_cpu=mm_checks,
                                        served_shapes={k: sorted(v) for k, v in SERVED.items()},
                                        kernels=kernels),
                                   indent=1))

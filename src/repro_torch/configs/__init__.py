@@ -9,7 +9,11 @@ embeddings, gelu), ``mamba2-1.3b`` (the SSM family: SSD layers only) and
 every other layer), and the other decoder-only configurations of the
 reference: ``yi-6b`` and ``phi3-mini-3.8b`` (dense, GQA and MHA),
 ``dbrx-132b`` (16 experts top-4) and ``deepseek-moe-16b`` (a dense first
-layer, then 64 routed experts top-6 beside 2 shared ones).
+layer, then 64 routed experts top-6 beside 2 shared ones), and the two
+multimodal ones: ``seamless-m4t-large-v2`` (enc-dec: a bidirectional
+encoder over stub frame embeddings, cross attention in every decoder
+layer) and ``phi-3-vision-4.2b`` (VLM: stub patch embeddings projected
+into a prefix of the phi3-mini backbone). These are the reference's 11.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ _MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "dbrx-132b": "dbrx_132b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)
@@ -84,6 +90,8 @@ def tiny_config(name: str, *, seq_len: int = 64) -> ModelConfig:
         if cfg.ssm
         else None
     )
+    enc = dataclasses.replace(cfg.encoder, n_layers=2, cross_attn_memory=32) if cfg.encoder else None
+    vis = dataclasses.replace(cfg.vision, n_patches=8, d_patch=48) if cfg.vision else None
     return cfg.scaled(
         name=cfg.name + "-tiny",
         n_layers=n_layers,
@@ -97,5 +105,7 @@ def tiny_config(name: str, *, seq_len: int = 64) -> ModelConfig:
         sliding_window=min(cfg.sliding_window, seq_len // 4) if cfg.sliding_window else 0,
         moe=moe,
         ssm=ssm,
+        encoder=enc,
+        vision=vis,
         layer_groups=groups,
     )

@@ -20,6 +20,16 @@ names its slot and whether it carries the sequence's first chunk (which
 resets that state). The prefix cache is off for them, since a page does not
 capture an SSM layer's state.
 
+Enc-dec and VLM requests carry their stub frontend's output in
+``engine.extras[(req_id, "frames" | "patches")]`` ((1, T, d_model) frames,
+(1, n_patches, d_patch) patches). A pack with a first chunk passes every
+row's frames (cropped or zero-padded to ``cross_attn_memory``) or patches
+to ``decode_chunk``; the encoder's keys and values then live in the slot's
+cross cache, the patch prefix's KV in the slot's first pages. A VLM's
+prefix shifts every KV position by ``n_patches`` (``pos_offset``), which
+every page and max_seq check counts. The prefix cache is off for both
+families: a page captures neither the cross KV nor the shifted positions.
+
 Speculative decoding (``enable_speculative``) runs on the same chunk path:
 a slot's decode row feeds [last_token, d_1 .. d_k], prompt-lookup drafts of
 its own history (``core.spec``), the head scores every fed position and
@@ -30,15 +40,14 @@ off for SSM and hybrid models, whose recurrent state cannot be rolled back.
 On the card the attention, expert matmuls and SSD scan run the port's CUDA
 kernels. The engine runs on ``cuda`` unless ``EngineConfig.device`` says
 otherwise. The fault injector's per-step hook, the host-overhead knob and the
-step fence are the reference's; the enc-dec / VLM serving paths of the
-reference come with a later slice.
+step fence are the reference's.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -130,16 +139,20 @@ class InferenceEngine:
         self.cfg = cfg
         self.tracer = tracer
         self.ctx = ctx or RunCtx()
+        cfgm = model.cfg
+        self.pos_offset = cfgm.vision.n_patches if cfgm.vision is not None else 0
         self.chunk = min(cfg.prefill_chunk, cfg.max_seq)
         self.token_budget = max(cfg.token_budget or (cfg.max_slots + 2 * self.chunk),
                                 cfg.max_slots + 1)
         self.chunk_rows = max(1, min(self.token_budget // self.chunk, cfg.max_slots))
         self.allocator = PagedAllocator(cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq)
         # prefix sharing is only sound when a page fully captures a token
-        # range's state: an SSM layer carries recurrent state instead
-        has_ssm = any("M" in g.pattern for g in model.cfg.layer_groups)
-        self.prefix_cache = (PrefixCache(self.allocator)
-                             if cfg.enable_prefix_cache and not has_ssm else None)
+        # range's state: an SSM layer carries recurrent state, an enc-dec
+        # model cross KV, and a VLM's patch prefix shifts the KV positions
+        has_ssm = any("M" in g.pattern for g in cfgm.layer_groups)
+        prefix_ok = (cfg.enable_prefix_cache and not has_ssm
+                     and cfgm.encoder is None and cfgm.vision is None)
+        self.prefix_cache = PrefixCache(self.allocator) if prefix_ok else None
         # speculative decoding rolls KV back by a pure length decrement:
         # sound for paged attention (pages are append-only and masked by
         # ``lengths``), unsound for an SSM layer's conv + recurrent carry
@@ -160,11 +173,12 @@ class InferenceEngine:
             self._spec_widths.append(1 + self.spec_kmax)
         self.scheduler = ContinuousBatchScheduler(
             cfg.max_slots, self.allocator, policy=cfg.scheduler, max_seq=cfg.max_seq,
-            prefix_cache=self.prefix_cache, tracer=tracer)
+            kv_extra=self.pos_offset, prefix_cache=self.prefix_cache, tracer=tracer)
         self.cache = model.init_cache(
             cfg.max_slots, cfg.max_seq, cfg.cache_dtype, kind="paged",
             page_size=cfg.page_size, num_pages=cfg.num_pages, device=self.device)
         self.page_table = np.zeros((cfg.max_slots, cfg.max_pages_per_seq), np.int32)
+        self.extras: Dict[Tuple[str, str], Any] = {}   # frames / patches per request
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(cfg.seed)
         # resilience hooks: a FaultInjector evaluated at the top of every step
@@ -192,10 +206,11 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- model call
     def _run(self, tokens, starts, nvalid, slots, first, page_table,
-             spec: bool = False) -> np.ndarray:
+             spec: bool = False, frames=None, patches=None) -> np.ndarray:
         """One fused iteration over a packed batch of per-sequence chunks
-        (decode == chunk of 1). Returns the next token per row (0 for
-        inactive rows) on the host. With ``spec`` (the speculative decode
+        (decode == chunk of 1), with a pack's ``frames`` / ``patches``
+        (``_row_extras``). Returns the next token per row (0 for inactive
+        rows) on the host. With ``spec`` (the speculative decode
         sweep) every row fed [last_token, d_1 .. d_k], the head scores every
         fed position and ``verify_draft`` turns the logits into the accepted
         prefix's length and the token to commit after it: returns (2, rows),
@@ -205,7 +220,8 @@ class InferenceEngine:
         cfg = self.cfg
         with torch.inference_mode():
             logits, self.cache = self.model.decode_chunk(
-                self.params, tk, self.cache, st, nv, sl, fi, self.ctx, pt, all_logits=spec)
+                self.params, tk, self.cache, st, nv, sl, fi, self.ctx, pt, frames=frames,
+                patches=patches, all_logits=spec)
             if spec:
                 n_acc, nxt = verify_draft(logits, tk, nv, self._gen, cfg.temperature,
                                           cfg.top_p, cfg.greedy)
@@ -258,6 +274,32 @@ class InferenceEngine:
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
+
+    def _row_extras(self, grants, B: int):
+        """A pack's encoder frames (B, cross_attn_memory, d_model), each row's
+        cropped or zero-padded, and vision patches (B, n_patches, d_patch),
+        on the device; zeros on rows whose request has none. (None, None)
+        parts for a config without that frontend."""
+        cfgm = self.model.cfg
+        frames = patches = None
+        if cfgm.encoder is not None:
+            M = cfgm.encoder.cross_attn_memory
+            fr = np.zeros((B, M, cfgm.d_model), np.float32)
+            for i, (st, _) in enumerate(grants):
+                v = self.extras.get((st.request.req_id, "frames"))
+                if v is not None:
+                    v = np.asarray(v)[0]
+                    m = min(M, v.shape[0])
+                    fr[i, :m] = v[:m]
+            frames = torch.from_numpy(fr).to(self.device)
+        if cfgm.vision is not None:
+            pa = np.zeros((B, cfgm.vision.n_patches, cfgm.vision.d_patch), np.float32)
+            for i, (st, _) in enumerate(grants):
+                v = self.extras.get((st.request.req_id, "patches"))
+                if v is not None:
+                    pa[i] = np.asarray(v)[0]
+            patches = torch.from_numpy(pa).to(self.device)
+        return frames, patches
 
     # ------------------------------------------------------------- step
     def step(self) -> List[TokenEvent]:
@@ -314,6 +356,7 @@ class InferenceEngine:
         for slot, req in self.scheduler.expire_deadlines(now()):
             if slot is not None:
                 self.page_table[slot] = 0
+            self._drop_extras(req.req_id)
             t_exp = now()
             req.error = "deadline_exceeded"
             req.finished = True
@@ -336,7 +379,7 @@ class InferenceEngine:
             if tr:
                 tr.end(r.req_id, "queue", cached_tokens=st.cached_tokens,
                        resumed=bool(r.generated))
-            if st.feed_len >= cfg.max_seq:
+            if st.feed_len + self.pos_offset >= cfg.max_seq:
                 # prompt can never fit max_seq: fail fast with zero tokens;
                 # the terminal event tells consumers the request is over
                 self._finish(st)
@@ -356,8 +399,8 @@ class InferenceEngine:
                 # trie-registered page in that range must be detached first.
                 # On failure the slot waits, but pairs for blocks already
                 # detached stay queued in ``copies``.
-                lo = st.fed // cfg.page_size
-                hi = (st.fed + n - 1) // cfg.page_size
+                lo = (self.pos_offset + st.fed) // cfg.page_size
+                hi = (self.pos_offset + st.fed + n - 1) // cfg.page_size
                 n_cow = len(copies)
                 writable = self.scheduler.make_writable(st.slot, lo, hi, copies)
                 if tr and len(copies) > n_cow:
@@ -394,7 +437,12 @@ class InferenceEngine:
             spare = [s for s in range(cfg.max_slots) if s not in used]
             for i in range(len(grants), B):
                 slots[i] = spare.pop()
-            nxt = self._run(tokens, starts, nvalid, slots, first, pt)
+            # frames and patches matter only on a row's first chunk (the
+            # cross KV persists in the slot, the prefix KV in its pages):
+            # a pack without one skips the encoder and the prefix
+            frames, patches = self._row_extras(grants, B) if first.any() else (None, None)
+            nxt = self._run(tokens, starts, nvalid, slots, first, pt, frames=frames,
+                            patches=patches)
             t_emit = now()
             for i, (st, n) in enumerate(grants):
                 st.fed += n
@@ -431,7 +479,7 @@ class InferenceEngine:
         drafts: Dict[int, List[int]] = {}
         if self.spec_on and not self.degraded:             # brown-out: no drafting
             for st in decode_sts:
-                g = min(plan.draft.get(st.slot, 0), cfg.max_seq - 1 - st.fed)
+                g = min(plan.draft.get(st.slot, 0), cfg.max_seq - 1 - self.pos_offset - st.fed)
                 if g > 0:
                     d = self.draft_source.propose(st.all_tokens, g)
                     if d:
@@ -453,8 +501,8 @@ class InferenceEngine:
             if self.prefix_cache is not None:
                 # the row writes kv positions [fed, fed + k_i]: a draft can
                 # reach into a shared or registered page past the first
-                lo = st.fed // cfg.page_size
-                hi = (st.fed + k_i) // cfg.page_size
+                lo = (self.pos_offset + st.fed) // cfg.page_size
+                hi = (self.pos_offset + st.fed + k_i) // cfg.page_size
                 n_cow = len(dec_copies)
                 writable = self.scheduler.make_writable(st.slot, lo, hi, dec_copies)
                 if tr and len(dec_copies) > n_cow:
@@ -587,7 +635,10 @@ class InferenceEngine:
                 # decode write (position fed), drop pages grown only for
                 # rejected drafts. Never touches registered prompt blocks:
                 # they precede fed by construction
-                self.scheduler.shrink_to_tokens(st.slot, st.fed + 1)
+                # (pos_offset counted here and again as the scheduler's
+                # kv_extra, as the reference does: a VLM slot keeps up to
+                # one prefix's worth of pages more)
+                self.scheduler.shrink_to_tokens(st.slot, self.pos_offset + st.fed + 1)
         return iter_tokens
 
     def _check_finished(self, st: SlotState, tok: int) -> bool:
@@ -596,14 +647,19 @@ class InferenceEngine:
             return True
         if self.cfg.eos_id >= 0 and tok == self.cfg.eos_id:
             return True
-        if st.fed + 1 >= self.cfg.max_seq:
-            return True                   # kv budget
+        if st.fed + 1 + self.pos_offset >= self.cfg.max_seq:
+            return True                   # kv budget, a vision prefix included
         return False
+
+    def _drop_extras(self, req_id: str) -> None:
+        self.extras.pop((req_id, "frames"), None)
+        self.extras.pop((req_id, "patches"), None)
 
     def _finish(self, st: SlotState) -> None:
         st.request.finished = True
         st.request.t3 = now()
         self.scheduler.finish(st.slot)
+        self._drop_extras(st.request.req_id)
 
     def stats(self) -> Dict[str, float]:
         """Cumulative engine counters (prefix cache, COW, eviction) for the
@@ -638,11 +694,13 @@ class InferenceEngine:
         for i, r in enumerate(self.scheduler.waiting):
             if r.req_id == req_id:
                 del self.scheduler.waiting[i]
+                self._drop_extras(req_id)
                 return True
         for slot, st in list(self.scheduler.running.items()):
             if st.request.req_id == req_id:
                 self.scheduler.finish(slot)
                 self.page_table[slot] = 0
+                self._drop_extras(req_id)
                 return True
         return False
 

@@ -20,7 +20,10 @@
 // staged KV tile serve every query head of its GQA group and every token of
 // the chunk; the public layout stays (B, C, H, D). A block reads its own
 // starts / lengths / page ids; key positions map to (page, slot) one by
-// one, so any page size works.
+// one, so any page size works. Head dims 16, 64, 96 and 128 (tiny test
+// configs, seamless-m4t, phi3 and phi-3-vision, the rest): the P V products
+// of the tiled and split kernels give a thread the outputs at flat indices
+// tid + 128 i, so a head dim need not divide the block (96 does not).
 //
 // What bounds it on the card: bytes at decode (C * G folded rows a KV head
 // read every visible key once: 2 * C * G flop a byte, far below the H100's
@@ -68,10 +71,12 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
     const int* __restrict__ page_table, const int* __restrict__ lengths,
     const int* __restrict__ starts, TQ* __restrict__ out, int C, int H, int Hkv, int ps,
     int maxp, float scale, float softcap, int window) {
-  static_assert(kThreads % D == 0, "head_dim must divide the block size");
-  constexpr int kGroups = kThreads / D;       // row groups in the PV product
-  constexpr int kPerThread = kRows / kGroups;  // accumulator rows per thread
-  static_assert(kRows % kGroups == 0, "row tile must split over row groups");
+  // P V: a thread owns the outputs at flat indices tid + kThreads i of the
+  // tile's kRows x D values (row e / D, column e % D): one column and rows
+  // tid / D + i kThreads / D where D divides the block, else (D = 96) a
+  // column that moves with i
+  static_assert(kRows * D % kThreads == 0, "the tile's outputs must split over the block");
+  constexpr int kPerThread = kRows * D / kThreads;   // accumulators a thread
 
   __shared__ float qs[kRows][D + 1];
   __shared__ float ks[kKeys][D + 1];
@@ -96,7 +101,6 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
     m_s[row] = kNegBig;
     l_s[row] = 0.f;
   }
-  const int dcol = tid % D, rgroup = tid / D;
   float acc[kPerThread];
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) acc[i] = 0.f;
@@ -165,10 +169,10 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
 
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) {
-        const int row = rgroup + i * kGroups;
+        const int e = tid + i * kThreads, row = e / D, col = e % D;
         if (row < nr) {
           float o = acc[i] * a_s[row];
-          for (int j = 0; j < nk; ++j) o = fmaf(ps_[row][j], vs[j][dcol], o);
+          for (int j = 0; j < nk; ++j) o = fmaf(ps_[row][j], vs[j][col], o);
           acc[i] = o;
         }
       }
@@ -178,11 +182,11 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
 
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
-    const int row = rgroup + i * kGroups;
+    const int e = tid + i * kThreads, row = e / D;
     if (row < nr) {
       const float l = l_s[row];
       const int r = r0 + row, c = r / G, g = r % G;
-      out[((static_cast<size_t>(b) * C + c) * H + h * G + g) * D + dcol] =
+      out[((static_cast<size_t>(b) * C + c) * H + h * G + g) * D + e % D] =
           from_f32<TQ>(l > 0.f ? acc[i] / l : 0.f);
     }
   }
@@ -300,9 +304,13 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
   constexpr int kPer = 16 / static_cast<int>(sizeof(TKV));            // elements a 16-byte chunk
   constexpr int kChunksRow = D / kPer;                                // chunks a key row
   constexpr int kRowsWarp = (MR + kSplitWarps - 1) / kSplitWarps;     // score rows a warp
-  constexpr int kGroups = kSplitThreads / D;                          // P V row groups
-  constexpr int kRowsPV = (MR + kGroups - 1) / kGroups;               // P V rows a thread
-  static_assert(kSplitThreads % D == 0 && D % 8 == 0, "head_dim must divide the block");
+  // P V: a thread owns the outputs at flat indices tid + kSplitThreads i of
+  // the MR x D values (row e / D, column e % D). Where D divides the block
+  // they share one column, whose V values a key step loads once; at D = 96
+  // the column moves with i
+  constexpr int kItemsPV = (MR * D + kSplitThreads - 1) / kSplitThreads;
+  constexpr bool kOneCol = kSplitThreads % D == 0;
+  static_assert(D % 8 == 0, "head_dim must be a whole number of 16-byte chunks");
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int G = H / Hkv, R = C * G, cap = maxp * ps;
@@ -359,11 +367,9 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
     m_run[i] = kNegBig;
     l_run[i] = 0.f;
   }
-  // P V: the thread's column dcol of rows rgroup + kGroups i
-  const int dcol = tid % D, rgroup = tid / D;
-  float acc[kRowsPV];
+  float acc[kItemsPV];
 #pragma unroll
-  for (int i = 0; i < kRowsPV; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kItemsPV; ++i) acc[i] = 0.f;
 
   for (int t = 0; t < tiles; ++t) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -430,19 +436,25 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
     __syncthreads();
 
 #pragma unroll
-    for (int i = 0; i < kRowsPV; ++i) {
-      const int r = rgroup + i * kGroups;
+    for (int i = 0; i < kItemsPV; ++i) {
+      const int r = (tid + i * kSplitThreads) / D;
       if (r < R) acc[i] *= alpha_s[r];
     }
 #pragma unroll 2
     for (int j = 0; j < kSplitKeys; j += 4) {
       float v[4];
+      if constexpr (kOneCol) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = to_f32(vs[(j + u) * S::kRow + dcol]);
+        for (int u = 0; u < 4; ++u) v[u] = to_f32(vs[(j + u) * S::kRow + tid % D]);
+      }
 #pragma unroll
-      for (int i = 0; i < kRowsPV; ++i) {
-        const int r = rgroup + i * kGroups;
+      for (int i = 0; i < kItemsPV; ++i) {
+        const int e = tid + i * kSplitThreads, r = e / D;
         if (r < R) {
+          if constexpr (!kOneCol) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) v[u] = to_f32(vs[(j + u) * S::kRow + e % D]);
+          }
           const float4 p = *reinterpret_cast<const float4*>(pr + r * kSplitKeys + j);
           float a = fmaf(p.x, v[0], acc[i]);
           a = fmaf(p.y, v[1], a);
@@ -457,9 +469,9 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
 
   const size_t part = (static_cast<size_t>(b) * Hkv + h) * splits + split;
 #pragma unroll
-  for (int i = 0; i < kRowsPV; ++i) {
-    const int r = rgroup + i * kGroups;
-    if (r < R) part_acc[(part * R + r) * D + dcol] = acc[i];
+  for (int i = 0; i < kItemsPV; ++i) {
+    const int e = tid + i * kSplitThreads, r = e / D;
+    if (r < R) part_acc[(part * R + r) * D + e % D] = acc[i];
   }
   if (lane == 0) {
 #pragma unroll
@@ -662,6 +674,14 @@ extern "C" int chunked_prefill_launch(int path, int splits, const void* q, const
       switch (D) {
         case 16:
           return launch_path<TQ, TKV, 16>(path, splits, q, kp, vp, page_table, lengths, starts,
+                                          out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
+                                          softcap, window, s);
+        case 64:
+          return launch_path<TQ, TKV, 64>(path, splits, q, kp, vp, page_table, lengths, starts,
+                                          out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
+                                          softcap, window, s);
+        case 96:
+          return launch_path<TQ, TKV, 96>(path, splits, q, kp, vp, page_table, lengths, starts,
                                           out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
                                           softcap, window, s);
         case 128:

@@ -9,6 +9,9 @@
 // scores are scaled, optionally softcapped, and reduced with an fp32 online
 // softmax; a row with no visible key gives zeros. GQA by index: query head
 // h reads kv head h / (H / Hkv), so grouped K/V is never materialised.
+// Head dims 16, 64, 96 and 128. Besides causal self attention it serves
+// seamless-m4t's encoder (bidirectional, Sq = Skv) and cross attention
+// (not causal, Sq != Skv: a chunk or one token against the memory).
 //
 // What bounds it on the card: at the prefill shapes of the serving path
 // (a few hundred tokens, D = 128) the operations (4*D per visible
@@ -83,8 +86,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int Sq, int Skv, int H, int Hkv, float scale, float softcap,
     int causal, int window, int q_offset) {
-  constexpr int kVec = (D / kColGroups) >= 4 ? 4 : D / kColGroups;  // D=128: 4, D=16: 2
-  constexpr int kChunks = D / (kColGroups * kVec);                  // D=128: 4, D=16: 1
+  constexpr int kVec = (D / kColGroups) >= 4 ? 4 : D / kColGroups;  // 4 from D = 32, D=16: 2
+  constexpr int kChunks = D / (kColGroups * kVec);                  // D / 32, D=16: 1
   static_assert(D % (kColGroups * kVec) == 0, "head_dim must split over the row group");
   extern __shared__ float4 smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
@@ -320,6 +323,10 @@ extern "C" int flash_attention_launch(int path, const void* q, const void* k, co
     using T = std::remove_pointer_t<decltype(t)>;
     switch (D) {
       case 16: return launch_path<T, 16>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
+                                         causal, window, q_offset, s);
+      case 64: return launch_path<T, 64>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
+                                         causal, window, q_offset, s);
+      case 96: return launch_path<T, 96>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
                                          causal, window, q_offset, s);
       case 128: return launch_path<T, 128>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale,
                                            softcap, causal, window, q_offset, s);

@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels.build import load_library
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 128)    # the tiny test configs' and Mixtral / Qwen / Gemma2's
+HEAD_DIMS = (16, 64, 96, 128)   # tiny test configs; seamless; phi3 / phi-3-vision; Mixtral
 PATHS = ("tiled", "mma")  # codes 0..1 of csrc/flash_attention.cu
 # constants of csrc/flash_attention.cu (checked at load, in
 # flash_attention_constants' order)

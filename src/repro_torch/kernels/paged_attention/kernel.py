@@ -51,7 +51,7 @@ import torch
 from repro_torch.kernels.build import load_library
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 128)    # the tiny test configs' and Mixtral / Qwen / Gemma2's
+HEAD_DIMS = (16, 64, 96, 128)   # tiny test configs; seamless; phi3 / phi-3-vision; Mixtral
 PATHS = ("tiled", "split", "mma")   # codes 0..2 of csrc/chunked_prefill.cu
 # constants of csrc/chunked_prefill.cu (checked at load, in
 # chunked_prefill_constants' order)

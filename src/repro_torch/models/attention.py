@@ -1,6 +1,7 @@
 """GQA attention sublayer: train / prefill / chunk (paged serving) / decode
-(dense ring-buffer cache or paged cache). One code path per mode, shared
-projections, as in the reference.
+(dense ring-buffer cache or paged cache) / cross attention / the
+bidirectional encoder. One code path per mode, shared projections, as in
+the reference.
 
 Cache formats (per layer, one repeat of the stacked cache):
   dense: {"k": (B, W, Hkv, hd), "v": ..., "slot_pos": (B, W) int32}
@@ -9,6 +10,8 @@ Cache formats (per layer, one repeat of the stacked cache):
          is W = max_seq (slot == position) through the same code.
   paged: {"kp": (P, ps, Hkv, hd), "vp": ...} plus the caller's page_table /
          lengths.
+  cross: {"ck": (B, M, Hkv, hd), "cv": ...} the encoder memory's keys and
+         values, one row per batch row (dense) or engine slot (paged).
 
 Mode "train" / "prefill" runs flash attention over the whole sequence
 (prefill also writes the ring cache). Mode "decode" takes one new token per
@@ -20,10 +23,16 @@ iteration: each batch row carries a chunk of S tokens of one sequence
 and its queries attend causally over the pool, which then holds the chunk
 itself.
 
+Kind "X" is cross attention over the encoder memory: its keys and values
+are computed from ``memory`` where it is given and persisted in the cross
+cache (at the rows' slots in chunk mode, on rows with a live token), and
+read from the cache where it is not; the queries attend to every memory
+position (flash attention, not causal). Kind "E" is an encoder layer: flash
+attention over the whole frame sequence, not causal, in every mode.
+
 Every cache write is in place (``index_put_`` on the cache's tensors, which
 are views of the stacked per-group cache), where the JAX version returns a
-new cache: the caller owns the only reference to it. Cross attention and
-the bidirectional encoder come with the enc-dec slice.
+new cache: the caller owns the only reference to it.
 """
 from __future__ import annotations
 
@@ -112,31 +121,72 @@ def _write_paged_chunk(cache, k, v, positions, page_table, valid):
     cache["vp"].index_put_((pf, sf), vf)
 
 
+def _cross_attention(p, h, ctx: RunCtx, cfg: ModelConfig, cache, memory, chunk):
+    """Kind "X": queries from h, keys and values of the encoder memory
+    (B, M, d). chunk mode: with ``memory`` (a pack with a first chunk) they
+    are computed and written at the rows' slots where the row feeds a token
+    (other rows keep their slot's values); without it they are gathered
+    from the slots. decode: read from the cache. train / prefill: computed,
+    and written into the cache when there is one."""
+    q = linear(h, p["wq"])
+    if ctx.mode == "chunk":
+        slots = chunk["slots"].long()
+        if memory is not None:
+            ck, cv = linear(memory, p["wk"]), linear(memory, p["wv"])
+            keep = chunk["nvalid"] > 0
+            rows = slots[keep]
+            cache["ck"].index_put_((rows,), ck[keep].to(cache["ck"].dtype))
+            cache["cv"].index_put_((rows,), cv[keep].to(cache["cv"].dtype))
+        else:
+            ck, cv = cache["ck"][slots], cache["cv"][slots]
+    elif cache is not None and ctx.mode == "decode":
+        ck, cv = cache["ck"], cache["cv"]
+    else:
+        ck, cv = linear(memory, p["wk"]), linear(memory, p["wv"])
+        if cache is not None:
+            if cache["ck"].shape != ck.shape:
+                raise ValueError(f"cross cache {tuple(cache['ck'].shape)} does not hold the "
+                                 f"memory's keys {tuple(ck.shape)}: init_cache(memory_len=)")
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
+    o = flash_attention(q, ck.to(q.dtype), cv.to(q.dtype), causal=False,
+                        softcap=cfg.attn_softcap, scale=cfg.head_dim ** -0.5)
+    return _out_proj(p, o)
+
+
 def attention_sublayer(
     p: Dict[str, Any],
     h,                       # normed input (B, S, d)
     ctx: RunCtx,
     cfg: ModelConfig,
-    kind: str,               # 'A' | 'L' | 'G'
+    kind: str,               # 'A' | 'L' | 'G' | 'X' (cross) | 'E' (encoder, bidirectional)
     cache: Optional[Dict[str, Any]] = None,
     positions=None,          # decode: (B,) abs position of the new token;
                              # train / prefill: (S,); chunk: (B, S) absolute
     page_table=None,
     lengths=None,
     valid=None,              # chunk: (B, S) live positions of each row's chunk
+    memory=None,             # cross: encoder output (B, M, d)
+    chunk=None,              # chunk mode: {"slots", "nvalid", ...} of the pack
 ):
     """Returns attn_out (B,S,d); the cache, if any, is updated in place."""
+    if kind == "X":
+        return _cross_attention(p, h, ctx, cfg, cache, memory, chunk)
     window = cfg.sliding_window if kind == "L" else 0
     softcap = cfg.attn_softcap
     scale = cfg.head_dim ** -0.5
     q, k, v = _project_qkv(p, h, cfg)
 
-    if ctx.mode == "chunk":
+    if ctx.mode == "chunk" and kind != "E":       # the encoder runs full-sequence below
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         _write_paged_chunk(cache, k, v, positions, page_table, valid)
+        # a vision patch prefix makes a row's positions non-affine; the
+        # pack then names each row's query positions as the kernel reads
+        # them, affine from the row's first position (chunk["q_positions"])
+        q_positions = positions if chunk is None else chunk.get("q_positions", positions)
         o = chunked_prefill_attention(
-            q, cache["kp"], cache["vp"], page_table, lengths, positions,
+            q, cache["kp"], cache["vp"], page_table, lengths, q_positions,
             scale=scale, softcap=softcap, window=window,
         )
         return _out_proj(p, o)
@@ -158,12 +208,13 @@ def attention_sublayer(
                                    softcap=softcap, scale=scale)
         return _out_proj(p, o)
 
-    # ---------------- train / prefill ----------------
+    # ---------------- train / prefill / encoder ----------------
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True, window=window, softcap=softcap, scale=scale)
+    o = flash_attention(q, k, v, causal=kind != "E", window=window, softcap=softcap,
+                        scale=scale)
     if cache is not None and "k" in cache:                # prefill: persist kv
         _write_ring(cache, k, v, positions)
     return _out_proj(p, o)

@@ -5,8 +5,9 @@ tensors, with repeated layers stacked on a leading ``(R, ...)`` repeat axis
 per layer group and the same leaf names, so a parameter pytree of the JAX
 package maps onto this one leaf for leaf (``params_from_numpy``).
 
-This slice covers the attention families (dense and MoE), the SSM family
-and the hybrid one; the enc-dec and VLM specs come with their chunk paths.
+It covers every family of the reference: dense and MoE attention, the SSM
+and hybrid ones, enc-dec (cross attention leaves ``ln_x`` / ``cross`` on
+each decoder layer, and the ``encoder`` stack) and VLM (``vision_proj``).
 """
 from __future__ import annotations
 
@@ -91,7 +92,7 @@ def _ssm_specs(cfg: ModelConfig, R: int) -> Dict[str, Any]:
     }
 
 
-def _layer_specs(cfg: ModelConfig, kind: str, is_moe: bool, R: int, *,
+def _layer_specs(cfg: ModelConfig, kind: str, is_moe: bool, R: int, *, cross: bool = False,
                  dense_first: bool = False) -> Dict[str, Any]:
     d = cfg.d_model
     spec: Dict[str, Any] = {"ln1": ParamSpec((R, d), ("layers", "embed"), "ones")}
@@ -99,6 +100,9 @@ def _layer_specs(cfg: ModelConfig, kind: str, is_moe: bool, R: int, *,
         spec["ssm"] = _ssm_specs(cfg, R)
     else:
         spec["attn"] = _attn_specs(cfg, R)
+    if cross:
+        spec["ln_x"] = ParamSpec((R, d), ("layers", "embed"), "ones")
+        spec["cross"] = _attn_specs(cfg, R)
     if is_moe and cfg.moe is not None:
         spec["ln2"] = ParamSpec((R, d), ("layers", "embed"), "ones")
         spec["moe"] = _moe_specs(cfg, R)
@@ -110,8 +114,6 @@ def _layer_specs(cfg: ModelConfig, kind: str, is_moe: bool, R: int, *,
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.encoder is not None or cfg.vision is not None:
-        raise NotImplementedError(f"{cfg.name}: enc-dec and VLM layers are not ported yet")
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": {"w": ParamSpec((cfg.vocab, d), ("vocab", "embed"), "normal02")},
@@ -120,14 +122,27 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = {"w": ParamSpec((d, cfg.vocab), ("embed", "vocab"))}
     groups = []
+    cross = cfg.family == "encdec"
     for gi, g in enumerate(cfg.layer_groups):
         layers = []
         for pos, kind in enumerate(g.pattern):
             is_moe = bool(g.moe_mask and g.moe_mask[pos % len(g.moe_mask)] == "1")
             dense_first = (gi == 0 and pos == 0 and cfg.dense_d_ff > 0 and not is_moe)
-            layers.append(_layer_specs(cfg, kind, is_moe, g.repeats, dense_first=dense_first))
+            layers.append(_layer_specs(cfg, kind, is_moe, g.repeats, cross=cross,
+                                       dense_first=dense_first))
         groups.append({"layers": layers})
     specs["groups"] = groups
+    if cfg.encoder is not None:
+        enc_layers = [_layer_specs(cfg, "A", False, cfg.encoder.n_layers)]
+        specs["encoder"] = {
+            "groups": [{"layers": enc_layers}],
+            "final_norm": {"w": ParamSpec((d,), ("embed",), "ones")},
+        }
+    if cfg.vision is not None:
+        specs["vision_proj"] = {
+            "w": ParamSpec((cfg.vision.d_patch, d), (None, "embed")),
+            "b": ParamSpec((d,), ("embed",), "zeros"),
+        }
     return specs
 
 

@@ -11,8 +11,13 @@ reads its leaves through ``linear`` and ``dequant``, so the model computes
 what it computes on ``dequantize_tree`` of that tree, with the large
 matmuls on int8 weights in the w8a16 and grouped matmul kernels. Caches
 are updated in place: ``prefill``, ``decode_step`` and ``decode_chunk``
-return the cache they were given. The enc-dec and VLM families and the
-training ``loss`` come with later slices.
+return the cache they were given.
+
+The enc-dec family (seamless) runs a bidirectional encoder over stub frame
+embeddings (``_encode``) and a cross attention sublayer in every decoder
+layer; the VLM family (phi-3-vision) projects stub patch embeddings into a
+prefix of the sequence (``_patch_prefix``), so text token i sits at
+position ``n_patches + i``. The training ``loss`` comes with a later slice.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerGroup, ModelConfig
 from repro_torch.kernels.quant_matmul import w8a16_matmul
 from repro_torch.models import params as params_lib
 from repro_torch.models.attention import attention_sublayer
@@ -32,8 +37,6 @@ from repro_torch.models.moe import moe_sublayer
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.encoder is not None or cfg.vision is not None:
-            raise NotImplementedError(f"{cfg.name}: the enc-dec and VLM paths are not ported yet")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ params
@@ -46,7 +49,7 @@ class LM:
 
     # ------------------------------------------------------------------ layers
     def _apply_layer(self, p, x, c, *, kind: str, ctx: RunCtx, positions, page_table=None,
-                     lengths=None, valid=None, chunk=None):
+                     lengths=None, valid=None, chunk=None, memory=None):
         """Returns (x, aux): aux is the MoE load-balance loss (0.0 without MoE)."""
         cfg = self.cfg
         aux = 0.0
@@ -55,7 +58,11 @@ class LM:
             x = x + mamba_sublayer(p["ssm"], h, cfg, ctx, c["ssm"] if c else None, chunk)
         else:
             x = x + attention_sublayer(p["attn"], h, ctx, cfg, kind, c["attn"] if c else None,
-                                       positions, page_table, lengths, valid)
+                                       positions, page_table, lengths, valid, chunk=chunk)
+        if "cross" in p:
+            hx = rmsnorm(x, p["ln_x"], cfg.rms_eps)
+            x = x + attention_sublayer(p["cross"], hx, ctx, cfg, "X", c["cross"] if c else None,
+                                       memory=memory, chunk=chunk)
         if "moe" in p:
             h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
             mo, aux = moe_sublayer(p["moe"], h2, cfg, ctx)
@@ -65,12 +72,13 @@ class LM:
             x = x + dense_mlp(p["mlp"], h2, cfg.act)
         return x, aux
 
-    def _run_groups(self, groups_params, x, cache, *, ctx: RunCtx, **kw):
-        """Every layer in order: groups, then repeats, then pattern
+    def _run_groups(self, groups_params, x, cache, *, ctx: RunCtx, layer_groups=None, **kw):
+        """Every layer in order: groups (the config's, unless
+        ``layer_groups`` names others), then repeats, then pattern
         positions. The cache (None for ``forward``) is updated in place.
         Returns (x, aux summed over layers)."""
         aux_total = 0.0
-        for gi, g in enumerate(self.cfg.layer_groups):
+        for gi, g in enumerate(layer_groups or self.cfg.layer_groups):
             gp = groups_params[gi]["layers"]
             gc = cache["groups"][gi] if cache is not None else None
             for r in range(g.repeats):
@@ -97,6 +105,39 @@ class LM:
             x = x * (cfg.d_model ** 0.5)
         return x
 
+    def _patch_prefix(self, params, patches, dtype):
+        """The VLM prefix: stub patch embeddings (B, n_patches, d_patch)
+        through the vision projector -> (B, n_patches, d) in ``dtype``."""
+        p = params["vision_proj"]
+        return linear(patches.to(dtype), p["w"]) + dequant(p["b"], dtype)
+
+    def _embed_batch(self, params, batch):
+        """Token embeddings, after the patch prefix where the config has a
+        vision frontend and the batch carries ``patches``. Returns (x,
+        offset): offset is the number of prefix positions before the first
+        text token."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.vision is None or "patches" not in batch:
+            return x, 0
+        prefix = self._patch_prefix(params, batch["patches"], x.dtype)
+        return torch.cat([prefix, x], dim=1), prefix.shape[1]
+
+    def _encode(self, params, frames, ctx: RunCtx):
+        """The enc-dec encoder over stub frame embeddings (B, M, d): its
+        layers (kind "E": bidirectional flash attention, RoPE at arange(M))
+        and final norm -> the memory (B, M, d)."""
+        enc = params["encoder"]
+        x, _ = self._run_groups(enc["groups"], frames, None, ctx=ctx,
+                                layer_groups=(LayerGroup("E", self.cfg.encoder.n_layers),),
+                                positions=torch.arange(frames.shape[1], device=frames.device))
+        return rmsnorm(x, enc["final_norm"]["w"], self.cfg.rms_eps)
+
+    def _memory(self, params, batch, dtype, ctx: RunCtx):
+        """The encoder memory of an enc-dec batch (its ``frames``), else None."""
+        if self.cfg.encoder is None:
+            return None
+        return self._encode(params, batch["frames"].to(dtype), ctx)
+
     def _head(self, params, x):
         """Logits from an lm_head (K, V) or the tied embedding (V, K). On
         int8 leaves the w8a16 matmul computes them: with lm_head's scale
@@ -118,31 +159,40 @@ class LM:
     # ------------------------------------------------------------------ api
     def forward(self, params, batch, ctx: RunCtx):
         """Teacher-forced full-sequence logits through flash attention and
-        the SSD scan. batch {"tokens": (B, S)}. Returns (logits (B, S, vocab), aux), aux the
-        MoE load-balance loss summed over layers (0.0 without MoE)."""
-        x = self._embed(params, batch["tokens"])
+        the SSD scan. batch {"tokens": (B, S)}, with "frames" (B, M, d) for
+        an enc-dec config and "patches" (B, n_patches, d_patch) for a VLM.
+        Returns (logits (B, S', vocab), aux): S' counts the patch prefix
+        positions too; aux is the MoE load-balance loss summed over layers
+        (0.0 without MoE)."""
+        x, _ = self._embed_batch(params, batch)
+        memory = self._memory(params, batch, x.dtype, ctx)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions)
+        x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions,
+                                  memory=memory)
         x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
         return self._head(params, x), aux
 
     def prefill(self, params, batch, cache, ctx: RunCtx, last_pos=None):
         """Full-sequence pass through flash attention and the SSD scan that
-        also fills the dense ring cache and the SSM states. ``last_pos`` (B,)
-        selects the logits position (the true prompt end when prompts are
-        right-padded); defaults to the final position. Right padding is
-        sound for attention layers only: in an SSM layer the padding tokens
-        advance the carried state. Returns (last_logits (B, vocab), cache),
-        the cache written in place."""
+        also fills the dense ring cache, the SSM states and, for an enc-dec
+        config, the cross cache (from ``batch["frames"]``; the cache's
+        memory_len must be M). ``last_pos`` (B,) selects the logits position
+        among the text tokens (the true prompt end when prompts are
+        right-padded; a patch prefix is added to it); defaults to the final
+        position. Right padding is sound for attention layers only: in an
+        SSM layer the padding tokens advance the carried state. Returns
+        (last_logits (B, vocab), cache), the cache written in place."""
         ctx = ctx.with_mode("prefill")
-        x = self._embed(params, batch["tokens"])
+        x, offset = self._embed_batch(params, batch)
+        memory = self._memory(params, batch, x.dtype, ctx)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions)
+        x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
+                                memory=memory)
         x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
         if last_pos is None:
             last = x[:, -1:]
         else:
-            last = x[torch.arange(x.shape[0], device=x.device), last_pos.long()][:, None]
+            last = x[torch.arange(x.shape[0], device=x.device), last_pos.long() + offset][:, None]
         return self._head(params, last)[:, 0], cache
 
     def decode_step(self, params, tokens, cache, positions, ctx: RunCtx,
@@ -151,8 +201,10 @@ class LM:
         Over a dense cache the ring is read; over a paged cache (``kp`` /
         ``vp`` pools) ``page_table`` (B, max_pages) maps each row's pages and
         ``lengths`` (B,) counts its entries, the new token's included
-        (default positions + 1). Returns (logits (B, vocab), cache), the
-        cache written in place."""
+        (default positions + 1). Positions count a VLM's patch prefix; an
+        enc-dec config's cross attention reads the cross cache that prefill
+        filled. Returns (logits (B, vocab), cache), the cache written in
+        place."""
         ctx = ctx.with_mode("decode")
         x = self._embed(params, tokens)
         if lengths is None:
@@ -163,42 +215,78 @@ class LM:
         return self._head(params, x)[:, 0], cache
 
     def decode_chunk(self, params, tokens, cache, starts, nvalid, slots, first, ctx: RunCtx,
-                     page_table, all_logits: bool = False):
+                     page_table, frames=None, patches=None, all_logits: bool = False):
         """Unified serving iteration over a paged cache: each batch row
         feeds a chunk of up to C tokens of one sequence — C == 1 is decode,
         C > 1 is a prefill chunk. KV goes straight into the paged pool.
 
         tokens (B, C); starts (B,) absolute position of each row's first
-        token; nvalid (B,) live tokens per row (0 = inactive row); slots
-        (B,) engine slot per row, the row of the slot-pooled SSM state (must
-        be distinct); first (B,) True on a sequence's first chunk (resets
-        the SSM and conv state); page_table (B, max_pages). Returns (logits
-        (B, vocab) at each row's last valid position, cache) — the cache's
-        pools and SSM states updated in place. With ``all_logits`` the head
-        runs on every position instead, (B, C, vocab): the verify step of
-        speculative decoding, where position j scores the token fed at
-        index j + 1 (positions at or past a row's nvalid are padding).
+        token, before a VLM's patch offset; nvalid (B,) live tokens per row
+        (0 = inactive row); slots (B,) engine slot per row, the row of the
+        slot-pooled SSM state and cross cache (must be distinct); first (B,)
+        True on a sequence's first chunk (resets the SSM and conv state);
+        page_table (B, max_pages). ``frames`` (B, M, d): an enc-dec pack's
+        raw encoder frames, encoded here, their cross keys and values
+        written at the slots of rows that feed a token; without them cross
+        attention reads the slots' cache. ``patches`` (B, n_patches,
+        d_patch): a VLM pack's patch embeddings, whose projection is
+        prefixed to every row and live on rows with starts == 0 (its KV
+        takes positions [0, n_patches) there; on the other rows the prefix
+        columns write to the null page and their outputs are dropped).
+        Returns (logits (B, vocab) at each row's last valid position, cache)
+        — the cache's pools, SSM states and cross cache updated in place.
+        With ``all_logits`` the head runs on every text position instead,
+        (B, C, vocab): the verify step of speculative decoding, where
+        position j scores the token fed at index j + 1 (positions at or past
+        a row's nvalid are padding).
         """
+        cfg = self.cfg
+        if cfg.vision is not None and any("M" in g.pattern for g in cfg.layer_groups):
+            # the SSM chunk masking follows nvalid over the token axis and
+            # would take a patch prefix for live tokens (no config has both)
+            raise NotImplementedError("chunk mode: a vision patch prefix with SSM layers")
         ctx = ctx.with_mode("chunk")
         B, C = tokens.shape
         x = self._embed(params, tokens)
+        offset = cfg.vision.n_patches if cfg.vision is not None else 0
         ar = torch.arange(C, device=tokens.device)
-        positions = starts.long()[:, None] + ar[None, :]
+        starts = starts.long()
+        positions = offset + starts[:, None] + ar[None, :]
         valid = ar[None, :] < nvalid[:, None]
-        lengths = starts + nvalid
         pack = {"slots": slots, "nvalid": nvalid, "first": first}
+        n_prefix = 0
+        if cfg.vision is not None and patches is not None:
+            prefix = self._patch_prefix(params, patches, x.dtype)
+            n_prefix = prefix.shape[1]
+            x = torch.cat([prefix, x], dim=1)
+            live = ((starts == 0) & (nvalid > 0))[:, None]
+            ap = torch.arange(n_prefix, device=tokens.device)
+            positions = torch.cat([ap[None, :].expand(B, -1), positions], dim=1)
+            valid = torch.cat([live.expand(B, n_prefix), valid], dim=1)
+            # every live column j of row b sits at starts[b] + j: the
+            # prefix's on rows with starts == 0, the text's (offset ==
+            # n_prefix) on all rows. The attention kernel takes that affine
+            # form; it differs only on the dead prefix columns.
+            pack["q_positions"] = starts[:, None] + torch.arange(n_prefix + C,
+                                                                 device=tokens.device)[None, :]
+        lengths = offset + starts + nvalid
+        memory = None
+        if cfg.encoder is not None and frames is not None:
+            memory = self._encode(params, frames.to(x.dtype), ctx)
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
-                                page_table=page_table, lengths=lengths, valid=valid, chunk=pack)
-        x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
+                                page_table=page_table, lengths=lengths, valid=valid, chunk=pack,
+                                memory=memory)
+        x = rmsnorm(x, params["final_norm"]["w"], cfg.rms_eps)
         if all_logits:
-            return self._head(params, x), cache
-        last = torch.clamp(nvalid.long(), min=1) - 1
+            return self._head(params, x[:, n_prefix:]), cache
+        last = n_prefix + torch.clamp(nvalid.long(), min=1) - 1
         x_last = x[torch.arange(B, device=x.device), last]
         return self._head(params, x_last[:, None])[:, 0], cache
 
     # ------------------------------------------------------------------ cache
     def init_cache(self, B: int, max_seq: int, dtype: torch.dtype = torch.float32, *,
                    kind: str = "dense", page_size: int = 16, num_pages: int = 0,
+                   memory_len: int = 0,
                    device: Optional[Union[str, torch.device]] = None) -> Dict[str, Any]:
         """The cache tree {"groups": [[{"attn": {...}} or {"ssm": {...}} per
         pattern position]]}, every leaf stacked per group on the repeat axis
@@ -212,7 +300,9 @@ class LM:
                       lengths (max_seq is not used).
         SSM ("M") layers hold, under either kind, one state per batch row
         (engine slot): "state" (R, B, H, P, N) fp32 and "conv" (R, B,
-        conv_dim, d_conv - 1) in ``dtype``.
+        conv_dim, d_conv - 1) in ``dtype``. An enc-dec config's layers also
+        hold, under either kind, "cross": "ck" / "cv" (R, B, M, Hkv, hd), M =
+        ``memory_len`` or the config's cross_attn_memory.
         """
         if kind not in ("dense", "paged"):
             raise ValueError(f"cache kind {kind!r}: 'dense' or 'paged'")
@@ -243,7 +333,13 @@ class LM:
                     c = {"k": torch.zeros((R, B, W, Hkv, hd), dtype=dtype, device=dev),
                          "v": torch.zeros((R, B, W, Hkv, hd), dtype=dtype, device=dev),
                          "slot_pos": torch.full((R, B, W), -1, dtype=torch.int32, device=dev)}
-                per_pos.append({"attn": c})
+                entry = {"attn": c}
+                if cfg.family == "encdec":
+                    M = memory_len or cfg.encoder.cross_attn_memory
+                    entry["cross"] = {
+                        "ck": torch.zeros((R, B, M, Hkv, hd), dtype=dtype, device=dev),
+                        "cv": torch.zeros((R, B, M, Hkv, hd), dtype=dtype, device=dev)}
+                per_pos.append(entry)
             groups_cache.append(per_pos)
         return {"groups": groups_cache}
 

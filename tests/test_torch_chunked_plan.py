@@ -60,6 +60,21 @@ def test_plan_at_prefill_pack(q_dtype, kv_dtype, path, grid):
     assert (plan.path, plan.splits, plan.grid) == (path, 1, grid)
 
 
+@pytest.mark.parametrize("B,C,H,D,maxp,dtype,path,grid", [
+    (4, 1, 16, 64, 80, BF16, "split", (9, 16, 4)),      # seamless-m4t's decode sweep
+    (2, 128, 16, 64, 80, BF16, "mma", (2, 16, 2)),      # and its prefill pack
+    (2, 128, 16, 64, 80, F32, "tiled", (4, 16, 2)),
+    (4, 3, 32, 96, 80, BF16, "split", (5, 32, 4)),      # phi-3-vision's verify width 3
+    (2, 704, 32, 96, 80, BF16, "mma", (11, 32, 2)),     # its patch-prefixed pack
+])
+def test_plan_at_enc_dec_and_vlm_shapes(B, C, H, D, maxp, dtype, path, grid):
+    """MHA (G = 1) at head dims 64 and 96, pages of 16: at most 16 query
+    rows a KV head split, in 32-key tiles for 4 blocks a SM over the B * H
+    pairs; more take the tensor cores (bf16) or the fp32 tiles."""
+    plan = _plan(B, C, H, H, D, 16, maxp, dtype, dtype, 132)
+    assert (plan.path, plan.grid) == (path, grid)
+
+
 @pytest.mark.parametrize("n_sm", [132, 114, 78, 16])
 @pytest.mark.parametrize("B,maxp,ps", [(4, 32, 16), (4, 256, 16), (1, 8, 4), (64, 16, 16)])
 @pytest.mark.parametrize("D", [16, 128])
@@ -84,7 +99,7 @@ def test_plan_long_context_decode():
     assert sizes == {7 * pk.SPLIT_KEYS, 8 * pk.SPLIT_KEYS}
 
 
-@pytest.mark.parametrize("D,dtype,msg", [(64, BF16, "head_dim"), (128, torch.float16, "dtypes")])
+@pytest.mark.parametrize("D,dtype,msg", [(80, BF16, "head_dim"), (128, torch.float16, "dtypes")])
 def test_plan_rejects_what_no_kernel_takes(D, dtype, msg):
     with pytest.raises(ValueError, match=msg):
         _plan(2, 128, 32, 8, D, 16, 32, dtype, dtype, 132)

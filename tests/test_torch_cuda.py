@@ -63,7 +63,8 @@ def _attn_case(seed, *, ps, D, B=4, C=8, H=4, Hkv=2, maxp=8):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ps,D,window,softcap", [(4, 16, 0, 0.0), (8, 16, 5, 0.0),
-                                                 (16, 128, 3, 2.0), (4, 128, 0, 0.0)])
+                                                 (16, 128, 3, 2.0), (4, 128, 0, 0.0),
+                                                 (16, 64, 0, 0.0), (8, 96, 5, 2.0)])
 def test_attention_kernel_matches_plain(cuda, dtype, ps, D, window, softcap):
     q, kp, vp, pt, lengths, qpos = _attn_case(ps, ps=ps, D=D)
     args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, pt, lengths, qpos)]
@@ -98,7 +99,8 @@ ATTN_PATH_CASES = [
 
 
 @pytest.mark.parametrize("ps,D,window,softcap", [(4, 16, 0, 0.0), (8, 16, 5, 0.0),
-                                                 (16, 128, 3, 2.0), (8, 128, 0, 0.0)])
+                                                 (16, 128, 3, 2.0), (8, 128, 0, 0.0),
+                                                 (16, 64, 0, 0.0), (16, 96, 3, 0.0)])
 @pytest.mark.parametrize("case", ATTN_PATH_CASES)
 def test_attention_reaches_planned_path(cuda, case, ps, D, window, softcap):
     """Each call launches the kernel its plan names, within
@@ -201,8 +203,9 @@ def test_gmm_kernel_matches_plain(cuda, dtype, sizes, K, N):
     torch.testing.assert_close(out.float(), gmm_reference(x, w, gs).float(), atol=tol, rtol=tol)
 
 
-# the cases of tests/test_torch_flash_attention.py at head_dim 16 and 128,
-# plus ragged edges (Sq, Skv of no tile multiple)
+# the cases of tests/test_torch_flash_attention.py at head_dims 16, 64, 96
+# and 128, plus ragged edges (Sq, Skv of no tile multiple) and
+# seamless-m4t's cross attention (Sq != Skv, not causal)
 FLASH_CASES = [
     # B, Sq, Skv, H, Hkv, D, causal, window, softcap, q_offset
     (2, 64, 64, 4, 2, 16, True, 0, 0.0, 0),
@@ -214,6 +217,11 @@ FLASH_CASES = [
     (1, 80, 80, 4, 2, 16, True, 16, 30.0, 0),
     (1, 50, 70, 4, 2, 16, False, 0, 0.0, 0),
     (2, 97, 97, 8, 2, 128, True, 0, 0.0, 0),
+    (2, 70, 70, 4, 4, 64, False, 0, 0.0, 0),        # encoder
+    (2, 9, 130, 4, 4, 64, False, 0, 0.0, 0),        # cross attention, a chunk
+    (3, 1, 77, 4, 4, 64, False, 0, 0.0, 0),         # cross attention, one token
+    (1, 100, 100, 4, 4, 96, True, 0, 0.0, 0),
+    (1, 45, 130, 4, 2, 96, True, 20, 30.0, 85),
 ]
 
 
@@ -250,6 +258,11 @@ FLASH_MMA_CASES = [
     (1, 129, 129, 8, 1, 16, False, 0, 50.0, 0),
     (1, 1024, 1024, 8, 2, 128, True, 0, 0.0, 0),
     (1, 300, 300, 4, 2, 128, True, 128, 50.0, 0),
+    (2, 1024, 1024, 16, 16, 64, False, 0, 0.0, 0),  # seamless-m4t's encoder
+    (2, 128, 1024, 16, 16, 64, False, 0, 0.0, 0),   # its cross attention, a pack
+    (4, 1, 1024, 16, 16, 64, False, 0, 0.0, 0),     # and a decode sweep
+    (1, 300, 300, 32, 32, 96, True, 0, 0.0, 0),     # phi3's heads
+    (2, 37, 53, 8, 2, 96, True, 0, 30.0, 16),
 ]
 
 
@@ -287,7 +300,7 @@ def test_flash_cuda_tensor_goes_to_kernel_or_raises(cuda, monkeypatch):
                for s in ((1, 40, 4, 128), (1, 40, 2, 128), (1, 40, 2, 128)))
     n0 = flash_attention_cuda.launches
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(q[..., :64], k[..., :64], v[..., :64])
+        flash_attention(q[..., :80], k[..., :80], v[..., :80])
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(q.half(), k.half(), v.half())
     flat = torch.empty(k.numel() + 1, dtype=torch.bfloat16, device=cuda)  # 2 bytes off
@@ -305,7 +318,8 @@ def test_flash_cuda_tensor_goes_to_kernel_or_raises(cuda, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ps,D,window,softcap", [(4, 16, 0, 0.0), (8, 16, 9, 0.0),
-                                                 (16, 128, 0, 30.0), (16, 128, 40, 0.0)])
+                                                 (16, 128, 0, 30.0), (16, 128, 40, 0.0),
+                                                 (16, 64, 0, 0.0), (16, 96, 40, 0.0)])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, ps, D, window, softcap):
     """Ragged lengths (one of them 0, one past a split boundary), GQA group 4."""
     rng = np.random.default_rng(ps + D)
@@ -430,6 +444,66 @@ def test_generation_path_on_card_matches_cpu(cuda, name):
             outs += [ld, lp]
         launched = (flash_attention_cuda.launches - f0, paged_attention_cuda.launches - p0)
         assert (min(launched) > 0) == (dev == "cuda"), launched
+        logits[dev] = [o.float().cpu() for o in outs]
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        torch.testing.assert_close(b, a, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2", "phi-3-vision-4.2b"])
+def test_enc_dec_and_vlm_paths_on_card_match_cpu(cuda, name):
+    """The enc-dec and VLM paths at their head dims (16 x 64, 32 x 96) on a
+    narrow width, fp32, card against CPU within 2e-3: ``decode_chunk`` over
+    a first chunk, then a pack mixing another first chunk (frames, or a
+    live patch prefix) with the first sequence's later chunk (prefix dead),
+    then a decode sweep; ``forward``; ``prefill`` + 2 ``decode_step``s."""
+    cfg = tiny_config(name)
+    H, D = (16, 64) if cfg.encoder is not None else (32, 96)
+    cfg = cfg.scaled(n_heads=H, n_kv_heads=H, head_dim=D, d_model=128)
+    model = build_model(cfg)
+    params = model.init_params(0, device="cpu")
+    off = cfg.vision.n_patches if cfg.vision is not None else 0
+    rng = np.random.default_rng(2)
+    seq = torch.from_numpy(rng.integers(1, 256, (2, 14)).astype(np.int32))
+    if cfg.encoder is not None:
+        ext = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder.cross_attn_memory, cfg.d_model)).astype(np.float32))}
+    else:
+        ext = {"patches": torch.from_numpy(rng.standard_normal(
+            (2, off, cfg.vision.d_patch)).astype(np.float32))}
+    ps, maxp = 4, -(-(off + 14) // 4)
+    pt = torch.arange(2 * maxp, dtype=torch.int32).reshape(2, maxp) + 1
+    z = torch.zeros(8, dtype=torch.int32)
+    calls = [(torch.stack([seq[1, :8], z]), [0, 0], [8, 0], [1, 0], [1, None], [1, 1]),
+             (torch.stack([seq[0, :8], torch.cat([seq[1, 8:12], z[:4]])]), [0, 8], [8, 4],
+              [0, 1], [0, 1], [0, 1]),
+             (torch.stack([seq[0, 8:9], seq[1, 12:13]]), [8, 12], [1, 1], [0, 1], [0, 1], None)]
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else map_tree(lambda t: t.to(cuda), params)
+        cache = model.init_cache(2, off + 14, kind="paged", page_size=ps,
+                                 num_pages=2 * maxp + 1, device=dev)
+        outs = []
+        for tok, st, nv, slots, rows, ext_rows in calls:
+            st, nv = torch.tensor(st, dtype=torch.int32), torch.tensor(nv, dtype=torch.int32)
+            rows_pt = torch.stack([pt[r] if r is not None else torch.zeros_like(pt[0])
+                                   for r in rows])
+            kw = {} if ext_rows is None else {k: v[ext_rows].to(dev) for k, v in ext.items()}
+            lg, cache = model.decode_chunk(p, tok.to(dev), cache, st.to(dev), nv.to(dev),
+                                           torch.tensor(slots, dtype=torch.int32).to(dev),
+                                           ((st == 0) & (nv > 0)).to(dev), RunCtx(),
+                                           rows_pt.to(dev), **kw)
+            outs.append(lg[nv.to(dev) > 0])
+        batch = dict(tokens=seq.to(dev), **{k: v.to(dev) for k, v in ext.items()})
+        outs.append(model.forward(p, batch, RunCtx())[0])
+        M = cfg.encoder.cross_attn_memory if cfg.encoder is not None else 0
+        dense = model.init_cache(2, off + 14, memory_len=M, device=dev)
+        lg, dense = model.prefill(p, dict(batch, tokens=batch["tokens"][:, :10]), dense, RunCtx())
+        outs.append(lg)
+        for i in range(2):
+            pos = torch.full((2,), off + 10 + i, dtype=torch.int32, device=dev)
+            lg, dense = model.decode_step(p, batch["tokens"][:, 10 + i:11 + i], dense, pos,
+                                          RunCtx())
+            outs.append(lg)
         logits[dev] = [o.float().cpu() for o in outs]
     for a, b in zip(logits["cpu"], logits["cuda"]):
         torch.testing.assert_close(b, a, atol=2e-3, rtol=0)

@@ -1,7 +1,8 @@
 """Port's flash attention vs the JAX package: the plain PyTorch version (what
 the op runs on CPU tensors) against the JAX Pallas kernel in interpret mode
-and the JAX masked-softmax oracle, on the cases of tests/test_kernels_flash.py,
-at their fp32 tolerance 2e-5 (the paths differ in reduction order only).
+and the JAX masked-softmax oracle, on the cases of tests/test_kernels_flash.py
+and at the head dims 64 and 96 of the enc-dec and VLM configs (cross
+attention: Sq != Skv, not causal), at their fp32 tolerance 2e-5 (the paths differ in reduction order only).
 The CUDA kernel against the plain version is in test_torch_cuda.py (the
 card's machine has no JAX)."""
 import jax.numpy as jnp
@@ -25,6 +26,11 @@ CASES = [
     (2, 32, 96, 2, 2, 16, True, 0, 0.0, 64),        # chunked-prefill offset
     (2, 48, 48, 4, 2, 16, False, 0, 0.0, 0),        # encoder (non-causal)
     (1, 80, 80, 4, 2, 16, True, 16, 30.0, 0),       # window + softcap
+    (2, 40, 40, 4, 4, 64, False, 0, 0.0, 0),        # seamless-m4t's encoder
+    (2, 9, 130, 4, 4, 64, False, 0, 0.0, 0),        # its cross attention: a chunk
+    (3, 1, 77, 4, 4, 64, False, 0, 0.0, 0),         # and one token
+    (1, 70, 70, 4, 4, 96, True, 0, 0.0, 0),         # phi3 / phi-3-vision's head dim
+    (2, 24, 90, 4, 2, 96, True, 0, 0.0, 66),
 ]
 
 

@@ -38,6 +38,10 @@ LOG2E = np.float32(1.4426950408889634)
     (2, 37, 16, 2, 128, BF16, "mma", (5, 2, 2)),        # 296 rows: a ragged last block
     (1, 1, 8, 8, 16, BF16, "mma", (1, 8, 1)),           # G = 1, one row
     (3, 50, 4, 2, 16, F32, "tiled", (1, 4, 3)),
+    (2, 1024, 16, 16, 64, BF16, "mma", (16, 16, 2)),    # seamless-m4t's encoder, G = 1
+    (4, 1, 16, 16, 64, BF16, "mma", (1, 16, 4)),        # its cross attention at decode
+    (2, 128, 16, 16, 64, F32, "tiled", (2, 16, 2)),
+    (1, 704, 32, 32, 96, BF16, "mma", (11, 32, 1)),     # phi-3-vision's prefixed chunk
 ])
 def test_plan_path_and_grid(B, Sq, H, Hkv, D, dtype, path, grid):
     """bf16 takes the tensor cores over ceil(Sq * G / 64) blocks of folded
@@ -48,7 +52,7 @@ def test_plan_path_and_grid(B, Sq, H, Hkv, D, dtype, path, grid):
 
 
 @pytest.mark.parametrize("args,msg", [
-    ((2, 64, 32, 8, 64, BF16), "head_dim"),
+    ((2, 64, 32, 8, 80, BF16), "head_dim"),
     ((2, 64, 32, 8, 128, torch.float16), "dtype"),
     ((2, 64, 32, 6, 128, BF16), "query heads"),
     ((70000, 64, 32, 8, 128, BF16), "grid"),
@@ -150,6 +154,11 @@ def _mma_emulation(q, k, v, *, causal, window, softcap, q_offset, scale):
     (1, 50, 70, 4, 2, 16, False, 0, 0.0, 0),        # non-causal, ragged Skv
     (1, 150, 150, 16, 2, 16, True, 0, 0.0, 0),      # G = 8, 1200 folded rows
     (1, 45, 130, 4, 2, 16, False, 20, 50.0, 85),    # non-causal window and offset
+    (2, 70, 70, 4, 4, 64, False, 0, 0.0, 0),        # seamless-m4t's encoder
+    (2, 9, 130, 4, 4, 64, False, 0, 0.0, 0),        # its cross attention: a chunk
+    (3, 1, 77, 4, 4, 64, False, 0, 0.0, 0),         # and one token
+    (1, 90, 90, 4, 4, 96, True, 0, 0.0, 0),         # phi3 / phi-3-vision's head dim
+    (1, 33, 100, 4, 2, 96, True, 16, 30.0, 67),
 ])
 def test_mma_emulation_matches_pallas(case):
     """On bf16 inputs (what the mma path reads), the path's arithmetic

@@ -2,8 +2,10 @@
 the weight bridge, the seeded init, and ``LM.decode_chunk`` logits on tiny
 mixtral (MoE), qwen2.5 (dense, QKV bias), yi (dense GQA), phi3-mini (dense
 MHA), dbrx (16 experts top-4) and deepseek-moe (a dense first layer, shared
-experts) over ragged multi-row prefill packs with padding rows and a decode
-sweep after them, and with ``all_logits`` over a speculative verify sweep."""
+experts), seamless-m4t (enc-dec) and phi-3-vision (VLM) over ragged
+multi-row prefill packs with padding rows and a decode sweep after them,
+and with ``all_logits`` over a speculative verify sweep; packs with a first
+chunk carry the enc-dec frames or the VLM patches."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,7 @@ from repro_torch.models.params import count_params_analytic, init_params, params
 LOGIT_ATOL = 2e-3
 PRIM_TOL = 1e-5
 ARCHS = ["mixtral-8x7b", "qwen2.5-3b", "yi-6b", "phi3-mini-3.8b", "dbrx-132b",
-         "deepseek-moe-16b"]
+         "deepseek-moe-16b", "seamless-m4t-large-v2", "phi-3-vision-4.2b"]
 
 
 def _jax_model(name):
@@ -33,6 +35,23 @@ def _jax_model(name):
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))
+
+
+def _extras(cfg, first, seed=5):
+    """A pack's frames (B, cross_attn_memory, d) for an enc-dec config and
+    patches (B, n_patches, d_patch) for a VLM, when a row carries a first
+    chunk (as the engine passes them); {} otherwise. Returns the JAX and
+    the torch keyword arguments."""
+    if not np.asarray(first).any():
+        return {}, {}
+    r = np.random.default_rng(seed)
+    B, ext = len(first), {}
+    if cfg.encoder is not None:
+        ext["frames"] = r.standard_normal((B, cfg.encoder.cross_attn_memory, cfg.d_model))
+    if cfg.vision is not None:
+        ext["patches"] = r.standard_normal((B, cfg.vision.n_patches, cfg.vision.d_patch))
+    ext = {k: v.astype(np.float32) for k, v in ext.items()}
+    return {k: jnp.asarray(v) for k, v in ext.items()}, {k: _t(v) for k, v in ext.items()}
 
 
 # ---------------------------------------------------------------- primitives
@@ -151,12 +170,13 @@ def test_decode_chunk_matches_jax(name):
         B = tok.shape[0]
         pt = np.stack([rows[i] if i is not None else np.zeros(maxp, np.int32)
                        for i in row_ids])
+        jext, text = _extras(model.cfg, (st == 0) & (nv > 0))
         lg_ref, jcache = jmodel.decode_chunk(
             jp, jnp.asarray(tok), jcache, jnp.asarray(st), jnp.asarray(nv),
-            jnp.arange(B, dtype=jnp.int32), jnp.asarray(st == 0), jctx, jnp.asarray(pt))
+            jnp.arange(B, dtype=jnp.int32), jnp.asarray(st == 0), jctx, jnp.asarray(pt), **jext)
         lg, tcache = model.decode_chunk(tp, _t(tok), tcache, _t(st), _t(nv),
                                         _t(np.arange(B, dtype=np.int32)), _t(st == 0), RunCtx(),
-                                        _t(pt))
+                                        _t(pt), **text)
         live = nv > 0
         assert lg.shape == (B, model.cfg.vocab) and torch.isfinite(lg).all()
         err = np.abs(lg.numpy()[live] - np.asarray(lg_ref)[live]).max()
@@ -199,13 +219,14 @@ def test_decode_chunk_all_logits_matches_jax(name):
     calls = [(pack, np.zeros(B, np.int32), nv_pack, first, rows, False),
              (verify, st_verify, nv_verify, ~first, pt_verify, True)]
     for tok, st, nv, fi, pt, all_logits in calls:
+        jext, text = _extras(model.cfg, fi & (nv > 0))
         lg_ref, jcache = jmodel.decode_chunk(
             jp, jnp.asarray(tok), jcache, jnp.asarray(st), jnp.asarray(nv), jnp.asarray(slots),
-            jnp.asarray(fi), jctx, jnp.asarray(pt), all_logits=all_logits)
+            jnp.asarray(fi), jctx, jnp.asarray(pt), all_logits=all_logits, **jext)
         if all_logits:
             before = [t.clone() for g in tcache["groups"] for c in g for t in c["attn"].values()]
         lg, tcache = model.decode_chunk(tp, _t(tok), tcache, _t(st), _t(nv), _t(slots), _t(fi),
-                                        RunCtx(), _t(pt), all_logits=all_logits)
+                                        RunCtx(), _t(pt), all_logits=all_logits, **text)
     assert lg.shape == (B, C, model.cfg.vocab) and torch.isfinite(lg).all()
     valid = np.arange(C)[None, :] < nv_verify[:, None]
     err = np.abs(lg.numpy()[valid] - np.asarray(lg_ref)[valid]).max()

@@ -89,6 +89,27 @@ def test_plain_matches_jax_and_oracle(ps, window, softcap):
     assert not port[3].any(), "a length-0 row must give zeros"
 
 
+@pytest.mark.parametrize("D,H,Hkv", [(64, 4, 4), (96, 4, 4), (96, 8, 2)])
+@pytest.mark.parametrize("window", [0, 5])
+def test_plain_matches_jax_at_head_dims(D, H, Hkv, window):
+    """The head dims of seamless-m4t (64) and phi3 / phi-3-vision (96), MHA
+    as they are and GQA: the plain version against the Pallas kernel in
+    interpret mode, the JAX reference and the oracle, at 1e-5."""
+    q, kp, vp, pt, lengths, qpos, nvalid = _case(D + window, ps=16, D=D, H=H, Hkv=Hkv)
+    kw = dict(scale=D ** -0.5, window=window)
+    port = chunked_prefill_attention(*map(torch.from_numpy, (q, kp, vp, pt, lengths, qpos)),
+                                     **kw).numpy()
+    jq = [jnp.asarray(a) for a in (q, kp, vp, pt, lengths, qpos)]
+    ref = np.asarray(jax_reference(*jq, **kw))
+    pal = np.asarray(jax_attention(*jq, backend="pallas", interpret=True, **kw))
+    oracle = _oracle(q, kp, vp, pt, lengths, qpos, window=window, softcap=0.0)
+    np.testing.assert_allclose(port, ref, atol=TOL, rtol=0)
+    for b, n in enumerate(nvalid):
+        np.testing.assert_allclose(port[b, :n], pal[b, :n], atol=TOL, rtol=0)
+        np.testing.assert_allclose(port[b, :n], oracle[b, :n], atol=TOL, rtol=0)
+    assert not port[3].any(), "a length-0 row must give zeros"
+
+
 def test_plain_keeps_q_dtype_and_bf16_pool():
     q, kp, vp, pt, lengths, qpos, _ = _case(1, ps=8)
     args = [torch.from_numpy(a) for a in (q, kp, vp, pt, lengths, qpos)]
@@ -118,7 +139,7 @@ def _decode_case(seed, *, H, Hkv, D, ps, B=3, P=24, maxp=5, lengths=None, dtype=
     return q, kp, vp, pt, np.asarray(lengths, np.int32)
 
 
-@pytest.mark.parametrize("H,Hkv,D", [(8, 2, 16), (4, 4, 32), (8, 1, 64)])
+@pytest.mark.parametrize("H,Hkv,D", [(8, 2, 16), (4, 4, 32), (8, 1, 64), (4, 4, 64), (4, 4, 96)])
 @pytest.mark.parametrize("page_size", [4, 8])
 @pytest.mark.parametrize("window", [0, 9])
 def test_decode_plain_matches_jax(H, Hkv, D, page_size, window):

@@ -1,7 +1,10 @@
 """Port's generation path (``LM.forward``, ``prefill``, ``decode_step`` over
 dense ring and paged caches) vs the JAX package on the same weights, on tiny
-mixtral (MoE), qwen2.5 (dense, QKV bias) and gemma2 (alternating sliding
-window / global layers, softcaps, tied scaled embeddings); then the serving
+mixtral (MoE), qwen2.5 (dense, QKV bias), gemma2 (alternating sliding
+window / global layers, softcaps, tied scaled embeddings), yi, phi3-mini,
+dbrx, deepseek-moe, seamless-m4t (frames through the encoder, cross
+attention over the cross cache) and phi-3-vision (a patch prefix, positions
+offset by it), as tests/test_prefill_decode.py builds their batches; then the serving
 invariants of tests/test_prefill_decode.py run on the port: prefill + decode
 == forward, paged == dense decode, and gemma2's ring buffer with W <
 context == forward."""
@@ -22,7 +25,7 @@ from repro_torch.models.params import params_from_numpy
 # reduction order only (tests/test_prefill_decode.py's bound)
 LOGIT_ATOL = 2e-3
 ARCHS = ["mixtral-8x7b", "qwen2.5-3b", "gemma2-27b", "yi-6b", "phi3-mini-3.8b", "dbrx-132b",
-         "deepseek-moe-16b"]
+         "deepseek-moe-16b", "seamless-m4t-large-v2", "phi-3-vision-4.2b"]
 JCTX = JaxRunCtx(attn_backend="xla", moe_strategy="dropless", block_q=8, block_kv=8)
 CTX = RunCtx()
 
@@ -36,6 +39,25 @@ def _models(name, seed=0, **kw):
     jp = jmodel.init_params(jax.random.PRNGKey(seed))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jmodel, jp, build_model(tiny_config(name, **kw)), tp
+
+
+def _batch(cfg, toks, r):
+    """tests/test_prefill_decode.py:26-32: the tokens, 12 frames for an
+    enc-dec config, n_patches patches for a VLM (drawn after the tokens).
+    Returns (numpy batch, the text offset, the cross memory length)."""
+    batch = {"tokens": toks}
+    if cfg.encoder is not None:
+        batch["frames"] = r.standard_normal((toks.shape[0], 12, cfg.d_model)).astype(np.float32)
+    if cfg.vision is not None:
+        batch["patches"] = r.standard_normal(
+            (toks.shape[0], cfg.vision.n_patches, cfg.vision.d_patch)).astype(np.float32)
+    offset = cfg.vision.n_patches if cfg.vision is not None else 0
+    return batch, offset, 12 if cfg.encoder is not None else 0
+
+
+def _prefix(batch, S):
+    """The batch with its first S tokens (frames and patches whole)."""
+    return dict(batch, tokens=batch["tokens"][:, :S])
 
 
 def _err(a, b):
@@ -69,32 +91,40 @@ def test_generation_path_matches_jax(name):
     function on the same weights and tokens."""
     jmodel, jp, model, tp = _models(name)
     B, S, gen, ps = 2, 20, 4, 4
-    toks = np.random.default_rng(1).integers(0, 256, (B, S + gen)).astype(np.int32)
-    jl, jaux = jmodel.forward(jp, {"tokens": jnp.asarray(toks)}, JCTX)
-    tl, taux = model.forward(tp, {"tokens": _t(toks)}, CTX)
-    assert tl.shape == (B, S + gen, model.cfg.vocab) and torch.isfinite(tl).all()
+    r = np.random.default_rng(1)
+    toks = r.integers(0, 256, (B, S + gen)).astype(np.int32)
+    batch, offset, mem = _batch(model.cfg, toks, r)
+    jl, jaux = jmodel.forward(jp, {k: jnp.asarray(v) for k, v in batch.items()}, JCTX)
+    tl, taux = model.forward(tp, {k: _t(v) for k, v in batch.items()}, CTX)
+    assert tl.shape == (B, S + gen + offset, model.cfg.vocab) and torch.isfinite(tl).all()
     assert _err(tl, jl) < LOGIT_ATOL
     assert abs(float(taux) - float(jaux)) < 1e-4
 
-    maxp = (S + gen + ps - 1) // ps
+    L = S + gen + offset
+    maxp = (L + ps - 1) // ps
     pt = _page_table(B, maxp)
-    jd = jmodel.init_cache(B, S + gen, jnp.float32, kind="dense")
-    td = model.init_cache(B, S + gen, device="cpu")
-    jpg = jmodel.init_cache(B, S + gen, jnp.float32, kind="paged", page_size=ps,
-                            num_pages=B * maxp + 1)
-    tpg = model.init_cache(B, S + gen, kind="paged", page_size=ps, num_pages=B * maxp + 1,
-                           device="cpu")
-    jlg, jd = jmodel.prefill(jp, {"tokens": jnp.asarray(toks[:, :S])}, jd, JCTX)
-    tlg, td = model.prefill(tp, {"tokens": _t(toks[:, :S])}, td, CTX)
+    jd = jmodel.init_cache(B, L, jnp.float32, kind="dense", memory_len=mem)
+    td = model.init_cache(B, L, memory_len=mem, device="cpu")
+    jpg = jmodel.init_cache(B, L, jnp.float32, kind="paged", page_size=ps,
+                            num_pages=B * maxp + 1, memory_len=mem)
+    tpg = model.init_cache(B, L, kind="paged", page_size=ps, num_pages=B * maxp + 1,
+                           memory_len=mem, device="cpu")
+    jlg, jd = jmodel.prefill(jp, {k: jnp.asarray(v) for k, v in _prefix(batch, S).items()}, jd,
+                             JCTX)
+    tlg, td = model.prefill(tp, {k: _t(v) for k, v in _prefix(batch, S).items()}, td, CTX)
     assert _err(tlg, jlg) < LOGIT_ATOL
-    # both pools start from the prompt's KV as the port's rings hold it
+    # both pools (and cross caches) start from the prompt's KV as the port's
+    # rings (and dense cross cache) hold it
     _fill_pool_from_ring(tpg, td, pt)
-    for jg, tg in zip(jpg["groups"], tpg["groups"]):
-        for jc, tc in zip(jg, tg):
+    for jg, tg, dg in zip(jpg["groups"], tpg["groups"], td["groups"]):
+        for jc, tc, dc in zip(jg, tg, dg):
             for pool in ("kp", "vp"):
                 jc["attn"][pool] = jnp.asarray(tc["attn"][pool].numpy())
+            for k in ("ck", "cv") if "cross" in dc else ():
+                tc["cross"][k].copy_(dc["cross"][k])
+                jc["cross"][k] = jnp.asarray(dc["cross"][k].numpy())
     for i in range(gen):
-        pos = np.full((B,), S + i, np.int32)
+        pos = np.full((B,), S + i + offset, np.int32)
         tok = toks[:, S + i:S + i + 1]
         jl_d, jd = jmodel.decode_step(jp, jnp.asarray(tok), jd, jnp.asarray(pos), JCTX)
         tl_d, td = model.decode_step(tp, _t(tok), td, _t(pos), CTX)
@@ -111,15 +141,18 @@ def test_prefill_decode_matches_forward(name):
     """tests/test_prefill_decode.py:18-45 on the port."""
     _, _, model, tp = _models(name)
     B, S, gen = 2, 20, 6
-    toks = _t(np.random.default_rng(1).integers(0, 256, (B, S + gen)).astype(np.int32))
-    full, _ = model.forward(tp, {"tokens": toks}, CTX)
-    cache = model.init_cache(B, S + gen, device="cpu")
-    lg, cache = model.prefill(tp, {"tokens": toks[:, :S]}, cache, CTX)
-    errs = [_err(lg, full[:, S - 1])]
+    r = np.random.default_rng(1)
+    batch, offset, mem = _batch(model.cfg, r.integers(0, 256, (B, S + gen)).astype(np.int32), r)
+    batch = {k: _t(v) for k, v in batch.items()}
+    toks = batch["tokens"]
+    full, _ = model.forward(tp, batch, CTX)
+    cache = model.init_cache(B, S + gen + offset, memory_len=mem, device="cpu")
+    lg, cache = model.prefill(tp, _prefix(batch, S), cache, CTX)
+    errs = [_err(lg, full[:, S - 1 + offset])]
     for i in range(gen):
-        pos = torch.full((B,), S + i, dtype=torch.int32)
+        pos = torch.full((B,), S + i + offset, dtype=torch.int32)
         lg, cache = model.decode_step(tp, toks[:, S + i:S + i + 1], cache, pos, CTX)
-        errs.append(_err(lg, full[:, S + i]))
+        errs.append(_err(lg, full[:, S + i + offset]))
     assert max(errs) < LOGIT_ATOL, errs
 
 

@@ -181,15 +181,20 @@ def test_gateway_auth_rejection(model_setup):
 def test_hedging_straggler(model_setup):
     """A slow replica (large host overhead) gets hedged to a fast one. The
     client sees exactly one stream, the shadow's, even though the slow
-    primary's first step finishes while the shadow is streaming."""
+    primary's first step finishes while the shadow is streaming. Timing:
+    the hedge fires at 0.3 s and the shadow's 8 tokens come about 0.4, 0.5,
+    ..., 1.1 s after submission (a 0.1 s host overhead a step); the
+    primary's first token comes about 0.75 s in, ~0.35 s after the shadow's
+    first and before its last, so two replica threads sharing the CPU with
+    other test processes do not reorder them."""
     cfg, model, params = model_setup
     prompt = np.arange(1, 8, dtype=np.int32)
-    ref = Request(req_id="ref", prompt_tokens=prompt, max_new_tokens=4)
+    ref = Request(req_id="ref", prompt_tokens=prompt, max_new_tokens=8)
     InferenceEngine(model, params, EngineConfig(
         max_slots=4, page_size=8, num_pages=128, max_seq=128, prefill_chunk=16,
         greedy=True, device="cpu")).generate([ref])
-    slow = _replica(model, params, "slow", host_overhead_s=0.5)
-    fast = _replica(model, params, "fast", host_overhead_s=0.15)
+    slow = _replica(model, params, "slow", host_overhead_s=0.75)
+    fast = _replica(model, params, "fast", host_overhead_s=0.1)
     done, delivered = {}, []
     with _stopping(slow, fast):
         router = ReplicaRouter([slow, fast],
@@ -200,7 +205,7 @@ def test_hedging_straggler(model_setup):
             if ev.finished:
                 done["generated"] = list(ev.request.generated)
 
-        req = Request(req_id="h1", prompt_tokens=prompt, max_new_tokens=4)
+        req = Request(req_id="h1", prompt_tokens=prompt, max_new_tokens=8)
         router.submit(req, on_event, replica=slow)       # force primary = slow
         deadline = time.time() + 20
         while "generated" not in done and time.time() < deadline:
