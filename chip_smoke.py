@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, in phases; any failure
 exits non-zero and no phase's failure is caught.
 
-  1. print the card's name and power limit; build the five CUDA sources of
+  1. print the card's name and power limit; build the six CUDA sources of
      src/repro_torch/csrc (the six TPU kernels' ports: paged decode is the
-     chunked attention source's split path in decode mode) with nvcc for
+     chunked attention source's split path in decode mode; and the flash
+     backward) with nvcc for
      sm_90a (one nvcc per source, in parallel) and print what ptxas reports
      (registers, spills).
   2. each kernel against its plain PyTorch version on the card: the small
@@ -37,7 +38,14 @@ exits non-zero and no phase's failure is caught.
      attention, flash attention, paged decode, the grouped matmul, the
      w8a16 matmul and the SSD scan print with each case the kernel, split
      count or column block and grid their plans chose, and call it twice
-     for bit-equal results.
+     for bit-equal results. The flash backward (the training path's) in
+     fp32 and bf16: the forward's row logsumexp against the plain one, then
+     dq / dk / dv against ``mha_reference_bwd`` on the same inputs
+     (relative to the plain version's max |grad|: fp32 1e-4, bf16 5e-2),
+     twice for bit-equal results, on the CPU tests' edge cases and at
+     phase 12's shapes (qwen2.5-3b and mixtral at 4 x 512 tokens),
+     seamless-m4t's encoder and gemma2-27b's window and softcap, timed
+     beside its bound, its plain version and SDPA's backward.
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
      the CPU (plain versions), on the same two sequences of 22 tokens: the
      engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, a
@@ -134,21 +142,44 @@ exits non-zero and no phase's failure is caught.
      flash (the encoder, cross attention, the prefills) on mma only, paged
      decode on the generation APIs. Prints tok/s, TTFT, TBT, the encoder's
      ms a pack with a first row, peak memory and weights' GB.
- 10. every call shape of chunked attention, gmm, w8a16 and flash attention
-     in phases 4-9 and 11 (recorded at the public ops) must be one phase 2
-     held against the plain version; then a ``kernels`` JSON line (with
-     each kernel's launches behind the stack as ``stack_launches``, in the
-     speculative runs as ``spec_launches`` and in phase 11 as
-     ``encdec_launches`` / ``vlm_launches``), then ``{"ok": true,
-     "device": {...}}`` last.
+ 12. (run after phase 7) training on the card through
+     ``training.trainer.train``: (a) qwen2.5-3b at full width and depth
+     (3.40 B parameters, random bf16 weights from seed 0), 4 x 512 tokens
+     of the synthetic corpus a step, remat, xent_chunk 128, peak lr 1e-3
+     after 2 warmup steps: 8 steps; then a run that checkpoints at step 4
+     (34.0 GB: bf16 parameters and fp32 moments) and crashes at step 6,
+     and a resume from that checkpoint, its checkpointer stubbed so it
+     writes none (the card's machine allows 45 GiB of disk writes a call); every loss finite, the
+     mean of steps 6-8 below step 1's, the resumed losses within 2e-2 of
+     the uninterrupted run's; step ms, tokens/s, peak memory and 6 N
+     tokens / step time against the bf16 peak printed. (b) mixtral-8x7b at
+     full width, depth 2, the capacity MoE, 4 steps at peak lr 1e-4:
+     losses finite and falling; aux and the dropped assignments printed.
+     Flash attention and its backward launched on their planned paths
+     only (``mma``, ``tiled``); chunked / paged attention, gmm, SSD and
+     w8a16 never. (c) qwen2.5-3b at depth 2 and mixtral at depth 1, full
+     width, fp32, card vs CPU on 2 x 32 tokens: the loss within 1e-4
+     relative, every gradient leaf within 1e-3 of its max |g|, and one
+     ``step_fn`` with 2 microbatches and int8 gradients (qwen): its loss
+     within 1e-4, AdamW's m / v within 1e-3 / 2e-3 of each leaf's max
+     plus one int8 step, and the card's parameters equal to AdamW
+     recomputed in float64 from them (1e-5 of lr, two ulps).
+ 10. every call shape of chunked attention, gmm, w8a16, flash attention
+     and its backward in phases 4-9, 11 and 12 (a, b) (recorded at the
+     public ops) must be one phase 2 held against the plain version; then
+     a ``kernels`` JSON line (with each kernel's launches behind the stack
+     as ``stack_launches``, in the speculative runs as ``spec_launches``,
+     in phase 11 as ``encdec_launches`` / ``vlm_launches`` and in phase
+     12 as ``train_launches``; the flash backward's ``launches`` are
+     phase 12's), then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
 Options: --out FILE writes every measurement as JSON; --profile adds
 torch.profiler windows over short serving runs, over decode steps of the
 generation paths, over a run of each stack layout, over a speculative run
-at each slot count and over a short serving run of each phase-11 family
-(kernel time by name, the device's busy share, and the stack's device and
-wall time a step).
+at each slot count, over a short serving run of each phase-11 family and
+over one qwen2.5-3b train step (kernel time by name, the device's busy
+share, and the stack's device and wall time a step).
 """
 from __future__ import annotations
 
@@ -253,7 +284,7 @@ def max_err(a, b) -> float:
 # grouped matmul, the w8a16 matmul and flash attention to SERVED. The script
 # fails if a served shape was never checked.
 CHECKED = {k: set() for k in ("chunked_prefill_attention", "moe_gmm", "w8a16_matmul",
-                              "flash_attention")}
+                              "flash_attention", "flash_attention_bwd")}
 SERVED = {k: set() for k in CHECKED}
 
 
@@ -285,14 +316,15 @@ def w8a16_key(x, w_q, col_scale, row_scale) -> tuple:
 @contextlib.contextmanager
 def served_shapes():
     """While open, the public ops' calls of chunked attention, the grouped
-    matmul, the w8a16 matmul and flash attention add their shapes to SERVED
-    and go on to the kernel's wrapper unchanged (which counts the launch)."""
+    matmul, the w8a16 matmul, flash attention and its backward add their
+    shapes to SERVED and go on to the kernel's wrapper unchanged (which
+    counts the launch)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.moe_gmm import ops as gops
     from repro_torch.kernels.paged_attention import ops as aops
     from repro_torch.kernels.quant_matmul import ops as wops
     attn, gmm, w8 = aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda
-    flash = fops.flash_attention_cuda
+    flash, flash_bwd = fops.flash_attention_cuda, fops.flash_attention_bwd_cuda
 
     def attn_rec(q, kp, vp, pt, *args, **kw):
         SERVED["chunked_prefill_attention"].add(attention_key(q, kp, pt))
@@ -311,14 +343,19 @@ def served_shapes():
         SERVED["flash_attention"].add(flash_key(q, k, causal, window, softcap))
         return flash(q, k, v, causal=causal, window=window, softcap=softcap, **kw)
 
+    def flash_bwd_rec(q, k, v, out, dout, lse, *, causal, window=0, softcap=0.0, **kw):
+        SERVED["flash_attention_bwd"].add(flash_key(q, k, causal, window, softcap))
+        return flash_bwd(q, k, v, out, dout, lse, causal=causal, window=window, softcap=softcap,
+                         **kw)
+
     aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda = \
         attn_rec, gmm_rec, w8_rec
-    fops.flash_attention_cuda = flash_rec
+    fops.flash_attention_cuda, fops.flash_attention_bwd_cuda = flash_rec, flash_bwd_rec
     try:
         yield
     finally:
         aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda = attn, gmm, w8
-        fops.flash_attention_cuda = flash
+        fops.flash_attention_cuda, fops.flash_attention_bwd_cuda = flash, flash_bwd
 
 
 # ------------------------------------------------------------------ phase 2
@@ -664,6 +701,134 @@ def run_flash(dev, flush, results):
                 f"library_ms={library_ms:.4f} bound_ms={bms:.6f} ({by}) max_abs_err={err:.3g}, "
                 f"repeat bit-equal")
             del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+
+
+# the flash backward's cases: (name, B, Sq, Skv, H, Hkv, D, causal, window,
+# softcap, q_offset). The CPU tests' edge cases (head dims 16 / 64 / 96 /
+# 128, G 1 / 4 / 8, window, softcap, q_offset, Sq != Skv, rows with no
+# visible key), then the training shapes: phase 12's (qwen2.5-3b and
+# mixtral-8x7b at 4 x 512 tokens), seamless-m4t's encoder (not causal, D 64)
+# and gemma2-27b's heads with its softcap and a window (cut to 128 to bite
+# at 512 tokens)
+FLASH_BWD_EDGE = [("edge", 2, 64, 64, 4, 1, 16, True, 0, 0.0, 0),
+                  ("edge", 1, 80, 80, 4, 2, 16, True, 16, 30.0, 0),
+                  ("edge", 2, 32, 96, 2, 2, 16, True, 0, 0.0, 64),
+                  ("edge", 1, 50, 70, 4, 2, 16, False, 0, 0.0, 0),
+                  ("edge", 1, 40, 40, 8, 1, 64, True, 8, 0.0, 20),
+                  ("edge", 2, 9, 130, 4, 4, 64, False, 0, 0.0, 0),
+                  ("edge", 1, 70, 70, 8, 2, 96, True, 0, 0.0, 0),
+                  ("edge", 1, 33, 100, 8, 1, 128, True, 0, 20.0, 67)]
+FLASH_BWD_FULL = [("qwen2.5-3b train", 4, 512, 512, 16, 2, 128, True, 0, 0.0, 0),
+                  ("mixtral train", 4, 512, 512, 32, 8, 128, True, 0, 0.0, 0),
+                  (f"{MM_SEAMLESS} encoder", 2, 1024, 1024, 16, 16, 64, False, 0, 0.0, 0),
+                  ("gemma2-27b window softcap", 4, 512, 512, 32, 16, 128, True, 128, 50.0, 0)]
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # relative to max |plain grad|
+LSE_TOL = 1e-4                                                 # absolute, natural-log units
+
+
+def flash_bwd_bound(q, k, dtype, *, causal, window, q_offset=0):
+    """Bytes: q, k, v, out, dO and lse read once, dq, dk and dv written once
+    (four q-sized tensors, four k-sized ones and the fp32 lse). Operations:
+    2.5 times the forward's 4*D per visible (query head, key) pair."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    qpos = torch.arange(Sq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(qpos + 1, max=Skv) if causal else torch.full_like(qpos, Skv)
+    lo = (qpos - window + 1).clamp_min(0) if window else torch.zeros_like(qpos)
+    pairs = B * H * (hi - lo).clamp_min(0).sum().item()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * Sq
+    return bound_ms(nbytes, 2.5 * 4.0 * D * pairs, dtype)
+
+
+def run_flash_bwd(dev, flush, results):
+    """Phase 2 for the flash backward: each case's forward (with its row
+    logsumexp) against mha_reference / mha_reference_lse, then the backward
+    kernel against mha_reference_bwd on the same (q, k, v, out, dO, lse),
+    called twice for bit-equal results; at the training shapes its time
+    beside the plain version's, SDPA's backward on K/V repeated to the query
+    heads (timed only) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda, mha_reference,
+                                                     mha_reference_bwd, mha_reference_lse)
+    from repro_torch.kernels.flash_attention.kernel import bwd_plan
+    fwd_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}    # run_flash's
+    for name, B, Sq, Skv, H, Hkv, D, causal, window, softcap, qoff in (FLASH_BWD_EDGE
+                                                                       + FLASH_BWD_FULL):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(Sq + Skv + D)
+            q, do = (torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((B, Skv, Hkv, D), generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff,
+                      scale=D ** -0.5)
+            out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+            fwd_err = max_err(out, mha_reference(q, k, v, **kw))
+            plse = mha_reference_lse(q, k, **kw)
+            live = torch.isfinite(plse)
+            assert torch.equal(live, torch.isfinite(lse)), f"flash bwd {name}: lse's -inf rows"
+            lse_err = max_err(lse[live], plse[live]) if live.any() else 0.0
+            assert fwd_err <= fwd_tol[dtype] and lse_err <= LSE_TOL, \
+                f"flash bwd {name} {dtype}: forward err {fwd_err}, lse err {lse_err}"
+            grads = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+            plain = mha_reference_bwd(q, k, v, out, do, lse, **kw)
+            abs_err = max(max_err(a, b) for a, b in zip(grads, plain))
+            errs = [max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+                    for a, b in zip(grads, plain)]
+            assert (all(torch.isfinite(t).all() for t in grads)
+                    and max(errs) <= FLASH_BWD_TOL[dtype]), \
+                f"flash bwd {name} {(B, Sq, Skv, H, Hkv, D)} {kw} {dtype}: rel errs {errs}"
+            again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(grads, again)), \
+                f"flash bwd {name} {dtype}: a repeat gave other bits"
+            key = flash_key(q, k, causal, window, softcap)
+            CHECKED["flash_attention"].add(key)
+            CHECKED["flash_attention_bwd"].add(key)
+            del grads, plain, again
+            shape = (f"q{tuple(q.shape)} kv{tuple(k.shape)} "
+                     f"{'causal' if causal else 'not causal'} window={window} "
+                     f"softcap={softcap} q_offset={qoff}")
+            plan = bwd_plan(B, Sq, Skv, H, Hkv, D, dtype)
+            if name == "edge":
+                log(f"  flash bwd edge {shape} {str(dtype)[6:]} ({plan['path']}): rel errs "
+                    f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} (tol "
+                    f"{FLASH_BWD_TOL[dtype]}), lse err {lse_err:.3g}, repeat bit-equal")
+                continue
+            ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw),
+                         flush=flush)
+            plain_ms = cuda_ms(lambda: mha_reference_bwd(q, k, v, out, do, lse, **kw),
+                               flush=flush)
+            # yardstick: SDPA's backward on K/V repeated to the query heads
+            # (the forward run once, outside the timed call)
+            G = H // Hkv
+            qt = q.transpose(1, 2).detach().requires_grad_()
+            kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2).detach().requires_grad_()
+                      for t in (k, v))
+            mask = None
+            if window:
+                i, j = torch.arange(Sq, device=dev)[:, None], torch.arange(Skv, device=dev)[None]
+                mask = (j <= i) & (j > i - window)
+            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                    is_causal=causal and mask is None,
+                                                    scale=kw["scale"])
+            do_t = do.transpose(1, 2)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t,
+                                                             retain_graph=True), flush=flush)
+            bms, by = flash_bwd_bound(q, k, dtype, causal=causal, window=window, q_offset=qoff)
+            row = dict(kernel="flash_attention_bwd", case=name, dtype=str(dtype)[6:],
+                       shape=shape, path=plan["path"], grids=plan["grids"],
+                       max_abs_err=abs_err, rel_errs=errs, lse_err=lse_err, ms=ms,
+                       plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bms, bound_by=by)
+            results.append(row)
+            log(f"  flash bwd {name} {row['dtype']} {shape} path={plan['path']}: "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                f"bound_ms={bms:.6f} ({by}) rel errs dq {errs[0]:.3g} dk {errs[1]:.3g} "
+                f"dv {errs[2]:.3g} (tol {FLASH_BWD_TOL[dtype]}), lse err {lse_err:.3g}, "
+                f"repeat bit-equal")
+            del q, k, v, do, out, lse, qt, kt, vt, o_sdpa, do_t
             torch.cuda.empty_cache()
 
 
@@ -2280,6 +2445,351 @@ def run_mm_card_vs_cpu(dev, name: str):
     return worst, cross
 
 
+# ------------------------------------------------------------------ phase 12
+TRAIN_ARCH = "qwen2.5-3b"          # the reference launcher's default arch
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 8, 4, 6
+# a full-width qwen2.5-3b checkpoint (bf16 parameters, fp32 moments) is 34.0
+# GB, and the card's machine ends a call once 45 GiB were written to its
+# disk, deleted files included: so phase 12 writes one, the crash run's
+# (step 4); the uninterrupted run has no checkpoint directory, and the
+# resume's checkpointer is stubbed
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 4
+# (b)'s peak lr: at 1e-3 (a's) AdamW's first, sign-like updates of the
+# random full-width experts send mixtral's loss up (10.78 -> 18.82 at step
+# 2 on an H100); (a)'s qwen falls at 1e-3 over 8 steps
+MOE_TRAIN_LR = 1e-4
+# (a): the resumed run's losses against the uninterrupted run's, absolute:
+# the card's atomic sums (the embedding backward's) are order-dependent, so
+# the two runs' states at step 4 need not be bit-equal
+RESUME_TOL = 2e-2
+TRAIN_LOSS_RTOL = 1e-4             # (c): card vs CPU loss, relative
+TRAIN_GRAD_TOL = 1e-3              # (c): each leaf against its max |g|
+# (c)'s step: AdamW's m against the CPU's within TRAIN_GRAD_TOL of its max,
+# v (quadratic in g) within twice that, each plus one step of the leaf's
+# int8 gradient quantizer (an element on a rounding boundary may round
+# either way: m moves by max|m| / 127, v by at most 253 / 127**2 of max v);
+# and the card's new parameters against AdamW recomputed in float64 from
+# the card's own moments, within ADAMW_RTOL of lr x (1 + |update|) plus
+# two fp32 ulps of the parameter
+ADAMW_RTOL = 1e-5
+
+
+def adamw_step_err(before, after, m, v, *, lr: float, step: int, weight_decay: float,
+                   b1=0.9, b2=0.95, eps=1e-8) -> float:
+    """The worst |new parameter - AdamW's| over its tolerance (see
+    ADAMW_RTOL): AdamW (the optimizer's defaults) recomputed in float64
+    from the parameters before the step and the moments after it, so a
+    skipped, sign-flipped or mis-scaled step fails where the moments
+    agree."""
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+    worst = 0.0
+    for leaves in zip(before, after, m, v):
+        p0, p1, mm, vv = (t.reshape(-1) for t in leaves)
+        for i in range(0, p0.numel(), 1 << 24):       # bounded float64 temporaries
+            a, b, c, d = (t[i:i + (1 << 24)].double() for t in (p0, p1, mm, vv))
+            delta = (c / bc1) / (torch.sqrt(d / bc2) + eps) + weight_decay * a
+            want = a - lr * delta
+            tol = (ADAMW_RTOL * lr * (1 + delta.abs())
+                   + 2.0 ** -22 * torch.maximum(a.abs(), want.abs()))
+            worst = max(worst, float(((b - want).abs() / tol).max()))
+    return worst
+
+
+def train_config(**kw):
+    from repro_torch.training.train_step import TrainConfig
+    return TrainConfig(**{**dict(peak_lr=1e-3, warmup=2, remat=True, xent_chunk=128), **kw})
+
+
+def kernel_wrappers() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
+    from repro_torch.kernels.paged_attention import chunked_prefill_cuda, paged_attention_cuda
+    from repro_torch.kernels.quant_matmul import w8a16_matmul_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    return {"chunked_prefill_attention": chunked_prefill_cuda, "moe_gmm": gmm_tiles_cuda,
+            "flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
+            "paged_attention": paged_attention_cuda, "ssd_scan": ssd_scan_cuda,
+            "w8a16_matmul": w8a16_matmul_cuda}
+
+
+def zero_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_path"):
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+
+
+def read_launches() -> tuple:
+    fns = kernel_wrappers()
+    return ({k: fn.launches for k, fn in fns.items()},
+            {k: dict(fn.launches_by_path) for k, fn in fns.items()
+             if hasattr(fn, "launches_by_path")})
+
+
+def run_training(dev, profile: bool = False):
+    """Phase 12 (a) and (b): the trainer (``training.trainer.train``) on the
+    card; with ``profile``, a torch.profiler window over one more qwen2.5-3b
+    step after the uninterrupted run. Returns (results, launches of both,
+    their paths)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.params import count_params_analytic
+    from repro_torch.data.pipeline import synthesize_batch
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.trainer import CrashForTest, TrainerConfig, train
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    zero_launches()
+    res = {}
+
+    # (a) qwen2.5-3b at full width and depth: an uninterrupted run, a run
+    # that checkpoints at step 4 and crashes at step 6, and a resume from it
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    n_params = count_params_analytic(cfg)
+    dcfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    tcfg = train_config()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    checkpointer = trainer_mod.AsyncCheckpointer
+
+    class NoSaves:
+        """The trainer's checkpointer with its saves dropped."""
+        def __init__(self, directory, keep=3):
+            pass
+
+        def save(self, step, tree, extra_meta=None):
+            pass
+
+        def wait(self):
+            pass
+
+    def run(rcfg, window=False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init_params(0, device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            out = train(model, dcfg, tcfg, rcfg, params=params)
+            if window:
+                _, step_fn = make_train_step(model, tcfg)
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in synthesize_batch(dcfg, rcfg.steps).items()}
+                out["profile"] = profile_window(
+                    lambda: step_fn(out["params"], out["state"], batch),
+                    f"one {cfg.name} train step")
+            del out["params"], out["state"]          # the next run needs the memory
+        except CrashForTest as crash:
+            out = dict(crashed=True, losses=crash.losses, step_seconds=crash.step_seconds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        return out, wall, peak
+
+    try:
+        full, wall_a, peak_a = run(TrainerConfig(steps=TRAIN_STEPS), window=profile)
+        crashed, wall_b, _ = run(TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=str(root),
+                                               ckpt_every=TRAIN_CKPT_EVERY,
+                                               crash_at=TRAIN_CRASH_AT))
+        assert crashed.get("crashed") and len(crashed["losses"]) == TRAIN_CRASH_AT, \
+            "the run with crash_at did not crash there"
+        assert latest_step(str(root)) == TRAIN_CKPT_EVERY
+        ckpt_gb = sum(f.stat().st_size for f in (root / f"step_{TRAIN_CKPT_EVERY:08d}").iterdir()
+                      ) / 1e9
+        # the resume writes nothing: the trainer's checkpointer is stubbed
+        trainer_mod.AsyncCheckpointer = NoSaves
+        try:
+            resumed, wall_c, _ = run(TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=str(root),
+                                                   ckpt_every=TRAIN_CKPT_EVERY))
+        finally:
+            trainer_mod.AsyncCheckpointer = checkpointer
+        assert latest_step(str(root)) == TRAIN_CKPT_EVERY
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = full["losses"]
+    assert all(np.isfinite(losses)) and all(np.isfinite(resumed["losses"])), "a loss is not finite"
+    assert np.mean(losses[5:8]) < losses[0], f"{TRAIN_ARCH}: the loss did not fall: {losses}"
+    assert resumed["start"] == TRAIN_CKPT_EVERY, f"resumed at step {resumed['start']}"
+    resume_err = max(abs(a - b) for a, b in zip(resumed["losses"], losses[TRAIN_CKPT_EVERY:]))
+    assert resume_err <= RESUME_TOL, \
+        f"resumed losses {resumed['losses']} vs {losses[TRAIN_CKPT_EVERY:]}: {resume_err}"
+    step_s = float(np.median(full["step_seconds"][1:]))
+    share = 6.0 * n_params * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
+    # the crash run's and the resume's time outside their steps: the
+    # checkpoint's host copy and write, and its read and copy back
+    ckpt_s = wall_b - sum(crashed["step_seconds"])
+    restore_s = wall_c - sum(resumed["step_seconds"])
+    res["qwen"] = dict(config=cfg.name, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       steps=TRAIN_STEPS, losses=losses, resumed_losses=resumed["losses"],
+                       resume_max_abs_err=resume_err, step_seconds=full["step_seconds"],
+                       step_ms_median=1e3 * step_s, tokens_per_s=tokens / step_s,
+                       peak_gb=peak_a, bf16_peak_share=share, ckpt_gb=ckpt_gb,
+                       wall_s=dict(uninterrupted=wall_a, crashed=wall_b, resumed=wall_c),
+                       save_s=ckpt_s, restore_s=restore_s, metrics=full["metrics"],
+                       profile=full.get("profile"))
+    log(f"  (a) {cfg.name} full width and depth ({cfg.n_layers} layers, {n_params / 1e9:.2f} B "
+        f"params), random bf16 weights from seed 0, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"remat, xent_chunk 128: losses {[round(x, 4) for x in losses]}; step "
+        f"{1e3 * step_s:.1f} ms (median of steps 2-{TRAIN_STEPS}), {tokens / step_s:.0f} tok/s, "
+        f"peak {peak_a:.2f} GB, 6 N tokens / step time = {100 * share:.1f}% of the bf16 peak "
+        f"(printed only); the run checkpointing at step {TRAIN_CKPT_EVERY} ({ckpt_gb:.1f} GB) "
+        f"and crashing at step {TRAIN_CRASH_AT}: {wall_b:.1f} s, {ckpt_s:.1f} s of it outside "
+        f"the steps; the resume from step {resumed['start']}: {wall_c:.1f} s, {restore_s:.1f} s "
+        f"of it outside the steps; resumed losses "
+        f"{[round(x, 4) for x in resumed['losses']]}, max |diff| {resume_err:.3g} <= "
+        f"{RESUME_TOL}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) mixtral-8x7b at full width, depth cut, the capacity MoE
+    cfg = mixtral(MOE_TRAIN_LAYERS)
+    model = build_model(cfg)
+    dropped = []
+    dispatch = moe_mod.capacity_dispatch
+
+    def counted(xf, topi, E, cap):
+        ebuf, info = dispatch(xf, topi, E, cap)
+        dropped.append((int((~info[2]).sum()), info[2].numel(), cap))
+        return ebuf, info
+
+    moe_mod.capacity_dispatch = counted
+    try:
+        params = model.init_params(0, device=dev, dtype=torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        out = train(model, DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                    train_config(peak_lr=MOE_TRAIN_LR), TrainerConfig(steps=MOE_TRAIN_STEPS),
+                    params=params)
+        peak_b = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        moe_mod.capacity_dispatch = dispatch
+    del params
+    moe_losses = out["losses"]
+    assert all(np.isfinite(moe_losses)) and moe_losses[-1] < moe_losses[0], \
+        f"{cfg.name}: losses not finite and falling: {moe_losses}"
+    # remat: each step routes every layer twice (the forward and its
+    # recompute), the same way; the forward's calls come first
+    per_step = [dropped[i * 2 * cfg.n_layers:i * 2 * cfg.n_layers + cfg.n_layers]
+                for i in range(MOE_TRAIN_STEPS)]
+    n_moe = count_params_analytic(cfg)
+    res["mixtral"] = dict(config=cfg.name, layers=cfg.n_layers, params=n_moe, losses=moe_losses,
+                          aux=[m["aux"] for m in out["metrics"]], dropped=per_step,
+                          step_seconds=out["step_seconds"], peak_gb=peak_b)
+    log(f"  (b) {cfg.name}: full width, {depth_note(cfg)}, {n_moe / 1e9:.2f} B params, random "
+        f"bf16 weights, capacity MoE (factor {cfg.moe.capacity_factor}), peak lr "
+        f"{MOE_TRAIN_LR}: losses "
+        f"{[round(x, 4) for x in moe_losses]}, aux {[round(a, 4) for a in res['mixtral']['aux']]}, "
+        f"assignments dropped by layer (of {per_step[0][0][1]}, capacity {per_step[0][0][2]} "
+        f"an expert) {[[d for d, _, _ in s] for s in per_step]}; step "
+        f"{1e3 * float(np.median(out['step_seconds'][1:])):.1f} ms, peak {peak_b:.2f} GB")
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, paths = read_launches()
+    assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0, \
+        f"flash attention or its backward never ran on the training path: {launches}"
+    assert paths["flash_attention"]["mma"] == launches["flash_attention"] and \
+        paths["flash_attention_bwd"]["tiled"] == launches["flash_attention_bwd"], \
+        f"flash attention left its planned paths (bf16: mma; backward: tiled): {paths}"
+    idle = {k: n for k, n in launches.items()
+            if k not in ("flash_attention", "flash_attention_bwd")}
+    assert not any(idle.values()), f"training reached a kernel it must not: {idle}"
+    log(f"  training launches: {launches}, flash by path {paths['flash_attention']}, backward "
+        f"{paths['flash_attention_bwd']}")
+    return res, launches, paths
+
+
+def train_card_vs_cpu(dev, cfg, step: bool):
+    """Phase 12 (c): ``cfg`` (full width, depth cut) in fp32 on the card and
+    on the CPU, same weights and 2 x 32 tokens: the loss within
+    TRAIN_LOSS_RTOL, every gradient leaf within TRAIN_GRAD_TOL of its max
+    |g|; with ``step``, one ``step_fn`` with 2 microbatches and int8 gradient
+    compression: its loss within TRAIN_LOSS_RTOL, AdamW's moments against
+    the CPU's and the card's parameters against AdamW on the card's own
+    moments (see ADAMW_RTOL). The parameters are not held against the
+    CPU's directly: AdamW's first update is nearly sign(g) times lr, so an
+    element whose gradient sits near 0 (or on an int8 rounding boundary)
+    may move by +-lr on either side. Returns the worst errors."""
+    from repro_torch.data.pipeline import DataConfig, synthesize_batch
+    from repro_torch.models import RunCtx, build_model
+    from repro_torch.models.params import map_tree, tree_leaves, tree_unflatten
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    model = build_model(cfg)
+    params = model.init_params(0, device=dev, dtype=torch.float32)
+    cpu_params = map_tree(lambda t: t.to("cpu", copy=True), params)
+    data = synthesize_batch(DataConfig(vocab=cfg.vocab, batch=2, seq_len=32), 0)
+    ctx = RunCtx(mode="train", moe_strategy="capacity", remat=True)
+    got = {}
+    for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
+        batch = {k: torch.from_numpy(v).to(where) for k, v in data.items()}
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+        loss, _ = model.loss(tree_unflatten(p, leaves), batch, ctx)
+        grads = torch.autograd.grad(loss, leaves)
+        got[key] = (float(loss.detach()), [g.cpu() for g in grads])
+        del leaves, grads
+    loss_err = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    grad_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got["card"][1], got["cpu"][1]))
+    assert loss_err <= TRAIN_LOSS_RTOL, f"{cfg.name}: loss card vs CPU rel err {loss_err}"
+    assert grad_err <= TRAIN_GRAD_TOL, f"{cfg.name}: gradients card vs CPU rel err {grad_err}"
+    del got
+    out = dict(loss_rel_err=loss_err, grad_rel_err=grad_err)
+    msg = (f"  (c) {cfg.name}: fp32, full width, depth {cfg.n_layers}, card vs CPU on 2 x 32 "
+           f"tokens: loss rel err {loss_err:.3g} <= {TRAIN_LOSS_RTOL}, worst gradient leaf "
+           f"{grad_err:.3g} of its max |g| <= {TRAIN_GRAD_TOL}")
+    if step:
+        tcfg = TrainConfig(microbatches=2, grad_compression=True, xent_chunk=16)
+        init_fn, step_fn = make_train_step(model, tcfg)
+        new = {}
+        for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
+            batch = {k: torch.from_numpy(v).to(where) for k, v in data.items()}
+            before = [t.clone() for t in tree_leaves(p)] if key == "card" else None
+            p, (opt, _), metrics = step_fn(p, init_fn(p), batch)
+            lr = float(metrics["lr"])
+            if before is not None:
+                adamw_err = adamw_step_err(before, tree_leaves(p), tree_leaves(opt.m),
+                                           tree_leaves(opt.v), lr=lr, step=int(opt.step),
+                                           weight_decay=tcfg.weight_decay)
+                del before
+            new[key] = (float(metrics["loss"]), lr, [t.cpu() for t in tree_leaves(opt.m)],
+                        [t.cpu() for t in tree_leaves(opt.v)])
+            del opt
+        step_loss = abs(new["card"][0] - new["cpu"][0]) / abs(new["cpu"][0])
+        lr = new["cpu"][1]
+        moment_err = max(max(max_err(a, b) / ((TRAIN_GRAD_TOL + 1 / 127) * float(b.abs().max())
+                                               + 1e-30)
+                             for a, b in zip(new["card"][2], new["cpu"][2])),
+                         max(max_err(a, b) / ((2 * TRAIN_GRAD_TOL + 253 / 127 ** 2)
+                                              * float(b.abs().max()) + 1e-30)
+                             for a, b in zip(new["card"][3], new["cpu"][3])))
+        assert step_loss <= TRAIN_LOSS_RTOL and moment_err <= 1.0 and adamw_err <= 1.0, (
+            f"{cfg.name}: step_fn card vs CPU: loss {step_loss}, moments at {moment_err} of "
+            f"their bound; the card's parameters at {adamw_err} of AdamW's tolerance")
+        out.update(step_loss_rel_err=step_loss, moment_err_of_bound=moment_err,
+                   adamw_err_of_tol=adamw_err)
+        msg += (f"; step_fn (2 microbatches, int8 gradients with error feedback, "
+                f"xent_chunk 16, lr {lr:.3g}): loss rel err {step_loss:.3g}, AdamW's m / v "
+                f"against the CPU's at {moment_err:.3g} of their bound, the card's parameters "
+                f"against AdamW in float64 on its own moments at {adamw_err:.3g} of the "
+                f"tolerance")
+    log(msg)
+    del params, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ phase 8
 
 def pct(values, q: float) -> float:
@@ -2651,6 +3161,7 @@ def main() -> int:
     run_attention(dev, flush, results)
     run_gmm(dev, flush, results)
     run_flash(dev, flush, results)
+    run_flash_bwd(dev, flush, results)
     run_paged_decode(dev, flush, results)
     run_ssd(dev, flush, results)
     run_w8a16(dev, flush, results)
@@ -2754,10 +3265,25 @@ def main() -> int:
     del model, params
     launches["w8a16_matmul"] = int8_launches["w8a16_matmul"]
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
-    recording.close()
+
+    log(f"phase 12: training on the card: {TRAIN_ARCH} at full width and depth (checkpoints, "
+        f"a crash, a resume), mixtral-8x7b at depth {MOE_TRAIN_LAYERS} with the capacity MoE, "
+        f"then card vs CPU in fp32")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    training, train_launches, train_paths = run_training(dev, args.profile)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    recording.close()            # (c)'s fp32 calls check the card; they train nothing
+    from repro_torch.configs import LayerGroup, get_config
+    qwen2 = get_config(TRAIN_ARCH).scaled(name=f"{TRAIN_ARCH}-2L", n_layers=2,
+                                          layer_groups=(LayerGroup("A", 2),))
+    training["card_vs_cpu"] = {qwen2.name: train_card_vs_cpu(dev, qwen2, step=True),
+                               mixtral(1).name: train_card_vs_cpu(dev, mixtral(1), step=False)}
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     unchecked = {k: sorted(SERVED[k] - CHECKED[k]) for k in SERVED}
-    log("call shapes of the main paths (phases 4-9, 11) against phase 2's: "
+    log("call shapes of the main paths (phases 4-9, 11, 12) against phase 2's: "
         + "; ".join(f"{k} {len(SERVED[k])} served, {len(CHECKED[k])} checked"
                     for k in SERVED))
     assert not any(unchecked.values()), \
@@ -2771,6 +3297,10 @@ def main() -> int:
              "src/repro/kernels/moe_gmm/kernel.py:29", "8tok 4096->14336"),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:112", "prefill"),
+            # no TPU kernel of its own: the gradient of row 4's, which the
+            # reference takes by XLA autodiff of mha_chunked
+            ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention/kernel.py:112", "qwen2.5-3b train"),
             ("paged_attention", "src/repro_torch/csrc/chunked_prefill.cu",
              "src/repro/kernels/paged_attention/kernel.py:107", "decode"),
             ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
@@ -2783,10 +3313,11 @@ def main() -> int:
                             launches=launches[name], max_abs_err=row["max_abs_err"],
                             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"],
-                            stack_launches=stack_launches[name],
+                            stack_launches=stack_launches.get(name, 0),
                             spec_launches=spec_launches.get(name, 0),
                             encdec_launches=mm_launches[MM_SEAMLESS].get(name, 0),
                             vlm_launches=mm_launches[MM_VISION].get(name, 0),
+                            train_launches=train_launches[name],
                             shape=f"{case} bf16: {row['shape']}"))
     if args.out:
         out = Path(args.out)
@@ -2802,6 +3333,7 @@ def main() -> int:
                                        int8_serve=int8_serve, int8_generation=int8_generation,
                                        stack=stack, spec=spec, int8_spec=int8_spec,
                                        encdec_vlm=mm, encdec_vlm_card_vs_cpu=mm_checks,
+                                       training=training,
                                        served_shapes={k: sorted(v) for k, v in SERVED.items()},
                                        kernels=kernels),
                                   indent=1))

@@ -73,11 +73,14 @@ __device__ __forceinline__ void mma_key_tiles(int q_lo, int q_hi, int kv_end, bo
 // One block's 64 folded rows r0 .. of KV head h in batch row b. q and out
 // are (B, C, H, D) with H = Hkv * G; query token c sits at position pos0 + c;
 // keys [0, kv_end) exist, key pos's K and V rows start at element
-// kv_row(pos) of kp and vp. smem holds mma_smem<D>() bytes.
+// kv_row(pos) of kp and vp. smem holds mma_smem<D>() bytes. A non-null lse
+// (B, H, C) fp32 takes each row's logsumexp of its scaled (softcapped)
+// scores, natural log; -inf for a row with no visible key.
 template <int D, bool kCausal, typename KvRow>
 __device__ __forceinline__ void mma_attention_block(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
-    const __nv_bfloat16* __restrict__ vp, __nv_bfloat16* __restrict__ out, int b, int h,
+    const __nv_bfloat16* __restrict__ vp, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int b, int h,
     int r0, int C, int H, int G, int pos0, int kv_end, float scale, float softcap, int window,
     KvRow kv_row, unsigned char* smem) {
   constexpr int kRow = D + kMmaPad;       // elements a staged row
@@ -270,6 +273,9 @@ __device__ __forceinline__ void mma_attention_block(
     L += __shfl_xor_sync(~0u, L, 2);
     const int r = r0 + wrow + 8 * hh;
     if (r >= R) continue;
+    if (lse != nullptr && lane % 4 == 0)     // m_r in log2 units: lse = (m + log2 L) ln 2
+      lse[(static_cast<size_t>(b) * H + h * G + r % G) * C + r / G] =
+          L > 0.f ? (m_r[hh] + log2f(L)) * 0.69314718055994531f : -INFINITY;
     __nv_bfloat16* dst =
         out + ((static_cast<size_t>(b) * C + r / G) * H + h * G + r % G) * D + 2 * (lane % 4);
 #pragma unroll

@@ -570,7 +570,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) chunked_mma_kernel(
   auto kv_row = [&](int pos) {
     return ((static_cast<size_t>(pages[pos / ps]) * ps + pos % ps) * Hkv + h) * D;
   };
-  mma_attention_block<D, true>(q, kp, vp, out, b, h, blockIdx.x * kMmaRows, C, H, H / Hkv,
+  mma_attention_block<D, true>(q, kp, vp, out, nullptr, b, h, blockIdx.x * kMmaRows, C, H, H / Hkv,
                                starts[b], min(lengths[b], maxp * ps), scale, softcap, window,
                                kv_row, smem);
 }

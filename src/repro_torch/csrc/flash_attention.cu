@@ -9,7 +9,10 @@
 // scores are scaled, optionally softcapped, and reduced with an fp32 online
 // softmax; a row with no visible key gives zeros. GQA by index: query head
 // h reads kv head h / (H / Hkv), so grouped K/V is never materialised.
-// Head dims 16, 64, 96 and 128. Besides causal self attention it serves
+// Head dims 16, 64, 96 and 128. On request (training: the backward in
+// flash_attention_bwd.cu reads it) both kernels also write each row's
+// logsumexp of its scaled, softcapped scores, lse (B, H, Sq) fp32, natural
+// log, -inf for a row with no visible key. Besides causal self attention it serves
 // seamless-m4t's encoder (bidirectional, Sq = Skv) and cross attention
 // (not causal, Sq != Skv: a chunk or one token against the memory).
 //
@@ -84,8 +87,8 @@ __device__ __forceinline__ void lds(const float* p, float (&x)[N]) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int Sq, int Skv, int H, int Hkv, float scale, float softcap,
-    int causal, int window, int q_offset) {
+    T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int H, int Hkv, float scale,
+    float softcap, int causal, int window, int q_offset) {
   constexpr int kVec = (D / kColGroups) >= 4 ? 4 : D / kColGroups;  // 4 from D = 32, D=16: 2
   constexpr int kChunks = D / (kColGroups * kVec);                  // D / 32, D=16: 1
   static_assert(D % (kColGroups * kVec) == 0, "head_dim must split over the row group");
@@ -214,6 +217,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   for (int i = 0; i < kRowsPer; ++i) {
     const int r = rg * kRowsPer + i;
     if (r >= nq) continue;
+    if (lse != nullptr && cg == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + q0 + r] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     T* o = out + ((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c)
@@ -224,9 +230,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <typename T, int D>
-int launch_tiled(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-                 int H, int Hkv, float scale, float softcap, int causal, int window,
-                 int q_offset, cudaStream_t stream) {
+int launch_tiled(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 int Sq, int Skv, int H, int Hkv, float scale, float softcap, int causal,
+                 int window, int q_offset, cudaStream_t stream) {
   constexpr int bytes = static_cast<int>(sizeof(Smem<D>));
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -234,7 +240,7 @@ int launch_tiled(const void* q, const void* k, const void* v, void* out, int B, 
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, H, Hkv, scale, softcap, causal, window, q_offset);
+      static_cast<T*>(out), lse, Sq, Skv, H, Hkv, scale, softcap, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -243,8 +249,8 @@ int launch_tiled(const void* q, const void* k, const void* v, void* out, int B, 
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kMmaThreads, 2) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-    int H, int Hkv, float scale, float softcap, int window, int q_offset) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int Sq, int Skv, int H, int Hkv, float scale, float softcap, int window, int q_offset) {
   extern __shared__ __align__(16) unsigned char smem[];
   // blocks start in the order of their linear index: the row block is the
   // slowest axis of that order, last rows first, so the blocks that walk the
@@ -256,13 +262,13 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_mma_kernel(
   const int h = lin % heads % gridDim.y, b = lin % heads / gridDim.y;
   const size_t row0 = static_cast<size_t>(b) * Skv;
   auto kv_row = [&](int pos) { return ((row0 + pos) * Hkv + h) * D; };
-  mma_attention_block<D, kCausal>(q, k, v, out, b, h, rb * kMmaRows, Sq, H, H / Hkv,
+  mma_attention_block<D, kCausal>(q, k, v, out, lse, b, h, rb * kMmaRows, Sq, H, H / Hkv,
                                   q_offset, Skv, scale, softcap, window, kv_row, smem);
 }
 
 template <int D, bool kCausal>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-               int H, int Hkv, float scale, float softcap, int window, int q_offset,
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+               int Skv, int H, int Hkv, float scale, float softcap, int window, int q_offset,
                cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_mma_kernel<D, kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem<D>());
@@ -271,27 +277,27 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid(static_cast<unsigned>((rows + kMmaRows - 1) / kMmaRows), Hkv, B);
   flash_mma_kernel<D, kCausal><<<grid, kMmaThreads, mma_smem<D>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hkv,
-      scale, softcap, window, q_offset);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H,
+      Hkv, scale, softcap, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 enum Path : int { kTiled = 0, kMma = 1 };
 
 template <typename T, int D>
-int launch_path(int path, const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                int Skv, int H, int Hkv, float scale, float softcap, int causal, int window,
-                int q_offset, cudaStream_t s) {
+int launch_path(int path, const void* q, const void* k, const void* v, void* out, float* lse,
+                int B, int Sq, int Skv, int H, int Hkv, float scale, float softcap, int causal,
+                int window, int q_offset, cudaStream_t s) {
   switch (path) {
     case kTiled:
-      return launch_tiled<T, D>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap, causal,
+      return launch_tiled<T, D>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, scale, softcap, causal,
                                 window, q_offset, s);
     case kMma:
       if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-        return causal ? launch_mma<D, true>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
-                                            window, q_offset, s)
-                      : launch_mma<D, false>(q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
-                                             window, q_offset, s);
+        return causal ? launch_mma<D, true>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, scale,
+                                            softcap, window, q_offset, s)
+                      : launch_mma<D, false>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, scale,
+                                             softcap, window, q_offset, s);
       }
       return -1;
     default:
@@ -312,9 +318,11 @@ extern "C" void flash_attention_constants(int* c) {
 // Returns the CUDA error of the launch (0 on success), -1 for a path, dtype
 // or head dim the kernels do not take. path: 0 tiled, 1 mma (bf16 only).
 // Layouts: q / out (B, Sq, H, D); k / v (B, Skv, Hkv, D); all contiguous,
-// one dtype, 16-byte aligned on the mma path.
+// one dtype, 16-byte aligned on the mma path. lse (B, H, Sq) fp32, or null
+// to write none.
 extern "C" int flash_attention_launch(int path, const void* q, const void* k, const void* v,
-                                      void* out, int B, int Sq, int Skv, int H, int Hkv, int D,
+                                      void* out, float* lse, int B, int Sq, int Skv, int H,
+                                      int Hkv, int D,
                                       float scale, float softcap, int causal, int window,
                                       int q_offset, int dtype, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return -1;
@@ -322,13 +330,13 @@ extern "C" int flash_attention_launch(int path, const void* q, const void* k, co
   return dispatch_dtype(dtype, [&](auto t) {
     using T = std::remove_pointer_t<decltype(t)>;
     switch (D) {
-      case 16: return launch_path<T, 16>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
-                                         causal, window, q_offset, s);
-      case 64: return launch_path<T, 64>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
-                                         causal, window, q_offset, s);
-      case 96: return launch_path<T, 96>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale, softcap,
-                                         causal, window, q_offset, s);
-      case 128: return launch_path<T, 128>(path, q, k, v, out, B, Sq, Skv, H, Hkv, scale,
+      case 16: return launch_path<T, 16>(path, q, k, v, out, lse, B, Sq, Skv, H, Hkv, scale,
+                                         softcap, causal, window, q_offset, s);
+      case 64: return launch_path<T, 64>(path, q, k, v, out, lse, B, Sq, Skv, H, Hkv, scale,
+                                         softcap, causal, window, q_offset, s);
+      case 96: return launch_path<T, 96>(path, q, k, v, out, lse, B, Sq, Skv, H, Hkv, scale,
+                                         softcap, causal, window, q_offset, s);
+      case 128: return launch_path<T, 128>(path, q, k, v, out, lse, B, Sq, Skv, H, Hkv, scale,
                                            softcap, causal, window, q_offset, s);
       default: return -1;
     }

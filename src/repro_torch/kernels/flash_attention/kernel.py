@@ -1,6 +1,7 @@
 """Binding of the CUDA flash attention kernels (``csrc/flash_attention.cu``),
 which replace the TPU kernel
-``repro/kernels/flash_attention/kernel.py::flash_attention_bhsd``.
+``repro/kernels/flash_attention/kernel.py::flash_attention_bhsd``, and of
+their backward (``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd_cuda``).
 
 ``_plan`` picks one of the source's two kernels from the shapes and dtype:
 
@@ -15,7 +16,14 @@ The wrapper validates its operands, allocates the output, launches on the
 current stream and raises if the launch failed; a call no kernel takes
 raises ValueError. ``launches`` counts the launches made, so a run can show
 that its path went through the kernel; ``launches_by_path`` counts them by
-path.
+path. The forward writes each row's logsumexp when asked (``lse=True``),
+for the backward; serving never asks.
+
+The backward has one path, ``tiled`` (IEEE fp32 on the CUDA cores, inputs
+fp32 or bf16): a preprocess of Delta = rowsum(dO o O), then dK / dV with
+one block per (``BWD_KEYS``-key tile, kv head, batch row) summing its GQA
+group in the block (no atomics: a repeat gives the same bits), then dQ with
+one block per (``BWD_ROWS``-row query tile, query head, batch row).
 """
 from __future__ import annotations
 
@@ -36,6 +44,10 @@ TILED_ROWS = 64          # query rows a block of the fp32 tiled kernel
 MMA_ROWS = 64            # folded rows a block of the tensor-core kernel
 MMA_KEYS = 64            # and its key tile
 GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
+# constants of csrc/flash_attention_bwd.cu (checked at load)
+BWD_ROWS = 64            # query rows a tile of the dq kernel (and of dkdv's walk)
+BWD_KEYS = 32            # keys a tile of the dkdv kernel (and of dq's walk)
+BWD_PATHS = ("tiled",)
 
 
 @dataclass(frozen=True)
@@ -95,7 +107,7 @@ def bind(lib):
     if tuple(consts) != want:
         raise RuntimeError(f"flash_attention library constants {tuple(consts)}, expected {want}")
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -118,11 +130,13 @@ def plan_for(q, k) -> Plan:
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
-                         q_offset: int = 0, scale: float):
+                         q_offset: int = 0, scale: float, lse: bool = False):
     """q (B, Sq, H, D) against k / v (B, Skv, Hkv, D), one dtype (fp32 or
     bf16), fp32 math, output in q's dtype. Query row i sits at position
     i + q_offset; any Sq and Skv (the kernels mask the ragged edges). The
-    kernel is the one ``plan_for`` names."""
+    kernel is the one ``plan_for`` names. With ``lse`` returns (out, lse):
+    lse (B, H, Sq) fp32 is each row's logsumexp of its scaled, softcapped
+    scores, -inf for a row with no visible key."""
     dev = q.device
     _check(dev.type == "cuda", f"q is on {dev}, the kernel runs on CUDA tensors")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -136,23 +150,109 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0, softcap: flo
 
     plan = plan_for(q, k)
     out = torch.empty_like(q)
+    row_lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) if lse else None
     if out.numel() == 0:
-        return out
+        return (out, row_lse) if lse else out
     if plan.path == "mma":     # 16-byte cp.async copies of q, k and v rows
         _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                "q, k and v must be 16-byte aligned")
     with torch.cuda.device(dev):
         err = _launcher()(
             PATHS.index(plan.path), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, Hkv, D, float(scale), float(softcap), int(bool(causal)),
-            int(window), int(q_offset), DTYPE_CODES[q.dtype],
+            None if row_lse is None else row_lse.data_ptr(), B, Sq, Skv, H, Hkv, D,
+            float(scale), float(softcap), int(bool(causal)), int(window), int(q_offset),
+            DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {err}, plan {plan})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_path[plan.path] += 1
-    return out
+    return (out, row_lse) if lse else out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
+
+
+def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int, dtype) -> dict:
+    """The backward's path and the grids of its three kernels (delta: one
+    warp a row, 8 a block; dkdv; dq) for q (B, Sq, H, D) against k / v (B,
+    Skv, Hkv, D). Raises ValueError for a call no kernel takes."""
+    _plan(B, Sq, H, Hkv, D, dtype)     # the forward's checks of head dim, dtype and heads
+    grids = {"delta": (_cdiv(B * Sq * H, 8), 1, 1), "dkdv": (_cdiv(Skv, BWD_KEYS), Hkv, B),
+             "dq": (_cdiv(Sq, BWD_ROWS), H, B)}
+    for name, grid in grids.items():
+        if not all(g <= lim for g, lim in zip(grid, GRID_LIMITS)):
+            raise ValueError(f"flash_attention_bwd_cuda: {name} grid {grid} exceeds CUDA's limits")
+    return dict(path="tiled", grids=grids)
+
+
+def bind_bwd(lib):
+    consts = (ctypes.c_int * 2)()
+    lib.flash_attention_bwd_constants.argtypes = [ctypes.c_void_p]
+    lib.flash_attention_bwd_constants.restype = None
+    lib.flash_attention_bwd_constants(consts)
+    if tuple(consts) != (BWD_ROWS, BWD_KEYS):
+        raise RuntimeError(f"flash_attention_bwd library constants {tuple(consts)}, expected "
+                           f"{(BWD_ROWS, BWD_KEYS)}")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    return bind_bwd(load_library("flash_attention_bwd"))
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool, window: int = 0,
+                             softcap: float = 0.0, q_offset: int = 0, scale: float,
+                             need_dq: bool = True, need_dkv: bool = True):
+    """The gradients (dq, dk, dv) of ``flash_attention_cuda(q, k, v, ...)``
+    given its output ``out``, the output's gradient ``dout`` and the
+    forward's ``lse`` (B, H, Sq) fp32: one dtype for q, k, v, out and dout
+    (fp32 or bf16), fp32 math, gradients in that dtype. dk and dv are
+    summed over each kv head's group of query heads. ``need_dq`` /
+    ``need_dkv`` False skip a kernel and return None in its place."""
+    dev = q.device
+    _check(dev.type == "cuda", f"q is on {dev}, the kernel runs on CUDA tensors")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("lse", lse)):
+        _check(t.device == dev, f"{name} is on {t.device}, q on {dev}")
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+        if name != "lse":
+            _check(t.dtype == q.dtype, f"{name} dtype {t.dtype}, q {q.dtype}")
+    B, Sq, H, D = q.shape
+    _check(k.dim() == 4 and k.shape[0] == B and k.shape[3] == D, f"k shape {tuple(k.shape)}")
+    _check(v.shape == k.shape, "k and v differ in shape")
+    _check(out.shape == q.shape and dout.shape == q.shape, "out / dout must have q's shape")
+    _check(lse.dtype == torch.float32 and lse.shape == (B, H, Sq),
+           f"lse must be fp32 {(B, H, Sq)}, got {lse.dtype} {tuple(lse.shape)}")
+    Skv, Hkv = k.shape[1], k.shape[2]
+    plan = bwd_plan(B, Sq, Skv, H, Hkv, D, q.dtype)
+    dq = torch.empty_like(q) if need_dq else None
+    dk = torch.empty_like(k) if need_dkv else None
+    dv = torch.empty_like(v) if need_dkv else None
+    if q.numel() == 0 or k.numel() == 0 or not (need_dq or need_dkv):
+        for t in (dq, dk, dv):
+            if t is not None:
+                t.zero_()
+        return dq, dk, dv
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _bwd_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), None if dq is None else dq.data_ptr(),
+            None if dk is None else dk.data_ptr(), None if dv is None else dv.data_ptr(),
+            B, Sq, Skv, H, Hkv, D, float(scale), float(softcap), int(bool(causal)), int(window),
+            int(q_offset), DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed (code {err}, plan {plan})")
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.launches_by_path[plan["path"]] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.launches_by_path = dict.fromkeys(BWD_PATHS, 0)

@@ -9,12 +9,15 @@ expert starts on a ``block_m`` boundary; static worst case Mp =
 (ceil(M / block_m) + E) * block_m), whose row tile the kernel's plan sets
 from M: 16 rows for M <= 16 (decode), else 64. ``GroupedRows`` builds that
 layout once, so a caller with several matmuls over the same rows (the MoE
-layer's three) scatters into it once and gathers out of it once.
+layer's three) scatters into it once and gathers out of it once. On the
+card the kernel has no backward yet: a call that would need a gradient
+raises.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.moe_gmm.kernel import block_m_for, gmm_tiles_cuda
 from repro_torch.kernels.moe_gmm.ref import expert_of_rows, gmm_reference
 from repro_torch.quant.quantize import QuantizedLinear
@@ -69,6 +72,7 @@ class GroupedRows:
     def matmul(self, xb, w):
         if not self.cuda:
             return gmm_reference(xb, w, self.group_sizes)
+        refuse_grad("moe_gmm", xb, *(w if isinstance(w, QuantizedLinear) else (w,)))
         tiles = (self.tile_expert, self.tile_rows, self.block_m)
         if isinstance(w, QuantizedLinear):
             return gmm_tiles_cuda(xb, w.q, *tiles, w_scale=w.scale.reshape(w.q.shape[:2]),

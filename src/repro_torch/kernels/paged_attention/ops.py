@@ -1,11 +1,13 @@
 """Public paged attention ops (decode and chunked prefill), dispatched on
 the tensors' device: the CUDA kernel for CUDA tensors, the plain PyTorch
 version for CPU tensors. There is no fallback between the two: a CUDA
-tensor reaches the kernel or an error."""
+tensor reaches the kernel or an error. On the card the kernels have no
+backward yet: a call that would need a gradient raises."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.paged_attention.kernel import chunked_prefill_cuda, paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import (chunked_prefill_reference,
                                                      paged_attention_reference)
@@ -21,6 +23,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
                                          scale=scale, softcap=softcap, window=window)
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     i32 = torch.int32
     return paged_attention_cuda(
         q.contiguous(), k_pages, v_pages, page_table.to(i32).contiguous(),
@@ -44,6 +47,7 @@ def chunked_prefill_attention(
             q, k_pages, v_pages, page_table, lengths, q_positions,
             scale=scale, softcap=softcap, window=window,
         )
+    refuse_grad("chunked_prefill_attention", q, k_pages, v_pages)
     i32 = torch.int32
     return chunked_prefill_cuda(
         q.contiguous(), k_pages, v_pages, page_table.to(i32).contiguous(),

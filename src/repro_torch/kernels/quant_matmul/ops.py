@@ -1,10 +1,12 @@
 """w8a16 matmul op, dispatched on the tensors' device: the CUDA kernel for
 CUDA tensors, the plain version for CPU tensors (no fallback between them),
-and the reference's per-output-channel quantize helper."""
+and the reference's per-output-channel quantize helper. On the card the
+kernel has no backward yet: a call that would need a gradient raises."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.quant_matmul.kernel import w8a16_matmul_cuda
 from repro_torch.kernels.quant_matmul.ref import w8a16_matmul_reference
 
@@ -24,6 +26,7 @@ def w8a16_matmul(x, w_q, col_scale=None, *, row_scale=None):
     ``w_q`` may be a strided view (the transposed tied embedding)."""
     if x.device.type == "cpu":
         return w8a16_matmul_reference(x, w_q, col_scale, row_scale)
+    refuse_grad("w8a16_matmul", x, col_scale, row_scale)
     if x.stride(-1) != 1:
         x = x.contiguous()
     f32 = torch.float32

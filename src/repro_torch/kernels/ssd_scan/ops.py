@@ -6,10 +6,12 @@ no fallback between the two: a CUDA tensor reaches the kernel or an error.
 and returns the final state. ``ssd_scan`` has the reference op's signature
 (``repro/kernels/ssd_scan/ops.py::ssd_scan``): zero initial state, ``y`` in
 ``x``'s dtype. Both pad L up to a multiple of the chunk on the CPU, as the
-reference does; the kernel masks the ragged tail itself.
+reference does; the kernel masks the ragged tail itself. On the card the
+kernel has no backward yet: a call that would need a gradient raises.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
@@ -26,6 +28,7 @@ def ssd_chunked(x, dt, A, B_, C, chunk: int, init_state=None):
         if rep > 1:
             B_, C = B_.repeat_interleave(rep, 2), C.repeat_interleave(rep, 2)
         return ssd_reference(x, dt, A, B_, C, chunk, init_state=init_state)
+    refuse_grad("ssd_scan", x, dt, A, B_, C, init_state)
     if init_state is not None:
         init_state = init_state.float().contiguous()
     return ssd_scan_cuda(x, dt.float().contiguous(), A.float().contiguous(), B_, C,

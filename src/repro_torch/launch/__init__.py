@@ -1,1 +1,1 @@
-"""Entry points: the serving launcher."""
+"""Entry points: the serving and training launchers."""

@@ -26,13 +26,24 @@ class RunCtx:
         engine's chunk over the paged pool (chunk). ``LM.prefill``,
         ``decode_step`` and ``decode_chunk`` set it themselves.
 
-    The MoE layer has one strategy, dropless (the reference's
-    ``moe_strategy="dropless"``); the capacity and shard_map strategies come
-    with the training and distribution slices. There is no backend knob:
-    the kernels' ``ops`` modules dispatch on the tensors' device
-    (hand-written CUDA kernel on the card, plain PyTorch on the CPU).
+    moe_strategy: "dropless" (exact token-choice routing over the grouped
+        matmul kernel: the serving engine's and the generation API's path,
+        and the port's default) | "capacity" (local capacity buffers, dense
+        per-expert batched products: the training path). The reference's
+        default is "capacity" (``repro/models/common.py:24``); its engine
+        and trainer pass their strategy explicitly, and so do the port's.
+        The shard_map strategies come with the distribution slice.
+    remat: recompute each layer in the backward instead of keeping its
+        activations (``torch.utils.checkpoint``, as ``jax.checkpoint`` in
+        the reference).
+
+    There is no backend knob: the kernels' ``ops`` modules dispatch on the
+    tensors' device (hand-written CUDA kernel on the card, plain PyTorch on
+    the CPU).
     """
     mode: str = "train"
+    moe_strategy: str = "dropless"
+    remat: bool = False
 
     def with_mode(self, mode: str) -> "RunCtx":
         return replace(self, mode=mode)

@@ -147,19 +147,36 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def map_tree(fn, tree, is_leaf=None):
-    """Apply ``fn`` to every leaf of a dict/list tree of parameters or
-    caches, in JAX pytree order (dict keys sorted, lists in order). A
-    ``QuantizedLinear`` is a node of two leaves (``q``, ``scale``), as a
-    NamedTuple is in JAX, unless ``is_leaf`` takes it whole."""
+    """Apply ``fn`` to every leaf of a dict/list/tuple tree of parameters,
+    caches or optimizer state, in JAX pytree order (dict keys sorted, lists
+    and tuples in order). A NamedTuple (``QuantizedLinear``, the optimizer's
+    state) is a node of its fields, as in JAX, unless ``is_leaf`` takes it
+    whole; None is an empty node, as in JAX."""
     if is_leaf is not None and is_leaf(tree):
         return fn(tree)
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: map_tree(fn, tree[k], is_leaf) for k in sorted(tree)}
-    if isinstance(tree, QuantizedLinear):
-        return QuantizedLinear(*(map_tree(fn, v, is_leaf) for v in tree))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tree(fn, v, is_leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_tree(fn, v, is_leaf) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in ``map_tree``'s order."""
+    out = []
+    map_tree(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in ``map_tree``'s order) in
+    place of its own."""
+    it = iter(leaves)
+    return map_tree(lambda _: next(it), tree)
 
 
 # --------------------------------------------------------------------------

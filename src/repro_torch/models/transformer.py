@@ -17,13 +17,23 @@ The enc-dec family (seamless) runs a bidirectional encoder over stub frame
 embeddings (``_encode``) and a cross attention sublayer in every decoder
 layer; the VLM family (phi-3-vision) projects stub patch embeddings into a
 prefix of the sequence (``_patch_prefix``), so text token i sits at
-position ``n_patches + i``. The training ``loss`` comes with a later slice.
+position ``n_patches + i``.
+
+``loss`` is the training objective, the reference's: masked next-token
+cross-entropy (labels below 0 are masked; a VLM's patch positions are
+dropped) plus ``aux_weight`` times the MoE load-balance loss, optionally
+with the head and logsumexp run one sequence chunk at a time
+(``xent_chunk``), each chunk recomputed in the backward, so only one
+chunk's fp32 logits live at a time. With ``ctx.remat`` each layer runs
+under ``torch.utils.checkpoint`` and is recomputed in the backward.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerGroup, ModelConfig
 from repro_torch.kernels.quant_matmul import w8a16_matmul
@@ -78,15 +88,28 @@ class LM:
         positions. The cache (None for ``forward``) is updated in place.
         Returns (x, aux summed over layers)."""
         aux_total = 0.0
+        remat = ctx.remat and torch.is_grad_enabled()
         for gi, g in enumerate(layer_groups or self.cfg.layer_groups):
             gp = groups_params[gi]["layers"]
             gc = cache["groups"][gi] if cache is not None else None
+            # each stacked leaf split into its repeats once (views): under
+            # autograd one node whose backward stacks the repeats' gradients
+            # once, where a view per repeat would scatter each into a zeroed
+            # leaf-sized gradient (quadratic in the depth)
+            reps = [[t.unbind(0) for t in params_lib.tree_leaves(p)] for p in gp]
             for r in range(g.repeats):
                 for pos, kind in enumerate(g.pattern):
                     # the r-th repeat of the stacked params / caches (views)
-                    p_r = params_lib.map_tree(lambda t: t[r], gp[pos])
+                    p_r = params_lib.tree_unflatten(gp[pos], [u[r] for u in reps[pos]])
                     c_r = params_lib.map_tree(lambda t: t[r], gc[pos]) if gc else None
-                    x, aux = self._apply_layer(p_r, x, c_r, kind=kind, ctx=ctx, **kw)
+
+                    def layer(x, p_r=p_r, c_r=c_r, kind=kind):
+                        return self._apply_layer(p_r, x, c_r, kind=kind, ctx=ctx, **kw)
+                    if remat:      # nothing random inside: no RNG state to keep
+                        x, aux = checkpoint(layer, x, use_reentrant=False,
+                                            preserve_rng_state=False)
+                    else:
+                        x, aux = layer(x)
                     aux_total = aux_total + aux
         return x, aux_total
 
@@ -157,6 +180,16 @@ class LM:
         return logits
 
     # ------------------------------------------------------------------ api
+    def _features(self, params, batch, ctx: RunCtx):
+        """The final-normed features (B, S', d) of a full-sequence pass and
+        the summed MoE aux loss (0.0 without MoE)."""
+        x, _ = self._embed_batch(params, batch)
+        memory = self._memory(params, batch, x.dtype, ctx)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions,
+                                  memory=memory)
+        return rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps), aux
+
     def forward(self, params, batch, ctx: RunCtx):
         """Teacher-forced full-sequence logits through flash attention and
         the SSD scan. batch {"tokens": (B, S)}, with "frames" (B, M, d) for
@@ -164,13 +197,49 @@ class LM:
         Returns (logits (B, S', vocab), aux): S' counts the patch prefix
         positions too; aux is the MoE load-balance loss summed over layers
         (0.0 without MoE)."""
-        x, _ = self._embed_batch(params, batch)
-        memory = self._memory(params, batch, x.dtype, ctx)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions,
-                                  memory=memory)
-        x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
+        x, aux = self._features(params, batch, ctx)
         return self._head(params, x), aux
+
+    def loss(self, params, batch, ctx: RunCtx, aux_weight: float = 0.01, xent_chunk: int = 0):
+        """The training loss of ``batch`` ({"tokens", "labels"} (B, S), with
+        "frames" / "patches" as ``forward``): the mean next-token
+        cross-entropy over labels >= 0, plus ``aux_weight`` times the MoE
+        aux loss. ``xent_chunk`` > 0 runs the head and logsumexp on
+        ``xent_chunk`` positions at a time, each chunk under
+        ``torch.utils.checkpoint``, so the (B, S, vocab) fp32 logits never
+        exist at once. Returns (loss, {"xent", "aux"}), fp32 scalars."""
+        labels = batch["labels"].long()
+        mask = (labels >= 0).float()
+        labels_safe = labels.clamp_min(0)
+        S = labels.shape[1]
+
+        def chunk_ll(x, lab, m):
+            logits = self._head(params, x).float()
+            ll = logits.gather(-1, lab[..., None])[..., 0] - torch.logsumexp(logits, dim=-1)
+            return torch.sum(ll * m)
+
+        x, aux = self._features(params, batch, ctx)
+        x = x[:, x.shape[1] - S:]                              # drop patch positions
+        if xent_chunk <= 0:
+            ll_sum = chunk_ll(x, labels_safe, mask)
+        else:
+            C = xent_chunk
+            pad = (-S) % C
+            if pad:
+                x = F.pad(x, (0, 0, 0, pad))
+                labels_safe = F.pad(labels_safe, (0, pad))
+                mask_p = F.pad(mask, (0, pad))
+            else:
+                mask_p = mask
+            ll_sum = 0.0
+            for i in range(0, x.shape[1], C):
+                args = (x[:, i:i + C], labels_safe[:, i:i + C], mask_p[:, i:i + C])
+                ll_sum = ll_sum + (checkpoint(chunk_ll, *args, use_reentrant=False,
+                                              preserve_rng_state=False)
+                                   if torch.is_grad_enabled() else chunk_ll(*args))
+        xent = -ll_sum / torch.clamp_min(mask.sum(), 1.0)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=xent.device)
+        return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
     def prefill(self, params, batch, cache, ctx: RunCtx, last_pos=None):
         """Full-sequence pass through flash attention and the SSD scan that

@@ -316,6 +316,202 @@ def test_flash_cuda_tensor_goes_to_kernel_or_raises(cuda, monkeypatch):
     assert flash_attention_cuda.launches == n0 + 1 and torch.isfinite(out).all()
 
 
+# the backward's cases: head dims 16 / 64 / 96 / 128, G 1 / 4 / 8, causal or
+# not, window, softcap, q_offset, Sq != Skv, ragged tiles (of 64 query rows
+# and 32 keys), rows with no visible key (window + q_offset), and a
+# training shape
+FLASH_BWD_CASES = [
+    # B, Sq, Skv, H, Hkv, D, causal, window, softcap, q_offset
+    (2, 37, 53, 8, 2, 128, True, 0, 0.0, 16),
+    (1, 70, 70, 4, 4, 16, True, 0, 0.0, 0),
+    (2, 50, 50, 16, 2, 16, True, 5, 30.0, 0),
+    (1, 45, 130, 4, 1, 64, False, 0, 0.0, 0),
+    (2, 9, 130, 4, 4, 64, False, 0, 0.0, 0),
+    (1, 100, 100, 8, 1, 96, True, 0, 0.0, 0),
+    (1, 33, 40, 8, 2, 128, True, 4, 20.0, 30),       # rows 14.. see no key
+    (1, 129, 129, 8, 8, 128, False, 0, 50.0, 0),
+    (2, 512, 512, 16, 2, 128, True, 0, 0.0, 0),      # qwen2.5-3b's heads, 512 tokens
+]
+
+
+def _bwd_inputs(cuda, dtype, case):
+    B, Sq, Skv, H, Hkv, D = case[:6]
+    rng = np.random.default_rng(Sq + Skv + H + D)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+            for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D), (B, Sq, H, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
+    """The forward's lse against the plain logsumexp; the backward kernel
+    against mha_reference_bwd on the same (q, k, v, out, dO, lse), relative
+    to the plain version's max |grad| (fp32 1e-4, bf16 5e-2), finite, zero
+    on rows with no visible key, bit-equal on a repeat; one launch a call."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     mha_reference_bwd, mha_reference_lse)
+    B, Sq, Skv, H, Hkv, D, causal, window, softcap, qoff = case
+    q, k, v, do = _bwd_inputs(cuda, dtype, case)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff, scale=D ** -0.5)
+    out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+    plse = mha_reference_lse(q, k, **kw)
+    live = torch.isfinite(plse)
+    assert torch.equal(live, torch.isfinite(lse))
+    torch.testing.assert_close(lse[live], plse[live], atol=1e-4, rtol=0)
+    n0, t0 = flash_attention_bwd_cuda.launches, flash_attention_bwd_cuda.launches_by_path["tiled"]
+    got = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches == n0 + 2
+    assert flash_attention_bwd_cuda.launches_by_path["tiled"] == t0 + 2
+    plain = mha_reference_bwd(q, k, v, out, do, lse, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for g, a, w in zip(got, again, plain):
+        assert g.dtype == dtype and g.shape == w.shape and torch.isfinite(g).all()
+        assert torch.equal(g, a)
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+    dead = ~live[:, 0]                       # (B, Sq): a row's heads see the same keys
+    assert (got[0][dead] == 0).all()
+
+
+def test_flash_bwd_through_autograd(cuda):
+    """flash_attention on CUDA tensors that need a gradient is the autograd
+    function: the forward writes its lse, the backward kernel gives
+    autograd's gradients through the plain version (fp32), only the
+    kernels the inputs need run, and without a gradient no lse is asked
+    for (serving's launches stay as they were)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v, do = _bwd_inputs(cuda, torch.float32, (2, 40, 40, 8, 2, 64))
+    kw = dict(causal=True, window=12, softcap=30.0)
+    calls = []
+    fwd = ops.flash_attention_cuda
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("lse", False))
+        return fwd(*args, **kwargs)
+
+    ops.flash_attention_cuda = spy
+    try:
+        with torch.inference_mode():
+            flash_attention(q, k, v, **kw)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = flash_attention_bwd_cuda.launches
+        out = flash_attention(*leaves, **kw)
+        got = torch.autograd.grad(out, leaves, do)
+        assert flash_attention_bwd_cuda.launches == n0 + 1 and calls == [False, True]
+    finally:
+        ops.flash_attention_cuda = fwd
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mha_reference(*ref, **kw), ref, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4 * float(w.abs().max()), rtol=0)
+    only_q = q.clone().requires_grad_()
+    (gq,) = torch.autograd.grad(flash_attention(only_q, k, v, **kw), only_q, do)
+    torch.testing.assert_close(gq, got[0], atol=0, rtol=0)
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """On CUDA tensors that need a gradient the SSD scan, the grouped and
+    w8a16 matmuls and both paged attention ops raise, naming the kernel;
+    without one (inference_mode) they run."""
+    from repro_torch.kernels.quant_matmul import quantize_int8
+    rng = np.random.default_rng(0)
+
+    def t(*shape, grad=True, dtype=torch.float32):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+        return x.requires_grad_(grad)
+
+    x, dt, A, Bm, Cm = t(1, 8, 2, 4), t(1, 8, 2).abs(), -t(2).abs(), t(1, 8, 1, 4), t(1, 8, 1, 4)
+    with pytest.raises(RuntimeError, match="ssd_scan: the CUDA kernel has no backward"):
+        ssd_chunked(x, dt.detach(), A.detach(), Bm, Cm, 4)
+    xs, w = t(20, 64), t(2, 64, 32)
+    with pytest.raises(RuntimeError, match="moe_gmm: the CUDA kernel has no backward"):
+        gmm(xs, w, torch.tensor([8, 12], device=cuda))
+    q, kp, vp = t(1, 2, 4, 16), t(3, 16, 2, 16), t(3, 16, 2, 16)
+    pt = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([6], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="chunked_prefill_attention: the CUDA kernel"):
+        chunked_prefill_attention(q, kp, vp, pt, lengths, torch.tensor([[4, 5]], device=cuda))
+    with pytest.raises(RuntimeError, match="paged_attention: the CUDA kernel"):
+        paged_attention(q[:, 0], kp, vp, pt, lengths)
+    wq, scale = quantize_int8(t(64, 32, grad=False))
+    with pytest.raises(RuntimeError, match="w8a16_matmul: the CUDA kernel"):
+        w8a16_matmul(t(2, 64), wq, scale)
+    with torch.inference_mode():
+        assert torch.isfinite(w8a16_matmul(t(2, 64, grad=False), wq, scale)).all()
+        assert torch.isfinite(ssd_chunked(x, dt, A, Bm, Cm, 4)[0]).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mixtral-8x7b", "seamless-m4t-large-v2"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """Two step_fn steps of a tiny fp32 config (remat, xent_chunk, the
+    capacity MoE) on the card and on the CPU from the same parameters, the
+    flash backward launched on the card only. After each step: the losses
+    within 1e-4 relative; AdamW's m within 1e-3 of each leaf's max |m| and
+    v (quadratic in g) within 2e-3 of its max; and on each side the new
+    parameters equal to AdamW recomputed in float64 from the parameters
+    before the step and that side's moments, within 1e-5 of lr x (1 +
+    |update|) plus two fp32 ulps. The parameters are not held against the
+    CPU's directly: AdamW's first update is nearly sign(g) times lr, so an
+    element whose gradient sits near 0 may move by +-lr on either side."""
+    from repro_torch.data.pipeline import DataConfig, synthesize_batch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    cfg = tiny_config(arch)
+    model = build_model(cfg)
+    base = model.init_params(0, device="cpu")
+    tcfg = TrainConfig(xent_chunk=8)
+    init_fn, step_fn = make_train_step(model, tcfg)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = map_tree(lambda x: x.to(dev, copy=True), base)
+        state = init_fn(p)
+        n0 = flash_attention_bwd_cuda.launches
+        steps = []
+        for step in range(2):
+            data = synthesize_batch(DataConfig(vocab=cfg.vocab, batch=2, seq_len=32), step)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+            if cfg.encoder is not None:
+                batch["frames"] = torch.from_numpy(np.random.default_rng(step).standard_normal(
+                    (2, cfg.encoder.cross_attn_memory, cfg.d_model)).astype(np.float32)).to(dev)
+            before = [t.clone() for t in tree_leaves(p)]
+            p, state, met = step_fn(p, state, batch)
+            opt = state[0]
+            m, v = tree_leaves(opt.m), tree_leaves(opt.v)
+            assert _adamw_step_err(before, tree_leaves(p), m, v, lr=float(met["lr"]),
+                                   step=int(opt.step), weight_decay=tcfg.weight_decay) <= 1.0
+            # copies: the next step updates the moments in place
+            steps.append((float(met["loss"]), [t.to("cpu", copy=True) for t in m],
+                          [t.to("cpu", copy=True) for t in v]))
+        assert (flash_attention_bwd_cuda.launches > n0) == (dev == "cuda")
+        got[dev] = steps
+    for (loss_c, m_c, v_c), (loss, m, v) in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_allclose(loss_c, loss, rtol=1e-4)
+        for a, b in zip(m_c, m):
+            assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+        for a, b in zip(v_c, v):
+            assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+
+
+def _adamw_step_err(before, after, m, v, *, lr, step, weight_decay, b1=0.9, b2=0.95, eps=1e-8):
+    """The worst |new parameter - AdamW's| over its tolerance (1e-5 of lr x
+    (1 + |update|) plus two fp32 ulps), AdamW (the optimizer's defaults)
+    recomputed in float64 from the parameters before the step and the
+    moments after it."""
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+    worst = 0.0
+    for p0, p1, mm, vv in zip(before, after, m, v):
+        p0, p1, mm, vv = (t.double() for t in (p0, p1, mm, vv))
+        delta = (mm / bc1) / (torch.sqrt(vv / bc2) + eps) + weight_decay * p0
+        want = p0 - lr * delta
+        tol = 1e-5 * lr * (1 + delta.abs()) + 2.0 ** -22 * torch.maximum(p0.abs(), want.abs())
+        worst = max(worst, float(((p1 - want).abs() / tol).max()))
+    return worst
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ps,D,window,softcap", [(4, 16, 0, 0.0), (8, 16, 9, 0.0),
                                                  (16, 128, 0, 30.0), (16, 128, 40, 0.0),

@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax():
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b|from repro\.)")
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_tune.py"]
+        ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "chip_tune.py",
+        ROOT / "chip_host_ab.py"]
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
     assert hits == []
@@ -68,17 +69,25 @@ def test_module_list_is_complete():
               "repro_torch.core.dashboard", "repro_torch.data.workload",
               "repro_torch.launch.serve", "repro_torch.core.spec",
               "repro_torch.configs.yi_6b", "repro_torch.configs.phi3_mini_3_8b",
-              "repro_torch.configs.dbrx_132b", "repro_torch.configs.deepseek_moe_16b"):
+              "repro_torch.configs.dbrx_132b", "repro_torch.configs.deepseek_moe_16b",
+              "repro_torch.kernels.grad_guard", "repro_torch.data.pipeline",
+              "repro_torch.training", "repro_torch.training.optimizer",
+              "repro_torch.training.train_step", "repro_torch.training.trainer",
+              "repro_torch.distributed", "repro_torch.distributed.collectives",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+              "repro_torch.launch.train"):
         assert m in names
     for m in names:
         importlib.import_module(m)
 
 
-@pytest.mark.parametrize("entry", ["engine", "init_params", "init_cache", "init_cache_paged"])
+@pytest.mark.parametrize("entry", ["engine", "init_params", "init_cache", "init_cache_paged",
+                                   "train", "train_cli"])
 def test_no_silent_cpu_fallback(entry):
     """Without a card and without ``device="cpu"``, entry points raise: the
-    engine, the params, and both kinds of cache (``init_cache`` defaults to
-    the dense ring cache, as the reference's)."""
+    engine, the params, both kinds of cache (``init_cache`` defaults to
+    the dense ring cache, as the reference's), the trainer and the training
+    launcher."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     model = build_model(tiny_config("qwen2.5-3b"))
@@ -89,8 +98,17 @@ def test_no_silent_cpu_fallback(entry):
             model.init_params(0)
         elif entry == "init_cache":
             model.init_cache(2, 8)
-        else:
+        elif entry == "init_cache_paged":
             model.init_cache(2, 8, kind="paged", num_pages=8)
+        elif entry == "train":
+            from repro_torch.data.pipeline import DataConfig
+            from repro_torch.training import TrainConfig
+            from repro_torch.training.trainer import TrainerConfig, train
+            train(model, DataConfig(vocab=model.cfg.vocab, batch=2, seq_len=8), TrainConfig(),
+                  TrainerConfig(steps=1))
+        else:
+            from repro_torch.launch.train import main
+            main(["--steps", "1"])
 
 
 def test_kernel_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch, tmp_path):
