@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
-"""Compare two trees of the port on one card, in turns: for each tree,
-the phase-2 shapes of chunked attention, flash attention, paged decode,
-the grouped matmul (gmm), w8a16 and the SSD scan, then the chosen phases
-of that tree's own ``chip_smoke.py``: 4 (mixtral at 8 layers, bf16, the
-serving run), 6 (full-depth mamba2, bf16: the serving run, then the
-generation API) and 7 (the full 32-layer mixtral on int8 weights: the
-serving run, then the generation API).
+"""Compare two trees of the port on one card, in turns: for each tree, the
+chosen phases of that tree's own ``chip_smoke.py``:
 
-    python3 chip_ab.py TREE TAG [OUT_DIR] [PHASES]   # one tree, one process;
-                                                     # PHASES e.g. 4,7 (default 4,6,7)
+- 2: the phase-2 shapes of chunked attention, flash attention, paged
+  decode, the grouped matmul (gmm), w8a16, the SSD scan and the flash
+  backward;
+- bwd: the phase-2 shapes of the flash backward alone;
+- 4: mixtral at 8 layers, bf16, the serving run;
+- 6: full-depth mamba2, bf16: the serving run, then the generation API;
+- 7: the full 32-layer mixtral on int8 weights: the serving run, then the
+  generation API;
+- 12: phase 12's uninterrupted qwen2.5-3b training run at full width and
+  depth (bf16; STEPS steps, phase 12's 8 by default), with no checkpoint:
+  the card's machine ends a call after 45 GiB of disk writes, and a
+  checkpoint is 34 GB.
+
+    python3 chip_ab.py TREE TAG [OUT_DIR] [PHASES] [STEPS]   # one tree, one process;
+                                                             # PHASES e.g. bwd,12
+                                                             # (default 2,4,6,7)
 
 Run it in turns (parent, change, change, parent) on one machine: host
 dispatch moves the serving numbers far more between machines than on
@@ -24,7 +33,8 @@ from pathlib import Path
 def main() -> int:
     root, tag = Path(sys.argv[1]).resolve(), sys.argv[2]
     out_dir = Path(sys.argv[3]) if len(sys.argv) > 3 else Path(".")
-    phases = sys.argv[4].split(",") if len(sys.argv) > 4 else ["4", "6", "7"]
+    phases = sys.argv[4].split(",") if len(sys.argv) > 4 else ["2", "4", "6", "7"]
+    steps = int(sys.argv[5]) if len(sys.argv) > 5 else None
     sys.path.insert(0, str(root))
     import torch
     import chip_smoke as cs        # the tree's own: it puts the tree's src/ first
@@ -42,15 +52,15 @@ def main() -> int:
     torch.cuda.synchronize()
     cs.cuda_ms(flush.zero_, flush=flush)
     res = []
-    cs.run_attention(dev, flush, res)
-    cs.run_flash(dev, flush, res)
-    cs.run_paged_decode(dev, flush, res)
-    cs.run_gmm(dev, flush, res)
-    cs.run_w8a16(dev, flush, res)
-    cs.run_ssd(dev, flush, res)
+    if "2" in phases:
+        for run in (cs.run_attention, cs.run_flash, cs.run_paged_decode, cs.run_gmm,
+                    cs.run_w8a16, cs.run_ssd):
+            run(dev, flush, res)
+    if "2" in phases or "bwd" in phases:
+        cs.run_flash_bwd(dev, flush, res)
     del flush
     kernels = ("chunked_prefill_attention", "flash_attention", "paged_attention", "moe_gmm",
-               "w8a16_matmul", "ssd_scan")
+               "w8a16_matmul", "ssd_scan", "flash_attention_bwd")
     out = dict(tag=tag, **{k: [dict(case=r["case"], dtype=r["dtype"], ms=r["ms"])
                                for r in res if r["kernel"] == k] for k in kernels})
     summary = {}
@@ -83,6 +93,33 @@ def main() -> int:
                        p7_prefill_ms=serve7["prefill_step_ms_mean"],
                        p7_gen_decode_ms=gen7["decode_step_ms_mean"],
                        p7_gen_tok_s=gen7["decode_tok_s"])
+    if "12" in phases:
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.data.pipeline import DataConfig
+        from repro_torch.models import build_model
+        from repro_torch.training.trainer import TrainerConfig, train
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(cs.TRAIN_ARCH)
+        model = build_model(cfg)
+        params = model.init_params(0, device=dev, dtype=torch.bfloat16)
+        cs.zero_launches()
+        run = train(model, DataConfig(vocab=cfg.vocab, batch=cs.TRAIN_BATCH,
+                                      seq_len=cs.TRAIN_SEQ),
+                    cs.train_config(), TrainerConfig(steps=steps or cs.TRAIN_STEPS),
+                    params=params)
+        launches, paths = cs.read_launches()
+        later = run["step_seconds"][1:]          # the first step builds and warms up
+        step_ms, mean_ms = 1e3 * float(np.median(later)), 1e3 * float(np.mean(later))
+        out["phase12"] = dict(config=cfg.name, losses=run["losses"],
+                              step_seconds=run["step_seconds"], step_ms_median=step_ms,
+                              step_ms_mean=mean_ms, launches=launches, launches_by_path=paths)
+        summary.update(p12_step_ms=step_ms, p12_step_ms_mean=mean_ms,
+                       p12_last_loss=run["losses"][-1], p12_bwd_paths=paths["flash_attention_bwd"])
+        del model, params, run
+        gc.collect()
+        torch.cuda.empty_cache()
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"ab_{tag}.json").write_text(json.dumps(out, indent=1, default=str))
     print("AB-RESULT", tag, json.dumps(dict(

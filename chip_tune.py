@@ -37,11 +37,22 @@ plain|; a copy that stamps ``clock64()`` at each phase of one block gives
 the cycles a tile takes by phase at the 4096-token prefill; and the planned
 kernel over one mamba2 row of 64 to 4096 tokens gives the cost of a tile.
 
+The flash backward's tensor-core path, the measurement behind
+``BWD_MIN_BLOCKS_PER_SM`` in ``src/repro_torch/kernels/flash_attention/
+kernel.py`` and the choices in ``csrc/flash_attention_bwd.cu``: at phase
+2's four bf16 training shapes (``chip_smoke.FLASH_BWD_FULL``), the whole
+backward and its dK / dV part alone (the delta, dK / dV and reduce
+kernels) at 0.5, 1, 2 and 4 dK / dV blocks a SM (the GQA subsets each
+gives), in turns; then copies of the source with one choice undone (P and
+dS as their hi parts alone; the dQ blocks in grid order instead of last
+rows first), built under ``build/flash_attention_bwd_variants/``, each
+with its max |grad - plain| relative to the plain version's max |grad|.
+
 Each time is ``chip_smoke.cuda_ms`` of the launch alone (cold L2, host
 dispatch queued out of the events).
 
-    python3 chip_tune.py [chunked] [flash] [ssd]   # on the card, from the repository root;
-                                                   # no argument: all three
+    python3 chip_tune.py [chunked] [flash] [ssd] [bwd]   # on the card, from the repository
+                                                         # root; no argument: all four
 """
 import ctypes
 import re
@@ -247,6 +258,89 @@ def tune_flash(dev, flush) -> None:
                       f"max_abs_err {err:.3g}", flush=True)
 
 
+# (file, text of the source, its replacement) for each backward variant
+_BWD_LO = """      if (j == 0) {
+        mma_bf16_zero(d0, xl[j], b0);
+        mma_bf16_zero(d1, xl[j], b1);
+      } else {
+        mma_bf16(d0, xl[j], b0);
+        mma_bf16(d1, xl[j], b1);
+      }
+      mma_bf16(d0, xh[j], b0);
+      mma_bf16(d1, xh[j], b1);"""
+BWD_VARIANTS = {
+    "as_is": [],
+    "hi_only": [("flash_attention_bwd.cu", _BWD_LO, """      if (j == 0) {
+        mma_bf16_zero(d0, xh[j], b0);
+        mma_bf16_zero(d1, xh[j], b1);
+      } else {
+        mma_bf16(d0, xh[j], b0);
+        mma_bf16(d1, xh[j], b1);
+      }""")],
+    "dq_grid_order": [("flash_attention_bwd.cu",
+                       "const int q0 = (gridDim.z - 1 - blockIdx.z) * kMmaTile",
+                       "const int q0 = blockIdx.z * kMmaTile")],
+}
+
+
+def tune_bwd(dev, flush) -> None:
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda, mha_reference_bwd)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    cases = []
+    for name, B, Sq, Skv, H, Hkv, D, causal, window, softcap, qoff in cs.FLASH_BWD_FULL:
+        g = torch.Generator(device=dev).manual_seed(Sq + Skv + D)
+        q, do = (torch.randn((B, Sq, H, D), generator=g, device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn((B, Skv, Hkv, D), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff, scale=D ** -0.5)
+        out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+        plain = mha_reference_bwd(q, k, v, out, do, lse, **kw)
+        cases.append((name, (q, k, v, out, do, lse), kw, plain))
+        flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)     # builds and loads the library
+    torch.cuda.synchronize()
+    default = fk.BWD_MIN_BLOCKS_PER_SM
+    for per_sm in (2, 1, 4, 0.5, 2, 1, 4, 0.5):
+        fk.BWD_MIN_BLOCKS_PER_SM = per_sm
+        for name, t, kw, _ in cases:
+            B, Sq, H, D = t[0].shape
+            plan = fk.bwd_plan(B, Sq, t[1].shape[1], H, t[1].shape[2], D, torch.bfloat16,
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+            ms = cs.cuda_ms(lambda: flash_attention_bwd_cuda(*t, **kw), flush=flush)
+            dkv = cs.cuda_ms(lambda: flash_attention_bwd_cuda(*t, need_dq=False, **kw),
+                             flush=flush)
+            print(f"TUNE bwd {name} blocks_per_sm={per_sm} splits={plan['splits']} dkdv grid "
+                  f"{plan['grids']['dkdv']}: {ms:.5f} ms (dK / dV part {dkv:.5f})", flush=True)
+    fk.BWD_MIN_BLOCKS_PER_SM = default
+    fns = build_variants("flash_attention_bwd", BWD_VARIANTS, fk.bind_bwd, ("mma",))
+    for rnd in range(2):
+        for name, t, kw, plain in cases:
+            q, k, v, out, do, lse = t
+            B, Sq, H, D = q.shape
+            Skv, Hkv = k.shape[1], k.shape[2]
+            plan = fk.bwd_plan(B, Sq, Skv, H, Hkv, D, torch.bfloat16,
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+            grads = [torch.empty_like(x) for x in (q, k, v)]
+            delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+            ws = torch.empty((2, plan["splits"], B, Skv, Hkv, D), dtype=torch.float32,
+                             device=dev)
+            for vname, fn in fns.items():
+                def call():
+                    err = fn(1, *(x.data_ptr() for x in (q, k, v, out, do, lse, delta, ws)),
+                             *(x.data_ptr() for x in grads), B, Sq, Skv, H, Hkv, D,
+                             plan["splits"], kw["scale"], kw["softcap"], int(kw["causal"]),
+                             kw["window"], kw["q_offset"], 1,
+                             torch.cuda.current_stream(dev).cuda_stream)
+                    assert err == 0, f"variant {vname}: launch failed (code {err})"
+                call()
+                torch.cuda.synchronize()
+                errs = [cs.max_err(a, b) / float(b.float().abs().max())
+                        for a, b in zip(grads, plain)]
+                ms = cs.cuda_ms(call, flush=flush)
+                print(f"TUNE bwd {name} round {rnd} {vname}: {ms:.5f} ms rel errs dq "
+                      f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}", flush=True)
+
+
 def tune_ssd(dev, flush) -> None:
     from repro_torch.kernels.ssd_scan import ssd_reference
     from repro_torch.kernels.ssd_scan.kernel import PATHS, bind, plan_for
@@ -337,11 +431,13 @@ def main() -> int:
         return 2
     from repro_torch.kernels.paged_attention import chunked_prefill_cuda, chunked_prefill_reference
     from repro_torch.kernels.paged_attention import kernel as pk
-    parts = sys.argv[1:] or ["chunked", "flash", "ssd"]
+    parts = sys.argv[1:] or ["chunked", "flash", "ssd", "bwd"]
     dev = torch.device("cuda", 0)
     print("card:", cs.card_line(), flush=True)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     cs.cuda_ms(flush.zero_, flush=flush)
+    if "bwd" in parts:
+        tune_bwd(dev, flush)
     if "ssd" in parts:
         tune_ssd(dev, flush)
     if "flash" in parts:

@@ -8,40 +8,64 @@
 // Differentiates the TPU kernel src/repro/kernels/flash_attention/kernel.py,
 // flash_attention_bhsd, which has no backward of its own: the reference
 // trains through XLA and computes this gradient by autodiff of mha_chunked
-// (src/repro/kernels/flash_attention/ops.py). The formulas are FA2's, from
-// the forward's output O and row logsumexp lse (B, H, Sq) of the post-softcap
-// scaled scores:
+// (src/repro/kernels/flash_attention/ops.py), whose scores, P and P V are
+// fp32 from bf16 inputs. The formulas are FA2's, from the forward's output O
+// and row logsumexp lse (B, H, Sq) of the post-softcap scaled scores:
 //   P = exp(S - lse)            (0 where masked, and on a row with no visible
 //                                key: lse = -inf, forward output 0)
 //   dV = P^T dO;  dP = dO V^T;  Delta = rowsum(dO o O)
 //   dS = P o (dP - Delta), times 1 - tanh^2(s / cap) under a softcap
 //   dQ = dS K * scale;  dK = dS^T Q * scale
 //
-// Three kernels, launched in order on one stream:
-//   1. delta: Delta per (b, h, row), one warp a row, fp32.
-//   2. dkdv: one block per (32-key tile, kv head, batch row). It walks the G
-//      query heads of its GQA group and, for each, the 64-row query tiles
-//      that can see its keys (the inverse of the forward's key_tiles), and
-//      keeps dK and dV in registers: the group's sum stays inside the block,
-//      so there are no atomics and a repeat gives the same bits.
-//   3. dq: one block per (64-row query tile, query head, batch row), walking
-//      the key tiles its rows can see, dQ in registers.
-// Both recompute S and dP from tiles staged in shared memory as fp32 (inputs
-// fp32 or bf16), with IEEE fp32 FMAs on the CUDA cores and fp32 accumulators;
-// outputs in the inputs' dtype. A thread of the 16 x 16 grid of a block owns
-// 4 x 2 scores (rows t + 16 u, keys t' + 16 a: neighbouring threads on
-// neighbouring padded rows, so the float4 loads of a quarter warp hit
-// distinct banks) and 2 rows x D/16 columns of each accumulator.
-//
 // What bounds it on the card: 2.5x the forward's 4*D operations per visible
 // (query head, key) pair, against q, k, v, o, dO and lse read once and dq,
-// dk, dv written once: at the training shapes (512 tokens, D = 128) the
-// operations, ~0.01 ms at the bf16 tensor-core rate. This first design runs
-// on the CUDA cores and reads its operands from shared memory for every FMA
-// pair, so it stays far from that bound; mma.sync / wgmma tiles for bf16 and
-// dQ folded into the dK / dV pass are later work.
+// dk, dv written once; at the training shapes (512 tokens, D = 128) the
+// bytes and the operations at the bf16 tensor-core rate give bounds of the
+// same order, ~0.01-0.03 ms. The host-side plan (kernels/flash_attention/
+// kernel.py's bwd_plan) picks one of two paths; both launch, in order on one
+// stream, a delta kernel (Delta per (b, h, row), one warp a row, fp32), a
+// dK / dV kernel and a dQ kernel, and neither uses atomics: every sum runs in
+// a fixed order, so a repeat gives the same bits.
+//
+//  - mma (bf16): FA2's arrangement on mma.sync.m16n8k16 with fp32
+//    accumulators, tiles bf16 in shared memory, 4 warps of 16 rows.
+//    dK / dV: a block takes 64 keys of one kv head (16 a warp) and a subset
+//    of `splits` of its GQA group, and walks for each of its query heads the
+//    64-row query tiles that see its keys (Q, dO, lse and Delta through a
+//    cp.async double buffer). It computes S^T = K Q^T and dP^T = V dO^T with
+//    the keys as the M side, so P^T and dS^T come out as accumulator
+//    fragments in the layout of the A operand of dV += P^T dO and
+//    dK += dS^T Q: no shared-memory round trip. dQ: a block takes 64 query
+//    rows of one query head and walks the 64-key tiles they see (K and V
+//    double buffered), S = Q K^T and dP = dO V^T with the rows as the M
+//    side, then dQ += dS K. P and dS enter the tensor cores as truncated
+//    hi + lo bf16 parts (two products, within 2^-14 of the fp32 value, as the
+//    forward's P V: attention_mma.cuh), and each tile's products are summed
+//    from zero before they are added to the fp32 accumulator (mma.sync
+//    truncates as it adds). S and dP need no split: their inputs are bf16.
+//    Probabilities are ex2 of log2-unit scores against lse * log2(e).
+//    So 10 tensor-core products per visible pair (6 in dK / dV, 4 in dQ),
+//    where FA2 does 5. The grid: dK / dV has ceil(Skv / 64) x Hkv x B blocks
+//    before the split, 64 at qwen2.5-3b's training shape (2 kv heads, 4 x
+//    512 tokens) against 132 SMs; the plan splits each GQA group into the
+//    fewest subsets that give 2 blocks a SM (8 at that shape: 512 blocks),
+//    each subset writes fp32 partial dK / dV (a (2, splits, B, Skv, Hkv, D)
+//    workspace) and a reduce kernel sums them in subset order. With causal
+//    masks the first key tiles and the last query tiles walk the most
+//    tiles, so the grids put the tile index on z and dispatch those first.
+//  - tiled (fp32: IEEE fp32 on the CUDA cores, as the repo's precision rule
+//    asks), the first design: dkdv has one block per
+//    (32-key tile, kv head, batch row), walks the G query heads of its group
+//    and, for each, the 64-row query tiles that can see its keys, keeping dK
+//    and dV in registers (the group's sum stays in the block); dq has one
+//    block per (64-row query tile, query head, batch row). Both recompute S
+//    and dP from tiles staged in shared memory as fp32, with fp32 FMAs and
+//    accumulators. A thread of the 16 x 16 grid of a block owns 4 x 2
+//    scores (rows t + 16 u, keys t' + 16 a: neighbouring threads on
+//    neighbouring padded rows, so the float4 loads of a quarter warp hit
+//    distinct banks) and 2 rows x D/16 columns of each accumulator.
 
-#include "common.cuh"
+#include "attention_mma.cuh"   // ex2, soft_cap, mma_key_tiles, cp.async and mma.sync helpers
 
 namespace {
 
@@ -396,25 +420,406 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
   }
 }
 
+// ------------------------------------------------------------------ mma path
+constexpr int kMmaTile = 64;   // keys a dK / dV block, query rows a dQ block, and the tiles each walks
+static_assert(kMmaTile == kMmaKeys, "the dQ kernel walks mma_key_tiles' tiles");
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+__host__ __device__ constexpr int dkdv_mma_smem() {   // K, V; 2 x (Q, dO); 2 x (lse, Delta)
+  return 6 * kMmaTile * (D + kMmaPad) * 2 + 4 * kMmaTile * 4;
+}
+
+template <int D>
+__host__ __device__ constexpr int dq_mma_smem() {     // Q, dO; 2 x (K, V)
+  return 6 * kMmaTile * (D + kMmaPad) * 2;
+}
+
+// rows [r0, r0 + 64) of head `head` of a (B, S, heads, D) bf16 tensor into a
+// padded tile, zero-filled from row S on
+template <int D>
+__device__ __forceinline__ void stage_mma(bf16* dst, const bf16* __restrict__ src, int b, int r0,
+                                          int S, int heads, int head) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int u = 0; u < kMmaTile * kChunks / kMmaThreads; ++u) {
+    const int i = threadIdx.x + u * kMmaThreads;
+    const int r = i / kChunks, c = i % kChunks * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * (D + kMmaPad) + c,
+               ok ? src + ((static_cast<size_t>(b) * S + r0 + r) * heads + head) * D + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// The 64-row query tiles [qt_lo, qt_lo + n) whose rows see some key of
+// [k0, k_last] (kernel.py's bwd_query_tiles mirrors it)
+__device__ __forceinline__ void bwd_query_tiles(int k0, int k_last, int Sq, int causal,
+                                                int window, int q_offset, int& qt_lo, int& n) {
+  const int i_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int i_hi = window > 0 ? min(Sq - 1, k_last + window - 1 - q_offset) : Sq - 1;
+  qt_lo = i_lo / kMmaTile;
+  n = i_hi >= i_lo ? i_hi / kMmaTile - qt_lo + 1 : 0;
+}
+
+// acc = A B^T over the head dim, from zero: A the warp's 16 rows of a staged
+// tile (a: its first row), B the 64 rows of staged tile b; 16 x 64 fp32 in
+// 8 n8 fragments
+template <int D>
+__device__ __forceinline__ void mma_rows_x64(float (&acc)[8][4], const bf16* a, const bf16* b,
+                                             int lane) {
+  constexpr int kRow = D + kMmaPad;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned fa[4];
+    ldmatrix_x4(fa, a + (lane % 16) * kRow + kk * 16 + lane / 16 * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      // B fragments of two n8 tiles from b [row][d]: matrices (rows 0-7 |
+      // 8-15) x (d 0-7 | 8-15) of the k16 step
+      unsigned r[4];
+      ldmatrix_x4(r, b + (np * 16 + lane / 16 * 8 + lane % 8) * kRow + kk * 16 + lane / 8 % 2 * 8);
+      const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      if (kk == 0) {
+        mma_bf16_zero(acc[2 * np], fa, b0);
+        mma_bf16_zero(acc[2 * np + 1], fa, b1);
+      } else {
+        mma_bf16(acc[2 * np], fa, b0);
+        mma_bf16(acc[2 * np + 1], fa, b1);
+      }
+    }
+  }
+}
+
+// acc += X Y: X the warp's 16 x 64 fp32 fragments (8 n8 tiles), as hi + lo
+// bf16 A operands of 4 k16 steps (the fragments of n8 tiles 2j and 2j + 1
+// are exactly A's registers), Y the 64 x D staged tile y read transposed by
+// ldmatrix; the tile's product summed from zero (lo parts first), then
+// added in fp32
+template <int D>
+__device__ __forceinline__ void mma_acc_x64(float (&acc)[D / 8][4], const float (&x)[8][4],
+                                            const bf16* y, int lane) {
+  constexpr int kRow = D + kMmaPad;
+  unsigned xh[4][4], xl[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split_pair(x[2 * j][0], x[2 * j][1], xh[j][0], xl[j][0]);
+    split_pair(x[2 * j][2], x[2 * j][3], xh[j][1], xl[j][1]);
+    split_pair(x[2 * j + 1][0], x[2 * j + 1][1], xh[j][2], xl[j][2]);
+    split_pair(x[2 * j + 1][2], x[2 * j + 1][3], xh[j][3], xl[j][3]);
+  }
+#pragma unroll
+  for (int dp = 0; dp < D / 16; ++dp) {
+    float d0[4], d1[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // B fragments of two n8 tiles from y [row][d], transposed: matrices
+      // (rows 0-7 | 8-15) x (d 0-7 | 8-15)
+      unsigned r[4];
+      ldmatrix_x4_trans(r, y + (j * 16 + lane / 8 % 2 * 8 + lane % 8) * kRow + dp * 16 +
+                               lane / 16 * 8);
+      const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      if (j == 0) {
+        mma_bf16_zero(d0, xl[j], b0);
+        mma_bf16_zero(d1, xl[j], b1);
+      } else {
+        mma_bf16(d0, xl[j], b0);
+        mma_bf16(d1, xl[j], b1);
+      }
+      mma_bf16(d0, xh[j], b0);
+      mma_bf16(d1, xh[j], b1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * dp][e] += d0[e];
+      acc[2 * dp + 1][e] += d1[e];
+    }
+  }
+}
+
+// P and dS of one score, in place: s the raw Q.K dot becomes P, dp the dO.V
+// dot becomes dS; lse2 the row's logsumexp in log2 units (+inf: the row sees
+// no key), ok the mask
+__device__ __forceinline__ void grad_score_mma(float& s, float& dp, float lse2, float delta,
+                                               bool ok, float scale_log2, float scale,
+                                               float softcap, float cap_in) {
+  float x2 = s * scale_log2, dcap = 1.f;
+  if (softcap > 0.f) {
+    const float c = soft_cap(s * scale, softcap, cap_in);   // softcap tanh(s scale / softcap)
+    const float t = __fdividef(c, softcap);
+    dcap = 1.f - t * t;
+    x2 = c * kLog2e;
+  }
+  const float p = ok ? ex2(x2 - lse2) : 0.f;
+  dp = ok ? p * (dp - delta) * dcap : 0.f;
+  s = p;
+}
+
+// 2. (mma) dK and dV of keys [k0, k0 + 64) of kv head hk, batch row b, from
+// query heads [h0, h0 + G / splits) of its group; to dk / dv (splits 1) or to
+// this subset's fp32 partials in ws (2, splits, B, Skv, Hkv, D)
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) dkdv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ ws, int splits, int B,
+    int Sq, int Skv, int H, int Hkv, float scale, float softcap, int causal, int window,
+    int q_offset) {
+  constexpr int kRow = D + kMmaPad, kTile = kMmaTile * kRow, kNT = D / 8;
+  extern __shared__ float4 smem_raw[];
+  auto* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kTile;
+  bf16* qs = vs + kTile;                                      // [2][64 rows][kRow]
+  bf16* gs = qs + 2 * kTile;                                  // dO, the same
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * kTile);    // [2][64]
+  float* del_s = lse_s + 2 * kMmaTile;                        // [2][64]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = H / Hkv, Gs = G / splits;
+  const int hk = blockIdx.x / splits, split = blockIdx.x % splits, b = blockIdx.y;
+  const int k0 = blockIdx.z * kMmaTile, k_last = min(k0 + kMmaTile, Skv) - 1;
+  int qt_lo, nqt;
+  bwd_query_tiles(k0, k_last, Sq, causal, window, q_offset, qt_lo, nqt);
+  const int steps = Gs * nqt, h0 = hk * G + split * Gs;
+
+  // step i: query head h0 + i / nqt, query tile qt_lo + i % nqt, into buffer buf
+  auto load_step = [&](int i, int buf) {
+    const int h = h0 + i / nqt, q0 = (qt_lo + i % nqt) * kMmaTile;
+    stage_mma<D>(qs + buf * kTile, q, b, q0, Sq, H, h);
+    stage_mma<D>(gs + buf * kTile, dout, b, q0, Sq, H, h);
+    const int r = tid % kMmaTile;                             // threads 0-63 lse, 64-127 Delta
+    float* dst = (tid < kMmaTile ? lse_s : del_s) + buf * kMmaTile + r;
+    if (q0 + r < Sq)
+      cp_async4(dst, (tid < kMmaTile ? lse : delta) + (static_cast<size_t>(b) * H + h) * Sq + q0 + r);
+    else
+      *dst = tid < kMmaTile ? -INFINITY : 0.f;
+  };
+  if (steps > 0) {
+    stage_mma<D>(ks, k, b, k0, Skv, Hkv, hk);
+    stage_mma<D>(vs, v, b, k0, Skv, Hkv, hk);
+    load_step(0, 0);
+  }
+  cp_async_commit();
+
+  float acc_k[kNT][4], acc_v[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const float scale_log2 = scale * kLog2e, cap_in = softcap > 0.f ? 2.f * kLog2e / softcap : 0.f;
+  const int kpos = k0 + warp * 16 + lane / 4;   // the thread's keys: kpos, kpos + 8
+  const bf16* kw = ks + warp * 16 * kRow;
+  const bf16* vw = vs + warp * 16 * kRow;
+
+  for (int i = 0; i < steps; ++i) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // step i visible to every thread, every warp done with step i - 1,
+    // whose buffer the next load takes
+    __syncthreads();
+    if (i + 1 < steps) load_step(i + 1, (i + 1) & 1);
+    cp_async_commit();
+    const int buf = i & 1, q0 = (qt_lo + i % nqt) * kMmaTile;
+    const bf16* qt = qs + buf * kTile;
+    const bf16* gt = gs + buf * kTile;
+    const float* ls = lse_s + buf * kMmaTile;
+    const float* dl = del_s + buf * kMmaTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 64 rows
+    float s[8][4], dp[8][4];
+    mma_rows_x64<D>(s, kw, qt, lane);
+    mma_rows_x64<D>(dp, vw, gt, lane);
+    // P^T and dS^T in place. Fragment (nt, e): key kpos + 8 (e / 2), row
+    // 8 nt + 2 (lane % 4) + e % 2
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int row = nt * 8 + 2 * (lane % 4);
+      const float2 l = *reinterpret_cast<const float2*>(ls + row);
+      const float2 d = *reinterpret_cast<const float2*>(dl + row);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kpos + 8 * (e >> 1), qpos = q0 + row + (e & 1) + q_offset;
+        const float lr = e & 1 ? l.y : l.x;
+        const bool ok = key < Skv && lr != -INFINITY && (!causal || key <= qpos) &&
+                        (window <= 0 || key > qpos - window);
+        grad_score_mma(s[nt][e], dp[nt][e], lr * kLog2e, e & 1 ? d.y : d.x, ok, scale_log2,
+                       scale, softcap, cap_in);
+      }
+    }
+    mma_acc_x64<D>(acc_v, s, gt, lane);    // dV += P^T dO
+    mma_acc_x64<D>(acc_k, dp, qt, lane);   // dK += dS^T Q
+  }
+
+  const size_t n = static_cast<size_t>(B) * Skv * Hkv * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int pos = kpos + 8 * hh;
+    if (pos >= Skv) continue;
+    const size_t off = ((static_cast<size_t>(b) * Skv + pos) * Hkv + hk) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const float k0v = acc_k[nt][2 * hh], k1v = acc_k[nt][2 * hh + 1];
+      const float v0v = acc_v[nt][2 * hh], v1v = acc_v[nt][2 * hh + 1];
+      if (splits == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + nt * 8) =
+            __floats2bfloat162_rn(k0v * scale, k1v * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + nt * 8) = __floats2bfloat162_rn(v0v, v1v);
+      } else {
+        *reinterpret_cast<float2*>(ws + split * n + off + nt * 8) = make_float2(k0v, k1v);
+        *reinterpret_cast<float2*>(ws + (splits + split) * n + off + nt * 8) =
+            make_float2(v0v, v1v);
+      }
+    }
+  }
+}
+
+// (mma, splits > 1) dk = scale * the sum of the subsets' partial dK, dv = the
+// sum of their partial dV, each in subset order; 4 elements a thread
+constexpr int kReduceThreads = 256;
+__global__ void __launch_bounds__(kReduceThreads) dkdv_reduce_kernel(
+    const float* __restrict__ ws, int splits, long long n, float scale, bf16* __restrict__ dk,
+    bf16* __restrict__ dv) {
+  const long long i = (static_cast<long long>(blockIdx.x) * kReduceThreads + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const bool is_v = i >= n;
+  const long long e = is_v ? i - n : i;
+  const float* src = ws + (is_v ? splits * n : 0) + e;
+  float4 a = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < splits; ++s) {
+    const float4 t = *reinterpret_cast<const float4*>(src + s * n);
+    a.x += t.x;
+    a.y += t.y;
+    a.z += t.z;
+    a.w += t.w;
+  }
+  const float f = is_v ? 1.f : scale;
+  auto* dst = reinterpret_cast<__nv_bfloat162*>((is_v ? dv : dk) + e);
+  dst[0] = __floats2bfloat162_rn(a.x * f, a.y * f);
+  dst[1] = __floats2bfloat162_rn(a.z * f, a.w * f);
+}
+
+// 3. (mma) dQ of query rows [q0, q0 + 64) of query head h, batch row b; grid
+// z counts the query tiles from the last, which walk the most key tiles
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int Sq, int Skv, int H, int Hkv, float scale, float softcap,
+    int causal, int window, int q_offset) {
+  constexpr int kRow = D + kMmaPad, kTile = kMmaTile * kRow, kNT = D / 8;
+  extern __shared__ float4 smem_raw[];
+  auto* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* gs = qs + kTile;                 // dO
+  bf16* ks = gs + kTile;                 // [2][64 keys][kRow]
+  bf16* vs = ks + 2 * kTile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kMmaTile, nq = min(kMmaTile, Sq - q0);
+  int kv_lo, kv_hi, t0, tiles;
+  mma_key_tiles(q0 + q_offset, q0 + nq - 1 + q_offset, Skv, causal, window, kv_lo, kv_hi, t0,
+                tiles);
+  if (tiles > 0) {
+    stage_mma<D>(qs, q, b, q0, Sq, H, h);
+    stage_mma<D>(gs, dout, b, q0, Sq, H, h);
+    stage_mma<D>(ks, k, b, t0 * kMmaTile, Skv, Hkv, hk);
+    stage_mma<D>(vs, v, b, t0 * kMmaTile, Skv, Hkv, hk);
+  }
+  cp_async_commit();
+
+  // the thread's rows wrow and wrow + 8 (accumulator fragment rows lane / 4
+  // and lane / 4 + 8 of its warp's 16): lse in log2 units, +inf for a row
+  // past Sq or with no visible key
+  const int wrow = warp * 16 + lane / 4;
+  float lse2[2], del[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0 + wrow + 8 * hh;
+    const size_t row = (static_cast<size_t>(b) * H + h) * Sq + r;
+    const float l = r < Sq ? lse[row] : -INFINITY;
+    lse2[hh] = l == -INFINITY ? INFINITY : l * kLog2e;
+    del[hh] = r < Sq ? delta[row] : 0.f;
+  }
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale_log2 = scale * kLog2e, cap_in = softcap > 0.f ? 2.f * kLog2e / softcap : 0.f;
+  const bf16* qw = qs + warp * 16 * kRow;
+  const bf16* gw = gs + warp * 16 * kRow;
+
+  for (int t = 0; t < tiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // tile t (and q, dO) visible to every thread, every warp done with tile
+    // t - 1, whose buffer the next load takes
+    __syncthreads();
+    if (t + 1 < tiles) {
+      const int nb = (t + 1) & 1;
+      stage_mma<D>(ks + nb * kTile, k, b, (t0 + t + 1) * kMmaTile, Skv, Hkv, hk);
+      stage_mma<D>(vs + nb * kTile, v, b, (t0 + t + 1) * kMmaTile, Skv, Hkv, hk);
+    }
+    cp_async_commit();
+    const bf16* kt = ks + (t & 1) * kTile;
+    const bf16* vt = vs + (t & 1) * kTile;
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 rows x 64 keys
+    float s[8][4], dp[8][4];
+    mma_rows_x64<D>(s, qw, kt, lane);
+    mma_rows_x64<D>(dp, gw, vt, lane);
+    // dS in place of dP. Fragment (nt, e): row wrow + 8 (e / 2), key
+    // 8 nt + 2 (lane % 4) + e % 2 of the tile
+    const int kbase = (t0 + t) * kMmaTile + 2 * (lane % 4);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kbase + nt * 8 + (e & 1), hh = e >> 1;
+        const int qpos = q0 + wrow + 8 * hh + q_offset;
+        const bool ok = key < Skv && (!causal || key <= qpos) &&
+                        (window <= 0 || key > qpos - window);
+        grad_score_mma(s[nt][e], dp[nt][e], lse2[hh], del[hh], ok, scale_log2, scale, softcap,
+                       cap_in);
+      }
+    mma_acc_x64<D>(acc, dp, kt, lane);     // dQ += dS K
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0 + wrow + 8 * hh;
+    if (r >= Sq) continue;
+    bf16* dst = dq + ((static_cast<size_t>(b) * Sq + r) * H + h) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8) =
+          __floats2bfloat162_rn(acc[nt][2 * hh] * scale, acc[nt][2 * hh + 1] * scale);
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
-           const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
-           int H, int Hkv, float scale, float softcap, int causal, int window, int q_offset,
-           cudaStream_t stream) {
+cudaError_t launch_delta(const void* out, const void* dout, float* delta, int B, int Sq, int H,
+                         cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  const unsigned blocks = static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads);
+  delta_kernel<T, D><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(out),
+                                                      static_cast<const T*>(dout), delta, Sq, H,
+                                                      rows);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_tiled(const void* q, const void* k, const void* v, const void* out, const void* dout,
+                 const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                 int Skv, int H, int Hkv, float scale, float softcap, int causal, int window,
+                 int q_offset, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(dout);
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  const unsigned delta_blocks = static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads);
-  delta_kernel<T, D><<<delta_blocks, kThreads, 0, stream>>>(static_cast<const T*>(out), gt,
-                                                           delta, Sq, H, rows);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T, D>(out, dout, delta, B, Sq, H, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dk != nullptr) {
     constexpr int bytes = static_cast<int>(sizeof(DkdvSmem<D>));
@@ -440,40 +845,103 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   return static_cast<int>(err);
 }
 
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* out, const void* dout,
+               const float* lse, float* delta, float* ws, void* dq, void* dk, void* dv, int B,
+               int Sq, int Skv, int H, int Hkv, int splits, float scale, float softcap,
+               int causal, int window, int q_offset, cudaStream_t stream) {
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
+  cudaError_t err = launch_delta<bf16, D>(out, dout, delta, B, Sq, H, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dk != nullptr) {
+    constexpr int bytes = dkdv_mma_smem<D>();
+    static const cudaError_t attr = allow_smem(dkdv_mma_kernel<D>, bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid(Hkv * splits, B, (Skv + kMmaTile - 1) / kMmaTile);
+    dkdv_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(
+        qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), ws, splits, B,
+        Sq, Skv, H, Hkv, scale, softcap, causal, window, q_offset);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (splits > 1) {
+      const long long n = static_cast<long long>(B) * Skv * Hkv * D;
+      const unsigned blocks =
+          static_cast<unsigned>((2 * n / 4 + kReduceThreads - 1) / kReduceThreads);
+      dkdv_reduce_kernel<<<blocks, kReduceThreads, 0, stream>>>(
+          ws, splits, n, scale, static_cast<bf16*>(dk), static_cast<bf16*>(dv));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  if (dq != nullptr) {
+    constexpr int bytes = dq_mma_smem<D>();
+    static const cudaError_t attr = allow_smem(dq_mma_kernel<D>, bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid(H, B, (Sq + kMmaTile - 1) / kMmaTile);
+    dq_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(
+        qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), Sq, Skv, H, Hkv, scale, softcap,
+        causal, window, q_offset);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
-// The constants the wrapper mirrors, in this order: query rows a tile, keys
-// a tile.
+// The constants the wrapper mirrors, in this order: the tiled path's query
+// rows a tile and keys a tile, the mma path's tile (keys a dK / dV block,
+// rows a dQ block).
 extern "C" void flash_attention_bwd_constants(int* c) {
   c[0] = kBQ;
   c[1] = kBK;
+  c[2] = kMmaTile;
 }
 
-// Returns the CUDA error of the launches (0 on success), -1 for a dtype or
-// head dim the kernels do not take. Layouts: q / out / dout / dq (B, Sq, H,
-// D); k / v / dk / dv (B, Skv, Hkv, D), all contiguous, one dtype; lse and
-// the workspace delta (B, H, Sq) fp32. dq null skips the dq kernel; dk (and
-// dv with it) null skips the dkdv kernel.
-extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+// Returns the CUDA error of the launches (0 on success), -1 for a path,
+// dtype, head dim or split the kernels do not take. path 0 = tiled (fp32),
+// 1 = mma (bf16). Layouts: q / out / dout / dq (B, Sq, H, D); k / v / dk / dv
+// (B, Skv, Hkv, D), all contiguous, one dtype; lse and the workspace delta
+// (B, H, Sq) fp32; ws (mma with splits > 1 and dk: the partials, (2, splits,
+// B, Skv, Hkv, D) fp32). splits divides H / Hkv (1 on the tiled path). dq
+// null skips the dq kernel; dk (and dv with it) null skips the dK / dV
+// kernels.
+extern "C" int flash_attention_bwd_launch(int path, const void* q, const void* k, const void* v,
                                           const void* out, const void* dout, const float* lse,
-                                          float* delta, void* dq, void* dk, void* dv, int B,
-                                          int Sq, int Skv, int H, int Hkv, int D, float scale,
-                                          float softcap, int causal, int window, int q_offset,
-                                          int dtype, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return -1;
+                                          float* delta, float* ws, void* dq, void* dk, void* dv,
+                                          int B, int Sq, int Skv, int H, int Hkv, int D,
+                                          int splits, float scale, float softcap, int causal,
+                                          int window, int q_offset, int dtype, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || splits < 1 || (H / Hkv) % splits != 0) return -1;
   auto s = static_cast<cudaStream_t>(stream);
-  return dispatch_dtype(dtype, [&](auto t) {
-    using T = std::remove_pointer_t<decltype(t)>;
+  if (path == 1) {
+    if (dtype != kBFloat16 || (splits > 1 && dk != nullptr && ws == nullptr)) return -1;
     switch (D) {
-      case 16: return launch<T, 16>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
-                                    Hkv, scale, softcap, causal, window, q_offset, s);
-      case 64: return launch<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
-                                    Hkv, scale, softcap, causal, window, q_offset, s);
-      case 96: return launch<T, 96>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
-                                    Hkv, scale, softcap, causal, window, q_offset, s);
-      case 128: return launch<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
-                                      Hkv, scale, softcap, causal, window, q_offset, s);
+      case 16: return launch_mma<16>(q, k, v, out, dout, lse, delta, ws, dq, dk, dv, B, Sq, Skv,
+                                     H, Hkv, splits, scale, softcap, causal, window, q_offset, s);
+      case 64: return launch_mma<64>(q, k, v, out, dout, lse, delta, ws, dq, dk, dv, B, Sq, Skv,
+                                     H, Hkv, splits, scale, softcap, causal, window, q_offset, s);
+      case 96: return launch_mma<96>(q, k, v, out, dout, lse, delta, ws, dq, dk, dv, B, Sq, Skv,
+                                     H, Hkv, splits, scale, softcap, causal, window, q_offset, s);
+      case 128: return launch_mma<128>(q, k, v, out, dout, lse, delta, ws, dq, dk, dv, B, Sq,
+                                       Skv, H, Hkv, splits, scale, softcap, causal, window,
+                                       q_offset, s);
       default: return -1;
     }
-  });
+  }
+  if (path != 0 || splits != 1 || dtype != kFloat32) return -1;
+  switch (D) {
+    case 16: return launch_tiled<float, 16>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
+                                            H, Hkv, scale, softcap, causal, window, q_offset, s);
+    case 64: return launch_tiled<float, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
+                                            H, Hkv, scale, softcap, causal, window, q_offset, s);
+    case 96: return launch_tiled<float, 96>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
+                                            H, Hkv, scale, softcap, causal, window, q_offset, s);
+    case 128: return launch_tiled<float, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
+                                              Skv, H, Hkv, scale, softcap, causal, window,
+                                              q_offset, s);
+    default: return -1;
+  }
 }

@@ -317,9 +317,10 @@ def test_flash_cuda_tensor_goes_to_kernel_or_raises(cuda, monkeypatch):
 
 
 # the backward's cases: head dims 16 / 64 / 96 / 128, G 1 / 4 / 8, causal or
-# not, window, softcap, q_offset, Sq != Skv, ragged tiles (of 64 query rows
-# and 32 keys), rows with no visible key (window + q_offset), and a
-# training shape
+# not, window, softcap, q_offset, Sq != Skv, ragged tiles (tiled: 64 query
+# rows and 32 keys; mma: 64 of each), rows with no visible key (window +
+# q_offset), and a training shape; in bf16 (mma) the small grids cut each
+# GQA group into subsets (fp32 partials and their reduce) where G > 1
 FLASH_BWD_CASES = [
     # B, Sq, Skv, H, Hkv, D, causal, window, softcap, q_offset
     (2, 37, 53, 8, 2, 128, True, 0, 0.0, 16),
@@ -347,10 +348,14 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
     """The forward's lse against the plain logsumexp; the backward kernel
     against mha_reference_bwd on the same (q, k, v, out, dO, lse), relative
     to the plain version's max |grad| (fp32 1e-4, bf16 5e-2), finite, zero
-    on rows with no visible key, bit-equal on a repeat; one launch a call."""
+    on rows with no visible key, bit-equal on a repeat; one launch a call,
+    counted under the path ``bwd_plan`` names (fp32 tiled, bf16 mma)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      mha_reference_bwd, mha_reference_lse)
+    from repro_torch.kernels.flash_attention.kernel import bwd_plan
     B, Sq, Skv, H, Hkv, D, causal, window, softcap, qoff = case
+    path = bwd_plan(B, Sq, Skv, H, Hkv, D, dtype, _sm_count(cuda.index or 0))["path"]
+    assert path == ("mma" if dtype == torch.bfloat16 else "tiled")
     q, k, v, do = _bwd_inputs(cuda, dtype, case)
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=qoff, scale=D ** -0.5)
     out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
@@ -358,12 +363,12 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
     live = torch.isfinite(plse)
     assert torch.equal(live, torch.isfinite(lse))
     torch.testing.assert_close(lse[live], plse[live], atol=1e-4, rtol=0)
-    n0, t0 = flash_attention_bwd_cuda.launches, flash_attention_bwd_cuda.launches_by_path["tiled"]
+    n0, p0 = flash_attention_bwd_cuda.launches, dict(flash_attention_bwd_cuda.launches_by_path)
     got = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
     assert flash_attention_bwd_cuda.launches == n0 + 2
-    assert flash_attention_bwd_cuda.launches_by_path["tiled"] == t0 + 2
+    assert flash_attention_bwd_cuda.launches_by_path == dict(p0, **{path: p0[path] + 2})
     plain = mha_reference_bwd(q, k, v, out, do, lse, **kw)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     for g, a, w in zip(got, again, plain):
@@ -375,16 +380,26 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
     assert (got[0][dead] == 0).all()
 
 
-def test_flash_bwd_through_autograd(cuda):
+# bf16 against fp32 autograd of the plain version on the same (bf16-valued)
+# inputs: the gradients are rounded to bf16 once (2^-9 of each) and Delta
+# reads the forward's bf16 output, so 2e-2 of max |grad| leaves ~10x room;
+# fp32 differs from it in the order of sums only
+THROUGH_AUTOGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_through_autograd(cuda, dtype):
     """flash_attention on CUDA tensors that need a gradient is the autograd
-    function: the forward writes its lse, the backward kernel gives
-    autograd's gradients through the plain version (fp32), only the
-    kernels the inputs need run, and without a gradient no lse is asked
-    for (serving's launches stay as they were)."""
+    function: the forward writes its lse, the backward kernel (on the path
+    ``bwd_plan`` names: fp32 tiled, bf16 mma) gives autograd's gradients
+    through the plain version in fp32, only the kernels the inputs need
+    run, and without a gradient no lse is asked for (serving's launches
+    stay as they were)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     from repro_torch.kernels.flash_attention import ops
-    q, k, v, do = _bwd_inputs(cuda, torch.float32, (2, 40, 40, 8, 2, 64))
+    q, k, v, do = _bwd_inputs(cuda, dtype, (2, 40, 40, 8, 2, 64))
     kw = dict(causal=True, window=12, softcap=30.0)
+    path = "mma" if dtype == torch.bfloat16 else "tiled"
     calls = []
     fwd = ops.flash_attention_cuda
 
@@ -397,16 +412,19 @@ def test_flash_bwd_through_autograd(cuda):
         with torch.inference_mode():
             flash_attention(q, k, v, **kw)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        n0 = flash_attention_bwd_cuda.launches
+        n0, p0 = flash_attention_bwd_cuda.launches, flash_attention_bwd_cuda.launches_by_path[path]
         out = flash_attention(*leaves, **kw)
         got = torch.autograd.grad(out, leaves, do)
         assert flash_attention_bwd_cuda.launches == n0 + 1 and calls == [False, True]
+        assert flash_attention_bwd_cuda.launches_by_path[path] == p0 + 1
     finally:
         ops.flash_attention_cuda = fwd
-    ref = [t.clone().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(mha_reference(*ref, **kw), ref, do)
+    ref = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mha_reference(*ref, **kw), ref, do.float())
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, atol=1e-4 * float(w.abs().max()), rtol=0)
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w, atol=THROUGH_AUTOGRAD_TOL[dtype] *
+                                   float(w.abs().max()), rtol=0)
     only_q = q.clone().requires_grad_()
     (gq,) = torch.autograd.grad(flash_attention(only_q, k, v, **kw), only_q, do)
     torch.testing.assert_close(gq, got[0], atol=0, rtol=0)

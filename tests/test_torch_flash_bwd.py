@@ -13,7 +13,9 @@ from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention
                                                  mha_reference, mha_reference_bwd,
                                                  mha_reference_lse)
 from repro_torch.kernels.flash_attention import ops as fops
-from repro_torch.kernels.flash_attention.kernel import BWD_KEYS, BWD_ROWS, bwd_plan
+from repro_torch.kernels.flash_attention.kernel import (BWD_KEYS, BWD_MMA_TILE, BWD_ROWS,
+                                                        MMA_KEYS, bwd_plan, bwd_query_tiles,
+                                                        dkdv_block, key_tiles)
 from repro_torch.kernels.grad_guard import refuse_grad
 
 TOL = 1e-5     # fp32: the two differ in the order of their sums only
@@ -171,16 +173,96 @@ def test_op_dispatch(stubbed):
 
 
 def test_bwd_plan():
-    p = bwd_plan(4, 512, 512, 16, 2, 128, torch.bfloat16)
-    assert p["path"] == "tiled"
+    """bf16 -> mma, each GQA group cut into the fewest subsets that give the
+    dK / dV grid 2 blocks a SM (a reduce grid only when it is cut); fp32 ->
+    tiled as before; head dims, head counts and grids the kernels do not
+    take raise."""
+    cdiv = lambda a, b: -(-a // b)                                # noqa: E731
+    T = BWD_MMA_TILE
+    p = bwd_plan(4, 512, 512, 16, 2, 128, torch.bfloat16)         # qwen2.5-3b's training shape
+    assert p["path"] == "mma" and p["splits"] == 8
+    assert p["grids"] == {"delta": (4 * 512 * 16 // 8, 1, 1), "dkdv": (2 * 8, 4, 512 // T),
+                          "reduce": (cdiv(2 * 4 * 512 * 2 * 128 // 4, 256), 1, 1),
+                          "dq": (16, 4, 512 // T)}
+    assert np.prod(p["grids"]["dkdv"]) == 512 >= 2 * 132
+    p = bwd_plan(4, 512, 512, 32, 8, 128, torch.bfloat16)         # mixtral: 256 blocks, cut in 2
+    assert p["splits"] == 2 and p["grids"]["dkdv"] == (16, 4, 8)
+    for args in ((2, 1024, 1024, 16, 16, 64), (4, 512, 512, 32, 16, 128)):   # seamless, gemma2
+        p = bwd_plan(*args, torch.bfloat16)
+        assert p["splits"] == 1 and "reduce" not in p["grids"]
+    assert bwd_plan(4, 512, 512, 16, 2, 128, torch.bfloat16, n_sm=32)["splits"] == 1
+    assert bwd_plan(1, 40, 40, 8, 1, 64, torch.bfloat16)["splits"] == 8   # none suffices: all G
+    p = bwd_plan(1, 9, 130, 4, 4, 64, torch.bfloat16)
+    assert p["grids"]["dkdv"] == (4, 1, cdiv(130, T)) and p["grids"]["dq"] == (4, 1, 1)
+    p = bwd_plan(4, 512, 512, 16, 2, 128, torch.float32)
+    assert p["path"] == "tiled" and p["splits"] == 1
     assert p["grids"] == {"delta": (4 * 512 * 16 // 8, 1, 1), "dkdv": (512 // BWD_KEYS, 2, 4),
                           "dq": (512 // BWD_ROWS, 16, 4)}
     p = bwd_plan(2, 9, 130, 4, 4, 64, torch.float32)
     assert p["grids"]["dkdv"] == (-(-130 // BWD_KEYS), 4, 2) and p["grids"]["dq"] == (1, 4, 2)
-    for bad in (dict(D=48), dict(H=6, Hkv=4)):
-        args = {**dict(B=1, Sq=8, Skv=8, H=4, Hkv=2, D=16, dtype=torch.float32), **bad}
-        with pytest.raises(ValueError):
-            bwd_plan(**args)
+    for dtype in (torch.float32, torch.bfloat16):
+        for bad in (dict(D=48), dict(H=6, Hkv=4), dict(B=70000)):
+            args = {**dict(B=1, Sq=8, Skv=8, H=4, Hkv=2, D=16, dtype=dtype), **bad}
+            with pytest.raises(ValueError):
+                bwd_plan(**args)
+
+
+# the chip check's backward edge cases (B, Sq, Skv, H, Hkv, causal, window,
+# q_offset; chip_smoke.FLASH_BWD_EDGE), two of its full shapes, and rows
+# that see no key
+PARTITION_CASES = [(2, 64, 64, 4, 1, True, 0, 0), (1, 80, 80, 4, 2, True, 16, 0),
+                   (2, 32, 96, 2, 2, True, 0, 64), (1, 50, 70, 4, 2, False, 0, 0),
+                   (1, 40, 40, 8, 1, True, 8, 20), (2, 9, 130, 4, 4, False, 0, 0),
+                   (1, 70, 70, 8, 2, True, 0, 0), (1, 33, 100, 8, 1, True, 0, 67),
+                   (4, 512, 512, 16, 2, True, 0, 0), (4, 512, 512, 32, 16, True, 128, 0),
+                   (1, 33, 40, 8, 2, True, 4, 30)]
+
+
+@pytest.mark.parametrize("n_sm", [1, 132])
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_mma_partition_gives_each_visible_triple_to_one_block(case, n_sm):
+    """A Python mirror of the mma kernels' partition: each dK / dV block
+    (a key tile, a kv head, a batch row, a subset of the GQA group) walks
+    ``bwd_query_tiles`` for each of its query heads, each dQ block (a query
+    tile of one head, tiles counted from the last) walks ``key_tiles``.
+    Against a brute-force mask, every visible (batch row, query head,
+    query, key) falls in exactly one block of each kernel, whatever the
+    split (n_sm 1: none; 132: the H100's)."""
+    B, Sq, Skv, H, Hkv, causal, window, qoff = case
+    G, T = H // Hkv, BWD_MMA_TILE
+    assert T == MMA_KEYS          # the dQ kernel walks the forward's key tiles
+    plan = bwd_plan(B, Sq, Skv, H, Hkv, 64, torch.bfloat16, n_sm)
+    qpos, kpos = np.arange(Sq)[:, None] + qoff, np.arange(Skv)[None]
+    vis = np.ones((Sq, Skv), bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window:
+        vis &= kpos > qpos - window
+    seen = np.zeros((B, H, Sq, Skv), np.int8)
+    gx, gy, gz = plan["grids"]["dkdv"]
+    assert gx == Hkv * plan["splits"] and G % plan["splits"] == 0
+    for x in range(gx):
+        for y in range(gy):
+            for z in range(gz):
+                b, hk, k0, heads = dkdv_block(x, y, z, plan["splits"], H, Hkv)
+                k1 = min(k0 + T, Skv)
+                qt_lo, n = bwd_query_tiles(k0, k1 - 1, Sq, causal, window, qoff)
+                r0, r1 = qt_lo * T, min((qt_lo + n) * T, Sq)
+                for h in heads:
+                    assert h // G == hk
+                    seen[b, h, r0:r1, k0:k1] += vis[r0:r1, k0:k1]
+    assert np.array_equal(seen, np.broadcast_to(vis, seen.shape))
+    seen[:] = 0
+    gx, gy, gz = plan["grids"]["dq"]
+    for h in range(gx):
+        for b in range(gy):
+            for z in range(gz):
+                q0 = (gz - 1 - z) * T
+                q1 = min(q0 + T, Sq)
+                t0, tiles = key_tiles(q0 + qoff, q1 - 1 + qoff, Skv, causal, window)
+                k0, k1 = t0 * T, min((t0 + tiles) * T, Skv)
+                seen[b, h, q0:q1, k0:k1] += vis[q0:q1, k0:k1]
+    assert np.array_equal(seen, np.broadcast_to(vis, seen.shape))
 
 
 def test_grad_guard():
