@@ -6,6 +6,8 @@ chosen phases of that tree's own ``chip_smoke.py``:
   decode, the grouped matmul (gmm), w8a16, the SSD scan and the flash
   backward;
 - bwd: the phase-2 shapes of the flash backward alone;
+- ssd: the phase-2 shapes of the SSD scan alone, and of its backward where
+  the tree has one;
 - 4: mixtral at 8 layers, bf16, the serving run;
 - 6: full-depth mamba2, bf16: the serving run, then the generation API;
 - 7: the full 32-layer mixtral on int8 weights: the serving run, then the
@@ -58,9 +60,13 @@ def main() -> int:
             run(dev, flush, res)
     if "2" in phases or "bwd" in phases:
         cs.run_flash_bwd(dev, flush, res)
+    if "ssd" in phases:
+        cs.run_ssd(dev, flush, res)
+    if ("2" in phases or "ssd" in phases) and hasattr(cs, "run_ssd_bwd"):
+        cs.run_ssd_bwd(dev, flush, res)
     del flush
     kernels = ("chunked_prefill_attention", "flash_attention", "paged_attention", "moe_gmm",
-               "w8a16_matmul", "ssd_scan", "flash_attention_bwd")
+               "w8a16_matmul", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
     out = dict(tag=tag, **{k: [dict(case=r["case"], dtype=r["dtype"], ms=r["ms"])
                                for r in res if r["kernel"] == k] for k in kernels})
     summary = {}

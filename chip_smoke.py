@@ -2,10 +2,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, in phases; any failure
 exits non-zero and no phase's failure is caught.
 
-  1. print the card's name and power limit; build the six CUDA sources of
+  1. print the card's name and power limit; build the seven CUDA sources of
      src/repro_torch/csrc (the six TPU kernels' ports: paged decode is the
      chunked attention source's split path in decode mode; and the flash
-     backward) with nvcc for
+     and SSD backwards) with nvcc for
      sm_90a (one nvcc per source, in parallel) and print what ptxas reports
      (registers, spills).
   2. each kernel against its plain PyTorch version on the card: the small
@@ -47,7 +47,17 @@ exits non-zero and no phase's failure is caught.
      twice for bit-equal results, on the CPU tests' edge cases and at
      phase 12's shapes (qwen2.5-3b and mixtral at 4 x 512 tokens),
      seamless-m4t's encoder and gemma2-27b's window and softcap, timed
-     beside its bound, its plain version and SDPA's backward.
+     beside its bound, its plain version and SDPA's backward. The SSD
+     backward (the training path's) in fp32 and bf16: the forward's tile
+     entry states against ``ssd_reference``'s (y unchanged by writing
+     them), then dx / ddt / dA / dB / dC / d(init_state) against
+     ``ssd_reference_bwd`` on the same inputs, states and cotangents (each
+     within 1e-4 of its max |plain grad|; bf16's dx / dB / dC may also
+     differ by their own rounding), twice for bit-equal results, on the
+     forward's edge cases and at mamba2's and jamba's training shapes (4 x
+     512 tokens), timed beside its bound and its plain version. The grouped
+     matmul also at deepseek-moe-16b's routed experts (64 of 2048 -> 1408,
+     top-6).
   3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
      the CPU (plain versions), on the same two sequences of 22 tokens: the
      engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, a
@@ -62,7 +72,11 @@ exits non-zero and no phase's failure is caught.
      grouped matmul on the card). Then the same for mamba2 at depth 2, full
      width: ``forward``, ``prefill`` + 4 ``decode_step``s, and a
      ``decode_chunk`` pack whose ``first`` rows reset garbage states, then
-     a decode sweep.
+     a decode sweep. Then yi-6b, phi3-mini-3.8b, deepseek-moe-16b and
+     qwen2.5-3b at depth 2 and dbrx-132b at depth 1, full width, fp32:
+     ``decode_chunk`` (a pack, a decode sweep, a verify sweep with
+     ``all_logits``) card vs CPU within LOGIT_ATOL with the same argmax, the
+     MoE configs through the grouped matmul.
   4. the serving path: mixtral-8x7b at full width, depth cut from 32 to 8
      layers, random bf16 weights from a seed, ``InferenceEngine.generate``
      on 4 requests (prompts of 100-300 tokens, 32 new tokens, greedy,
@@ -165,23 +179,35 @@ exits non-zero and no phase's failure is caught.
      ``step_fn`` with 2 microbatches and int8 gradients (qwen): its loss
      within 1e-4, AdamW's m / v within 1e-3 / 2e-3 of each leaf's max
      plus one int8 step, and the card's parameters equal to AdamW
-     recomputed in float64 from them (1e-5 of lr, two ulps).
- 10. every call shape of chunked attention, gmm, w8a16, flash attention
-     and its backward in phases 4-9, 11 and 12 (a, b) (recorded at the
-     public ops) must be one phase 2 held against the plain version; then
+     recomputed in float64 from them (1e-5 of lr, two ulps). (d)
+     mamba2-1.3b at full width and depth (48 layers, 1.34 B parameters,
+     random bf16 weights from seed 0), (a)'s corpus, batch, remat and
+     schedule, 8 steps, no checkpoint: every loss finite, the mean of steps
+     6-8 below step 1's; step ms, tokens/s and peak memory printed; the SSD
+     forward (``mma``) and backward launched on their planned paths only,
+     no other kernel of the port. (e) mamba2 and jamba-v0.1-52b (a mamba
+     layer with a dense MLP, then one with the 16-expert MoE) at depth 2,
+     full width, fp32, card vs CPU as (c) without the step, the SSD
+     kernels launched on the card.
+ 10. every call shape of chunked attention, gmm, w8a16, flash attention,
+     the SSD scan and both backwards in phases 4-9, 11 and 12 (a, b, d)
+     (recorded at the public ops) must be one phase 2 held against the
+     plain version; then
      a ``kernels`` JSON line (with each kernel's launches behind the stack
      as ``stack_launches``, in the speculative runs as ``spec_launches``,
      in phase 11 as ``encdec_launches`` / ``vlm_launches`` and in phase
-     12 as ``train_launches``; the flash backward's ``launches`` are
+     12 as ``train_launches``; the flash and SSD backwards' ``launches`` are
      phase 12's), then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
-Options: --out FILE writes every measurement as JSON; --profile adds
-torch.profiler windows over short serving runs, over decode steps of the
-generation paths, over a run of each stack layout, over a speculative run
-at each slot count, over a short serving run of each phase-11 family and
-over one qwen2.5-3b train step (kernel time by name, the device's busy
-share, and the stack's device and wall time a step).
+Options: --out FILE writes every measurement as JSON; --profile skips
+phase 3 (card vs CPU checks only, which the run without options makes)
+and adds torch.profiler windows over short serving runs, over decode steps of the
+generation paths, over a short run of each stack layout (8 requests x 8
+tokens), over a speculative run at each slot count, over a short serving
+run of each phase-11 family and over one qwen2.5-3b and one mamba2-1.3b
+train step (kernel time by name, the device's busy share, and the stack's
+device and wall time a step).
 """
 from __future__ import annotations
 
@@ -213,6 +239,7 @@ STACK_LAYOUTS = ((1, 64), (2, 32))  # (replicas, max_slots a replica) on one car
 STACK_FAILOVER = (16, 64)          # failover run: requests, token events before the failure
 STACK_PAGES, STACK_MAX_SEQ = 1024, 2080   # a replica's pool; the longest prompt + 32
 STACK_PACK = (2, 128)              # the engine's prefill pack at 64 and at 32 slots
+STACK_PROFILE = (8, 8)             # --profile: each layout's window, requests x new tokens
 VERIFY_WIDTHS = (2, 3, 5)          # the verify sweep's chunk widths at spec_k = 4
 SPEC_SLOTS = (1, 8, 32)            # phase 9: max_slots of each run, as many requests
 SPEC_NEW = 64                      # new tokens a request
@@ -286,7 +313,8 @@ def max_err(a, b) -> float:
 # grouped matmul, the w8a16 matmul and flash attention to SERVED. The script
 # fails if a served shape was never checked.
 CHECKED = {k: set() for k in ("chunked_prefill_attention", "moe_gmm", "w8a16_matmul",
-                              "flash_attention", "flash_attention_bwd")}
+                              "flash_attention", "flash_attention_bwd", "ssd_scan",
+                              "ssd_scan_bwd")}
 SERVED = {k: set() for k in CHECKED}
 
 
@@ -304,6 +332,11 @@ def flash_key(q, k, causal, window, softcap) -> tuple:
             str(q.dtype)[6:])
 
 
+def ssd_key(x, B_, init: bool) -> tuple:
+    """(B, L, H, P, N, G, a carried state, dtype)"""
+    return (*x.shape, B_.shape[3], B_.shape[2], init, str(x.dtype)[6:])
+
+
 def gmm_key(rows: int, K: int, N: int, dtype, int8: bool) -> tuple:
     return (rows, K, N, str(dtype)[6:], int8)
 
@@ -318,15 +351,17 @@ def w8a16_key(x, w_q, col_scale, row_scale) -> tuple:
 @contextlib.contextmanager
 def served_shapes():
     """While open, the public ops' calls of chunked attention, the grouped
-    matmul, the w8a16 matmul, flash attention and its backward add their
-    shapes to SERVED and go on to the kernel's wrapper unchanged (which
-    counts the launch)."""
+    matmul, the w8a16 matmul, flash attention, the SSD scan and both
+    backwards add their shapes to SERVED and go on to the kernel's wrapper
+    unchanged (which counts the launch)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.moe_gmm import ops as gops
     from repro_torch.kernels.paged_attention import ops as aops
     from repro_torch.kernels.quant_matmul import ops as wops
+    from repro_torch.kernels.ssd_scan import ops as sops
     attn, gmm, w8 = aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda
     flash, flash_bwd = fops.flash_attention_cuda, fops.flash_attention_bwd_cuda
+    ssd, ssd_bwd = sops.ssd_scan_cuda, sops.ssd_scan_bwd_cuda
 
     def attn_rec(q, kp, vp, pt, *args, **kw):
         SERVED["chunked_prefill_attention"].add(attention_key(q, kp, pt))
@@ -350,14 +385,25 @@ def served_shapes():
         return flash_bwd(q, k, v, out, dout, lse, causal=causal, window=window, softcap=softcap,
                          **kw)
 
+    def ssd_rec(x, dt, A, B_, C, init_state=None, **kw):
+        SERVED["ssd_scan"].add(ssd_key(x, B_, init_state is not None))
+        return ssd(x, dt, A, B_, C, init_state=init_state, **kw)
+
+    def ssd_bwd_rec(x, dt, A, B_, C, states, dy, d_final=None, **kw):
+        # the forward's key: a carried state's gradient is asked for only with one
+        SERVED["ssd_scan_bwd"].add(ssd_key(x, B_, kw.get("need_init", True)))
+        return ssd_bwd(x, dt, A, B_, C, states, dy, d_final, **kw)
+
     aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda = \
         attn_rec, gmm_rec, w8_rec
     fops.flash_attention_cuda, fops.flash_attention_bwd_cuda = flash_rec, flash_bwd_rec
+    sops.ssd_scan_cuda, sops.ssd_scan_bwd_cuda = ssd_rec, ssd_bwd_rec
     try:
         yield
     finally:
         aops.chunked_prefill_cuda, gops.gmm_tiles_cuda, wops.w8a16_matmul_cuda = attn, gmm, w8
         fops.flash_attention_cuda, fops.flash_attention_bwd_cuda = flash, flash_bwd
+        sops.ssd_scan_cuda, sops.ssd_scan_bwd_cuda = ssd, ssd_bwd
 
 
 # ------------------------------------------------------------------ phase 2
@@ -914,15 +960,15 @@ def run_paged_decode(dev, flush, results):
                 f"({by}) max_abs_err={err:.3g}, repeat bit-equal")
 
 
-def gmm_case(dev, *, tokens, E, K, N, dtype, seed=0):
-    """Rows of ``tokens`` tokens routed top-2 by a random router, sorted by
+def gmm_case(dev, *, tokens, E, K, N, dtype, seed=0, top_k=2):
+    """Rows of ``tokens`` tokens routed top-k by a random router, sorted by
     expert; weights scaled like the model's LeCun init (outputs ~ N(0,1))."""
     g = torch.Generator(device=dev).manual_seed(seed)
     logits = torch.randn((tokens, E), generator=g, device=dev)
-    e = torch.topk(logits, 2, dim=-1).indices.reshape(-1)
+    e = torch.topk(logits, top_k, dim=-1).indices.reshape(-1)
     order = torch.argsort(e, stable=True)
     gs = torch.bincount(e, minlength=E)
-    x = torch.randn((2 * tokens, K), generator=g, device=dev)[order].to(dtype)
+    x = torch.randn((top_k * tokens, K), generator=g, device=dev)[order].to(dtype)
     w = torch.empty((E, K, N), device=dev, dtype=dtype)
     for i in range(E):
         w[i] = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(dtype)
@@ -992,13 +1038,22 @@ def run_gmm(dev, flush, results):
         for K, N in ((4096, 14336), (14336, 4096)):
             run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=torch.bfloat16,
                          int8=int8, tol=tols[int8, torch.bfloat16])
+    # deepseek-moe-16b's routed experts (64 of width 1408, top-6), the MoE
+    # phase 3 runs on the card: 2 tokens (12 rows: stream) and a 256-token
+    # prefill (1536 rows: mma / tiled)
+    for tokens in (2, 256):
+        for K, N in ((2048, 1408), (1408, 2048)):
+            for dtype in (torch.float32, torch.bfloat16):
+                run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=dtype,
+                             int8=False, tol=tols[False, dtype], E=64, top_k=6)
 
 
-def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
+def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol, E=8, top_k=2):
     from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda, tile_layout
     from repro_torch.kernels.moe_gmm.kernel import block_m_for, plan_for
     from repro_torch.quant import quantize_leaf
-    x, w, gs = gmm_case(dev, tokens=tokens, E=8, K=K, N=N, dtype=dtype, seed=tokens)
+    x, w, gs = gmm_case(dev, tokens=tokens, E=E, K=K, N=N, dtype=dtype, seed=tokens,
+                        top_k=top_k)
     wk = quantize_leaf(w) if int8 else w
     M = x.shape[0]
     out = gmm(x, wk, gs)
@@ -1023,21 +1078,26 @@ def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol):
     # the plain version reads the group sizes back to the host
     plain_ms = cuda_ms(lambda: gmm_reference(x, wk, gs), flush=flush, queued=False)
     bounds = np.concatenate([[0], np.cumsum(gs.tolist())])
-    parts = [(i, int(bounds[i]), int(bounds[i + 1])) for i in range(8)
+    parts = [(i, int(bounds[i]), int(bounds[i + 1])) for i in range(E)
              if bounds[i + 1] > bounds[i]]
-    lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b], w[i]) for i, a, b in parts], flush=flush)
+    # one matmul an active expert: past 16 of them the host's dispatch
+    # outruns the queue, so each call is timed alone
+    lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b], w[i]) for i, a, b in parts], flush=flush,
+                     queued=len(parts) <= 16)
     active = len(parts)
     es = x.element_size()
     wbytes = active * K * (N + 4) if int8 else active * K * N * es
     nbytes = (M * K + M * N) * es + wbytes + gs.numel() * gs.element_size()
     bms, by = bound_ms(nbytes, 2.0 * M * K * N, dtype)
-    row = dict(kernel="moe_gmm", case=f"{tokens}tok {K}->{N}{kind}", dtype=str(dtype)[6:],
-               shape=f"x({M},{K}) w(8,{K},{N}){kind} experts_active={active}",
+    experts = f" E{E}" if E != 8 else ""
+    row = dict(kernel="moe_gmm", case=f"{tokens}tok {K}->{N}{kind}{experts}", dtype=str(dtype)[6:],
+               shape=f"x({M},{K}) w({E},{K},{N}){kind} top-{top_k} experts_active={active}",
                path=plan.path, splits=plan.splits, grid=list(plan.grid),
                max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bms, bound_by=by)
     results.append(row)
-    log(f"  gmm{kind} {tokens} tokens top-2 K={K} N={N} {row['dtype']} path={plan.path} "
+    log(f"  gmm{kind} {tokens} tokens {E} experts top-{top_k} K={K} N={N} {row['dtype']} "
+        f"path={plan.path} "
         f"splits={plan.splits} grid={plan.grid}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) max_abs_err={err:.3g}, "
         f"repeat bit-equal")
@@ -1228,6 +1288,21 @@ def run_ssd(dev, flush, results):
                 f"nvalid={nvalid} {str(dtype)[6:]} path={plan.path} pb={plan.pb} "
                 f"grid={plan.grid}: max_abs_err y/state={err:.3g} (tol 1e-4), "
                 f"ssd_scan out={scan_err:.3g} (atol = rtol {tol})")
+    # phase 6's generation API: each prompt prefilled alone at its own
+    # length from the cache's state
+    for L in PROMPT_LENS:
+        x, dt, A, Bm, Cm, s0 = ssd_case(dev, B=1, L=L, H=64, P=64, N=128, G=1,
+                                        dtype=torch.bfloat16, init=True, seed=L)
+        y, s = ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0)
+        Br, Cr = Bm.expand(-1, -1, 64, -1), Cm.expand(-1, -1, 64, -1)
+        y_ref, s_ref = ssd_reference(x, dt, A, Br, Cr, 256, init_state=s0)
+        err = max(max_err(y, y_ref), max_err(s, s_ref))
+        y2, s2 = ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0)
+        assert err <= 2e-3 and torch.equal(y, y2) and torch.equal(s, s2), \
+            f"ssd generation prefill L={L}: err {err} or a repeat differs"
+        CHECKED["ssd_scan"].add(ssd_key(x, Bm, s0 is not None))
+        log(f"  ssd mamba2 generation prefill x{tuple(x.shape)} init_state=True bfloat16: "
+            f"max_abs_err {err:.3g}, repeat bit-equal")
     # full-width shapes: mamba2's prefill of one 297-token prompt and of a
     # 4096-token one, the engine's prefill pack (2 rows of 128 tokens, one
     # ragged, from carried states; one half-padded SSD chunk of 256),
@@ -1252,6 +1327,7 @@ def run_ssd(dev, flush, results):
             assert err <= 2e-3 and torch.isfinite(y).all(), f"ssd {name} {dtype}: err {err}"
             y2, s2 = ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0)
             assert torch.equal(y, y2) and torch.equal(s, s2), f"ssd {name} {dtype}: repeat differs"
+            CHECKED["ssd_scan"].add(ssd_key(x, Bm, s0 is not None))
             del y, s, y_ref, s_ref, y2, s2
             ms = cuda_ms(lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0), flush=flush)
             op_ms = cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0),
@@ -1275,14 +1351,154 @@ def run_ssd(dev, flush, results):
             torch.cuda.empty_cache()
 
 
+# the SSD backward's cases: (name, B, L, H, P, N, G, init, nvalid, d_final).
+# run_ssd's edge cases (ragged L, P 3 / N 4, groups, a carried state, a
+# padded row), some with a gradient into the final state, then the
+# training shapes: mamba2-1.3b's and jamba's SSD layers at phase 12's 4 x
+# 512 tokens
+SSD_BWD_EDGE = [("edge", 2, 32, 3, 8, 4, 3, False, None, False),
+                ("edge", 1, 24, 2, 16, 8, 2, False, None, True),
+                ("edge", 2, 27, 2, 8, 4, 2, False, None, False),
+                ("edge", 2, 17, 3, 4, 5, 3, True, None, True),
+                ("edge", 1, 16, 2, 3, 4, 2, True, None, False),
+                ("edge", 2, 40, 8, 16, 16, 1, True, [40, 13], True),
+                ("edge", 2, 150, 4, 64, 128, 2, True, [150, 70], True)]
+SSD_BWD_FULL = [("mamba2 train", 4, 512, 64, 64, 128, 1, False, None, False),
+                ("jamba train", 4, 512, 128, 64, 16, 1, False, None, False)]
+# relative to each gradient's max |plain grad|: the kernel's math is fp32
+# for both dtypes; dx, dB and dC come back in bf16 for bf16 inputs, so
+# there each element may also differ by its own rounding (2^-8 |g|)
+SSD_BWD_TOL = 1e-4
+BF16_ROUNDING = 2.0 ** -8
+
+
+def ssd_bwd_bound(x, Bm, init, dtype):
+    """Bytes: x, dt, A, B, C, the tiles' entry states, dy and (with a
+    carried state) d_final read once; dx, ddt, dA, dB, dC and d_init written
+    once. Operations: per (row, head) and tile of n tokens, (6N + 4P) per
+    causal pair (C.B, dy.x, dx, dC and dB) and 8NP per token (dS' B, S^T dy,
+    dS'^T x and the carried gradient), plus 2NP for <dS', S>."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    es = x.element_size()
+    tiles = [min(64, L - t0) for t0 in range(0, L, 64)]
+    nbytes = (2 * B * L * H * P * es + 2 * B * L * H * 4 + 2 * H * 4 + 4 * B * L * G * N * es
+              + len(tiles) * B * H * P * N * 4 + B * L * H * P * 4
+              + (2 * B * H * P * N * 4 if init else 0))
+    flops = B * H * sum(n * (n + 1) / 2 * (6 * N + 4 * P) + 8 * n * N * P + 2 * N * P
+                        for n in tiles)
+    return bound_ms(nbytes, flops, dtype)
+
+
+def run_ssd_bwd(dev, flush, results):
+    """Phase 2 for the SSD backward: each case's forward with its tiles'
+    entry states (y and the states against ssd_reference at 64-token
+    chunks, y bit-equal to the serving call's), then ssd_scan_bwd_cuda
+    against ssd_reference_bwd on the same inputs, states and cotangents,
+    each gradient relative to its max |plain grad|, called twice for
+    bit-equal results; at the training shapes its time beside the plain
+    version's and the bound."""
+    from repro_torch.kernels.ssd_scan import (ssd_reference, ssd_reference_bwd,
+                                              ssd_scan_bwd_cuda, ssd_scan_cuda)
+    from repro_torch.kernels.ssd_scan.kernel import bwd_plan
+    names = ("dx", "ddt", "dA", "dB", "dC", "d_init")
+    for name, B, L, H, P, N, G, init, nvalid, dfin in SSD_BWD_EDGE + SSD_BWD_FULL:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, A, Bm, Cm, s0 = ssd_case(dev, B=B, L=L, H=H, P=P, N=N, G=G, dtype=dtype,
+                                            init=init, nvalid=nvalid, seed=L + P)
+            g = torch.Generator(device=dev).manual_seed(L + N)
+            dy = torch.randn((B, L, H, P), generator=g, device=dev)
+            d_final = torch.randn((B, H, P, N), generator=g, device=dev) if dfin else None
+            y, fin, st = ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0, states=True)
+            y_serve, _ = ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0)
+            assert torch.equal(y, y_serve), f"ssd bwd {name}: writing the states changed y"
+            rep = H // G
+            Br, Cr = Bm.repeat_interleave(rep, 2), Cm.repeat_interleave(rep, 2)
+            y_ref, _, st_ref = ssd_reference(x, dt, A, Br, Cr, 64, init_state=s0, states=True)
+            fwd_err = max(max_err(y, y_ref), max_err(st, st_ref))
+            # run_ssd's bound at 64-token chunks: fp32 math, reduction order only
+            assert fwd_err <= 2e-3, f"ssd bwd {name} {dtype}: forward / states err {fwd_err}"
+            del y, y_serve, y_ref, st_ref, Br, Cr
+            args = (x, dt, A, Bm, Cm, st, dy, d_final)
+            grads = ssd_scan_bwd_cuda(*args, need_init=init)
+            plain = ssd_reference_bwd(x, dt, A, Bm, Cm, s0, st, dy, d_final)
+            errs, abs_err = {}, 0.0
+            for k, a, b in zip(names, grads, plain):
+                if b is None:
+                    assert a is None, f"ssd bwd {name}: {k} without an initial state"
+                    continue
+                assert a.shape == b.shape and torch.isfinite(a).all(), f"ssd bwd {name}: {k}"
+                want = torch.float32 if k in ("ddt", "dA", "d_init") else dtype
+                assert a.dtype == want, f"ssd bwd {name}: {k} is {a.dtype}, expected {want}"
+                diff = (a.float() - b).abs()
+                abs_err = max(abs_err, float(diff.max()))
+                if a.dtype == torch.bfloat16:
+                    diff = (diff - BF16_ROUNDING * b.abs()).clamp_min(0)
+                errs[k] = float(diff.max()) / max(float(b.abs().max()), 1e-30)
+            assert max(errs.values()) <= SSD_BWD_TOL, \
+                f"ssd bwd {name} {(B, L, H, P, N, G)} {dtype}: rel errs {errs}"
+            again = ssd_scan_bwd_cuda(*args, need_init=init)
+            assert all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(grads, again)), f"ssd bwd {name} {dtype}: repeat differs"
+            del grads, plain, again
+            plan = bwd_plan(B, L, H, P, N, G)
+            where = (f"{plan['path']}, grid {list(plan['grid'])}, {plan['tiles']} tiles, "
+                     f"{plan['smem']} B shared, partials summed over {plan['group_sum']} heads")
+            shape = (f"x{tuple(x.shape)} B/C{tuple(Bm.shape)} init_state={init} "
+                     f"nvalid={nvalid} d_final={dfin}")
+            rel = " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            if name == "edge":
+                log(f"  ssd bwd edge {shape} {str(dtype)[6:]} ({where}): forward / states err "
+                    f"{fwd_err:.3g}, rel errs {rel} (tol {SSD_BWD_TOL}), repeat bit-equal")
+                continue
+            ms = cuda_ms(lambda: ssd_scan_bwd_cuda(*args, need_init=init), flush=flush)
+            # the plain version's many small ops outrun the queue: each call timed alone
+            plain_ms = cuda_ms(lambda: ssd_reference_bwd(x, dt, A, Bm, Cm, s0, st, dy, d_final),
+                               flush=flush, queued=False)
+            bms, by = ssd_bwd_bound(x, Bm, init, dtype)
+            key = ssd_key(x, Bm, s0 is not None)
+            row = dict(kernel="ssd_scan_bwd", case=name, dtype=str(dtype)[6:], shape=shape,
+                       path=plan["path"], grid=plan["grid"], max_abs_err=abs_err, rel_errs=errs,
+                       fwd_err=fwd_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bms, bound_by=by)
+            results.append(row)
+            log(f"  ssd bwd {name} {row['dtype']} {shape} ({where}): kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms=none (no single PyTorch call) "
+                f"bound_ms={bms:.6f} ({by}) rel errs {rel} (tol {SSD_BWD_TOL}), forward / states "
+                f"err {fwd_err:.3g}, repeat bit-equal")
+            CHECKED["ssd_scan"].add(key)
+            CHECKED["ssd_scan_bwd"].add(key)
+            del x, Bm, Cm, dy, st, args
+            torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 3/4
-def mixtral(n_layers: int):
-    from repro_torch.configs import LayerGroup, get_config
-    cfg = get_config("mixtral-8x7b")
+def depth_cut(cfg, n_layers: int):
+    """``cfg`` cut to its first ``n_layers`` layers, each keeping its kind
+    and its MoE mark (deepseek's dense first layer, jamba's mamba layers);
+    ``cfg`` itself at its full depth."""
+    from repro_torch.configs import LayerGroup
     if n_layers == cfg.n_layers:
         return cfg
-    return cfg.scaled(name=f"mixtral-8x7b-{n_layers}L", n_layers=n_layers,
-                      layer_groups=(LayerGroup("A", n_layers, moe_mask="1"),))
+    groups, left = [], n_layers
+    for g in cfg.layer_groups:
+        if left <= 0:
+            break
+        reps = min(g.repeats, left // len(g.pattern))
+        if reps:
+            groups.append(LayerGroup(g.pattern, reps, g.moe_mask))
+            left -= reps * len(g.pattern)
+        if 0 < left < len(g.pattern) and reps < g.repeats:
+            groups.append(LayerGroup(g.pattern[:left], 1,
+                                     g.moe_mask[:left] if g.moe_mask else None))
+            left = 0
+    return cfg.scaled(name=f"{cfg.name}-{n_layers}L", n_layers=n_layers,
+                      layer_groups=tuple(groups))
+
+
+def mixtral(n_layers: int):
+    from repro_torch.configs import get_config
+    return depth_cut(get_config("mixtral-8x7b"), n_layers)
 
 
 def fill_pool_from_ring(paged, dense, pt, ps):
@@ -1399,13 +1615,79 @@ def run_card_vs_cpu(dev, int8: bool = False):
     return worst, cross
 
 
+# phase 3's other decoder-only configs, card vs CPU through decode_chunk at
+# full width in fp32: (name, depth). deepseek's first layer is dense, so
+# depth 2 is the least that reaches its MoE; dbrx at depth 1 (16 experts of
+# 6144 x 10752: ~18 GB in fp32 on each side)
+DECODE_CHUNK_CONFIGS = (("yi-6b", 2), ("phi3-mini-3.8b", 2), ("deepseek-moe-16b", 2),
+                        ("qwen2.5-3b", 2), ("dbrx-132b", 1))
+
+
+def run_decode_chunk_card_vs_cpu(dev, name: str, n_layers: int):
+    """``name`` at full width, depth ``n_layers``, fp32, on the card and on
+    the CPU from the same weights: ``decode_chunk`` over the paged pool on
+    a pack of 16 / 11 prompt tokens, a decode sweep, then a verify sweep
+    with all_logits at C = 5 whose rows feed 5 / 2 tokens (every valid
+    position compared). Card vs CPU within LOGIT_ATOL with the same
+    argmax; a MoE config's grouped matmul launched on the card. Returns the
+    worst logit difference."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
+    from repro_torch.kernels.paged_attention import chunked_prefill_cuda
+    from repro_torch.models import RunCtx, build_model
+    from repro_torch.models.params import map_tree
+    cfg = depth_cut(get_config(name), n_layers)
+    model = build_model(cfg)
+    params = model.init_params(0, device=dev, dtype=torch.float32)
+    cpu_params = map_tree(lambda t: t.cpu(), params)
+    V, W, ps, maxp = cfg.vocab, VERIFY_WIDTHS[-1], 16, 2
+    seq = np.random.default_rng(4).integers(1, V, (2, 24)).astype(np.int32)
+    verify = np.zeros((2, W), np.int32)
+    verify[0], verify[1, :2] = seq[0, 17:17 + W], seq[1, 12:14]
+    vvalid = np.arange(W)[None, :] < np.array([W, 2])[:, None]
+    calls = [(seq[:, :16], [0, 0], [16, 11]),
+             (np.array([[seq[0, 16]], [seq[1, 11]]], np.int32), [16, 11], [1, 1]),
+             (verify, [17, 12], [W, 2])]
+    pt = np.stack([np.arange(1, 1 + maxp), np.arange(1 + maxp, 1 + 2 * maxp)]).astype(np.int32)
+    logits = {}
+    for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
+        n0 = (gmm_tiles_cuda.launches, chunked_prefill_cuda.launches)
+        out = []
+        with torch.inference_mode():
+            cache = model.init_cache(2, 24, kind="paged", page_size=ps, num_pages=2 * maxp + 1,
+                                     device=where)
+            t_pt = torch.from_numpy(pt).to(where)
+            for tok, st, nv in calls:
+                st, nv = np.asarray(st, np.int32), np.asarray(nv, np.int32)
+                t = [torch.from_numpy(a).to(where) for a in (tok, st, nv, np.arange(2), st == 0)]
+                lg, cache = model.decode_chunk(p, t[0], cache, *t[1:], RunCtx(), t_pt,
+                                               all_logits=tok is verify)
+                out.append(lg[torch.from_numpy(vvalid).to(where)] if tok is verify else lg)
+        logits[key] = [o.float().cpu() for o in out]
+        if key == "card":
+            launched = (gmm_tiles_cuda.launches - n0[0], chunked_prefill_cuda.launches - n0[1])
+    moe = any("1" in (g.moe_mask or "") for g in cfg.layer_groups)
+    assert launched[1] > 0 and (launched[0] > 0) == moe, f"{cfg.name}: launches {launched}"
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
+        assert torch.isfinite(a).all() and a.shape[-1] == V, f"{cfg.name} call {i}"
+        err = max_err(a, b)
+        worst = max(worst, err)
+        assert err < LOGIT_ATOL, f"{cfg.name} decode_chunk call {i}: card vs CPU {err}"
+        assert torch.equal(a.argmax(-1), b.argmax(-1)), f"{cfg.name} call {i}: argmax differs"
+    log(f"  {cfg.name} (full width, depth {n_layers}, fp32, d_model {cfg.d_model}, vocab {V}), "
+        f"card vs CPU: decode_chunk pack of 16 / 11 tokens, a decode sweep, a verify sweep "
+        f"with all_logits at C = {W}: max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, argmax equal; "
+        f"on the card chunked attention {launched[1]} launches, gmm {launched[0]}")
+    del model, params, cpu_params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
 def mamba2(n_layers: int):
-    from repro_torch.configs import LayerGroup, get_config
-    cfg = get_config("mamba2-1.3b")
-    if n_layers == cfg.n_layers:
-        return cfg
-    return cfg.scaled(name=f"mamba2-1.3b-{n_layers}L", n_layers=n_layers,
-                      layer_groups=(LayerGroup("M", n_layers),))
+    from repro_torch.configs import get_config
+    return depth_cut(get_config("mamba2-1.3b"), n_layers)
 
 
 def run_mamba_card_vs_cpu(dev):
@@ -2520,12 +2802,12 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
     from repro_torch.kernels.paged_attention import chunked_prefill_cuda, paged_attention_cuda
     from repro_torch.kernels.quant_matmul import w8a16_matmul_cuda
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
     return {"chunked_prefill_attention": chunked_prefill_cuda, "moe_gmm": gmm_tiles_cuda,
             "flash_attention": flash_attention_cuda,
             "flash_attention_bwd": flash_attention_bwd_cuda,
             "paged_attention": paged_attention_cuda, "ssd_scan": ssd_scan_cuda,
-            "w8a16_matmul": w8a16_matmul_cuda}
+            "ssd_scan_bwd": ssd_scan_bwd_cuda, "w8a16_matmul": w8a16_matmul_cuda}
 
 
 def zero_launches() -> None:
@@ -2724,6 +3006,80 @@ def run_training(dev, profile: bool = False):
     return res, launches, paths
 
 
+MAMBA_TRAIN_ARCH = "mamba2-1.3b"
+
+
+def run_mamba_training(dev, profile: bool = False):
+    """Phase 12 (d): mamba2-1.3b at full width and depth through
+    ``training.trainer.train``, phase 12 (a)'s corpus, batch, remat and
+    schedule, TRAIN_STEPS steps and no checkpoint (the card's machine ends
+    a call after 45 GiB of disk writes, and (a) writes 34 GB). Every loss
+    finite and the mean of steps 6-8 below step 1's; the SSD forward
+    (``mma``) and backward (``tiled``) launched on those paths only, no
+    other kernel of the port. With ``profile``, a torch.profiler window
+    over one more step. Returns (results, launches, their paths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthesize_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import count_params_analytic
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.trainer import TrainerConfig, train
+    cfg = get_config(MAMBA_TRAIN_ARCH)
+    model = build_model(cfg)
+    n_params = count_params_analytic(cfg)
+    dcfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    tcfg = train_config()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init_params(0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = train(model, dcfg, tcfg, TrainerConfig(steps=TRAIN_STEPS), params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches, paths = read_launches()
+    losses = out["losses"]
+    assert all(np.isfinite(losses)), f"{cfg.name}: a loss is not finite: {losses}"
+    assert np.mean(losses[5:8]) < losses[0], f"{cfg.name}: the loss did not fall: {losses}"
+    assert launches["ssd_scan"] > 0 and launches["ssd_scan_bwd"] > 0, \
+        f"the SSD scan or its backward never ran on the training path: {launches}"
+    assert paths["ssd_scan"]["mma"] == launches["ssd_scan"] and \
+        paths["ssd_scan_bwd"]["tiled"] == launches["ssd_scan_bwd"], \
+        f"the SSD kernels left their planned paths (forward mma, backward tiled): {paths}"
+    idle = {k: n for k, n in launches.items() if k not in ("ssd_scan", "ssd_scan_bwd")}
+    assert not any(idle.values()), f"mamba2 training reached a kernel it must not: {idle}"
+    step_s = float(np.median(out["step_seconds"][1:]))
+    share = 6.0 * n_params * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
+    res = dict(config=cfg.name, layers=cfg.n_layers, params=n_params, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
+               step_seconds=out["step_seconds"], step_ms_median=1e3 * step_s,
+               tokens_per_s=tokens / step_s, peak_gb=peak, bf16_peak_share=share, wall_s=wall,
+               launches=launches, launches_by_path={k: paths[k] for k in ("ssd_scan",
+                                                                          "ssd_scan_bwd")})
+    log(f"  (d) {cfg.name} full width and depth ({cfg.n_layers} layers, {n_params / 1e9:.2f} B "
+        f"params), random bf16 weights from seed 0, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"remat, no checkpoint: losses {[round(x, 4) for x in losses]}; step "
+        f"{1e3 * step_s:.1f} ms (median of steps 2-{TRAIN_STEPS}), {tokens / step_s:.0f} tok/s, "
+        f"peak {peak:.2f} GB, 6 N tokens / step time = {100 * share:.1f}% of the bf16 peak "
+        f"(printed only); SSD launches {launches['ssd_scan']} forward (by path "
+        f"{paths['ssd_scan']}), {launches['ssd_scan_bwd']} backward (by path "
+        f"{paths['ssd_scan_bwd']})")
+    if profile:
+        _, step_fn = make_train_step(model, tcfg)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synthesize_batch(dcfg, TRAIN_STEPS).items()}
+        res["profile"] = profile_window(lambda: step_fn(out["params"], out["state"], batch),
+                                        f"one {cfg.name} train step")
+    del out, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches, paths
+
+
 def train_card_vs_cpu(dev, cfg, step: bool):
     """Phase 12 (c): ``cfg`` (full width, depth cut) in fp32 on the card and
     on the CPU, same weights and 2 x 32 tokens: the loss within
@@ -2748,20 +3104,30 @@ def train_card_vs_cpu(dev, cfg, step: bool):
     for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
         batch = {k: torch.from_numpy(v).to(where) for k, v in data.items()}
         leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+        n0, _ = read_launches()
         loss, _ = model.loss(tree_unflatten(p, leaves), batch, ctx)
         grads = torch.autograd.grad(loss, leaves)
+        n1, _ = read_launches()
+        launched = {k: n1[k] - n0[k] for k in n1 if n1[k] > n0[k]}
+        assert bool(launched) == (key == "card"), f"{cfg.name} on the {key}: {launched}"
         got[key] = (float(loss.detach()), [g.cpu() for g in grads])
+        if key == "card":
+            card_launched = launched
         del leaves, grads
+    if "M" in "".join(g.pattern for g in cfg.layer_groups):
+        assert card_launched.get("ssd_scan", 0) > 0 and card_launched.get("ssd_scan_bwd", 0) > 0, \
+            f"{cfg.name}: the SSD kernels did not run on the card: {card_launched}"
     loss_err = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
     grad_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
                    for a, b in zip(got["card"][1], got["cpu"][1]))
     assert loss_err <= TRAIN_LOSS_RTOL, f"{cfg.name}: loss card vs CPU rel err {loss_err}"
     assert grad_err <= TRAIN_GRAD_TOL, f"{cfg.name}: gradients card vs CPU rel err {grad_err}"
     del got
-    out = dict(loss_rel_err=loss_err, grad_rel_err=grad_err)
-    msg = (f"  (c) {cfg.name}: fp32, full width, depth {cfg.n_layers}, card vs CPU on 2 x 32 "
+    out = dict(loss_rel_err=loss_err, grad_rel_err=grad_err, card_launches=card_launched)
+    msg = (f"  {cfg.name}: fp32, full width, depth {cfg.n_layers}, card vs CPU on 2 x 32 "
            f"tokens: loss rel err {loss_err:.3g} <= {TRAIN_LOSS_RTOL}, worst gradient leaf "
-           f"{grad_err:.3g} of its max |g| <= {TRAIN_GRAD_TOL}")
+           f"{grad_err:.3g} of its max |g| <= {TRAIN_GRAD_TOL}; the card's launches "
+           f"{card_launched}")
     if step:
         tcfg = TrainConfig(microbatches=2, grad_compression=True, xent_chunk=16)
         init_fn, step_fn = make_train_step(model, tcfg)
@@ -2875,7 +3241,8 @@ def run_stack(dev, model, params, profile: bool):
             reps.append(rep.start())
         return reps, errors
 
-    def serve(n_replicas: int, slots: int, batch, *, fail_after=None, profile_what=None):
+    def serve(n_replicas: int, slots: int, batch, *, fail_after=None, profile_what=None,
+              new_tokens: int = STACK_NEW):
         """One gateway over a fresh fleet: a warm-up request for each replica
         (a thread's first matmul creates its cuBLAS handle), then ``batch``
         at full concurrency with the kernels' counters set to 0 just before
@@ -2910,7 +3277,7 @@ def run_stack(dev, model, params, profile: bool):
                     if hasattr(fn, "launches_by_path"):
                         fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
                 run = run_workload(gw, batch, concurrency=len(batch),
-                                   max_new_tokens=STACK_NEW, timeout_s=300)
+                                   max_new_tokens=new_tokens, timeout_s=300)
                 if fail_after is None:
                     return await run
                 res, _ = await asyncio.gather(run, killer())
@@ -3062,16 +3429,18 @@ def run_stack(dev, model, params, profile: bool):
                  workload="sample_workload(WorkloadSpec(n_requests=64, vocab=32000, seed=0))",
                  gateway="scale", policy="least_loaded", layouts=layouts, failover=fo)
     if profile:
-        # both layouts on the full batch, each in its own window: the device
-        # time a step against each replica's wall time a step (step_records,
-        # the token readback's wait included) says whether the 2 x 32 steps
-        # grew on the host or on the device (the window also holds the warm-up)
+        # both layouts on a short run (the first STACK_PROFILE[0] requests,
+        # STACK_PROFILE[1] tokens each; the full batch's windows took 126 s
+        # of the script's time), each in its own window: the device time a
+        # step against each replica's wall time a step (step_records, the
+        # token readback's wait included) says whether the 2 x 32 steps grew
+        # on the host or on the device (the window also holds the warm-up)
         stack["profile"] = []
+        n_req, n_new = STACK_PROFILE
         for n_replicas, slots in STACK_LAYOUTS:
             _, _, reps, prof = serve(
-                n_replicas, slots, prompts,
-                profile_what=f"{n_replicas} x {slots} slots, {STACK_REQUESTS} requests x "
-                             f"{STACK_NEW} tokens")
+                n_replicas, slots, prompts[:n_req], new_tokens=n_new,
+                profile_what=f"{n_replicas} x {slots} slots, {n_req} requests x {n_new} tokens")
             w = prof["profile"]
             steps = {r.replica_id: [x.duration for x in r.engine.step_records] for r in reps}
             n_steps = sum(len(v) for v in steps.values())
@@ -3091,6 +3460,22 @@ def run_stack(dev, model, params, profile: bool):
     return stack, layouts[0]["launches"]
 
 
+def device_time_by_name(prof, device=None) -> list:
+    """(name, ms, count) of the device-side events (kernels, copies, sets)
+    of a finished profile, largest first: the host ops that launched them
+    report the same time again. Summed straight from the trace's events:
+    ``key_averages()`` first builds an event tree in Python, ~100x slower
+    (1.8 s for 20k events on the CPU), and took most of a window's cost."""
+    from torch.autograd import DeviceType
+    device = DeviceType.CUDA if device is None else device
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == device and e.duration_ns() > 0:
+            ms, n = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in acc.items()), key=lambda r: -r[1])
+
+
 def profile_window(fn, what: str):
     """torch.profiler over one call of ``fn``: device time by kernel name
     and the device's busy share of the window."""
@@ -3103,19 +3488,7 @@ def profile_window(fn, what: str):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only: the host ops that launched them report
-        # the same time again
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            rows.append((e.key, dt / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_time_by_name(prof)
     busy_ms = sum(r[1] for r in rows)
     log(f"  profile window ({what}): wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / (wall * 1e3):.1f}%); top kernels by device time:")
@@ -3138,8 +3511,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="add torch.profiler windows over short serving runs and over "
-                         "the generation paths")
+                    help="add torch.profiler windows over short serving runs, the "
+                         "generation paths and train steps; skip phase 3's card vs CPU checks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3178,18 +3551,29 @@ def main() -> int:
     run_flash_bwd(dev, flush, results)
     run_paged_decode(dev, flush, results)
     run_ssd(dev, flush, results)
+    run_ssd_bwd(dev, flush, results)
     run_w8a16(dev, flush, results)
     del flush
     log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
-    log("phase 3: every model path at depth 2, full width, fp32, card vs CPU")
     t0 = time.perf_counter()
-    e2e_err, cross_err = run_card_vs_cpu(dev)
-    torch.cuda.empty_cache()
-    int8_err, int8_cross = run_card_vs_cpu(dev, int8=True)
-    torch.cuda.empty_cache()
-    mamba_err, mamba_cross = run_mamba_card_vs_cpu(dev)
-    torch.cuda.empty_cache()
+    if args.profile:
+        # no window here: the logit checks, whose CPU side took 78-105 s of
+        # the script's 600, are the run without options'
+        log("phase 3: skipped under --profile (card vs CPU checks only; the run without "
+            "options makes them)")
+        e2e_err = cross_err = int8_err = int8_cross = mamba_err = mamba_cross = None
+        configs_err = {}
+    else:
+        log("phase 3: every model path at depth 2, full width, fp32, card vs CPU")
+        e2e_err, cross_err = run_card_vs_cpu(dev)
+        torch.cuda.empty_cache()
+        int8_err, int8_cross = run_card_vs_cpu(dev, int8=True)
+        torch.cuda.empty_cache()
+        mamba_err, mamba_cross = run_mamba_card_vs_cpu(dev)
+        torch.cuda.empty_cache()
+        configs_err = {name: run_decode_chunk_card_vs_cpu(dev, name, n)
+                       for name, n in DECODE_CHUNK_CONFIGS}
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     # every main path from here on records its kernels' call shapes
@@ -3282,18 +3666,31 @@ def main() -> int:
 
     log(f"phase 12: training on the card: {TRAIN_ARCH} at full width and depth (checkpoints, "
         f"a crash, a resume), mixtral-8x7b at depth {MOE_TRAIN_LAYERS} with the capacity MoE, "
-        f"then card vs CPU in fp32")
+        f"{MAMBA_TRAIN_ARCH} at full width and depth, then card vs CPU in fp32")
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     training, train_launches, train_paths = run_training(dev, args.profile)
+    training["mamba2"], ssm_launches, _ = run_mamba_training(dev, args.profile)
+    train_launches = {k: n + ssm_launches[k] for k, n in train_launches.items()}
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
-    recording.close()            # (c)'s fp32 calls check the card; they train nothing
-    from repro_torch.configs import LayerGroup, get_config
-    qwen2 = get_config(TRAIN_ARCH).scaled(name=f"{TRAIN_ARCH}-2L", n_layers=2,
-                                          layer_groups=(LayerGroup("A", 2),))
+    launches["ssd_scan_bwd"] = train_launches["ssd_scan_bwd"]
+    recording.close()            # (c)'s and (e)'s fp32 calls check the card; they train nothing
+    from repro_torch.configs import get_config
+    qwen2 = depth_cut(get_config(TRAIN_ARCH), 2)
+    log("  (c) card vs CPU:")
     training["card_vs_cpu"] = {qwen2.name: train_card_vs_cpu(dev, qwen2, step=True),
                                mixtral(1).name: train_card_vs_cpu(dev, mixtral(1), step=False)}
+    # (e) the SSM family: jamba at depth 2 is a mamba layer with a dense MLP,
+    # then one with the 16-expert MoE
+    log("  (e) card vs CPU, the SSM family:")
+    for cfg in (mamba2(2), depth_cut(get_config("jamba-v0.1-52b"), 2)):
+        training["card_vs_cpu"][cfg.name] = train_card_vs_cpu(dev, cfg, step=False)
+    if args.profile:
+        bwd_ms = sum(w["ms"] for w in training["mamba2"]["profile"]["port"]
+                     if "ssd_bwd_kernel" in w["name"])
+        log(f"  the SSD backward kernel's share of the profiled mamba2 step: {bwd_ms:.2f} ms of "
+            f"{training['mamba2']['profile']['device_busy_ms']:.1f} ms busy")
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     unchecked = {k: sorted(SERVED[k] - CHECKED[k]) for k in SERVED}
@@ -3319,6 +3716,10 @@ def main() -> int:
              "src/repro/kernels/paged_attention/kernel.py:107", "decode"),
             ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan/kernel.py:65", "mamba2 pack"),
+            # no TPU kernel of its own: the gradient of row 5's, which the
+            # reference takes by XLA autodiff of its plain ssd_chunked
+            ("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:65", "mamba2 train"),
             ("w8a16_matmul", "src/repro_torch/csrc/quant_matmul.cu",
              "src/repro/kernels/quant_matmul/kernel.py:40", "decode wq")):
         row = next(r for r in results if r["kernel"] == name and r["case"] == case
@@ -3340,6 +3741,7 @@ def main() -> int:
                                        cross_path_max_abs_logit=cross_err,
                                        mamba_e2e_max_abs_logit=mamba_err,
                                        mamba_cross_path_max_abs_logit=mamba_cross,
+                                       configs_e2e_max_abs_logit=configs_err,
                                        int8_e2e_max_abs_logit=int8_err,
                                        int8_cross_path_max_abs_logit=int8_cross, serve=serve,
                                        generation=generation, mamba_serve=mamba_serve,

@@ -371,7 +371,7 @@ def tune_ssd(dev, flush) -> None:
                         PATHS.index("mma"), pb, plan.nk, x.data_ptr(), dt.data_ptr(),
                         A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                         None if s0 is None else s0.data_ptr(), y.data_ptr(), fin.data_ptr(),
-                        B, L, H, P, N, G, *x.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2],
+                        None, B, L, H, P, N, G, *x.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2],
                         1, torch.cuda.current_stream(dev).cuda_stream)
                     assert err == 0, f"variant {variant} pb {pb}: launch failed (code {err})"
                 call()
@@ -392,7 +392,7 @@ def tune_ssd(dev, flush) -> None:
         for _ in range(3):
             fns[variant](PATHS.index("mma"), plan.pb, plan.nk, x.data_ptr(), dt.data_ptr(),
                          A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), None, y.data_ptr(),
-                         fin.data_ptr(), 1, 4096, 64, 64, 128, 1, *x.stride()[:2],
+                         fin.data_ptr(), None, 1, 4096, 64, 64, 128, 1, *x.stride()[:2],
                          *Bm.stride()[:2], *Cm.stride()[:2], 1,
                          torch.cuda.current_stream(dev).cuda_stream)
         torch.cuda.synchronize()
@@ -419,8 +419,8 @@ def tune_ssd(dev, flush) -> None:
         plan = plan_for(x, Bm)
         ms = cs.cuda_ms(lambda: fn(
             PATHS.index("mma"), plan.pb, plan.nk, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            Bm.data_ptr(), Cm.data_ptr(), None, y.data_ptr(), fin.data_ptr(), 1, L, 64, 64, 128,
-            1, *x.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2], 1,
+            Bm.data_ptr(), Cm.data_ptr(), None, y.data_ptr(), fin.data_ptr(), None, 1, L, 64, 64,
+            128, 1, *x.stride()[:2], *Bm.stride()[:2], *Cm.stride()[:2], 1,
             torch.cuda.current_stream(dev).cuda_stream), flush=flush)
         print(f"TUNE ssd tiles L={L} ({-(-L // 64)} tiles) pb={plan.pb}: {ms:.5f} ms", flush=True)
 

@@ -10,7 +10,13 @@
 //   S  <- e^{cum_last} S + sum_j e^{cum_last-cum_j} dt_j B_j (x) x_j
 // in fp32 from fp32 or bf16 inputs. Beyond the TPU kernel it starts from an
 // optional init_state (B,H,P,N) instead of zeros and writes the final state
-// (B,H,P,N); with no init_state it is ssd_scan_pallas.
+// (B,H,P,N); with no init_state it is ssd_scan_pallas. When the op needs a
+// gradient (kernels/ssd_scan/ops.py's SSDScan) it also writes the state
+// entering each 64-token tile, (B, ceil(L/64), H, P, N) fp32, which the
+// backward (csrc/ssd_scan_bwd.cu) reads: a template flag of both kernels,
+// so serving's instantiations, which write none, compile as before (a
+// run-time branch cost the mma kernel's registers 13-25% at mamba2's
+// prefills).
 //
 // What bounds it on the card: bytes at the serving shapes. A (row, head)
 // reads its L x P inputs once and writes L x P outputs in fp32, plus the
@@ -101,11 +107,11 @@ __host__ __device__ inline int smem_floats(int PP, int NP) {
   return kT * PP + 2 * NP * kTP + NP * PP + kT * kTP + 4 * kT + 4;
 }
 
-template <typename T>
+template <typename T, bool STATES>
 __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ init_state,
-    float* __restrict__ y, float* __restrict__ final_state, Dims d) {
+    float* __restrict__ y, float* __restrict__ final_state, float* __restrict__ states, Dims d) {
   extern __shared__ __align__(16) float smem[];
   const int PP = d.PP, NP = d.NP;
   float* xs = smem;                    // [kT][PP]
@@ -138,6 +144,11 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
   for (int t0 = 0; t0 < L; t0 += kT) {
     const int nt = min(kT, L - t0);
     __syncthreads();  // the previous tile's readers are done
+    if constexpr (STATES) {  // the state entering this tile
+      const size_t tile = static_cast<size_t>(b) * ((L + kT - 1) / kT) + t0 / kT;
+      float* so = states + (tile * H + h) * P * N;
+      for (int i = tid; i < P * N; i += kThreads) so[i] = ss[(i % N) * PP + i / N];
+    }
     for (int i = tid; i < kT * PP; i += kThreads) {
       const int r = i / PP, p = i % PP;
       xs[i] = (r < nt && p < P) ? to_f32(xrow[(t0 + r) * d.sxt + p]) : 0.f;
@@ -274,21 +285,24 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(
 
 template <typename T>
 int launch_tiled(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-           const float* init_state, float* y, float* final_state, int B, const Dims& d,
-           cudaStream_t stream) {
+           const float* init_state, float* y, float* final_state, float* states, int B,
+           const Dims& d, cudaStream_t stream) {
   const int bytes = smem_floats(d.PP, d.NP) * static_cast<int>(sizeof(float));
   static bool configured = false;  // the attribute is set once per instantiation, to the most
   if (!configured) {               // any supported shape needs
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_floats(kMaxP, kMaxN) * static_cast<int>(sizeof(float)));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    for (auto kernel : {ssd_scan_kernel<T, false>, ssd_scan_kernel<T, true>}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem_floats(kMaxP, kMaxN) * static_cast<int>(sizeof(float)));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
     configured = true;
   }
   const dim3 grid(d.H, B);
-  ssd_scan_kernel<T><<<grid, kThreads, bytes, stream>>>(
+  const auto kernel = states != nullptr ? ssd_scan_kernel<T, true> : ssd_scan_kernel<T, false>;
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      init_state, y, final_state, d);
+      init_state, y, final_state, states, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,13 +368,13 @@ struct MmaShape {
 
 // grid (H * ceil(P / PB), B): block x = head * ceil(P / PB) + column block.
 // vec: every row start of x, B and C is 16 bytes aligned, P and N multiples
-// of 8 (cp.async); else 2-byte loads.
-template <int PB, int NK>
+// of 8 (cp.async); else 2-byte loads. STATES: write the tiles' entry states.
+template <int PB, int NK, bool STATES>
 __global__ void __launch_bounds__(kMmaThreads, 2) ssd_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const __nv_bfloat16* __restrict__ Bm, const __nv_bfloat16* __restrict__ Cm,
     const float* __restrict__ init_state, float* __restrict__ y, float* __restrict__ final_state,
-    Dims d, int vec) {
+    float* __restrict__ states, Dims d, int vec) {
   using S = MmaShape<PB, NK>;
   constexpr int NT = S::NT, XR = S::XR, NR = S::NR, TN = S::TN, TM = S::TM;
   constexpr bool kAllMt = S::TM * S::WM == NK;   // every warp's m16 tiles lie below NK
@@ -468,6 +482,19 @@ __global__ void __launch_bounds__(kMmaThreads, 2) ssd_mma_kernel(
   const int i0 = warp * 16 + gr;   // the thread's rows of a tile: i0 and i0 + 8
   for (int t = 0; t < tiles; ++t) {
     const int t0 = t * kT;
+    if constexpr (STATES) {  // the state entering this tile, from the registers
+      float* so = states + ((static_cast<size_t>(b) * tiles + t) * H + h) * P * N;
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int v = 0; v < TN; ++v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int n = (wm * TM + u) * 16 + gr + 8 * (e >> 1);
+            const int p = p0 + (wn * TN + v) * 8 + 2 * gc + (e & 1);
+            if (n < N && p < P) so[static_cast<size_t>(p) * N + n] = sacc[u][v][e];
+          }
+    }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     // tile t and the staged state visible to every thread
     __syncthreads();
@@ -674,18 +701,20 @@ struct Args {
   const float* init_state;
   float* y;
   float* final_state;
+  float* states;
 };
 
-template <int PB, int NK>
+template <int PB, int NK, bool STATES>
 int launch_mma(const Args& a, int B, const Dims& d, int vec, cudaStream_t stream) {
   constexpr int bytes = MmaShape<PB, NK>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_mma_kernel<PB, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      ssd_mma_kernel<PB, NK, STATES>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(d.H * ((d.P + PB - 1) / PB), B);
-  ssd_mma_kernel<PB, NK><<<grid, kMmaThreads, bytes, stream>>>(
+  ssd_mma_kernel<PB, NK, STATES><<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.dt, a.A, static_cast<const __nv_bfloat16*>(a.Bm),
-      static_cast<const __nv_bfloat16*>(a.Cm), a.init_state, a.y, a.final_state, d, vec);
+      static_cast<const __nv_bfloat16*>(a.Cm), a.init_state, a.y, a.final_state, a.states, d,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -733,10 +762,13 @@ extern "C" void ssd_scan_constants(int* c) {
 // strides sxb / sxt; B and C (B, L, G, N) with row strides sbb / sbt and
 // scb / sct (the last two dims of each contiguous); dt (B, L, H) fp32
 // contiguous; A (H,) fp32; init_state (B, H, P, N) fp32 or null (zeros); y
-// (B, L, H, P) fp32 and final_state (B, H, P, N) fp32, contiguous.
+// (B, L, H, P) fp32 and final_state (B, H, P, N) fp32, contiguous; states
+// (B, ceil(L / 64), H, P, N) fp32 contiguous, the state entering each tile,
+// or null (not written).
 extern "C" int ssd_scan_launch(int path, int pb, int nk, const void* x, const float* dt,
                                const float* A, const void* Bm, const void* Cm,
-                               const float* init_state, float* y, float* final_state, int B,
+                               const float* init_state, float* y, float* final_state,
+                               float* states, int B,
                                int L, int H, int P, int N, int G, long long sxb, long long sxt,
                                long long sbb, long long sbt, long long scb, long long sct,
                                int dtype, void* stream) {
@@ -745,12 +777,14 @@ extern "C" int ssd_scan_launch(int path, int pb, int nk, const void* x, const fl
   const Dims d{L, H, P, N, G, (P + 3) / 4 * 4, (N + 7) / 8 * 8, sxb, sxt, sbb, sbt, scb, sct};
   auto s = static_cast<cudaStream_t>(stream);
   if (path == kTiled && dtype == kFloat32)
-    return launch_tiled<float>(x, dt, A, Bm, Cm, init_state, y, final_state, B, d, s);
+    return launch_tiled<float>(x, dt, A, Bm, Cm, init_state, y, final_state, states, B, d, s);
   if (path != kMma || dtype != kBFloat16 || 16 * nk < N || nk > kMaxNk) return -1;
   const int vec = P % 8 == 0 && N % 8 == 0 && aligned_rows(x, sxb, sxt, B, L) &&
                   aligned_rows(Bm, sbb, sbt, B, L) && aligned_rows(Cm, scb, sct, B, L);
-  const Args a{x, dt, A, Bm, Cm, init_state, y, final_state};
+  const Args a{x, dt, A, Bm, Cm, init_state, y, final_state, states};
   return dispatch_shape(pb, nk, [&](auto pbc, auto nkc) {
-    return launch_mma<decltype(pbc)::value, decltype(nkc)::value>(a, B, d, vec, s);
+    constexpr int PB = decltype(pbc)::value, NK = decltype(nkc)::value;
+    return states != nullptr ? launch_mma<PB, NK, true>(a, B, d, vec, s)
+                             : launch_mma<PB, NK, false>(a, B, d, vec, s);
   });
 }

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("chunked_prefill", "flash_attention", "flash_attention_bwd", "moe_gmm", "quant_matmul",
-           "ssd_scan")
+           "ssd_scan", "ssd_scan_bwd")
 _LOAD_LOCK = threading.Lock()
 
 

@@ -1,8 +1,9 @@
-"""The guard of the CUDA kernels that have no backward yet: on the card
-their ops raise when autograd would need a gradient through them, rather
-than return a result that autograd cannot see through (a silent zero
-gradient). CPU tensors take the plain versions, which autograd
-differentiates, and never reach the guard."""
+"""The guard of the CUDA kernels that have no backward yet (the grouped
+and w8a16 matmuls, chunked and paged attention; flash attention and the
+SSD scan have theirs): on the card their ops raise when autograd would need
+a gradient through them, rather than return a result that autograd cannot
+see through (a silent zero gradient). CPU tensors take the plain versions,
+which autograd differentiates, and never reach the guard."""
 from __future__ import annotations
 
 import torch

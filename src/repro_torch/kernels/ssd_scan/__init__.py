@@ -1,5 +1,6 @@
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
-from repro_torch.kernels.ssd_scan.ops import ssd_chunked, ssd_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_reference
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.ops import SSDScan, ssd_chunked, ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_reference, ssd_reference_bwd
 
-__all__ = ["ssd_chunked", "ssd_reference", "ssd_scan", "ssd_scan_cuda"]
+__all__ = ["SSDScan", "ssd_chunked", "ssd_reference", "ssd_reference_bwd", "ssd_scan",
+           "ssd_scan_bwd_cuda", "ssd_scan_cuda"]

@@ -1,7 +1,8 @@
-"""Binding of the CUDA SSD chunk scan (``csrc/ssd_scan.cu``), which
+"""Bindings of the CUDA SSD chunk scan (``csrc/ssd_scan.cu``), which
 replaces the TPU kernel ``repro/kernels/ssd_scan/kernel.py::ssd_scan_pallas``
 and adds the carried initial state and the final state that the model's
-chunked prefill needs.
+chunked prefill needs, and of its backward (``csrc/ssd_scan_bwd.cu``), the
+gradient the reference takes by XLA autodiff of its plain scan.
 
 ``_plan`` picks one of the source's two kernels from the shapes and dtype:
 
@@ -14,7 +15,10 @@ chunked prefill needs.
 The wrapper validates its operands, allocates the outputs, launches on the
 current stream and raises if the launch failed. ``launches`` counts the
 launches made, so a run can show that its path went through the kernel;
-``launches_by_path`` counts them by path.
+``launches_by_path`` counts them by path. ``ssd_scan_cuda(...,
+states=True)`` also writes the state entering each 64-token tile, which
+``ssd_scan_bwd_cuda`` reads; ``bwd_plan`` gives the backward's grid and
+fp32 partials.
 """
 from __future__ import annotations
 
@@ -90,7 +94,7 @@ def bind(lib):
     if tuple(consts) != want:
         raise RuntimeError(f"ssd_scan library constants {tuple(consts)}, expected {want}")
     fn = lib.ssd_scan_launch
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -116,14 +120,15 @@ def _rows(t, name: str, B: int, L: int, inner: tuple):
     return t.stride(0), t.stride(1)
 
 
-def ssd_scan_cuda(x, dt, A, B_, C, init_state=None):
+def ssd_scan_cuda(x, dt, A, B_, C, init_state=None, states: bool = False):
     """x (B, L, H, P); dt (B, L, H) fp32 post-softplus; A (H,) fp32
     negative; B_ / C (B, L, G, N) with G dividing H (head h reads group
     h // (H // G)); init_state (B, H, P, N) fp32 or None (zeros). x, B_ and
     C share one dtype (fp32 or bf16) and may be strided views whose last two
     dims are contiguous. P <= 64, N <= 128. The kernel is the one
     ``plan_for`` names. Returns (y (B, L, H, P) fp32, final_state (B, H, P,
-    N) fp32)."""
+    N) fp32), and with ``states`` also the state entering each tile of TILE
+    tokens (B, ceil(L / TILE), H, P, N) fp32, the backward's input."""
     dev = x.device
     _check(dev.type == "cuda", f"x is on {dev}, the kernel runs on CUDA tensors")
     _check(x.dim() == 4, f"x shape {tuple(x.shape)}")
@@ -153,22 +158,153 @@ def ssd_scan_cuda(x, dt, A, B_, C, init_state=None):
 
     y = torch.empty((Bb, L, H, P), dtype=torch.float32, device=dev)
     final = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
+    st = (torch.empty((Bb, _cdiv(L, TILE), H, P, N), dtype=torch.float32, device=dev)
+          if states else None)
     if Bb == 0 or H == 0:
-        return y, final
+        return (y, final, st) if states else (y, final)
     plan = plan_for(x, B_)
     with torch.cuda.device(dev):
         err = _launcher()(
             PATHS.index(plan.path), plan.pb, plan.nk, x.data_ptr(), dt.data_ptr(),
             A.data_ptr(), B_.data_ptr(), C.data_ptr(),
             init_state.data_ptr() if init_state is not None else None,
-            y.data_ptr(), final.data_ptr(), Bb, L, H, P, N, G, *sx, *sb, *sc,
+            y.data_ptr(), final.data_ptr(), st.data_ptr() if states else None,
+            Bb, L, H, P, N, G, *sx, *sb, *sc,
             DTYPE_CODES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed (code {err}, plan {plan})")
     ssd_scan_cuda.launches += 1
     ssd_scan_cuda.launches_by_path[plan.path] += 1
-    return y, final
+    return (y, final, st) if states else (y, final)
 
 
 ssd_scan_cuda.launches = 0
 ssd_scan_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
+
+
+# ------------------------------------------------------------------ backward
+BWD_PATHS = ("tiled",)   # one kernel: fp32 math on the CUDA cores for fp32 and bf16 inputs
+BWD_THREADS = 256        # constants of csrc/ssd_scan_bwd.cu, checked at load
+BWD_SMEM_MAX = 221248    # bytes a block at P 64, N 128
+GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
+
+
+def bwd_smem_bytes(P: int, N: int) -> int:
+    """A backward block's shared memory (csrc/ssd_scan_bwd.cu's smem_floats)."""
+    PP, NP, kTP = _cdiv(P, 4) * 4, _cdiv(N, 8) * 8, TILE + 4
+    return 4 * (2 * PP * kTP + TILE * PP + 2 * NP * kTP + PP * (NP + 4) + 3 * TILE * kTP
+                + 3 * 16 * TILE + 8 * TILE + 16)
+
+
+def bwd_plan(B: int, L: int, H: int, P: int, N: int, G: int) -> dict:
+    """The backward of a scan over x (B, L, H, P) with B / C (B, L, G, N):
+    one block a (row, head), walking its ``tiles`` of TILE tokens last to
+    first, and the fp32 partials the wrapper reduces in a fixed order: dB
+    and dC per head (B, L, H, N), summed over each group's H / G heads
+    (``group_sum``), and dA per (row, head) (B, H), summed over rows.
+    Raises ValueError for a call the kernel does not take."""
+    if not (1 <= P <= MAX_HEAD_DIM and 1 <= N <= MAX_STATE):
+        raise ValueError(f"ssd_scan_bwd_cuda: head_dim {P} / d_state {N} beyond the kernel's "
+                         f"{MAX_HEAD_DIM} / {MAX_STATE}")
+    if G < 1 or H % G:
+        raise ValueError(f"ssd_scan_bwd_cuda: {H} heads over {G} groups")
+    grid = (H, B, 1)
+    if not all(g <= lim for g, lim in zip(grid, GRID_LIMITS)):
+        raise ValueError(f"ssd_scan_bwd_cuda: grid {grid} exceeds CUDA's limits")
+    return dict(path="tiled", grid=grid, blocks=H * B, tiles=_cdiv(L, TILE),
+                smem=bwd_smem_bytes(P, N), partials={"dB": (B, L, H, N), "dC": (B, L, H, N),
+                                                     "dA": (B, H)},
+                group_sum=H // G)
+
+
+def bind_bwd(lib):
+    """``lib``'s backward launch function with its C signature, once the
+    library's constants are checked against the ones ``bwd_plan`` mirrors."""
+    consts = (ctypes.c_int * 5)()
+    lib.ssd_scan_bwd_constants.argtypes = [ctypes.c_void_p]
+    lib.ssd_scan_bwd_constants.restype = None
+    lib.ssd_scan_bwd_constants(consts)
+    want = (TILE, MAX_HEAD_DIM, MAX_STATE, BWD_THREADS, BWD_SMEM_MAX)
+    if tuple(consts) != want:
+        raise RuntimeError(f"ssd_scan_bwd library constants {tuple(consts)}, expected {want}")
+    fn = lib.ssd_scan_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    return bind_bwd(load_library("ssd_scan_bwd"))
+
+
+def ssd_scan_bwd_cuda(x, dt, A, B_, C, states, dy, d_final=None, *, need_x: bool = True,
+                      need_dt: bool = True, need_A: bool = True, need_BC: bool = True,
+                      need_init: bool = True):
+    """The gradients (dx, ddt, dA, dB, dC, d_init_state) of
+    ``ssd_scan_cuda(x, dt, A, B_, C, init_state)``'s (y, final_state), given
+    dy (B, L, H, P) and d_final (B, H, P, N) (None: zeros) fp32 and the
+    forward's ``states`` (B, ceil(L / TILE), H, P, N) fp32. Operands as the
+    forward takes them (x / B_ / C strided views whose last two dims are
+    contiguous). dx, dB and dC come back in x's dtype, ddt, dA and
+    d_init_state in fp32; dB and dC are summed over each group's heads.
+    A gradient whose ``need_*`` is False is None and not written."""
+    dev = x.device
+    _check(dev.type == "cuda", f"x is on {dev}, the kernel runs on CUDA tensors")
+    _check(x.dim() == 4 and B_.dim() == 4, f"x / B_ shapes {tuple(x.shape)} / {tuple(B_.shape)}")
+    Bb, L, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    for name, t in (("dt", dt), ("A", A), ("B_", B_), ("C", C), ("states", states), ("dy", dy)):
+        _check(t.device == dev, f"{name} is on {t.device}, x on {dev}")
+    _check(x.dtype in DTYPE_CODES, f"dtype {x.dtype} not in {list(DTYPE_CODES)}")
+    _check(B_.dtype == x.dtype and C.dtype == x.dtype,
+           f"B_ / C dtype {B_.dtype} / {C.dtype}, x {x.dtype}")
+    plan = bwd_plan(Bb, L, H, P, N, G)
+    sx = _rows(x, "x", Bb, L, (H, P))
+    sb = _rows(B_, "B_", Bb, L, (G, N))
+    sc = _rows(C, "C", Bb, L, (G, N))
+    for name, t, shape in (("dt", dt, (Bb, L, H)), ("A", A, (H,)), ("dy", dy, (Bb, L, H, P)),
+                           ("states", states, (Bb, plan["tiles"], H, P, N)),
+                           ("d_final", d_final, (Bb, H, P, N))):
+        _check(t is None and name == "d_final" or (
+            t.device == dev and t.dtype == torch.float32 and t.is_contiguous()
+            and tuple(t.shape) == shape), f"{name} must be contiguous fp32 {shape} on {dev}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((Bb, L, H, P), dtype=x.dtype, device=dev) if need_x else None
+    ddt = torch.empty((Bb, L, H), **f32) if need_dt else None
+    dA_part = torch.empty((Bb, H), **f32) if need_A else None
+    dB_part = torch.empty((Bb, L, H, N), **f32) if need_BC else None
+    dC_part = torch.empty((Bb, L, H, N), **f32) if need_BC else None
+    d_init = torch.empty((Bb, H, P, N), **f32) if need_init else None
+    outs = (dx, ddt, dA_part, dB_part, dC_part, d_init)
+    if Bb == 0 or H == 0 or not any(t is not None for t in outs):
+        for t in outs:
+            if t is not None:
+                t.zero_()
+    else:
+        with torch.cuda.device(dev):
+            err = _bwd_launcher()(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C.data_ptr(),
+                states.data_ptr(), dy.data_ptr(),
+                None if d_final is None else d_final.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in outs),
+                Bb, L, H, P, N, G, *sx, *sb, *sc, DTYPE_CODES[x.dtype],
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_bwd kernel launch failed (code {err}, plan {plan})")
+        ssd_scan_bwd_cuda.launches += 1
+        ssd_scan_bwd_cuda.launches_by_path[plan["path"]] += 1
+    # the fixed-order sums of the partials: over each group's heads, in head
+    # order, and over rows
+    rep = plan["group_sum"]
+    dB = dC = dA = None
+    if need_BC:
+        dB, dC = (t.view(Bb, L, G, rep, N).sum(3).to(x.dtype) for t in (dB_part, dC_part))
+    if need_A:
+        dA = dA_part.sum(0)
+    return dx, ddt, dA, dB, dC, d_init
+
+
+ssd_scan_bwd_cuda.launches = 0
+ssd_scan_bwd_cuda.launches_by_path = dict.fromkeys(BWD_PATHS, 0)

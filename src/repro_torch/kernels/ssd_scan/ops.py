@@ -6,14 +6,47 @@ no fallback between the two: a CUDA tensor reaches the kernel or an error.
 and returns the final state. ``ssd_scan`` has the reference op's signature
 (``repro/kernels/ssd_scan/ops.py::ssd_scan``): zero initial state, ``y`` in
 ``x``'s dtype. Both pad L up to a multiple of the chunk on the CPU, as the
-reference does; the kernel masks the ragged tail itself. On the card the
-kernel has no backward yet: a call that would need a gradient raises.
+reference does; the kernel masks the ragged tail itself.
+
+On CUDA tensors that need a gradient the op is ``SSDScan``, an autograd
+function whose forward launches the forward kernel with the state entering
+each tile and whose backward launches the backward kernel: the gradient the
+reference takes by XLA autodiff of its plain scan. Without a gradient
+(serving, ``torch.inference_mode``) the forward writes no states. On CPU
+tensors autograd differentiates the plain version.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.grad_guard import refuse_grad
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+import torch
+
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+
+class SSDScan(torch.autograd.Function):
+    """(x, dt, A, B_, C, init_state) -> (y, final_state) through the
+    kernels; saves the inputs and the tiles' entry states for the backward,
+    which writes only the gradients asked for."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C, init_state):
+        y, final, states = ssd_scan_cuda(x, dt, A, B_, C, init_state=init_state, states=True)
+        ctx.save_for_backward(x, dt, A, B_, C, states)
+        ctx.set_materialize_grads(False)       # an unused final state sends no zeros
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, A, B_, C, states = ctx.saved_tensors
+        need_x, need_dt, need_A, need_B, need_C, need_init = ctx.needs_input_grad
+        dy = (torch.zeros(x.shape, dtype=torch.float32, device=x.device) if dy is None
+              else dy.float().contiguous())
+        if d_final is not None:
+            d_final = d_final.float().contiguous()
+        dx, ddt, dA, dB, dC, d_init = ssd_scan_bwd_cuda(
+            x, dt, A, B_, C, states, dy, d_final, need_x=need_x, need_dt=need_dt,
+            need_A=need_A, need_BC=need_B or need_C, need_init=need_init)
+        return dx, ddt, dA, dB if need_B else None, dC if need_C else None, d_init
 
 
 def ssd_chunked(x, dt, A, B_, C, chunk: int, init_state=None):
@@ -28,11 +61,13 @@ def ssd_chunked(x, dt, A, B_, C, chunk: int, init_state=None):
         if rep > 1:
             B_, C = B_.repeat_interleave(rep, 2), C.repeat_interleave(rep, 2)
         return ssd_reference(x, dt, A, B_, C, chunk, init_state=init_state)
-    refuse_grad("ssd_scan", x, dt, A, B_, C, init_state)
     if init_state is not None:
         init_state = init_state.float().contiguous()
-    return ssd_scan_cuda(x, dt.float().contiguous(), A.float().contiguous(), B_, C,
-                         init_state=init_state)
+    dt, A = dt.float().contiguous(), A.float().contiguous()
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, dt, A, B_, C, init_state)):
+        return SSDScan.apply(x, dt, A, B_, C, init_state)
+    return ssd_scan_cuda(x, dt, A, B_, C, init_state=init_state)
 
 
 def ssd_scan(x, dt, A, B_, C, chunk: int):

@@ -431,9 +431,9 @@ def test_flash_bwd_through_autograd(cuda, dtype):
 
 
 def test_kernels_without_backward_raise_under_grad(cuda):
-    """On CUDA tensors that need a gradient the SSD scan, the grouped and
-    w8a16 matmuls and both paged attention ops raise, naming the kernel;
-    without one (inference_mode) they run."""
+    """On CUDA tensors that need a gradient the grouped and w8a16 matmuls
+    and both paged attention ops raise, naming the kernel; without one
+    (inference_mode) they run."""
     from repro_torch.kernels.quant_matmul import quantize_int8
     rng = np.random.default_rng(0)
 
@@ -441,9 +441,6 @@ def test_kernels_without_backward_raise_under_grad(cuda):
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
         return x.requires_grad_(grad)
 
-    x, dt, A, Bm, Cm = t(1, 8, 2, 4), t(1, 8, 2).abs(), -t(2).abs(), t(1, 8, 1, 4), t(1, 8, 1, 4)
-    with pytest.raises(RuntimeError, match="ssd_scan: the CUDA kernel has no backward"):
-        ssd_chunked(x, dt.detach(), A.detach(), Bm, Cm, 4)
     xs, w = t(20, 64), t(2, 64, 32)
     with pytest.raises(RuntimeError, match="moe_gmm: the CUDA kernel has no backward"):
         gmm(xs, w, torch.tensor([8, 12], device=cuda))
@@ -459,7 +456,6 @@ def test_kernels_without_backward_raise_under_grad(cuda):
         w8a16_matmul(t(2, 64), wq, scale)
     with torch.inference_mode():
         assert torch.isfinite(w8a16_matmul(t(2, 64, grad=False), wq, scale)).all()
-        assert torch.isfinite(ssd_chunked(x, dt, A, Bm, Cm, 4)[0]).all()
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "mixtral-8x7b", "seamless-m4t-large-v2"])
@@ -820,6 +816,152 @@ def test_ssd_kernel_matches_plain(cuda, dtype, case):
     # tests/test_kernels_ssd.py's tolerances: fp32 1e-4, bf16 5e-2
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(out.float(), plain, atol=tol, rtol=tol)
+
+
+# the SSD backward: the edge cases above (ragged L, groups, P 3 / N 4, a
+# carried state, a padded row), full widths with groups over 3 tiles, and
+# mamba2's and jamba's training shapes (4 x 512 tokens)
+SSD_BWD_CASES = [
+    # B, L, H, P, N, G, init_state, ragged rows (nvalid), a gradient into the final state
+    (2, 32, 3, 8, 4, 3, False, None, False),
+    (2, 27, 2, 8, 4, 2, False, None, True),
+    (2, 17, 3, 4, 5, 3, True, None, True),
+    (1, 16, 2, 3, 4, 2, True, None, False),
+    (2, 40, 8, 16, 16, 1, True, [40, 13], True),
+    (2, 150, 4, 64, 128, 2, True, [150, 70], True),
+    (4, 512, 64, 64, 128, 1, False, None, False),
+    (4, 512, 128, 64, 16, 1, False, None, False),
+]
+
+
+def _ssd_bwd_inputs(cuda, dtype, case):
+    B, L, H, P, N, G, with_state, nvalid, dfin = case
+    rng = np.random.default_rng(L + H + P + N)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, (B, L, H)).astype(np.float32)
+    if nvalid is not None:
+        dt[np.arange(L)[None, :] >= np.asarray(nvalid)[:, None]] = 0.0
+    A = -rng.uniform(0.5, 2.0, (H,)).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((B, L, G, N)).astype(np.float32) for _ in range(2))
+    s0 = rng.standard_normal((B, H, P, N)).astype(np.float32) if with_state else None
+    dy = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    d_final = rng.standard_normal((B, H, P, N)).astype(np.float32) if dfin else None
+    f = [None if a is None else torch.from_numpy(a).to(cuda)
+         for a in (x, dt, A, Bm, Cm, s0, dy, d_final)]
+    for i in (0, 3, 4):
+        f[i] = f[i].to(dtype)
+    return f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, case):
+    """The forward's tile entry states against ssd_reference's (y unchanged
+    by writing them); the backward kernel against ssd_reference_bwd on the
+    same inputs, states and cotangents: each gradient within 1e-4 of its
+    max |plain grad| (fp32 math for both dtypes; dx, dB and dC in bf16 for
+    bf16 inputs may also differ by their own rounding, 2^-8 |g|); one
+    launch a call; repeats bit-equal."""
+    from repro_torch.kernels.ssd_scan import ssd_reference_bwd, ssd_scan_bwd_cuda
+    x, dt, A, Bm, Cm, s0, dy, d_final = _ssd_bwd_inputs(cuda, dtype, case)
+    rep = x.shape[2] // Bm.shape[2]
+    y, _, st = ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0, states=True)
+    assert torch.equal(y, ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0)[0])
+    _, _, st_ref = ssd_reference(x, dt, A, Bm.repeat_interleave(rep, 2),
+                                 Cm.repeat_interleave(rep, 2), 64, init_state=s0, states=True)
+    torch.testing.assert_close(st, st_ref, atol=2e-3, rtol=1e-4)
+    n0 = ssd_scan_bwd_cuda.launches
+    got = ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, st, dy, d_final, need_init=s0 is not None)
+    again = ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, st, dy, d_final, need_init=s0 is not None)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd_cuda.launches == n0 + 2
+    want = ssd_reference_bwd(x, dt, A, Bm, Cm, s0, st, dy, d_final)
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        if w is None:
+            assert g is None and a is None
+            continue
+        assert g.dtype == (dtype if i in (0, 3, 4) else torch.float32) and g.shape == w.shape
+        assert torch.equal(g, a)
+        diff = (g.float() - w).abs()
+        if g.dtype == torch.bfloat16:
+            diff = (diff - 2.0 ** -8 * w.abs()).clamp_min(0)
+        assert float(diff.max()) <= 1e-4 * float(w.abs().max()), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_through_autograd(cuda, dtype):
+    """ssd_chunked on CUDA tensors that need a gradient is SSDScan: the
+    forward writes the tiles' entry states (serving's call writes none),
+    the backward kernel launches once and gives the direct call's
+    gradients, and a gradient nobody asks for is not computed."""
+    from repro_torch.kernels.ssd_scan import ops, ssd_scan_bwd_cuda
+    x, dt, A, Bm, Cm, s0, dy, d_final = _ssd_bwd_inputs(cuda, dtype,
+                                                        (2, 150, 4, 64, 128, 2, True, None, True))
+    calls, asked = [], []
+    fwd, bwd = ops.ssd_scan_cuda, ops.ssd_scan_bwd_cuda
+
+    def spy(*args, **kw):
+        calls.append(kw.get("states", False))
+        return fwd(*args, **kw)
+
+    def bwd_spy(*args, **kw):
+        asked.append(kw)
+        return bwd(*args, **kw)
+
+    ops.ssd_scan_cuda, ops.ssd_scan_bwd_cuda = spy, bwd_spy
+    try:
+        with torch.inference_mode():
+            ssd_chunked(x, dt, A, Bm, Cm, 256, init_state=s0)
+        leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, s0)]
+        n0 = ssd_scan_bwd_cuda.launches
+        y, s = ssd_chunked(*leaves[:5], 256, init_state=leaves[5])
+        got = torch.autograd.grad((y * dy).sum() + (s * d_final).sum(), leaves)
+        assert ssd_scan_bwd_cuda.launches == n0 + 1 and calls == [False, True]
+        only_x = x.clone().requires_grad_()
+        (gx,) = torch.autograd.grad((ssd_chunked(only_x, dt, A, Bm, Cm, 256)[0] * dy).sum(),
+                                    only_x)
+        assert asked[-1] == dict(need_x=True, need_dt=False, need_A=False, need_BC=False,
+                                 need_init=False)
+    finally:
+        ops.ssd_scan_cuda, ops.ssd_scan_bwd_cuda = fwd, bwd
+    _, _, st = fwd(x, dt, A, Bm, Cm, init_state=s0, states=True)
+    want = bwd(x, dt, A, Bm, Cm, st, dy, d_final)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, _, st0 = fwd(x, dt, A, Bm, Cm, states=True)
+    assert torch.equal(gx, bwd(x, dt, A, Bm, Cm, st0, dy, need_init=False)[0])
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_ssm_loss_backward_on_card_matches_cpu(cuda, name):
+    """A tiny fp32 config's loss and gradients (remat, the capacity MoE) on
+    the card against the CPU's from the same parameters: the loss within
+    1e-4 relative, every leaf within 1e-3 of its max |g|; the SSD forward
+    and backward kernels launched on the card (under remat each layer's
+    recompute writes the states, then one backward), never on the CPU."""
+    from repro_torch.data.pipeline import DataConfig, synthesize_batch
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    cfg = tiny_config(name)
+    model = build_model(cfg)
+    base = model.init_params(0, device="cpu")
+    data = synthesize_batch(DataConfig(vocab=cfg.vocab, batch=2, seq_len=80), 0)
+    ctx = RunCtx(mode="train", moe_strategy="capacity", remat=True)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = map_tree(lambda t: t.to(dev, copy=True), base)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+        n0, b0 = ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches
+        loss, _ = model.loss(tree_unflatten(p, leaves), batch, ctx)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        ran = (ssd_scan_cuda.launches - n0, ssd_scan_bwd_cuda.launches - b0)
+        assert (min(ran) > 0) == (dev == "cuda"), ran
+        got[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], rtol=1e-4)
+    for a, b in zip(got["cuda"][1], got["cpu"][1]):
+        assert float((a - b).abs().max()) <= 1e-3 * max(float(b.abs().max()), 1e-30)
 
 
 def test_ssd_cuda_tensor_goes_to_kernel_or_raises(cuda):

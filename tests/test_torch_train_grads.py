@@ -2,8 +2,9 @@
 ``jax.grad`` of the JAX package's loss on the same tiny fp32 parameters:
 every leaf within 1e-4 of its max |g|, on qwen2.5-3b (dense, QKV bias),
 mixtral-8x7b (the capacity MoE), gemma2-27b (window and softcap),
-jamba-v0.1-52b (the plain SSD scan and MoE) and seamless-m4t-large-v2
-(encoder and cross attention); with remat on, as the trainer runs."""
+jamba-v0.1-52b (the plain SSD scan and MoE), mamba2-1.3b (SSD layers only)
+and seamless-m4t-large-v2 (encoder and cross attention); with remat on, as
+the trainer runs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,7 @@ GRAD_TOL = 1e-4
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "mixtral-8x7b", "gemma2-27b",
-                                  "jamba-v0.1-52b", "seamless-m4t-large-v2"])
+                                  "jamba-v0.1-52b", "mamba2-1.3b", "seamless-m4t-large-v2"])
 def test_grads_match_jax(arch):
     jm, jp, model, params = pair(arch)
     b = train_batch(model.cfg)
