@@ -15,10 +15,13 @@ chosen phases of that tree's own ``chip_smoke.py``:
 - 12: phase 12's uninterrupted qwen2.5-3b training run at full width and
   depth (bf16; STEPS steps, phase 12's 8 by default), with no checkpoint:
   the card's machine ends a call after 45 GiB of disk writes, and a
-  checkpoint is 34 GB.
+  checkpoint is 34 GB;
+- 12d: phase 12 (d)'s uninterrupted mamba2-1.3b training run at full width
+  and depth (bf16, phase 12's 8 steps, no checkpoint): its step ms, tokens/s
+  and peak GB beside the SSD kernels' launches by path.
 
     python3 chip_ab.py TREE TAG [OUT_DIR] [PHASES] [STEPS]   # one tree, one process;
-                                                             # PHASES e.g. bwd,12
+                                                             # PHASES e.g. ssd,12d
                                                              # (default 2,4,6,7)
 
 Run it in turns (parent, change, change, parent) on one machine: host
@@ -124,6 +127,16 @@ def main() -> int:
         summary.update(p12_step_ms=step_ms, p12_step_ms_mean=mean_ms,
                        p12_last_loss=run["losses"][-1], p12_bwd_paths=paths["flash_attention_bwd"])
         del model, params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "12d" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res12d, _, paths = cs.run_mamba_training(dev)
+        out["phase12d"] = res12d
+        summary.update(p12d_step_ms=res12d["step_ms_median"], p12d_tok_s=res12d["tokens_per_s"],
+                       p12d_peak_gb=res12d["peak_gb"], p12d_last_loss=res12d["losses"][-1],
+                       p12d_bwd_paths=paths["ssd_scan_bwd"])
         gc.collect()
         torch.cuda.empty_cache()
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1396,11 +1396,12 @@ def run_ssd_bwd(dev, flush, results):
     chunks, y bit-equal to the serving call's), then ssd_scan_bwd_cuda
     against ssd_reference_bwd on the same inputs, states and cotangents,
     each gradient relative to its max |plain grad|, called twice for
-    bit-equal results; at the training shapes its time beside the plain
-    version's and the bound."""
+    bit-equal results, on the path its plan names (fp32 tiled, bf16 mma);
+    at the training shapes its time (the wrapper's partial sums included,
+    and timed apart) beside the plain version's and the bound."""
     from repro_torch.kernels.ssd_scan import (ssd_reference, ssd_reference_bwd,
                                               ssd_scan_bwd_cuda, ssd_scan_cuda)
-    from repro_torch.kernels.ssd_scan.kernel import bwd_plan
+    from repro_torch.kernels.ssd_scan.kernel import bwd_plan_for, bwd_sums
     names = ("dx", "ddt", "dA", "dB", "dC", "d_init")
     for name, B, L, H, P, N, G, init, nvalid, dfin in SSD_BWD_EDGE + SSD_BWD_FULL:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1420,7 +1421,13 @@ def run_ssd_bwd(dev, flush, results):
             assert fwd_err <= 2e-3, f"ssd bwd {name} {dtype}: forward / states err {fwd_err}"
             del y, y_serve, y_ref, st_ref, Br, Cr
             args = (x, dt, A, Bm, Cm, st, dy, d_final)
+            plan = bwd_plan_for(x, Bm)
+            want_path = "mma" if dtype == torch.bfloat16 else "tiled"
+            assert plan["path"] == want_path, f"ssd bwd {name} {dtype}: plan {plan}"
+            n0 = ssd_scan_bwd_cuda.launches_by_path[want_path]
             grads = ssd_scan_bwd_cuda(*args, need_init=init)
+            assert ssd_scan_bwd_cuda.launches_by_path[want_path] == n0 + 1, \
+                f"ssd bwd {name} {dtype}: not launched on {want_path}"
             plain = ssd_reference_bwd(x, dt, A, Bm, Cm, s0, st, dy, d_final)
             errs, abs_err = {}, 0.0
             for k, a, b in zip(names, grads, plain):
@@ -1441,9 +1448,10 @@ def run_ssd_bwd(dev, flush, results):
             assert all(a is None and b is None or torch.equal(a, b)
                        for a, b in zip(grads, again)), f"ssd bwd {name} {dtype}: repeat differs"
             del grads, plain, again
-            plan = bwd_plan(B, L, H, P, N, G)
-            where = (f"{plan['path']}, grid {list(plan['grid'])}, {plan['tiles']} tiles, "
-                     f"{plan['smem']} B shared, partials summed over {plan['group_sum']} heads")
+            where = (f"{plan['path']}, hb {plan['hb']}, grid {list(plan['grid'])}, "
+                     f"{plan['threads']} threads, {plan['tiles']} tiles, {plan['smem']} B shared, "
+                     f"dB / dC partials {list(plan['partials']['dB'])}, "
+                     f"{plan['group_sum']} a group summed")
             shape = (f"x{tuple(x.shape)} B/C{tuple(Bm.shape)} init_state={init} "
                      f"nvalid={nvalid} d_final={dfin}")
             rel = " ".join(f"{k} {v:.3g}" for k, v in errs.items())
@@ -1452,17 +1460,23 @@ def run_ssd_bwd(dev, flush, results):
                     f"{fwd_err:.3g}, rel errs {rel} (tol {SSD_BWD_TOL}), repeat bit-equal")
                 continue
             ms = cuda_ms(lambda: ssd_scan_bwd_cuda(*args, need_init=init), flush=flush)
+            # the wrapper's fixed-order sums alone, on partials of the plan's shapes
+            parts = [torch.randn(plan["partials"][k], device=dev) for k in ("dB", "dC", "dA")]
+            sum_ms = cuda_ms(lambda: bwd_sums(plan, *parts, dtype), flush=flush)
+            del parts
             # the plain version's many small ops outrun the queue: each call timed alone
             plain_ms = cuda_ms(lambda: ssd_reference_bwd(x, dt, A, Bm, Cm, s0, st, dy, d_final),
                                flush=flush, queued=False)
             bms, by = ssd_bwd_bound(x, Bm, init, dtype)
             key = ssd_key(x, Bm, s0 is not None)
             row = dict(kernel="ssd_scan_bwd", case=name, dtype=str(dtype)[6:], shape=shape,
-                       path=plan["path"], grid=plan["grid"], max_abs_err=abs_err, rel_errs=errs,
-                       fwd_err=fwd_err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                       bound_ms=bms, bound_by=by)
+                       path=plan["path"], hb=plan["hb"], grid=plan["grid"],
+                       max_abs_err=abs_err, rel_errs=errs, fwd_err=fwd_err, ms=ms,
+                       sum_ms=sum_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                       bound_by=by)
             results.append(row)
             log(f"  ssd bwd {name} {row['dtype']} {shape} ({where}): kernel_ms={ms:.4f} "
+                f"(of which the wrapper's partial sums {sum_ms:.4f}) "
                 f"plain_ms={plain_ms:.4f} library_ms=none (no single PyTorch call) "
                 f"bound_ms={bms:.6f} ({by}) rel errs {rel} (tol {SSD_BWD_TOL}), forward / states "
                 f"err {fwd_err:.3g}, repeat bit-equal")
@@ -3015,7 +3029,7 @@ def run_mamba_training(dev, profile: bool = False):
     schedule, TRAIN_STEPS steps and no checkpoint (the card's machine ends
     a call after 45 GiB of disk writes, and (a) writes 34 GB). Every loss
     finite and the mean of steps 6-8 below step 1's; the SSD forward
-    (``mma``) and backward (``tiled``) launched on those paths only, no
+    and backward launched on their ``mma`` paths only, no
     other kernel of the port. With ``profile``, a torch.profiler window
     over one more step. Returns (results, launches, their paths)."""
     from repro_torch.configs import get_config
@@ -3048,8 +3062,8 @@ def run_mamba_training(dev, profile: bool = False):
     assert launches["ssd_scan"] > 0 and launches["ssd_scan_bwd"] > 0, \
         f"the SSD scan or its backward never ran on the training path: {launches}"
     assert paths["ssd_scan"]["mma"] == launches["ssd_scan"] and \
-        paths["ssd_scan_bwd"]["tiled"] == launches["ssd_scan_bwd"], \
-        f"the SSD kernels left their planned paths (forward mma, backward tiled): {paths}"
+        paths["ssd_scan_bwd"]["mma"] == launches["ssd_scan_bwd"], \
+        f"the SSD kernels left their planned paths (bf16: forward and backward mma): {paths}"
     idle = {k: n for k, n in launches.items() if k not in ("ssd_scan", "ssd_scan_bwd")}
     assert not any(idle.values()), f"mamba2 training reached a kernel it must not: {idle}"
     step_s = float(np.median(out["step_seconds"][1:]))
@@ -3688,7 +3702,7 @@ def main() -> int:
         training["card_vs_cpu"][cfg.name] = train_card_vs_cpu(dev, cfg, step=False)
     if args.profile:
         bwd_ms = sum(w["ms"] for w in training["mamba2"]["profile"]["port"]
-                     if "ssd_bwd_kernel" in w["name"])
+                     if "ssd_bwd" in w["name"])
         log(f"  the SSD backward kernel's share of the profiled mamba2 step: {bwd_ms:.2f} ms of "
             f"{training['mamba2']['profile']['device_busy_ms']:.1f} ms busy")
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")

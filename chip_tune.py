@@ -51,8 +51,17 @@ with its max |grad - plain| relative to the plain version's max |grad|.
 Each time is ``chip_smoke.cuda_ms`` of the launch alone (cold L2, host
 dispatch queued out of the events).
 
-    python3 chip_tune.py [chunked] [flash] [ssd] [bwd]   # on the card, from the repository
-                                                         # root; no argument: all four
+The SSD backward's tensor-core path, the measurements behind ``bwd_plan``'s
+heads a block and the choices in ``csrc/ssd_scan_bwd.cu``: at phase 2's two
+bf16 training shapes, hb = 1, 2 and 4 (those whose block fits), a copy with
+every lo part zeroed (the hi parts alone) and probes without the S or dy
+loads, each with its errors relative to the plain version's max |grad|, and
+copies that stamp ``clock64()`` at each phase of one block for its cycles a
+tile by phase.
+
+    python3 chip_tune.py [chunked] [flash] [ssd] [bwd] [ssdbwd]   # on the card, from the
+                                                                  # repository root; no
+                                                                  # argument: all five
 """
 import ctypes
 import re
@@ -111,7 +120,7 @@ SSD_VARIANTS = {
     "base": [],
     "m_hi_only": [("ssd_scan.cu", "        mma_bf16(yd[2 * dp], ml, b0);\n"
                    "        mma_bf16(yd[2 * dp + 1], ml, b1);\n", "")],
-    "expf": [("ssd_scan.cu", '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
+    "expf": [("gemm_common.cuh", '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
               "  y = expf(x * 0.6931471805599453f);")],
     "late_load": [("ssd_scan.cu", _LOAD_MID, "      stage();\n"),
                   ("ssd_scan.cu", _LOOP_END,
@@ -159,6 +168,54 @@ SSD_VARIANTS["timeline"] = [
      'extern "C" void ssd_scan_constants(int* c) {')] + [
     ("ssd_scan.cu", text, text + _STAMP.format(k) if after else _STAMP.format(k) + text)
     for k, (text, after) in enumerate(_ANCHORS)]
+
+
+# the SSD backward's variants (csrc/ssd_scan_bwd.cu): every lo part zeroed
+# (the hi parts alone: the same instructions, so its time is the base's; its
+# error is what the lo parts buy), probes, and copies that stamp clock64() at
+# each phase of block (0, 0), lane 0 of each warp, over its tiles
+_BWD_ANCHORS = [  # (text, stamp after it (True) or before it (False))
+    ('    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");\n    __syncthreads();\n', True),
+    ("    // M2 summed over the block's heads in head order", False),
+    ("    // ---- (2) warp (w, k), rows j of tile w", False),
+    ("    // ---- (3) warp (w, c < CHUNKS)", False),
+    ("    __syncthreads();   // every reader of the staged S is done\n", True),
+    ("    // ---- (4) warp (w, k): U = B dS'^T", False),
+    ("    // ---- (5) warp (w, c < CHUNKS), rows j", False),
+    ("    // ---- (6) warp (w, k): dS' <- 2^cum_Q dS'", False),
+    ("    __syncthreads();   // the per-token partials are written\n", False),
+    ("  }\n\n  if (d_init != nullptr)", False),
+]
+BWD_TIMELINE_PHASES = ("load+scan", "(1) C B^T, D", "M2 head sum", "(2) G^T dy",
+                       "(3) dC + <dS', S>", "stage dS'", "(4) dx", "(5) dB", "(6) dS'",
+                       "da")
+_BWD_STAMP = ("    if (blockIdx.x == 0 && blockIdx.y == 0 && lane == 0 && t < 8) "
+              "g_clk[warp][t][{}] = clock64();\n")
+# probes of what the tile's staging costs: one load removed (outputs wrong)
+_BWD_PROBES = {
+    "no_s_load": [("ssd_scan_bwd.cu", "        if (p < P && n < N) v = *reinterpret_cast"
+                   "<const float4*>(st + (hh * P + p) * N + n);\n", "")],
+    "no_dy_load": [("ssd_scan_bwd.cu", "        if (t0 + r < L && c < P) v = *reinterpret_cast"
+                    "<const float4*>(dyt + (r * H + hh) * P + c);\n", "")],
+}
+_BWD_TIMELINE = [
+    ("ssd_scan_bwd.cu", "// grid (H / HB, B): block x takes heads",
+     "__device__ unsigned long long g_clk[16][8][10];\n\n"
+     "// grid (H / HB, B): block x takes heads"),
+    ("ssd_scan_bwd.cu", 'extern "C" void ssd_scan_bwd_constants(int* c) {',
+     'extern "C" int ssd_bwd_timeline(unsigned long long* out) {\n'
+     "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk)));\n}\n\n"
+     'extern "C" void ssd_scan_bwd_constants(int* c) {')] + [
+    ("ssd_scan_bwd.cu", text, text + _BWD_STAMP.format(k) if after
+     else _BWD_STAMP.format(k) + text) for k, (text, after) in enumerate(_BWD_ANCHORS)]
+SSDBWD_VARIANTS = {
+    "base": [],
+    "hi_only": [("gemm_common.cuh", "  lo = *reinterpret_cast<const unsigned*>(&l);",
+                 "  lo = 0u;")],
+    **_BWD_PROBES,
+    "timeline": _BWD_TIMELINE,
+    **{f"timeline_{k}": _BWD_TIMELINE + v for k, v in _BWD_PROBES.items()},
+}
 
 
 def build_variants(source: str, variants: dict, bind, sizes_of=("",)) -> dict:
@@ -425,13 +482,105 @@ def tune_ssd(dev, flush) -> None:
         print(f"TUNE ssd tiles L={L} ({-(-L // 64)} tiles) pb={plan.pb}: {ms:.5f} ms", flush=True)
 
 
+def tune_ssdbwd(dev, flush) -> None:
+    """The SSD backward's mma path at phase 2's two bf16 training shapes
+    (chip_smoke.SSD_BWD_FULL): hb 1 / 2 / 4 heads a block (those whose
+    block fits the card), then the variants at the planned hb, each with
+    its errors relative to the plain version's max |grad| (dx in bf16, the
+    others fp32), in two rounds; then one block's cycles a tile by phase."""
+    from repro_torch.kernels.ssd_scan import ssd_reference_bwd, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    fns = build_variants("ssd_scan_bwd", SSDBWD_VARIANTS, sk.bind_bwd, sizes_of=("mma",))
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    cases = {}
+    for name, B, L, H, P, N, G, *_ in cs.SSD_BWD_FULL:
+        x, dt, A, Bm, Cm, _ = cs.ssd_case(dev, B=B, L=L, H=H, P=P, N=N, G=G,
+                                          dtype=torch.bfloat16, init=False, nvalid=None,
+                                          seed=L + P)
+        g = torch.Generator(device=dev).manual_seed(L + N)
+        dy = torch.randn((B, L, H, P), generator=g, device=dev)
+        _, _, st = ssd_scan_cuda(x, dt, A, Bm, Cm, states=True)
+        plain = ssd_reference_bwd(x, dt, A, Bm, Cm, None, st, dy, None)[:5]
+        cases[name] = (x, dt, A, Bm, Cm, st, dy, plain)
+
+    def launch(fn, case, hb, nk):
+        x, dt, A, Bm, Cm, st, dy, _ = case
+        B, L, H, P = x.shape
+        G, N = Bm.shape[2:]
+        f32 = dict(dtype=torch.float32, device=dev)
+        part = (H // G // hb, B, L, G, N)
+        outs = (torch.empty_like(x), torch.empty((B, L, H), **f32), torch.empty((B, H), **f32),
+                torch.empty(part, **f32), torch.empty(part, **f32))
+
+        def call():
+            err = fn(1, hb, nk, *(t.data_ptr() for t in (x, dt, A, Bm, Cm, st, dy)), None,
+                     *(t.data_ptr() for t in outs), None, B, L, H, P, N, G, *x.stride()[:2],
+                     *Bm.stride()[:2], *Cm.stride()[:2], 1,
+                     torch.cuda.current_stream(dev).cuda_stream)
+            assert err == 0, f"hb {hb}: launch failed (code {err})"
+
+        def grads():
+            dB, dC, dA = sk.bwd_sums(dict(path="mma"), outs[3], outs[4], outs[2], torch.float32)
+            return outs[0], outs[1], dA, dB, dC
+        return call, grads
+
+    for rnd in range(2):
+        for name, case in cases.items():
+            x, Bm, plain = case[0], case[3], case[7]
+            plan = sk.bwd_plan_for(x, Bm)
+            nk, H = plan["nk"], x.shape[2]
+            runs = [("base", hb) for hb in (1, 2, 4)] + [
+                (v, plan["hb"]) for v in SSDBWD_VARIANTS
+                if v != "base" and not v.startswith("timeline")]
+            for variant, hb in runs:
+                if nk not in sk.MMA_BWD_STEPS[hb] or (H // Bm.shape[2]) % hb:
+                    print(f"TUNE ssdbwd {name} round {rnd} {variant} hb={hb}: not built (its "
+                          f"block needs {sk.bwd_mma_smem_bytes(hb, nk)} B of shared memory, "
+                          f"the card {sk.SMEM_LIMIT})", flush=True)
+                    continue
+                call, grads = launch(fns[variant], case, hb, nk)
+                call()
+                torch.cuda.synchronize()
+                errs = " ".join(f"{k} {cs.max_err(a, b) / float(b.abs().max()):.3g}"
+                                for k, a, b in zip(names, grads(), plain))
+                ms = cs.cuda_ms(call, flush=flush)
+                print(f"TUNE ssdbwd {name} round {rnd} {variant} hb={hb} (plan hb={plan['hb']}) "
+                      f"grid ({H // hb}, {x.shape[0]}): {ms:.5f} ms rel errs {errs}", flush=True)
+    # one block's phases (block (0, 0), its 8 tiles) at each training shape,
+    # as built and with each probe
+    from repro_torch.kernels import build
+    for variant in [v for v in SSDBWD_VARIANTS if v.startswith("timeline")]:
+        lib = ctypes.CDLL(str(build.BUILD_DIR.parent / "ssd_scan_bwd_variants" / variant
+                              / "lib.so"))
+        for name, case in cases.items():
+            plan = sk.bwd_plan_for(case[0], case[3])
+            call, _ = launch(fns[variant], case, plan["hb"], plan["nk"])
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            clk = (ctypes.c_ulonglong * (16 * 8 * 10))()
+            assert lib.ssd_bwd_timeline(clk) == 0
+            stamps = torch.tensor(list(clk), dtype=torch.float64).reshape(16, 8, 10)
+            nph = len(BWD_TIMELINE_PHASES)
+            for wp in range(4 * plan["hb"]):
+                s_ = stamps[wp]                       # tiles walk 7 .. 0
+                phase = torch.empty(7, nph, dtype=torch.float64)
+                phase[:, 0] = s_[:7, 0] - s_[1:, nph - 1]   # from the tile after's end
+                phase[:, 1:] = s_[:7, 1:] - s_[:7, :-1]
+                print(f"TUNE ssdbwd {variant} {name} hb={plan['hb']} warp {wp}: cycles a tile "
+                      "by phase (mean of tiles 0-6): " + ", ".join(
+                          f"{n} {v:.0f}" for n, v in zip(BWD_TIMELINE_PHASES,
+                                                         phase.mean(0).tolist()))
+                      + f"; whole walk {float(s_[0, nph - 1] - s_[7, 0]):.0f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_tune: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels.paged_attention import chunked_prefill_cuda, chunked_prefill_reference
     from repro_torch.kernels.paged_attention import kernel as pk
-    parts = sys.argv[1:] or ["chunked", "flash", "ssd", "bwd"]
+    parts = sys.argv[1:] or ["chunked", "flash", "ssd", "bwd", "ssdbwd"]
     dev = torch.device("cuda", 0)
     print("card:", cs.card_line(), flush=True)
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
@@ -440,6 +589,8 @@ def main() -> int:
         tune_bwd(dev, flush)
     if "ssd" in parts:
         tune_ssd(dev, flush)
+    if "ssdbwd" in parts:
+        tune_ssdbwd(dev, flush)
     if "flash" in parts:
         tune_flash(dev, flush)
     if "chunked" not in parts:

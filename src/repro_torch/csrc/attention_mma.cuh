@@ -25,7 +25,7 @@
 // keys end (a row's length, or Skv), and whether the mask is causal.
 #pragma once
 
-#include "gemm_common.cuh"   // cp_async16, ldmatrix_x4[_trans], mma_bf16[_zero], split_pair
+#include "gemm_common.cuh"   // cp_async16, ldmatrix_x4[_trans], mma_bf16[_zero], split_pair, ex2
 
 namespace {
 
@@ -34,15 +34,6 @@ constexpr int kMmaThreads = 128;   // 4 warps, 16 folded rows each
 constexpr int kMmaRows = 64;       // folded query rows a block
 constexpr int kMmaKeys = 64;       // keys a staged tile
 constexpr int kMmaPad = 8;         // bf16 padding a staged row: ldmatrix rows on distinct banks
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special function unit (ex2.approx: 2 ulp; +0 at -inf)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // cap * tanh(x / cap) = cap - 2 cap / (e^(2x / cap) + 1): one ex2 and one
 // reciprocal (tanhf's ~20 instructions a score set the softcap case's

@@ -1,8 +1,8 @@
-// Device code shared by the two matmul sources, quant_matmul.cu (w8a16) and
-// moe_gmm.cu (the grouped expert matmul): the streaming kernels' split
+// Device code shared by the tensor-core sources: the two matmuls'
+// (quant_matmul.cu, w8a16; moe_gmm.cu, the grouped expert matmul) streaming split
 // ranges, 16-byte cp.async copies into a thread's own shared-memory ring,
 // the int8 byte permute, the fixed-order split reduce, and the tensor-core
-// kernels' ldmatrix / mma.sync helpers and bf16 hi + lo split.
+// kernels' ldmatrix / mma.sync helpers, ex2 and the bf16 hi + lo splits.
 #pragma once
 
 #include "common.cuh"
@@ -157,6 +157,38 @@ __device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const unsigned (&a)
       "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special function unit (ex2.approx: 2 ulp; +0 at -inf)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// w0, w1 -> the bf16 pair hi rounded to nearest (w0 in the low half) and
+// the pair of the remainders w - hi rounded the same way: hi + lo is within
+// 2^-17 of w (the SSD kernels' hi + lo parts)
+__device__ __forceinline__ void split_rn(float w0, float w1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
+  const unsigned hu = *reinterpret_cast<const unsigned*>(&h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(w0 - __uint_as_float(hu << 16),
+                                                 w1 - __uint_as_float(hu & 0xFFFF0000u));
+  hi = hu;
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// the two bf16 halves of a register as floats
+__device__ __forceinline__ float lo_f32(unsigned r) { return __uint_as_float(r << 16); }
+__device__ __forceinline__ float hi_f32(unsigned r) { return __uint_as_float(r & 0xFFFF0000u); }
+
+// Every row start of a (B, L, ...) bf16 operand with row strides sb / st is
+// 16 bytes aligned (cp.async's 16-byte copies).
+inline bool aligned_rows(const void* p, long long sb, long long st, int B, int L) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (B == 1 || sb % 8 == 0) &&
+         (L <= 1 || st % 8 == 0);
 }
 
 // w -> hi = w truncated to bf16 (its upper 16 bits) and lo = w - hi truncated

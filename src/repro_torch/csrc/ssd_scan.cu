@@ -86,7 +86,8 @@
 //    row) and the state update (8 x 4 entries a thread). About 137 KB of
 //    shared memory at mamba2 width: one block per SM.
 
-#include "gemm_common.cuh"   // cp_async16 / cp_async4, ldmatrix_x4[_trans], mma_bf16
+#include "gemm_common.cuh"   // cp_async16 / cp_async4, ldmatrix_x4[_trans], mma_bf16,
+                              // ex2, split_rn, aligned_rows
 
 namespace {
 
@@ -310,31 +311,6 @@ int launch_tiled(const void* x, const float* dt, const float* A, const void* Bm,
 constexpr int kMmaThreads = 128;   // 4 warps, 16 token rows of a tile each
 constexpr int kPad = 8;            // bf16 padding of a staged row: ldmatrix rows on distinct banks
 constexpr int kMaxNk = kMaxN / 16;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special function unit (ex2.approx: 2 ulp; +0 at -inf)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// w0, w1 -> the bf16 pair hi rounded to nearest (w0 in the low half) and
-// the pair of the remainders w - hi rounded the same way: hi + lo is within
-// 2^-17 of w
-__device__ __forceinline__ void split_rn(float w0, float w1, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
-  const unsigned hu = *reinterpret_cast<const unsigned*>(&h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(w0 - __uint_as_float(hu << 16),
-                                                 w1 - __uint_as_float(hu & 0xFFFF0000u));
-  hi = hu;
-  lo = *reinterpret_cast<const unsigned*>(&l);
-}
-
-// the two bf16 halves of a register as floats
-__device__ __forceinline__ float lo_f32(unsigned r) { return __uint_as_float(r << 16); }
-__device__ __forceinline__ float hi_f32(unsigned r) { return __uint_as_float(r & 0xFFFF0000u); }
-
 __device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -737,11 +713,6 @@ int dispatch_shape(int pb, int nk, Fn&& fn) {
     case 64: return with_nk(std::integral_constant<int, 64>{});
     default: return -1;
   }
-}
-
-bool aligned_rows(const void* p, long long sb, long long st, int B, int L) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (B == 1 || sb % 8 == 0) &&
-         (L <= 1 || st % 8 == 0);
 }
 
 enum Path : int { kTiled = 0, kMma = 1 };

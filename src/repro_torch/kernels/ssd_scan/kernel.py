@@ -17,8 +17,9 @@ current stream and raises if the launch failed. ``launches`` counts the
 launches made, so a run can show that its path went through the kernel;
 ``launches_by_path`` counts them by path. ``ssd_scan_cuda(...,
 states=True)`` also writes the state entering each 64-token tile, which
-``ssd_scan_bwd_cuda`` reads; ``bwd_plan`` gives the backward's grid and
-fp32 partials.
+``ssd_scan_bwd_cuda`` reads; ``bwd_plan`` picks the backward's kernel
+(``mma``: tensor-core tiles for bf16, ``hb`` heads of a group a block;
+``tiled``: fp32 on the CUDA cores) and gives its grid and fp32 partials.
 """
 from __future__ import annotations
 
@@ -183,43 +184,88 @@ ssd_scan_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 # ------------------------------------------------------------------ backward
-BWD_PATHS = ("tiled",)   # one kernel: fp32 math on the CUDA cores for fp32 and bf16 inputs
-BWD_THREADS = 256        # constants of csrc/ssd_scan_bwd.cu, checked at load
-BWD_SMEM_MAX = 221248    # bytes a block at P 64, N 128
+BWD_PATHS = ("tiled", "mma")   # codes 0..1 of csrc/ssd_scan_bwd.cu
+BWD_THREADS = 256        # constants of csrc/ssd_scan_bwd.cu, checked at load: tiled's threads
+BWD_SMEM_MAX = 221248    # and its bytes a block at P 64, N 128
+HEAD_BLOCKS = (4, 2, 1)  # mma: hb heads of one group a block, widest first
+MMA_BWD_STEPS = {1: (1, 2, 4, 8), 2: (1, 2, 4, 8), 4: (1, 2)}   # nk built for each hb
+SMEM_LIMIT = 232448      # bytes of shared memory a block may use on the H100
 GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
 
 
 def bwd_smem_bytes(P: int, N: int) -> int:
-    """A backward block's shared memory (csrc/ssd_scan_bwd.cu's smem_floats)."""
+    """A tiled backward block's shared memory (csrc/ssd_scan_bwd.cu's smem_floats)."""
     PP, NP, kTP = _cdiv(P, 4) * 4, _cdiv(N, 8) * 8, TILE + 4
     return 4 * (2 * PP * kTP + TILE * PP + 2 * NP * kTP + PP * (NP + 4) + 3 * TILE * kTP
                 + 3 * 16 * TILE + 8 * TILE + 16)
 
 
-def bwd_plan(B: int, L: int, H: int, P: int, N: int, G: int) -> dict:
-    """The backward of a scan over x (B, L, H, P) with B / C (B, L, G, N):
-    one block a (row, head), walking its ``tiles`` of TILE tokens last to
-    first, and the fp32 partials the wrapper reduces in a fixed order: dB
-    and dC per head (B, L, H, N), summed over each group's H / G heads
-    (``group_sum``), and dA per (row, head) (B, H), summed over rows.
-    Raises ValueError for a call the kernel does not take."""
+def bwd_mma_smem_bytes(hb: int, nk: int) -> int:
+    """An mma backward block's shared memory (csrc/ssd_scan_bwd.cu's
+    BwdShape): B and C [64][16 nk + 8] bf16; per head x, dy's hi and lo
+    parts [64][72] bf16 and the state's (then dS''s) hi and lo parts
+    [64][16 nk + 8] bf16; the head sum of M2 as hi and lo [64][72] bf16 and,
+    with hb > 1, in fp32 [64][68]; per head 11 + hb vectors of 64 fp32 and
+    8 scalars."""
+    nr, xr = 16 * nk + 8, TILE + 8
+    return (2 * TILE * nr * 2 + 3 * hb * TILE * xr * 2 + 2 * hb * MAX_HEAD_DIM * nr * 2
+            + 2 * TILE * xr * 2 + (TILE * (TILE + 4) * 4 if hb > 1 else 0)
+            + 4 * (TILE * hb * (11 + hb) + 8 * hb))
+
+
+def bwd_plan(B: int, L: int, H: int, P: int, N: int, G: int, dtype, n_sm: int) -> dict:
+    """The backward of a scan over x (B, L, H, P) with B / C (B, L, G, N) of
+    ``dtype`` on ``n_sm`` SMs. A block walks its ``tiles`` of TILE tokens
+    last to first.
+
+    - bf16 takes ``mma``: a block takes ``hb`` heads of one group (4 warps
+      a head), grid (H / hb, B); hb is the widest of HEAD_BLOCKS that
+      divides the group's heads, whose block fits SMEM_LIMIT and whose
+      grid still puts a block on MIN_FILL of the SMs, else the narrowest
+      that fits. N is padded to 16 ``nk``.
+    - fp32 takes ``tiled``: one block of BWD_THREADS a (row, head).
+
+    The fp32 partials the wrapper reduces in a fixed order: dB and dC,
+    summed over each group's ``group_sum`` slots (mma: (H / G / hb, B, L, G,
+    N), each block's already summed over its heads, by the library's
+    reduce kernel; tiled: (B, L, H, N) per head, in head order); dA per
+    (row, head) (B, H), summed over rows. Raises ValueError for a call no
+    path takes."""
     if not (1 <= P <= MAX_HEAD_DIM and 1 <= N <= MAX_STATE):
         raise ValueError(f"ssd_scan_bwd_cuda: head_dim {P} / d_state {N} beyond the kernel's "
                          f"{MAX_HEAD_DIM} / {MAX_STATE}")
     if G < 1 or H % G:
         raise ValueError(f"ssd_scan_bwd_cuda: {H} heads over {G} groups")
-    grid = (H, B, 1)
+    rep = H // G
+    if dtype == torch.bfloat16:
+        nk = next(k for k in STATE_STEPS if 16 * k >= N)
+        fits = [hb for hb in HEAD_BLOCKS if rep % hb == 0 and nk in MMA_BWD_STEPS[hb]
+                and bwd_mma_smem_bytes(hb, nk) <= SMEM_LIMIT]
+        hb = next((hb for hb in fits if B * (H // hb) >= MIN_FILL * n_sm), fits[-1])
+        path, threads, smem = "mma", 128 * hb, bwd_mma_smem_bytes(hb, nk)
+    else:
+        hb, nk, path, threads, smem = 1, 0, "tiled", BWD_THREADS, bwd_smem_bytes(P, N)
+    grid = (H // hb, B, 1)
     if not all(g <= lim for g, lim in zip(grid, GRID_LIMITS)):
         raise ValueError(f"ssd_scan_bwd_cuda: grid {grid} exceeds CUDA's limits")
-    return dict(path="tiled", grid=grid, blocks=H * B, tiles=_cdiv(L, TILE),
-                smem=bwd_smem_bytes(P, N), partials={"dB": (B, L, H, N), "dC": (B, L, H, N),
-                                                     "dA": (B, H)},
-                group_sum=H // G)
+    part = (rep // hb, B, L, G, N) if path == "mma" else (B, L, H, N)
+    return dict(path=path, hb=hb, nk=nk, grid=grid, blocks=grid[0] * grid[1],
+                threads=threads, tiles=_cdiv(L, TILE), smem=smem,
+                partials={"dB": part, "dC": part, "dA": (B, H)}, group_sum=rep // hb)
+
+
+def bwd_plan_for(x, B_) -> dict:
+    """The backward plan of a call: x (B, L, H, P), B_ (B, L, G, N), on the card."""
+    Bb, L, H, P = x.shape
+    return bwd_plan(Bb, L, H, P, B_.shape[3], B_.shape[2], x.dtype,
+                    _sm_count(x.device.index if x.device.index is not None
+                              else torch.cuda.current_device()))
 
 
 def bind_bwd(lib):
     """``lib``'s backward launch function with its C signature, once the
-    library's constants are checked against the ones ``bwd_plan`` mirrors."""
+    library's constants and the mma blocks' shared memory are checked
+    against the ones ``bwd_plan`` mirrors."""
     consts = (ctypes.c_int * 5)()
     lib.ssd_scan_bwd_constants.argtypes = [ctypes.c_void_p]
     lib.ssd_scan_bwd_constants.restype = None
@@ -227,9 +273,17 @@ def bind_bwd(lib):
     want = (TILE, MAX_HEAD_DIM, MAX_STATE, BWD_THREADS, BWD_SMEM_MAX)
     if tuple(consts) != want:
         raise RuntimeError(f"ssd_scan_bwd library constants {tuple(consts)}, expected {want}")
+    lib.ssd_scan_bwd_mma_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ssd_scan_bwd_mma_smem.restype = ctypes.c_int
+    for hb, steps in MMA_BWD_STEPS.items():
+        for nk in steps:
+            got = lib.ssd_scan_bwd_mma_smem(hb, nk)
+            if got != bwd_mma_smem_bytes(hb, nk):
+                raise RuntimeError(f"ssd_scan_bwd mma block (hb {hb}, nk {nk}): {got} bytes of "
+                                   f"shared memory, expected {bwd_mma_smem_bytes(hb, nk)}")
     fn = lib.ssd_scan_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -237,6 +291,42 @@ def bind_bwd(lib):
 @functools.cache
 def _bwd_launcher():
     return bind_bwd(load_library("ssd_scan_bwd"))
+
+
+@functools.cache
+def _group_sum():
+    fn = load_library("ssd_scan_bwd").ssd_scan_bwd_group_sum
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_sums(plan, dB_part, dC_part, dA_part, dtype):
+    """The backward's fixed-order sums: dB and dC (B, L, G, N) in ``dtype``
+    over each group's ``group_sum`` partial slots (mma: the library's reduce
+    kernel; tiled: over the group's heads, in head order), dA over rows.
+    A part given as None gives None."""
+    dA = None if dA_part is None else dA_part.sum(0)
+    if dB_part is None:
+        return None, None, dA
+    if plan["path"] == "tiled":
+        B, L, H, N = dB_part.shape
+        return (*(t.view(B, L, H // plan["group_sum"], plan["group_sum"], N).sum(3).to(dtype)
+                  for t in (dB_part, dC_part)), dA)
+    gs, B, L, G, N = dB_part.shape
+    outs = []
+    dev = dB_part.device
+    for part in (dB_part, dC_part):
+        out = torch.empty((B, L, G, N), dtype=dtype, device=dev)
+        if out.numel():
+            with torch.cuda.device(dev):
+                err = _group_sum()(part.data_ptr(), gs, out.data_ptr(), B * L * G, N,
+                                   DTYPE_CODES[dtype], torch.cuda.current_stream(dev).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"ssd_scan_bwd group sum failed (code {err}, plan {plan})")
+        outs.append(out)
+    return (*outs, dA)
 
 
 def ssd_scan_bwd_cuda(x, dt, A, B_, C, states, dy, d_final=None, *, need_x: bool = True,
@@ -260,7 +350,7 @@ def ssd_scan_bwd_cuda(x, dt, A, B_, C, states, dy, d_final=None, *, need_x: bool
     _check(x.dtype in DTYPE_CODES, f"dtype {x.dtype} not in {list(DTYPE_CODES)}")
     _check(B_.dtype == x.dtype and C.dtype == x.dtype,
            f"B_ / C dtype {B_.dtype} / {C.dtype}, x {x.dtype}")
-    plan = bwd_plan(Bb, L, H, P, N, G)
+    plan = bwd_plan_for(x, B_)
     sx = _rows(x, "x", Bb, L, (H, P))
     sb = _rows(B_, "B_", Bb, L, (G, N))
     sc = _rows(C, "C", Bb, L, (G, N))
@@ -274,8 +364,8 @@ def ssd_scan_bwd_cuda(x, dt, A, B_, C, states, dy, d_final=None, *, need_x: bool
     dx = torch.empty((Bb, L, H, P), dtype=x.dtype, device=dev) if need_x else None
     ddt = torch.empty((Bb, L, H), **f32) if need_dt else None
     dA_part = torch.empty((Bb, H), **f32) if need_A else None
-    dB_part = torch.empty((Bb, L, H, N), **f32) if need_BC else None
-    dC_part = torch.empty((Bb, L, H, N), **f32) if need_BC else None
+    dB_part = torch.empty(plan["partials"]["dB"], **f32) if need_BC else None
+    dC_part = torch.empty(plan["partials"]["dC"], **f32) if need_BC else None
     d_init = torch.empty((Bb, H, P, N), **f32) if need_init else None
     outs = (dx, ddt, dA_part, dB_part, dC_part, d_init)
     if Bb == 0 or H == 0 or not any(t is not None for t in outs):
@@ -285,7 +375,8 @@ def ssd_scan_bwd_cuda(x, dt, A, B_, C, states, dy, d_final=None, *, need_x: bool
     else:
         with torch.cuda.device(dev):
             err = _bwd_launcher()(
-                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C.data_ptr(),
+                BWD_PATHS.index(plan["path"]), plan["hb"], plan["nk"], x.data_ptr(),
+                dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C.data_ptr(),
                 states.data_ptr(), dy.data_ptr(),
                 None if d_final is None else d_final.data_ptr(),
                 *(None if t is None else t.data_ptr() for t in outs),
@@ -295,14 +386,7 @@ def ssd_scan_bwd_cuda(x, dt, A, B_, C, states, dy, d_final=None, *, need_x: bool
             raise RuntimeError(f"ssd_scan_bwd kernel launch failed (code {err}, plan {plan})")
         ssd_scan_bwd_cuda.launches += 1
         ssd_scan_bwd_cuda.launches_by_path[plan["path"]] += 1
-    # the fixed-order sums of the partials: over each group's heads, in head
-    # order, and over rows
-    rep = plan["group_sum"]
-    dB = dC = dA = None
-    if need_BC:
-        dB, dC = (t.view(Bb, L, G, rep, N).sum(3).to(x.dtype) for t in (dB_part, dC_part))
-    if need_A:
-        dA = dA_part.sum(0)
+    dB, dC, dA = bwd_sums(plan, dB_part, dC_part, dA_part, x.dtype)
     return dx, ddt, dA, dB, dC, d_init
 
 

@@ -859,22 +859,27 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, case):
     """The forward's tile entry states against ssd_reference's (y unchanged
     by writing them); the backward kernel against ssd_reference_bwd on the
     same inputs, states and cotangents: each gradient within 1e-4 of its
-    max |plain grad| (fp32 math for both dtypes; dx, dB and dC in bf16 for
-    bf16 inputs may also differ by their own rounding, 2^-8 |g|); one
-    launch a call; repeats bit-equal."""
+    max |plain grad| (fp32-like rounding for both dtypes: bf16 takes the
+    mma path's hi + lo parts; dx, dB and dC in bf16 for bf16 inputs may
+    also differ by their own rounding, 2^-8 |g|); one launch a call, on
+    the path its plan names (fp32 tiled, bf16 mma); repeats bit-equal."""
     from repro_torch.kernels.ssd_scan import ssd_reference_bwd, ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan.kernel import bwd_plan_for
     x, dt, A, Bm, Cm, s0, dy, d_final = _ssd_bwd_inputs(cuda, dtype, case)
+    path = "mma" if dtype == torch.bfloat16 else "tiled"
+    assert bwd_plan_for(x, Bm)["path"] == path
     rep = x.shape[2] // Bm.shape[2]
     y, _, st = ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0, states=True)
     assert torch.equal(y, ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=s0)[0])
     _, _, st_ref = ssd_reference(x, dt, A, Bm.repeat_interleave(rep, 2),
                                  Cm.repeat_interleave(rep, 2), 64, init_state=s0, states=True)
     torch.testing.assert_close(st, st_ref, atol=2e-3, rtol=1e-4)
-    n0 = ssd_scan_bwd_cuda.launches
+    n0, p0 = ssd_scan_bwd_cuda.launches, dict(ssd_scan_bwd_cuda.launches_by_path)
     got = ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, st, dy, d_final, need_init=s0 is not None)
     again = ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, st, dy, d_final, need_init=s0 is not None)
     torch.cuda.synchronize()
     assert ssd_scan_bwd_cuda.launches == n0 + 2
+    assert ssd_scan_bwd_cuda.launches_by_path == dict(p0, **{path: p0[path] + 2})
     want = ssd_reference_bwd(x, dt, A, Bm, Cm, s0, st, dy, d_final)
     for i, (g, a, w) in enumerate(zip(got, again, want)):
         if w is None:

@@ -4,7 +4,7 @@ backward kernel's formulas in plain PyTorch) against autograd through
 ``ssd_chunked`` on the same numpy inputs and cotangents, each gradient
 within 1e-4 of its max |g|; the autograd function ``SSDScan`` with both
 kernel launches replaced by their plain versions; and the backward's plan
-against a brute-force count of its blocks and partials."""
+(both paths) against a brute-force count of its blocks and partials."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -243,45 +243,66 @@ def _named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,H,P,N,G", [(1, 1, 1, 1, 1, 1), (2, 27, 2, 8, 4, 2),
                                          (2, 150, 4, 64, 128, 2), (4, 512, 64, 64, 128, 1),
                                          (4, 512, 128, 64, 16, 1), (3, 130, 6, 3, 5, 3)])
-def test_bwd_plan_matches_a_brute_force_count(B, L, H, P, N, G):
-    """The grid has a block a (row, head); walking each block's tiles writes
-    every element of the dB / dC partials and of ddt once, each (row, head)
-    of dA's once, and each group's partials sum its H / G heads; the shared
-    memory is the kernel's arrays' and fits the card."""
-    plan = K.bwd_plan(B, L, H, P, N, G)
+def test_bwd_plan_matches_a_brute_force_count(B, L, H, P, N, G, dtype):
+    """The grid has a block a (row, hb heads of one group); walking each
+    block's tiles writes every element of the dB / dC partials and of ddt
+    once, each (row, head) of dA's once, and each group's dB / dC are the
+    sum of its H / G / hb blocks' slots; the shared memory is the kernel's
+    arrays' and fits the card. fp32 takes the tiled kernel (hb 1, per-head
+    partials (B, L, H, N)), bf16 the mma one ((H / G / hb, B, L, G, N))."""
+    plan = K.bwd_plan(B, L, H, P, N, G, dtype, 132)
+    hb = plan["hb"]
+    assert plan["path"] == ("mma" if dtype == torch.bfloat16 else "tiled")
     assert plan["grid"][0] * plan["grid"][1] * plan["grid"][2] == plan["blocks"]
+    rep = H // G
+    part = plan["partials"]["dB"]
     writes = np.zeros((B, L, H), np.int64)
+    part_writes = np.zeros(part[:-1], np.int64)
     dA_writes = np.zeros((B, H), np.int64)
-    for h in range(plan["grid"][0]):
+    for blk in range(plan["grid"][0]):
+        heads = range(blk * hb, (blk + 1) * hb)
+        g = heads[0] // rep
+        assert len({h // rep for h in heads}) == 1      # one group a block
         for b in range(plan["grid"][1]):
-            dA_writes[b, h] += 1
+            for h in heads:
+                dA_writes[b, h] += 1
             for t in reversed(range(plan["tiles"])):
                 for j in range(K.TILE):
                     if t * K.TILE + j < L:
-                        writes[b, t * K.TILE + j, h] += 1
-    assert (writes == 1).all() and (dA_writes == 1).all()
-    assert plan["partials"] == {"dB": (B, L, H, N), "dC": (B, L, H, N), "dA": (B, H)}
-    heads_of = [sum(1 for h in range(H) if h // (H // G) == g) for g in range(G)]
-    assert heads_of == [plan["group_sum"]] * G
-    PP, NP, T = -(-P // 4) * 4, -(-N // 8) * 8, K.TILE
-    arrays = dict(xT=PP * (T + 4), dyT=PP * (T + 4), dyr=T * PP, bT=NP * (T + 4),
-                  cT=NP * (T + 4), dsp=PP * (NP + 4), gm=T * (T + 4), m2=T * (T + 4),
-                  m2t=T * (T + 4), partials=3 * 16 * T, vectors=8 * T, scalars=16)
-    assert plan["smem"] == 4 * sum(arrays.values()) <= K.BWD_SMEM_MAX <= 232448
+                        if plan["path"] == "mma":      # the block's slot of its group
+                            part_writes[blk % (rep // hb), b, t * K.TILE + j, g] += 1
+                        else:
+                            part_writes[b, t * K.TILE + j, blk] += 1
+                        for h in heads:
+                            writes[b, t * K.TILE + j, h] += 1
+    assert (writes == 1).all() and (part_writes == 1).all() and (dA_writes == 1).all()
+    want = (rep // hb, B, L, G, N) if plan["path"] == "mma" else (B, L, H, N)
+    assert plan["partials"] == {"dB": want, "dC": want, "dA": (B, H)}
+    assert plan["group_sum"] == rep // hb
+    if plan["path"] == "tiled":
+        PP, NP, T = -(-P // 4) * 4, -(-N // 8) * 8, K.TILE
+        arrays = dict(xT=PP * (T + 4), dyT=PP * (T + 4), dyr=T * PP, bT=NP * (T + 4),
+                      cT=NP * (T + 4), dsp=PP * (NP + 4), gm=T * (T + 4), m2=T * (T + 4),
+                      m2t=T * (T + 4), partials=3 * 16 * T, vectors=8 * T, scalars=16)
+        assert plan["smem"] == 4 * sum(arrays.values()) <= K.BWD_SMEM_MAX <= 232448
+    else:
+        assert plan["smem"] == K.bwd_mma_smem_bytes(hb, plan["nk"]) <= K.SMEM_LIMIT == 232448
 
 
 def test_bwd_plan_refuses_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError, match="head_dim 65"):
-        K.bwd_plan(1, 8, 2, 65, 16, 1)
-    with pytest.raises(ValueError, match="d_state 129"):
-        K.bwd_plan(1, 8, 2, 64, 129, 1)
-    with pytest.raises(ValueError, match="3 heads over 2 groups"):
-        K.bwd_plan(1, 8, 3, 8, 16, 2)
-    with pytest.raises(ValueError, match="grid"):
-        K.bwd_plan(70000, 8, 2, 8, 16, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head_dim 65"):
+            K.bwd_plan(1, 8, 2, 65, 16, 1, dtype, 132)
+        with pytest.raises(ValueError, match="d_state 129"):
+            K.bwd_plan(1, 8, 2, 64, 129, 1, dtype, 132)
+        with pytest.raises(ValueError, match="3 heads over 2 groups"):
+            K.bwd_plan(1, 8, 3, 8, 16, 2, dtype, 132)
+        with pytest.raises(ValueError, match="grid"):
+            K.bwd_plan(70000, 8, 2, 8, 16, 1, dtype, 132)
     assert K.bwd_smem_bytes(64, 128) == K.BWD_SMEM_MAX
 
 
