@@ -159,11 +159,12 @@ exits non-zero and no phase's failure is caught.
      decode on the generation APIs. Prints tok/s, TTFT, TBT, the encoder's
      ms a pack with a first row, peak memory and weights' GB.
  12. (run after phase 7) training on the card through
-     ``training.trainer.train``: (a) qwen2.5-3b at full width and depth
-     (3.40 B parameters, random bf16 weights from seed 0), 4 x 512 tokens
+     ``training.trainer.train``: (a) qwen2.5-3b at full width, depth cut
+     36 -> 18 layers (room for phase 13 in the run's time; random bf16
+     weights from seed 0), 4 x 512 tokens
      of the synthetic corpus a step, remat, xent_chunk 128, peak lr 1e-3
      after 2 warmup steps: 8 steps; then a run that checkpoints at step 4
-     (34.0 GB: bf16 parameters and fp32 moments) and crashes at step 6,
+     (~20 GB: bf16 parameters and fp32 moments) and crashes at step 6,
      and a resume from that checkpoint, its checkpointer stubbed so it
      writes none (the card's machine allows 45 GiB of disk writes a call); every loss finite, the
      mean of steps 6-8 below step 1's, the resumed losses within 2e-2 of
@@ -189,14 +190,36 @@ exits non-zero and no phase's failure is caught.
      layer with a dense MLP, then one with the 16-expert MoE) at depth 2,
      full width, fp32, card vs CPU as (c) without the step, the SSD
      kernels launched on the card.
+ 13. (run after phase 5, on its prompts and logits) distributed serving
+     (``launch.mesh``, ``distributed.sharding``, the shard_map MoE
+     strategies): (a) NCCL at world 1 in this process: mixtral at depth 2,
+     full width, fp32, ep_shardmap on the (1, 1, 1) mesh, prefill + 4
+     decode_steps over the paged pool within LOGIT_ATOL of the unsharded
+     capacity run on the card, argmax equal; (b) four ranks spawned on the
+     one card over gloo (NCCL puts no two ranks of a communicator on one
+     device; gloo takes CUDA tensors through the host), each drawing only
+     its shards of the same seeded weights: the same model and paths plus a
+     decode_chunk pack on meshes (data, expert, tensor) = (1, 2, 2)
+     ep_shardmap and (1, 1, 4) tp_shardmap, capacity factor E / K (no
+     token dropped, asserted), rank 0's gathered logits within LOGIT_ATOL of
+     the unsharded run, argmax equal; (c) the same ranks on phase 4's
+     8-layer bf16 mixtral at (1, 2, 2) ep_shardmap, teacher-forced with
+     phase 5's greedy tokens: every logit row within DIST_BF16_RTOL of its
+     max |logit| of phase 5's, each argmax flip a tie; prefill ms, decode
+     step ms, tok/s, each rank's parameter bytes (equal to its specs'
+     shard sum) and peak memory, and the kernels' launches (rank 0) printed;
+     flash attention, paged decode and (b)'s chunked attention launched,
+     gmm never (the shard_map strategies run their experts as batched
+     matmuls). Any rank's failure or a rank not done within 300 s fails.
  10. every call shape of chunked attention, gmm, w8a16, flash attention,
-     the SSD scan and both backwards in phases 4-9, 11 and 12 (a, b, d)
-     (recorded at the public ops) must be one phase 2 held against the
-     plain version; then
+     the SSD scan and both backwards in phases 4-9, 11, 12 (a, b, d) and 13
+     (recorded at the public ops, on rank 0 in phase 13) must be one phase
+     2 held against the plain version; then
      a ``kernels`` JSON line (with each kernel's launches behind the stack
      as ``stack_launches``, in the speculative runs as ``spec_launches``,
-     in phase 11 as ``encdec_launches`` / ``vlm_launches`` and in phase
-     12 as ``train_launches``; the flash and SSD backwards' ``launches`` are
+     in phase 11 as ``encdec_launches`` / ``vlm_launches``, in phase 12
+     as ``train_launches`` and in phase 13 (rank 0, (a) + (b) + (c)) as
+     ``dist_launches``; the flash and SSD backwards' ``launches`` are
      phase 12's), then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
@@ -599,6 +622,13 @@ def run_attention(dev, flush, results):
         "prefill": dict(B=2, C=128, starts=[0, 128], nvalid=[128, 100]),
     }
     shapes.update(mm_attention_shapes())       # fp32 and bf16 at phase 11's shapes
+    # phase 13 (b)'s decode_chunk pack of the prompts, unsharded and on the
+    # ranks of tensor 2 and tensor 4 (their heads; pools of 21 pages a row)
+    maxp13 = -(-(max(PROMPT_LENS) + GEN_STEPS) // 16)
+    for tp, (H, Hkv) in ((1, (32, 8)), (2, (16, 4)), (4, (8, 2))):
+        shapes[f"pack tensor {tp}"] = dict(B=4, C=max(PROMPT_LENS), H=H, Hkv=Hkv,
+                                           starts=[0] * 4, nvalid=list(PROMPT_LENS),
+                                           maxp=maxp13, num_pages=4 * maxp13 + 1)
     dtypes = {name: (torch.float32, torch.bfloat16) for name in shapes}
     served = dict(stack_attention_shapes(), **spec_attention_shapes())
     shapes.update(served)
@@ -696,6 +726,9 @@ def run_flash(dev, flush, results):
     # patches + 297 tokens
     full = [("prefill", 4, 297, 297, 32, 8, 128, True, 0, 0.0),
             ("prefill window", 4, 297, 297, 32, 16, 128, True, 128, 50.0),
+            # phase 13's ranks: the heads of tensor 2 and tensor 4
+            ("prefill tensor 2", 4, 297, 297, 16, 4, 128, True, 0, 0.0),
+            ("prefill tensor 4", 4, 297, 297, 8, 2, 128, True, 0, 0.0),
             (f"{MM_SEAMLESS} encoder pack", 2, 1024, 1024, 16, 16, 64, False, 0, 0.0),
             (f"{MM_SEAMLESS} encoder prefill", 4, 1024, 1024, 16, 16, 64, False, 0, 0.0),
             (f"{MM_SEAMLESS} cross pack", 2, 128, 1024, 16, 16, 64, False, 0, 0.0),
@@ -926,7 +959,14 @@ def run_paged_decode(dev, flush, results):
                      starts=[off + n + GEN_STEPS - 2 for n in PROMPT_LENS])
           for name, H, D, off in ((MM_SEAMLESS, 16, 64, 0), (MM_VISION, 32, 96, 576))
           for maxp in [-(-(off + max(PROMPT_LENS) + GEN_STEPS) // 16)]}
+    # phase 13's ranks: the heads of tensor 2 and tensor 4 over the
+    # generation path's pool
+    maxp13 = -(-(max(PROMPT_LENS) + GEN_STEPS) // 16)
+    tps = {f"decode tensor {tp}": dict(H=H, Hkv=Hkv, D=128, maxp=maxp13, num_pages=4 * maxp13 + 1,
+                                       starts=[n + GEN_STEPS - 2 for n in PROMPT_LENS])
+           for tp, H, Hkv in ((2, 16, 4), (4, 8, 2))}
     for name, window, softcap, sh in (("decode", 0, 0.0, mix), ("decode window", 128, 50.0, mix),
+                                      *((n, 0, 0.0, sh) for n, sh in tps.items()),
                                       *((f"{n} decode", 0, 0.0, sh) for n, sh in mm.items())):
         for dtype in (torch.float32, torch.bfloat16):
             *t, kw = attention_case(dev, B=4, C=1, ps=16, nvalid=[1, 1, 1, 1], dtype=dtype,
@@ -1923,12 +1963,15 @@ def run_serving(dev, profile: bool, model, params, *, int8: bool = False,
     return serve, launches, streams, eng_logits
 
 
-def run_generation(dev, model, params, streams, profile: bool, eng_logits=None):
+def run_generation(dev, model, params, streams, profile: bool, eng_logits=None,
+                   keep: bool = False):
     """Phases 5 and 7: LM.prefill of the serving run's prompts (right-padded,
     flash attention), then GEN_STEPS greedy decode_steps over the paged pool
     (paged decode kernel), on the serving run's weights. With the engine's
     logits rows, where a greedy stream leaves the engine's, the first
-    diverging token's top-2 logits on both paths."""
+    diverging token's top-2 logits on both paths. With ``keep``, also
+    returns the greedy tokens (B, GEN_STEPS + 1) and each step's logits (on
+    the host), which phase 13 (c) is held against."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -2018,12 +2061,13 @@ def run_generation(dev, model, params, streams, profile: bool, eng_logits=None):
         f"kernels)")
     if eng_logits is not None:
         res["divergence"] = divergence_report(streams, gen_logits, eng_logits, agree)
+    kept = (gen, [lg.cpu() for lg in gen_logits]) if keep else None
     del gen_logits
     if profile:
         with torch.inference_mode():
             res["profile"] = profile_window(lambda: generate(8),
                                             "prefill + 8 decode_steps of the generation path")
-    return res, launches
+    return (res, launches, kept) if keep else (res, launches)
 
 
 def divergence_report(streams, gen_logits, eng_logits, agree):
@@ -2221,6 +2265,378 @@ def run_mamba(dev, profile: bool):
             generation["profile"] = profile_window(
                 lambda: generate(8), "mamba2 prefill of 4 prompts + 8 decode_steps")
     return serve, generation
+
+
+# ------------------------------------------------------------------ phase 13
+# distributed serving. (a) runs in this process over NCCL at world 1; (b)
+# and (c) on four ranks spawned on the one card over gloo (NCCL puts no two
+# ranks of one communicator on one device; gloo takes the CUDA tensors
+# through the host, ``distributed.collectives``).
+DIST_AXES = ("data", "expert", "tensor")
+DIST_MESHES = (("ep", (1, 2, 2), "ep_shardmap"), ("tp", (1, 1, 4), "tp_shardmap"))
+DIST_DEPTH = 2              # (a), (b): mixtral-8x7b at depth 2, fp32, full width
+DIST_STEPS = 4              # (a), (b): decode_steps over the paged pool
+DIST_TIMEOUT_S = 300        # the spawned ranks' deadline
+DIST_A_BACKEND = "nccl"     # (a): a multi-card machine's backend
+# (c): each logit row against phase 5's at the same context, relative to the
+# row's max |logit|: phase 5 holds no bf16 bound of its own, and a missing
+# psum or a wrong shard moves logits by their own size
+DIST_BF16_RTOL = 1e-1
+
+
+def dist_config(n_layers: int):
+    """mixtral-8x7b at ``n_layers``, capacity factor E / K: no token drops."""
+    import dataclasses
+    cfg = mixtral(n_layers)
+    return cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts
+                                              / cfg.moe.top_k))
+
+
+def dist_rules(strategy: str):
+    from repro_torch.distributed.sharding import make_rules
+    return make_rules("serve", moe="ep" if strategy == "ep_shardmap" else "tp",
+                      tensor_axis="tensor", expert_axis="expert")
+
+
+def dist_ctx(strategy: str, mesh=None):
+    from repro_torch.models import RunCtx
+    if mesh is None:
+        return RunCtx(moe_strategy="capacity")
+    return RunCtx(moe_strategy=strategy, mesh=mesh, ep_axis="expert", tp_axis="tensor")
+
+
+def whole_rings(dense, mesh):
+    """The dense cache's rings with every slot and row on this rank: its k
+    / v shards gathered over the axes its specs split the sequence and the
+    batch on (``dense`` itself without a mesh)."""
+    if mesh is None:
+        return dense
+    from repro_torch.distributed.collectives import all_gather
+
+    def gather(t, spec):
+        for dim in (2, 1):                       # (R, B, W, Hkv, hd): seq, then batch
+            if spec[dim] is not None:
+                t = all_gather(t, mesh, spec[dim], dim=dim)
+        return t
+    return {"groups": [[{"attn": {n: gather(c["attn"][n], s["attn"][n]) for n in ("k", "v")}}
+                        for c, s in zip(gc, gs)]
+                       for gc, gs in zip(dense["groups"], dense.specs["groups"])]}
+
+
+def dist_generate(dev, model, params, ctx, tokens, lens, steps: int, feed=None, timed=False):
+    """prefill of ``tokens`` (B, S) right-padded (``lens``) into a dense
+    ring, the rings copied into a paged pool of ceil((S + GEN_STEPS) / 16)
+    pages a row, then ``steps`` decode_steps over it, each feeding
+    ``feed[:, t]`` (teacher forcing) or the greedy token. Under a mesh
+    (inside ``use_sharding``) the caches are the rank's shards. Returns
+    (fed tokens (B, steps + 1), each call's logits, wall seconds of each
+    call when ``timed``)."""
+    ps = 16
+    B, S = tokens.shape
+    maxp = -(-(S + GEN_STEPS) // ps)
+    pt = torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp) + 1
+    last = torch.tensor(lens, dtype=torch.int64, device=dev) - 1
+    dtype = params["final_norm"]["w"].dtype
+    times, logits = [], []
+
+    def tick():
+        if timed:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+    t0 = tick()
+    dense = model.init_cache(B, maxp * ps, dtype, device=dev)
+    lg, dense = model.prefill(params, {"tokens": tokens}, dense, ctx, last_pos=last)
+    paged = model.init_cache(B, maxp * ps, dtype, kind="paged", page_size=ps,
+                             num_pages=B * maxp + 1, device=dev)
+    fill_pool_from_ring(paged, whole_rings(dense, ctx.mesh), pt, ps)
+    del dense
+    logits.append(lg)
+    times.append(tick() - t0)
+    nxt = lg.argmax(-1) if feed is None else feed[:, 0].to(dev)
+    fed = [nxt]
+    pos = last.to(torch.int32) + 1
+    for t in range(steps):
+        t0 = tick()
+        lg, paged = model.decode_step(params, nxt[:, None].to(torch.int32), paged, pos, ctx,
+                                      page_table=pt, lengths=pos + 1)
+        logits.append(lg)
+        times.append(tick() - t0)
+        nxt = lg.argmax(-1) if feed is None else feed[:, t + 1].to(dev)
+        fed.append(nxt)
+        pos = pos + 1
+    return torch.stack(fed, 1).cpu(), logits, times
+
+
+def dist_pack(dev, model, params, ctx, tokens, lens):
+    """One ``decode_chunk`` pack of the prompts (every row a first chunk)
+    into a fresh pool: the logits at each row's last prompt token."""
+    ps = 16
+    B, S = tokens.shape
+    maxp = -(-(S + GEN_STEPS) // ps)
+    pt = torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp) + 1
+    dtype = params["final_norm"]["w"].dtype
+    pool = model.init_cache(B, maxp * ps, dtype, kind="paged", page_size=ps,
+                            num_pages=B * maxp + 1, device=dev)
+    lg, _ = model.decode_chunk(params, tokens, pool, torch.zeros(B, dtype=torch.int32, device=dev),
+                               torch.tensor(lens, dtype=torch.int32, device=dev),
+                               torch.arange(B, dtype=torch.int32, device=dev),
+                               torch.ones(B, dtype=torch.bool, device=dev), ctx, pt)
+    return lg
+
+
+def padded_prompts(dev, streams):
+    lens = [len(p) for p, _ in streams]
+    toks = np.zeros((len(lens), max(lens)), np.int32)
+    for b, (p, _) in enumerate(streams):
+        toks[b, :len(p)] = p
+    return torch.from_numpy(toks).to(dev), lens
+
+
+def spec_bytes(model, mesh, rules, nbytes: int) -> int:
+    """What the rank's shards of the parameters weigh by their specs."""
+    from repro_torch.distributed.sharding import local_shape, partition_spec
+    from repro_torch.models.params import map_tree
+    sizes = []
+    map_tree(lambda s: sizes.append(int(np.prod(local_shape(
+        s.shape, partition_spec(s.shape, s.logical, mesh, rules), mesh)))), model.param_specs())
+    return sum(sizes) * nbytes
+
+
+def tensor_bytes(tree) -> int:
+    from repro_torch.models.params import map_tree
+    sizes = []
+    map_tree(lambda t: sizes.append(t.numel() * t.element_size()), tree)
+    return sum(sizes)
+
+
+def dist_rank(rank: int, world: int, job: dict):
+    """One spawned rank of phase 13 (b) and (c), on cuda:0 with gloo. Both
+    meshes of (b) are bound at once (two sets of subgroups). Rank 0 zeroes
+    the kernels' counters before each path and reads them after, and
+    records the path's call shapes. Returns what the parent checks."""
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import count_drops
+    if job.get("hook"):
+        job["hook"]()                              # the CPU rehearsal's stubs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job["device"])
+    torch.cuda.set_device(dev)
+    for name in ("flash_attention", "chunked_prefill"):
+        kbuild.load_library(name)                  # built by phase 1; the build lock guards it
+    meshes = {name: Mesh(shape, DIST_AXES).bind() for name, shape, _ in DIST_MESHES}
+    tokens, lens = job["tokens"].to(dev), job["lens"]
+    out = {"rank": rank, "b": {}}
+    recording = served_shapes if rank == 0 else contextlib.nullcontext
+    with torch.inference_mode():
+        # (b) fp32 depth 2 on both meshes, teacher-forced with the card's
+        # unsharded greedy tokens
+        model = build_model(dist_config(DIST_DEPTH))
+        for name, _, strategy in DIST_MESHES:
+            mesh, rules = meshes[name], dist_rules(strategy)
+            ctx = dist_ctx(strategy, mesh)
+            with use_sharding(mesh, rules):
+                params = model.init_params(0, device=dev, dtype=torch.float32, mesh=mesh,
+                                           rules=rules)
+                zero_launches()
+                with recording(), count_drops() as drops:
+                    _, logits, _ = dist_generate(dev, model, params, ctx, tokens, lens,
+                                                 DIST_STEPS, feed=job["b_fed"])
+                    pack = dist_pack(dev, model, params, ctx, tokens, lens)
+                torch.cuda.synchronize()
+                out["b"][name] = dict(logits=[lg.cpu() for lg in logits], pack=pack.cpu(),
+                                      drops=drops.total(), launches=read_launches()[0],
+                                      param_bytes=tensor_bytes(params),
+                                      spec_bytes=spec_bytes(model, mesh, rules, 4))
+            del params
+            torch.cuda.empty_cache()
+        # (c) bf16 at SERVE_LAYERS on the ep mesh, phase 4's seed, teacher-
+        # forced with phase 5's greedy tokens
+        model = build_model(dist_config(SERVE_LAYERS))
+        name, _, strategy = DIST_MESHES[0]
+        mesh, rules = meshes[name], dist_rules(strategy)
+        ctx = dist_ctx(strategy, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        with use_sharding(mesh, rules):
+            t0 = time.perf_counter()
+            params = model.init_params(0, device=dev, dtype=torch.bfloat16, mesh=mesh,
+                                       rules=rules)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            # warm-up (allocator, the groups' first collectives) on the
+            # prompts' first 16 tokens: the whole prefill takes ~10 s here
+            dist_generate(dev, model, params, ctx, tokens[:, :16], [16] * len(lens), 2,
+                          feed=job["c_fed"])
+            torch.cuda.synchronize()
+            zero_launches()
+            with recording(), count_drops() as drops:
+                _, logits, times = dist_generate(dev, model, params, ctx, tokens, lens,
+                                                 GEN_STEPS, feed=job["c_fed"], timed=True)
+            torch.cuda.synchronize()
+            out["c"] = dict(logits=[lg.cpu() for lg in logits], times=times,
+                            drops=drops.total(), launches=read_launches()[0],
+                            paths=read_launches()[1], init_s=init_s,
+                            param_bytes=tensor_bytes(params),
+                            spec_bytes=spec_bytes(model, mesh, rules, 2),
+                            peak_bytes=torch.cuda.max_memory_allocated())
+        del params
+    if rank == 0:
+        out["served"] = {k: sorted(v) for k, v in SERVED.items()}
+    return out
+
+
+def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
+    """Phase 13. (a) NCCL, world 1, in this process: mixtral at depth 2,
+    fp32, ep_shardmap on the (1, 1, 1) mesh, prefill + DIST_STEPS
+    decode_steps over the paged pool against the unsharded capacity run on
+    the card within LOGIT_ATOL, argmax equal. (b) four gloo ranks, the same
+    model on (1, 2, 2) ep_shardmap and (1, 1, 4) tp_shardmap: the same
+    paths and a decode_chunk pack, rank 0's gathered logits against the
+    unsharded run within LOGIT_ATOL, argmax equal, no token dropped. (c)
+    the same ranks, the SERVE_LAYERS mixtral in bf16 (phase 4's seed, each
+    rank drawing its own shards) on (1, 2, 2) ep_shardmap, teacher-forced
+    with phase 5's greedy tokens: every logit row within DIST_BF16_RTOL of
+    the row's max |logit| of phase 5's, each argmax flip a tie (each
+    path's top-2 margin within the rows' largest gap, as
+    ``divergence_report`` reads it). ``hook`` (a module-level callable)
+    runs first in each rank: the CPU rehearsal's stubs."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import count_drops
+    res = {}
+    tokens, lens = padded_prompts(dev, streams)
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    # the unsharded card run, which (a) and (b) are held against
+    model = build_model(dist_config(DIST_DEPTH))
+    params = model.init_params(0, device=dev, dtype=torch.float32)
+    with torch.inference_mode():
+        b_fed, ref_logits, _ = dist_generate(dev, model, params, dist_ctx("capacity"), tokens,
+                                             lens, DIST_STEPS)
+        ref_pack = dist_pack(dev, model, params, dist_ctx("capacity"), tokens, lens).cpu()
+    ref_logits = [lg.cpu() for lg in ref_logits]
+
+    def held(logits, name):
+        errs = [max_err(a, b) for a, b in zip(logits, ref_logits)]
+        assert len(errs) == DIST_STEPS + 1 and max(errs) < LOGIT_ATOL, \
+            f"{name}: logits differ from the unsharded run by {errs}"
+        flips = [i for i, (a, b) in enumerate(zip(logits, ref_logits))
+                 if not torch.equal(a.argmax(-1), b.argmax(-1))]
+        assert not flips, f"{name}: greedy tokens differ from the unsharded run at calls {flips}"
+        return max(errs)
+
+    # (a) NCCL at world 1: every shard is the whole tree, the same tensors
+    t0 = time.perf_counter()
+    dist.init_process_group(DIST_A_BACKEND, store=dist.FileStore(str(store / "nccl"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = Mesh((1, 1, 1), DIST_AXES).bind()
+        zero_launches()
+        with use_sharding(mesh, dist_rules("ep_shardmap")), torch.inference_mode(), \
+                count_drops() as drops:
+            _, logits, _ = dist_generate(dev, model, params, dist_ctx("ep_shardmap", mesh),
+                                         tokens, lens, DIST_STEPS, feed=b_fed)
+        torch.cuda.synchronize()
+        a_launches = read_launches()[0]
+    finally:
+        dist.destroy_process_group()
+    assert a_launches["flash_attention"] > 0 and a_launches["paged_attention"] > 0, a_launches
+    assert drops.total() == 0, f"(a) dropped {drops.total()} assignments"
+    res["a"] = dict(max_abs_logit=held([lg.cpu() for lg in logits], "(a) NCCL world 1"),
+                    launches=a_launches, seconds=time.perf_counter() - t0)
+    log(f"  (a) NCCL, world 1, mesh (1, 1, 1), ep_shardmap, {model.cfg.name} fp32: prefill + "
+        f"{DIST_STEPS} decode_steps within {res['a']['max_abs_logit']:.3g} of the unsharded "
+        f"capacity run (< {LOGIT_ATOL}), argmax equal; launches {a_launches}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) and (c): four gloo ranks
+    t0 = time.perf_counter()
+    job = dict(tokens=tokens.cpu(), lens=lens, b_fed=b_fed, c_fed=gen_tokens, device=str(dev),
+               hook=hook)
+    outs = spawn_ranks(dist_rank, 4, (job,), store_dir=store / "ranks", backend="gloo",
+                       timeout_s=DIST_TIMEOUT_S)
+    res["ranks_s"] = time.perf_counter() - t0
+    r0 = outs[0]
+    for name, shape, strategy in DIST_MESHES:
+        b = r0["b"][name]
+        err = held(b["logits"], f"(b) {strategy} {shape}")
+        pack_err = max_err(b["pack"], ref_pack)
+        assert pack_err < LOGIT_ATOL and torch.equal(b["pack"].argmax(-1), ref_pack.argmax(-1)), \
+            f"(b) {strategy} {shape}: the decode_chunk pack differs by {pack_err}"
+        for o in outs:
+            ob = o["b"][name]
+            assert ob["drops"] == 0, f"(b) rank {o['rank']} dropped {ob['drops']} assignments"
+            assert ob["param_bytes"] == ob["spec_bytes"], (o["rank"], name, ob)
+        for k in ("flash_attention", "paged_attention", "chunked_prefill_attention"):
+            assert b["launches"][k] > 0, f"(b) {name}: {k} never launched: {b['launches']}"
+        assert b["launches"]["moe_gmm"] == 0, b["launches"]
+        res[f"b_{name}"] = dict(max_abs_logit=err, pack_max_abs_logit=pack_err,
+                                launches=b["launches"],
+                                param_bytes=[o["b"][name]["param_bytes"] for o in outs])
+        log(f"  (b) gloo, 4 ranks, mesh {shape}, {strategy}, {dist_config(DIST_DEPTH).name} "
+            f"fp32: prefill + {DIST_STEPS} decode_steps within {err:.3g} and the decode_chunk "
+            f"pack within {pack_err:.3g} of the unsharded run (< {LOGIT_ATOL}), argmax equal, "
+            f"no token dropped; rank 0 launches {b['launches']}; parameter bytes per rank "
+            f"{res[f'b_{name}']['param_bytes']} (each its specs' shard sum)")
+    c = r0["c"]
+    worst, flips = 0.0, []
+    for t, (a, b) in enumerate(zip(c["logits"], gen_logits)):
+        a, b = a.float(), b.float()
+        worst = max(worst, float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max()))
+        for row in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten().tolist():
+            # teacher forcing: both rows saw the same context. A flip is a
+            # tie when each path's top-2 margin is within the rows' largest gap
+            gap = float((a[row] - b[row]).abs().max())
+            margins = [float(v[0] - v[1]) for v in (torch.topk(a[row], 2)[0],
+                                                    torch.topk(b[row], 2)[0])]
+            flips.append(dict(request=row, token=t, gap=gap, margins=margins,
+                              tie=max(margins) <= gap))
+    assert worst < DIST_BF16_RTOL, f"(c) logits differ from phase 5's by {worst:.3g} of max"
+    assert all(f["tie"] for f in flips), f"(c) an argmax flip is no tie: {flips}"
+    for o in outs:
+        assert o["c"]["drops"] == 0 and o["c"]["param_bytes"] == o["c"]["spec_bytes"], \
+            (o["rank"], o["c"]["drops"], o["c"]["param_bytes"], o["c"]["spec_bytes"])
+    for k in ("flash_attention", "paged_attention"):
+        assert c["launches"][k] > 0, f"(c): {k} never launched: {c['launches']}"
+    assert c["launches"]["moe_gmm"] == 0, c["launches"]
+    B = len(lens)
+    prefill_ms, step_ms = 1e3 * c["times"][0], 1e3 * float(np.mean(c["times"][1:]))
+    res["c"] = dict(layers=SERVE_LAYERS, mesh=list(DIST_MESHES[0][1]), strategy="ep_shardmap",
+                    max_rel_logit=worst, argmax_flips=flips,
+                    prefill_ms=prefill_ms, decode_step_ms_mean=step_ms,
+                    decode_tok_s=B / (step_ms / 1e3),
+                    tok_s=B * (GEN_STEPS + 1) / sum(c["times"]), init_s=c["init_s"],
+                    launches=c["launches"], launches_by_path=c["paths"],
+                    param_bytes=[o["c"]["param_bytes"] for o in outs],
+                    peak_bytes=[o["c"]["peak_bytes"] for o in outs])
+    log(f"  (c) gloo, 4 ranks, mesh (1, 2, 2), ep_shardmap, {dist_config(SERVE_LAYERS).name} "
+        f"bf16, teacher-forced with phase 5's tokens: every logit row within {worst:.3g} of "
+        f"its max |logit| of phase 5's (< {DIST_BF16_RTOL}), {len(flips)} argmax flips, each a "
+        f"rounding tie; no token dropped")
+    log(f"  (c) prefill of {B} prompts {lens}: {prefill_ms:.3f} ms; {GEN_STEPS} decode_steps: "
+        f"{step_ms:.3f} ms a step, {res['c']['decode_tok_s']:.2f} tok/s in decode, "
+        f"{res['c']['tok_s']:.2f} tok/s over the generation (4 ranks on one card, gloo through "
+        f"the host); each rank's init {c['init_s']:.1f} s (rank 0)")
+    log(f"  (c) parameter GB per rank {[round(x / 1e9, 3) for x in res['c']['param_bytes']]} "
+        f"(each its specs' shard sum), peak device GB per rank "
+        f"{[round(x / 1e9, 3) for x in res['c']['peak_bytes']]}; rank 0 launches "
+        f"{c['launches']}, by path {c['paths']}")
+    for k, v in r0["served"].items():
+        SERVED[k].update(tuple(x) for x in v)
+    res["launches"] = {k: res["a"]["launches"][k] + sum(res[f"b_{n}"]["launches"][k]
+                                                         for n, _, _ in DIST_MESHES)
+                       + c["launches"][k] for k in c["launches"]}
+    return res
 
 
 # ------------------------------------------------------------------ phase 9
@@ -2757,6 +3173,10 @@ def run_mm_card_vs_cpu(dev, name: str):
 
 # ------------------------------------------------------------------ phase 12
 TRAIN_ARCH = "qwen2.5-3b"          # the reference launcher's default arch
+# (a)'s depth: 36 -> 18 layers, so the crash run's checkpoint and the
+# resume's read of it (75 s of a 600 s run at 36 layers) make room for
+# phase 13
+TRAIN_LAYERS = 18
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 8, 4, 6
 # a full-width qwen2.5-3b checkpoint (bf16 parameters, fp32 moments) is 34.0
@@ -2861,9 +3281,10 @@ def run_training(dev, profile: bool = False):
     zero_launches()
     res = {}
 
-    # (a) qwen2.5-3b at full width and depth: an uninterrupted run, a run
-    # that checkpoints at step 4 and crashes at step 6, and a resume from it
-    cfg = get_config(TRAIN_ARCH)
+    # (a) qwen2.5-3b at full width, TRAIN_LAYERS deep: an uninterrupted
+    # run, a run that checkpoints at step 4 and crashes at step 6, and a
+    # resume from it
+    cfg = depth_cut(get_config(TRAIN_ARCH), TRAIN_LAYERS)
     model = build_model(cfg)
     n_params = count_params_analytic(cfg)
     dcfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
@@ -2948,7 +3369,8 @@ def run_training(dev, profile: bool = False):
                        wall_s=dict(uninterrupted=wall_a, crashed=wall_b, resumed=wall_c),
                        save_s=ckpt_s, restore_s=restore_s, metrics=full["metrics"],
                        profile=full.get("profile"))
-    log(f"  (a) {cfg.name} full width and depth ({cfg.n_layers} layers, {n_params / 1e9:.2f} B "
+    log(f"  (a) {cfg.name} full width, depth cut 36 -> {cfg.n_layers} layers "
+        f"({n_params / 1e9:.2f} B "
         f"params), random bf16 weights from seed 0, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
         f"remat, xent_chunk 128: losses {[round(x, 4) for x in losses]}; step "
         f"{1e3 * step_s:.1f} ms (median of steps 2-{TRAIN_STEPS}), {tokens / step_s:.0f} tok/s, "
@@ -3027,7 +3449,7 @@ def run_mamba_training(dev, profile: bool = False):
     """Phase 12 (d): mamba2-1.3b at full width and depth through
     ``training.trainer.train``, phase 12 (a)'s corpus, batch, remat and
     schedule, TRAIN_STEPS steps and no checkpoint (the card's machine ends
-    a call after 45 GiB of disk writes, and (a) writes 34 GB). Every loss
+    a call after 45 GiB of disk writes, and (a) writes one). Every loss
     finite and the mean of steps 6-8 below step 1's; the SSD forward
     and backward launched on their ``mma`` paths only, no
     other kernel of the port. With ``profile``, a torch.profiler window
@@ -3604,10 +4026,21 @@ def main() -> int:
     log("phase 5: generation path (prefill + decode_step) on phase 4's weights")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    generation, gen_launches = run_generation(dev, model, params, streams, args.profile)
+    generation, gen_launches, (gen_tokens, gen_logits) = run_generation(
+        dev, model, params, streams, args.profile, keep=True)
     launches.update(flash_attention=gen_launches["flash_attention"],
                     paged_attention=gen_launches["paged_attention"])
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 13: distributed serving: (a) NCCL at world 1, (b) four gloo ranks on mixtral "
+        f"depth {DIST_DEPTH} fp32 on meshes (1, 2, 2) ep_shardmap and (1, 1, 4) tp_shardmap, "
+        f"(c) the same ranks on phase 4's {SERVE_LAYERS}-layer bf16 mixtral, (1, 2, 2)")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    distributed = run_distributed(dev, streams, gen_tokens, gen_logits)
+    del gen_tokens, gen_logits
+    distributed["seconds"] = time.perf_counter() - t0
+    log(f"  phase 13 took {distributed['seconds']:.1f} s")
 
     log("phase 8: the serving stack (client -> gateway -> router -> replicas) on phase 4's "
         "weights, 64 concurrent requests")
@@ -3678,7 +4111,8 @@ def main() -> int:
     launches["w8a16_matmul"] = int8_launches["w8a16_matmul"]
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 12: training on the card: {TRAIN_ARCH} at full width and depth (checkpoints, "
+    log(f"phase 12: training on the card: {TRAIN_ARCH} at full width, {TRAIN_LAYERS} layers "
+        f"(checkpoints, "
         f"a crash, a resume), mixtral-8x7b at depth {MOE_TRAIN_LAYERS} with the capacity MoE, "
         f"{MAMBA_TRAIN_ARCH} at full width and depth, then card vs CPU in fp32")
     t0 = time.perf_counter()
@@ -3747,6 +4181,7 @@ def main() -> int:
                             encdec_launches=mm_launches[MM_SEAMLESS].get(name, 0),
                             vlm_launches=mm_launches[MM_VISION].get(name, 0),
                             train_launches=train_launches[name],
+                            dist_launches=distributed["launches"][name],
                             shape=f"{case} bf16: {row['shape']}"))
     if args.out:
         out = Path(args.out)
@@ -3763,7 +4198,7 @@ def main() -> int:
                                        int8_serve=int8_serve, int8_generation=int8_generation,
                                        stack=stack, spec=spec, int8_spec=int8_spec,
                                        encdec_vlm=mm, encdec_vlm_card_vs_cpu=mm_checks,
-                                       training=training,
+                                       training=training, distributed=distributed,
                                        served_shapes={k: sorted(v) for k, v in SERVED.items()},
                                        kernels=kernels),
                                   indent=1))

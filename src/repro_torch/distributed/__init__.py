@@ -1,3 +1,3 @@
-"""Distributed-optimization helpers (the int8 gradient compression the
-train step uses; the all-reduce and sharding rules come with the
-distribution slice)."""
+"""Distribution: the logical-axis sharding rules (``sharding``), the
+mesh collectives and the int8 gradient compression (``collectives``), and
+spawning ranks (``ranks``)."""

@@ -9,11 +9,16 @@ once. Nothing here runs at import time: the CPU tests import every module.
 
 Replica threads can reach a kernel for the first time together, so
 ``load_library`` builds and loads under one lock, and each build writes to a
-temporary file named for its process and thread.
+temporary file named for its process and thread. Several processes (the
+ranks of a mesh on one machine) can too, so ``build`` checks and compiles
+under a file lock next to the build directory (``build_lock``): the first
+builds, the others find its library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -21,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -47,11 +52,30 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: Optional[Path] = None):
+    """An exclusive lock across processes (``flock`` on ``<build_dir>.lock``,
+    ``BUILD_DIR``'s by default), held while the body runs."""
+    build_dir = BUILD_DIR if build_dir is None else Path(build_dir)
+    build_dir.parent.mkdir(parents=True, exist_ok=True)
+    with open(build_dir.with_name(build_dir.name + ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel whose library is missing, one ``nvcc``
-    process per source, all started together. Returns each built kernel's
-    compiler log (``-Xptxas=-v``: registers, shared memory, spills). Raises
-    if any compile fails."""
+    process per source, all started together, under ``build_lock``.
+    Returns each built kernel's compiler log (``-Xptxas=-v``: registers,
+    shared memory, spills). Raises if any compile fails."""
+    with build_lock():
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, str]:
     procs = {}
     for name in names:
         out = library_path(name)

@@ -33,6 +33,18 @@ attention over the whole frame sequence, not causal, in every mode.
 Every cache write is in place (``index_put_`` on the cache's tensors, which
 are views of the stacked per-group cache), where the JAX version returns a
 new cache: the caller owns the only reference to it.
+
+Under a mesh (``layout`` given) a rank projects its own query and kv heads
+(``heads`` / ``kv_heads`` on the tensor axis), runs the kernels on them,
+and ``wo`` is row-split with a psum over the axis. Its cache holds the
+shards ``cache_partition_specs`` gives: its kv heads of the pool; of the
+dense ring its rows, its kv heads and, where the rules split the ring's
+sequence (``kv_seq`` on the expert axis of the Exp4 mesh, ``slot_pos`` on
+the tensor axis), its slots: a decode step then combines the softmax over
+the slots' ranks (a max, then two sums). The pool is whole on every rank
+of a batch split, so each rank writes every row's keys there. Heads split
+while kv heads are not (qwen2.5's kv 2 at tensor 4: the reference's kv_seq
+fallback) raises (``LM._mesh_pspecs``).
 """
 from __future__ import annotations
 
@@ -43,7 +55,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import chunked_prefill_attention, paged_attention
-from repro_torch.models.common import RunCtx, dequant, linear, rope
+from repro_torch.distributed.collectives import all_gather, pmax, psum
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models.common import RunCtx, dequant, linear, rope, row_linear
 
 
 def _project_qkv(p, h, cfg: ModelConfig):
@@ -57,14 +71,40 @@ def _project_qkv(p, h, cfg: ModelConfig):
     return q, k, v
 
 
-def _out_proj(p, o):
-    return linear(o, p["wo"], n_in=2)
+def _out_proj(p, o, mesh=None, heads_ax=None):
+    return row_linear(o, p["wo"], mesh, heads_ax, n_in=2)
 
 
-def _decode_dense_attn(q, cache, positions, *, window: int, softcap: float, scale: float):
+class _RingShard:
+    """Where this rank's shard of a dense ring sits: the first slot of its
+    k / v (``k0``, split on ``k_axes``) and of its slot_pos (``s0``, split on
+    ``s_axes``) in the ring of ``W`` slots."""
+
+    def __init__(self, cache, cspec, mesh):
+        self.mesh = mesh
+        self.k_axes, self.s_axes = cspec["k"][2], cspec["slot_pos"][2]
+        Wk, Ws = cache["k"].shape[1], cache["slot_pos"].shape[1]
+        self.Wk, self.Ws = Wk, Ws
+        self.k0 = mesh.index(self.k_axes) * Wk if self.k_axes else 0
+        self.s0 = mesh.index(self.s_axes) * Ws if self.s_axes else 0
+        self.W = Wk * mesh.count(self.k_axes)
+
+    def slot_pos(self, cache):
+        """slot_pos of this rank's k / v slots (B, Wk)."""
+        sp = cache["slot_pos"]
+        if self.s_axes:
+            sp = all_gather(sp, self.mesh, self.s_axes, dim=1)
+        return sp[:, self.k0:self.k0 + self.Wk]
+
+
+def _decode_dense_attn(q, cache, positions, *, window: int, softcap: float, scale: float,
+                       ring: Optional[_RingShard] = None):
     """q: (B,1,H,hd); ring-buffer cache. Plain einsum in fp32 (one query
-    token needs no tiling), as the reference computes it."""
-    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    token needs no tiling), as the reference computes it. With the ring's
+    slots split over ranks (``ring.k_axes``), each rank's softmax partials
+    are combined over them."""
+    k, v = cache["k"], cache["v"]
+    slot_pos = cache["slot_pos"] if ring is None else ring.slot_pos(cache)
     B, W, Hkv, hd = k.shape
     H = q.shape[2]
     q5 = q.reshape(B, 1, Hkv, H // Hkv, hd)
@@ -76,15 +116,58 @@ def _decode_dense_attn(q, cache, positions, *, window: int, softcap: float, scal
     if window > 0:
         ok &= slot_pos > pos - window
     s = torch.where(ok[:, None, None, None, :], s, torch.full_like(s, -1e30))
-    p_attn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bnqgs,bsnd->bqngd", p_attn, v.float())
+    if ring is None or not ring.k_axes:
+        p_attn = torch.softmax(s, dim=-1)
+        o = torch.einsum("bnqgs,bsnd->bqngd", p_attn, v.float())
+    else:
+        mesh, axes = ring.mesh, ring.k_axes
+        m = pmax(torch.amax(s, dim=-1, keepdim=True), mesh, axes)
+        p_attn = torch.exp(s - m)
+        den = psum(p_attn.sum(dim=-1), mesh, axes)                  # (B, Hkv, 1, G)
+        o = psum(torch.einsum("bnqgs,bsnd->bqngd", p_attn, v.float()), mesh, axes)
+        o = o / den.permute(0, 2, 1, 3)[..., None]
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def _write_ring(cache, k, v, positions):
+def _write_ring_shard(cache, k, v, positions, ring: _RingShard):
+    """``_write_ring`` into this rank's slots of a ring split over ranks:
+    each of k / v and slot_pos takes the writes that land in its slots."""
+    W, dt = ring.W, cache["k"].dtype
+    if k.shape[1] == 1 and positions.dim() == 1 and positions.shape[0] == k.shape[0]:
+        # decode: rows whose slot is elsewhere write their own old values back
+        b_idx = torch.arange(k.shape[0], device=k.device)
+        slots = positions.long() % W
+        for names, first, width, new in ((("k", "v"), ring.k0, ring.Wk, (k[:, 0], v[:, 0])),
+                                         (("slot_pos",), ring.s0, ring.Ws,
+                                          (positions.to(torch.int32),))):
+            loc = slots - first
+            mine = (loc >= 0) & (loc < width)
+            loc = loc.clamp(0, width - 1)
+            for name, val in zip(names, new):
+                old = cache[name][b_idx, loc]
+                m = mine.reshape(-1, *([1] * (old.dim() - 1)))
+                cache[name][b_idx, loc] = torch.where(m, val.to(old.dtype), old)
+        return
+    if k.shape[1] > W:                             # prefill: keep the last W tokens
+        k, v, positions = k[:, -W:], v[:, -W:], positions[-W:]
+    slots = positions.long() % W
+    for names, first, width in ((("k", "v"), ring.k0, ring.Wk), (("slot_pos",), ring.s0,
+                                                                  ring.Ws)):
+        loc = slots - first
+        mine = (loc >= 0) & (loc < width)
+        for name in names:
+            if name == "slot_pos":
+                cache[name][:, loc[mine]] = positions[mine].to(torch.int32)[None, :]
+            else:
+                cache[name][:, loc[mine]] = (k if name == "k" else v)[:, mine].to(dt)
+
+
+def _write_ring(cache, k, v, positions, ring: Optional[_RingShard] = None):
     """Write new kv at positions into the ring buffer, in place. decode: k
     (B,1,Hkv,hd), positions (B,). prefill: k (B,S,...), positions (S,)
     shared across the batch; with S > W the last W tokens are kept."""
+    if ring is not None:
+        return _write_ring_shard(cache, k, v, positions, ring)
     W = cache["k"].shape[1]
     dt = cache["k"].dtype
     if k.shape[1] == 1 and positions.dim() == 1 and positions.shape[0] == k.shape[0]:
@@ -168,19 +251,43 @@ def attention_sublayer(
     valid=None,              # chunk: (B, S) live positions of each row's chunk
     memory=None,             # cross: encoder output (B, M, d)
     chunk=None,              # chunk mode: {"slots", "nvalid", ...} of the pack
+    layout=None,             # under a mesh: the call's Layout at this layer
 ):
-    """Returns attn_out (B,S,d); the cache, if any, is updated in place."""
+    """Returns attn_out (B,S,d); the cache, if any, is updated in place.
+    Under a mesh h holds this rank's rows, and so do positions /
+    page_table / lengths / valid (``layout.glob`` holds every row's)."""
     if kind == "X":
         return _cross_attention(p, h, ctx, cfg, cache, memory, chunk)
     window = cfg.sliding_window if kind == "L" else 0
     softcap = cfg.attn_softcap
     scale = cfg.head_dim ** -0.5
+    mesh = heads_ax = ring = None
+    if layout is not None:
+        mesh = layout.mesh
+        heads_ax = layout.p["attn"]["wq"][2]      # kv heads split alike (LM._mesh_pspecs)
+        if cache is not None and "k" in cache:
+            ring = _RingShard(cache, layout.c["attn"], mesh)
+            ring = ring if ring.k_axes or ring.s_axes else None   # slots whole: the plain ring
     q, k, v = _project_qkv(p, h, cfg)
+    if layout is not None:                        # the reference's shard_act on q and k
+        constrain(q, ("batch", None, "heads", None), (layout.B, q.shape[1], cfg.n_heads,
+                                                      cfg.head_dim))
+        constrain(k, ("batch", None, "kv_heads", None), (layout.B, k.shape[1], cfg.n_kv_heads,
+                                                         cfg.head_dim))
+
+    def pool_rows(k, v, positions, page_table, valid):
+        """Every row's keys for a pool write: the pool is whole on each
+        rank of a batch split."""
+        if layout is None or layout.batch is None:
+            return k, v, positions, page_table, valid
+        g = layout.glob
+        return (layout.gather_rows(k), layout.gather_rows(v), g["positions"], g["page_table"],
+                g.get("valid"))
 
     if ctx.mode == "chunk" and kind != "E":       # the encoder runs full-sequence below
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        _write_paged_chunk(cache, k, v, positions, page_table, valid)
+        _write_paged_chunk(cache, *pool_rows(k, v, positions, page_table, valid))
         # a vision patch prefix makes a row's positions non-affine; the
         # pack then names each row's query positions as the kernel reads
         # them, affine from the row's first position (chunk["q_positions"])
@@ -189,24 +296,24 @@ def attention_sublayer(
             q, cache["kp"], cache["vp"], page_table, lengths, q_positions,
             scale=scale, softcap=softcap, window=window,
         )
-        return _out_proj(p, o)
+        return _out_proj(p, o, mesh, heads_ax)
 
     if ctx.mode == "decode":
         q = rope(q, positions[:, None], cfg.rope_theta)   # (B,1,...)
         k = rope(k, positions[:, None], cfg.rope_theta)
         if "kp" in cache:                                 # paged: a chunk of one
-            pos = positions[:, None]
-            _write_paged_chunk(cache, k, v, pos, page_table,
-                               torch.ones_like(pos, dtype=torch.bool))
+            kw, vw, pos, pt, _ = pool_rows(k, v, positions, page_table, None)
+            pos = pos[:, None]
+            _write_paged_chunk(cache, kw, vw, pos, pt, torch.ones_like(pos, dtype=torch.bool))
             o = paged_attention(
                 q[:, 0], cache["kp"], cache["vp"], page_table, lengths,
                 scale=scale, softcap=softcap, window=window,
             )[:, None]                                    # (B,1,H,hd)
         else:                                             # dense ring cache
-            _write_ring(cache, k, v, positions)
+            _write_ring(cache, k, v, positions, ring)
             o = _decode_dense_attn(q, cache, positions, window=window,
-                                   softcap=softcap, scale=scale)
-        return _out_proj(p, o)
+                                   softcap=softcap, scale=scale, ring=ring)
+        return _out_proj(p, o, mesh, heads_ax)
 
     # ---------------- train / prefill / encoder ----------------
     if positions is None:
@@ -216,5 +323,5 @@ def attention_sublayer(
     o = flash_attention(q, k, v, causal=kind != "E", window=window, softcap=softcap,
                         scale=scale)
     if cache is not None and "k" in cache:                # prefill: persist kv
-        _write_ring(cache, k, v, positions)
-    return _out_proj(p, o)
+        _write_ring(cache, k, v, positions, ring)
+    return _out_proj(p, o, mesh, heads_ax)

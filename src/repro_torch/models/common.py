@@ -2,11 +2,15 @@
 resolution and small layer primitives, among them the two helpers through
 which every layer reads its weights, plain or int8 (``QuantizedLinear``
 leaves of ``quant.quantize_params_int8``): ``linear`` for a projection and
-``dequant`` for a leaf read outside a matmul."""
+``dequant`` for a leaf read outside a matmul. Under a mesh (``RunCtx.mesh``)
+a layer holds the shards ``distributed.sharding`` gives it: ``row_linear``
+runs a projection whose input dims are split (the local partial product,
+then a psum), a column-split projection is ``linear`` on the local columns,
+and ``Layout`` carries one entry point call's specs down to the layers."""
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
-from typing import Optional, Union
+from dataclasses import dataclass, field, replace
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,10 +36,24 @@ class RunCtx:
         per-expert batched products: the training path). The reference's
         default is "capacity" (``repro/models/common.py:24``); its engine
         and trainer pass their strategy explicitly, and so do the port's.
-        The shard_map strategies come with the distribution slice.
+        | "tp_shardmap" (the paper's baseline TP: experts replicated, the
+        expert FFN split on ``tp_axis``, down-projection partials psum'd)
+        | "ep_shardmap" (the paper's hybrid TP x EP: experts split on
+        ``ep_axis``, all-to-all dispatch and return). Without a mesh these
+        two run "capacity", as in the reference; under a mesh only they
+        run (``models.moe``).
     remat: recompute each layer in the backward instead of keeping its
         activations (``torch.utils.checkpoint``, as ``jax.checkpoint`` in
         the reference).
+    mesh: a bound ``launch.mesh.Mesh`` (None: one process holds every
+        weight). Under a mesh every entry point runs inside
+        ``distributed.sharding.use_sharding(mesh, rules)`` on the rank's
+        shards of the parameters and of a cache from ``init_cache``.
+    ep_axis / tp_axis: the mesh axes of the MoE's experts and of its
+        expert FFN (the reference's defaults; the Exp4 mesh's are "expert"
+        and "tensor").
+    quant: "none" | "a2a_int8" (``ep_shardmap``'s all-to-alls carry int8
+        rows with a per-row scale).
 
     There is no backend knob: the kernels' ``ops`` modules dispatch on the
     tensors' device (hand-written CUDA kernel on the card, plain PyTorch on
@@ -44,6 +62,10 @@ class RunCtx:
     mode: str = "train"
     moe_strategy: str = "dropless"
     remat: bool = False
+    mesh: Any = None
+    ep_axis: str = "data"
+    tp_axis: str = "model"
+    quant: str = "none"
 
     def with_mode(self, mode: str) -> "RunCtx":
         return replace(self, mode=mode)
@@ -104,8 +126,52 @@ def act_fn(name: str):
     return F.silu
 
 
-def dense_mlp(p, x, act_name: str):
+def row_linear(x, w, mesh=None, axis=None, n_in: int = 1):
+    """``linear`` of a projection whose input dims are split on the mesh
+    axis ``axis`` (x and w's rows both local): the local partial product,
+    summed over the axis's ranks in its own dtype. ``axis`` None: whole."""
+    y = linear(x, w, n_in)
+    if axis is None:
+        return y
+    from repro_torch.distributed.collectives import psum
+    return psum(y, mesh, axis)
+
+
+def dense_mlp(p, x, act_name: str, mesh=None, axis=None):
+    """The gated MLP; under a mesh ``wi`` / ``wg`` split by columns and
+    ``wo`` by rows on ``axis`` (the spec's "mlp" entry), one psum."""
     act = act_fn(act_name)
     h = linear(x, p["wi"])
     g = linear(x, p["wg"])
-    return linear(act(g) * h, p["wo"])
+    return row_linear(act(g) * h, p["wo"], mesh, axis)
+
+
+@dataclass
+class Layout:
+    """One entry point call's layout on this rank of a mesh: the global
+    parameter specs (``param_partition_specs``), the cache's specs
+    (``cache_partition_specs`` of its global shapes), the mesh axes the
+    batch is split on (None: every rank holds every row) and this rank's
+    rows, the global per-row inputs a replicated pool write needs, and,
+    inside a layer, that layer's parameter and cache specs (``p``, ``c``:
+    leading repeat dim included)."""
+    mesh: Any
+    params: Any
+    cache: Any = None
+    batch: Any = None
+    B: int = 0
+    rows: slice = slice(None)
+    glob: Dict[str, Any] = field(default_factory=dict)
+    p: Any = None
+    c: Any = None
+
+    def local_rows(self, t):
+        """This rank's rows (dim 0) of a global per-row tensor."""
+        return t if t is None or self.batch is None else t[self.rows]
+
+    def gather_rows(self, t):
+        """Every rank's rows of a per-row tensor, in batch order."""
+        if self.batch is None:
+            return t
+        from repro_torch.distributed.collectives import all_gather
+        return all_gather(t, self.mesh, self.batch, dim=0)

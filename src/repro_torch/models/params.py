@@ -219,14 +219,19 @@ def _init_slices(spec: ParamSpec, gen: torch.Generator, device: torch.device,
 
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device,
-               dtype: torch.dtype) -> torch.Tensor:
+               dtype: torch.dtype, where: Optional[Tuple[slice, ...]] = None) -> torch.Tensor:
+    """The leaf's values; with ``where`` (the rank's slice of each dim, the
+    repeat dim whole) only that shard, taken from each repeat as it is
+    drawn, so the stream of numbers is the whole init's."""
     out = None
     for r, part in _init_slices(spec, gen, device, dtype):
         if r is None:
-            return part
+            return part if where is None else part[where].clone()
         if out is None:
-            out = torch.empty(spec.shape, dtype=dtype, device=device)
-        out[r].copy_(part)
+            shape = spec.shape if where is None else (
+                spec.shape[0], *(s.stop - s.start for s in where[1:]))
+            out = torch.empty(shape, dtype=dtype, device=device)
+        out[r].copy_(part if where is None else part[where[1:]])
     return out
 
 
@@ -253,18 +258,32 @@ def _init_leaf_int8(spec: ParamSpec, gen: torch.Generator, device: torch.device,
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: Optional[Union[str, torch.device]] = None,
-                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                dtype: torch.dtype = torch.float32, mesh=None, rules=None) -> Dict[str, Any]:
     """Random parameters following the reference's distributions (normal
     0.02 for embeddings and router, LeCun normal for projections, ones for
     norms, zeros for biases; for SSM layers A_log = log U[1, 16] and dt_bias
     the inverse softplus of U[1e-3, 1e-1]), drawn from a seeded generator on
     ``device``.
     The numbers differ from the JAX init of the same seed; to hold the port
-    against the reference, bridge the JAX tree with ``params_from_numpy``."""
+    against the reference, bridge the JAX tree with ``params_from_numpy``.
+    With a bound ``mesh`` and its ``rules``: this rank's shards by
+    ``param_partition_specs``, equal to the slices of the whole init on the
+    same device type, drawn one repeat at a time, so no rank ever holds a
+    whole stacked leaf."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return map_tree(lambda s: _init_leaf(s, gen, dev, dtype), param_specs(cfg))
+    if mesh is None:
+        return map_tree(lambda s: _init_leaf(s, gen, dev, dtype), param_specs(cfg))
+    from repro_torch.distributed.sharding import partition_spec, shard_slices
+
+    def leaf(s):
+        ps = partition_spec(s.shape, s.logical, mesh, rules)
+        where = shard_slices(s.shape, ps, mesh)
+        if len(s.shape) >= 3 and ps[0] is not None:
+            raise ValueError(f"the repeat dim of {s.shape} is split: {ps}")
+        return _init_leaf(s, gen, dev, dtype, where)
+    return map_tree(leaf, param_specs(cfg))
 
 
 def init_params_int8(cfg: ModelConfig, seed: int = 0, *,

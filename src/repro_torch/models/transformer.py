@@ -26,9 +26,21 @@ with the head and logsumexp run one sequence chunk at a time
 (``xent_chunk``), each chunk recomputed in the backward, so only one
 chunk's fp32 logits live at a time. With ``ctx.remat`` each layer runs
 under ``torch.utils.checkpoint`` and is recomputed in the backward.
+
+Under a mesh (``ctx.mesh``, inside ``use_sharding(mesh, rules)``) each rank
+holds the shards ``param_partition_specs`` gives it and a cache from
+``init_cache`` (its ``cache_partition_specs`` shards). ``prefill`` /
+``decode_step`` / ``decode_chunk`` / ``forward`` take the global batch,
+keep this rank's rows where the rules split the batch on data, and return
+the global logits: the embedding is a masked lookup of the rank's vocab
+rows plus a psum, the head gives the rank's vocab columns, all-gathered;
+attention and the MLP split on the tensor axis (one psum each), the MoE
+runs a shard_map strategy. The decoder-only attention configs run so;
+mamba layers, enc-dec, VLM and int8 trees raise.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -36,30 +48,108 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerGroup, ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.quant_matmul import w8a16_matmul
 from repro_torch.models import params as params_lib
 from repro_torch.models.attention import attention_sublayer
-from repro_torch.models.common import (QuantizedLinear, RunCtx, dense_mlp, dequant, linear,
-                                       resolve_device, rmsnorm)
+from repro_torch.models.common import (Layout, QuantizedLinear, RunCtx, dense_mlp, dequant,
+                                       linear, resolve_device, rmsnorm)
 from repro_torch.models.mamba import mamba_sublayer
 from repro_torch.models.moe import moe_sublayer
+
+
+class ShardedCache(dict):
+    """One rank's cache under a mesh (``LM.init_cache`` inside
+    ``use_sharding``): the tree of its local shards, and ``specs``, the
+    ``cache_partition_specs`` of the global cache they are shards of."""
+
+    def __init__(self, tree, specs):
+        super().__init__(tree)
+        self.specs = specs
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        self._pspecs = {}
+
+    # ------------------------------------------------------------------ mesh
+    def _check_mesh_support(self):
+        cfg = self.cfg
+        if any("M" in g.pattern for g in cfg.layer_groups):
+            raise NotImplementedError(f"{cfg.name} under a mesh: mamba layers (the ssm_* and "
+                                      f"conv_dim rules) are not in the port's sharded path yet")
+        if cfg.encoder is not None or cfg.vision is not None:
+            raise NotImplementedError(f"{cfg.name} under a mesh: the enc-dec and VLM extras "
+                                      f"are not in the port's sharded path yet")
+
+    def _mesh_pspecs(self, mesh, rules):
+        """The global parameter specs under (mesh, rules) and each leaf's
+        shard shape, after checking the slice runs there: query and kv
+        heads must split alike. Cached with the mesh and rules themselves,
+        so their ids stay theirs."""
+        from repro_torch.distributed import sharding
+        self._check_mesh_support()
+        key = (id(mesh), id(rules))
+        if key not in self._pspecs:
+            specs = self.param_specs()
+            pspecs = sharding.param_partition_specs(specs, mesh, rules)
+            for g in pspecs["groups"]:
+                for lay in g["layers"]:
+                    if "attn" in lay and lay["attn"]["wq"][2] != lay["attn"]["wk"][2]:
+                        raise NotImplementedError(
+                            f"{self.cfg.name}: query heads split on {lay['attn']['wq'][2]!r}, "
+                            f"its {self.cfg.n_kv_heads} kv heads on {lay['attn']['wk'][2]!r}: "
+                            f"the reference's kv_seq cache layout (a softmax combine across "
+                            f"the sequence's ranks) is not in the port yet")
+            shards = []
+            params_lib.map_tree(lambda s: shards.append((s, sharding.local_shape(
+                s.shape, sharding.partition_spec(s.shape, s.logical, mesh, rules), mesh))),
+                specs, is_leaf=lambda x: isinstance(x, params_lib.ParamSpec))
+            self._pspecs[key] = (mesh, rules, pspecs, shards)
+        return self._pspecs[key][2:]
+
+    def _layout(self, params, ctx: RunCtx, B: int, cache=None, **glob) -> Optional[Layout]:
+        """The call's Layout on this rank (None without a mesh), after
+        checking that the parameters and the cache are this rank's shards.
+        ``glob``: the call's global per-row inputs a pool write needs."""
+        if ctx.mesh is None:
+            return None
+        from repro_torch.distributed import sharding
+        mesh, rules = sharding.active()
+        if mesh is not ctx.mesh or rules is None:
+            raise ValueError("under a mesh, run inside use_sharding(ctx.mesh, rules)")
+        pspecs, shards = self._mesh_pspecs(mesh, rules)
+        local = []
+        params_lib.map_tree(local.append, params, is_leaf=lambda x: isinstance(x, QuantizedLinear))
+        for (s, want), t in zip(shards, local):
+            if isinstance(t, QuantizedLinear):
+                raise NotImplementedError("int8 weight trees under a mesh are not in the port "
+                                          "yet")
+            if tuple(t.shape) != want:
+                raise ValueError(f"a parameter of {s.shape} {s.logical} is held as "
+                                 f"{tuple(t.shape)}, not this rank's shard {want}")
+        if cache is not None and not isinstance(cache, ShardedCache):
+            raise ValueError("under a mesh the cache comes from init_cache inside use_sharding")
+        batch = sharding.partition_spec((B,), ("batch",), mesh, rules)[0]
+        n = B // mesh.count(batch)
+        k = mesh.index(batch) if batch else 0
+        return Layout(mesh=mesh, params=pspecs,
+                      cache=cache.specs if cache is not None else None, batch=batch, B=B,
+                      rows=slice(k * n, (k + 1) * n), glob=glob)
 
     # ------------------------------------------------------------------ params
     def param_specs(self):
         return params_lib.param_specs(self.cfg)
 
     def init_params(self, seed: int = 0, *, device: Optional[Union[str, torch.device]] = None,
-                    dtype: torch.dtype = torch.float32):
-        return params_lib.init_params(self.cfg, seed, device=device, dtype=dtype)
+                    dtype: torch.dtype = torch.float32, mesh=None, rules=None):
+        return params_lib.init_params(self.cfg, seed, device=device, dtype=dtype, mesh=mesh,
+                                      rules=rules)
 
     # ------------------------------------------------------------------ layers
     def _apply_layer(self, p, x, c, *, kind: str, ctx: RunCtx, positions, page_table=None,
-                     lengths=None, valid=None, chunk=None, memory=None):
+                     lengths=None, valid=None, chunk=None, memory=None, layout=None):
         """Returns (x, aux): aux is the MoE load-balance loss (0.0 without MoE)."""
         cfg = self.cfg
         aux = 0.0
@@ -68,21 +158,27 @@ class LM:
             x = x + mamba_sublayer(p["ssm"], h, cfg, ctx, c["ssm"] if c else None, chunk)
         else:
             x = x + attention_sublayer(p["attn"], h, ctx, cfg, kind, c["attn"] if c else None,
-                                       positions, page_table, lengths, valid, chunk=chunk)
+                                       positions, page_table, lengths, valid, chunk=chunk,
+                                       layout=layout)
         if "cross" in p:
             hx = rmsnorm(x, p["ln_x"], cfg.rms_eps)
             x = x + attention_sublayer(p["cross"], hx, ctx, cfg, "X", c["cross"] if c else None,
                                        memory=memory, chunk=chunk)
         if "moe" in p:
             h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
-            mo, aux = moe_sublayer(p["moe"], h2, cfg, ctx)
+            mo, aux = moe_sublayer(p["moe"], h2, cfg, ctx,
+                                   batch_axes=layout.batch if layout is not None else None)
             x = x + mo
         elif "mlp" in p:
             h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
-            x = x + dense_mlp(p["mlp"], h2, cfg.act)
+            if layout is None:
+                x = x + dense_mlp(p["mlp"], h2, cfg.act)
+            else:
+                x = x + dense_mlp(p["mlp"], h2, cfg.act, layout.mesh, layout.p["mlp"]["wo"][1])
         return x, aux
 
-    def _run_groups(self, groups_params, x, cache, *, ctx: RunCtx, layer_groups=None, **kw):
+    def _run_groups(self, groups_params, x, cache, *, ctx: RunCtx, layer_groups=None,
+                    layout=None, **kw):
         """Every layer in order: groups (the config's, unless
         ``layer_groups`` names others), then repeats, then pattern
         positions. The cache (None for ``forward``) is updated in place.
@@ -102,9 +198,14 @@ class LM:
                     # the r-th repeat of the stacked params / caches (views)
                     p_r = params_lib.tree_unflatten(gp[pos], [u[r] for u in reps[pos]])
                     c_r = params_lib.map_tree(lambda t: t[r], gc[pos]) if gc else None
+                    lay = None
+                    if layout is not None:     # this layer's specs (the repeat dim leads)
+                        lay = replace(layout, p=layout.params["groups"][gi]["layers"][pos],
+                                      c=layout.cache["groups"][gi][pos] if gc else None)
 
-                    def layer(x, p_r=p_r, c_r=c_r, kind=kind):
-                        return self._apply_layer(p_r, x, c_r, kind=kind, ctx=ctx, **kw)
+                    def layer(x, p_r=p_r, c_r=c_r, kind=kind, lay=lay):
+                        return self._apply_layer(p_r, x, c_r, kind=kind, ctx=ctx, layout=lay,
+                                                 **kw)
                     if remat:      # nothing random inside: no RNG state to keep
                         x, aux = checkpoint(layer, x, use_reentrant=False,
                                             preserve_rng_state=False)
@@ -114,18 +215,29 @@ class LM:
         return x, aux_total
 
     # ------------------------------------------------------------------ embed
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, layout=None):
         """Rows of the embedding table. An int8 table's rows are gathered,
         then dequantized to the model's dtype: that of the final norm, a 1-D
-        leaf that quantization never takes."""
+        leaf that quantization never takes. Under a mesh with the table's
+        vocab split, each rank looks up the tokens among its rows (zeros
+        elsewhere) and a psum gathers them."""
         cfg = self.cfg
         w, tok = params["embed"]["w"], tokens.long()
-        if isinstance(w, QuantizedLinear):
+        ax = layout.params["embed"]["w"][0] if layout is not None else None
+        if ax is not None:
+            from repro_torch.distributed.collectives import psum
+            V_l = w.shape[0]
+            loc = tok - layout.mesh.index(ax) * V_l
+            mine = (loc >= 0) & (loc < V_l)
+            x = psum(w[loc.clamp(0, V_l - 1)] * mine[..., None].to(w.dtype), layout.mesh, ax)
+        elif isinstance(w, QuantizedLinear):
             x = dequant(QuantizedLinear(w.q[tok], w.scale[tok]), params["final_norm"]["w"].dtype)
         else:
             x = w[tok]
         if cfg.scale_embedding:
             x = x * (cfg.d_model ** 0.5)
+        if layout is not None:                    # the reference's shard_act on the embedding
+            constrain(x, ("batch", "seq", None), (layout.B, *x.shape[1:]))
         return x
 
     def _patch_prefix(self, params, patches, dtype):
@@ -161,11 +273,24 @@ class LM:
             return None
         return self._encode(params, batch["frames"].to(dtype), ctx)
 
-    def _head(self, params, x):
+    def _head(self, params, x, layout=None):
         """Logits from an lm_head (K, V) or the tied embedding (V, K). On
         int8 leaves the w8a16 matmul computes them: with lm_head's scale
         per input row, or with the embedding's per-row scale as the scale
-        per output column of its transpose (read through its strides)."""
+        per output column of its transpose (read through its strides).
+        Under a mesh: the global logits, every rank's vocab columns and
+        rows all-gathered."""
+        logits = self._head_local(params, x)
+        if layout is None:
+            return logits
+        from repro_torch.distributed.collectives import all_gather
+        spec = (layout.params["embed"]["w"][0] if self.cfg.tie_embeddings
+                else layout.params["lm_head"]["w"][1])
+        if spec is not None:
+            logits = all_gather(logits, layout.mesh, spec, dim=-1)
+        return layout.gather_rows(logits)
+
+    def _head_local(self, params, x):
         cfg = self.cfg
         w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
         if not isinstance(w, QuantizedLinear):
@@ -180,14 +305,18 @@ class LM:
         return logits
 
     # ------------------------------------------------------------------ api
-    def _features(self, params, batch, ctx: RunCtx):
+    def _features(self, params, batch, ctx: RunCtx, layout=None):
         """The final-normed features (B, S', d) of a full-sequence pass and
         the summed MoE aux loss (0.0 without MoE)."""
-        x, _ = self._embed_batch(params, batch)
-        memory = self._memory(params, batch, x.dtype, ctx)
+        if layout is not None:
+            x = self._embed(params, layout.local_rows(batch["tokens"]), layout)
+            memory = None
+        else:
+            x, _ = self._embed_batch(params, batch)
+            memory = self._memory(params, batch, x.dtype, ctx)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions,
-                                  memory=memory)
+                                  memory=memory, layout=layout)
         return rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps), aux
 
     def forward(self, params, batch, ctx: RunCtx):
@@ -197,8 +326,9 @@ class LM:
         Returns (logits (B, S', vocab), aux): S' counts the patch prefix
         positions too; aux is the MoE load-balance loss summed over layers
         (0.0 without MoE)."""
-        x, aux = self._features(params, batch, ctx)
-        return self._head(params, x), aux
+        layout = self._layout(params, ctx, batch["tokens"].shape[0])
+        x, aux = self._features(params, batch, ctx, layout)
+        return self._head(params, x, layout), aux
 
     def loss(self, params, batch, ctx: RunCtx, aux_weight: float = 0.01, xent_chunk: int = 0):
         """The training loss of ``batch`` ({"tokens", "labels"} (B, S), with
@@ -208,6 +338,8 @@ class LM:
         ``xent_chunk`` positions at a time, each chunk under
         ``torch.utils.checkpoint``, so the (B, S, vocab) fp32 logits never
         exist at once. Returns (loss, {"xent", "aux"}), fp32 scalars."""
+        if ctx.mesh is not None:
+            raise NotImplementedError("training under a mesh is not in the port yet")
         labels = batch["labels"].long()
         mask = (labels >= 0).float()
         labels_safe = labels.clamp_min(0)
@@ -252,17 +384,22 @@ class LM:
         SSM layer the padding tokens advance the carried state. Returns
         (last_logits (B, vocab), cache), the cache written in place."""
         ctx = ctx.with_mode("prefill")
-        x, offset = self._embed_batch(params, batch)
-        memory = self._memory(params, batch, x.dtype, ctx)
+        layout = self._layout(params, ctx, batch["tokens"].shape[0], cache)
+        if layout is not None:
+            x, offset = self._embed(params, layout.local_rows(batch["tokens"]), layout), 0
+            memory, last_pos = None, layout.local_rows(last_pos)
+        else:
+            x, offset = self._embed_batch(params, batch)
+            memory = self._memory(params, batch, x.dtype, ctx)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
-                                memory=memory)
+                                memory=memory, layout=layout)
         x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
         if last_pos is None:
             last = x[:, -1:]
         else:
             last = x[torch.arange(x.shape[0], device=x.device), last_pos.long() + offset][:, None]
-        return self._head(params, last)[:, 0], cache
+        return self._head(params, last, layout)[:, 0], cache
 
     def decode_step(self, params, tokens, cache, positions, ctx: RunCtx,
                     page_table=None, lengths=None):
@@ -275,13 +412,18 @@ class LM:
         filled. Returns (logits (B, vocab), cache), the cache written in
         place."""
         ctx = ctx.with_mode("decode")
-        x = self._embed(params, tokens)
         if lengths is None:
             lengths = positions + 1
+        layout = self._layout(params, ctx, tokens.shape[0], cache, positions=positions,
+                              page_table=page_table)
+        if layout is not None:
+            tokens, positions, page_table, lengths = (
+                layout.local_rows(t) for t in (tokens, positions, page_table, lengths))
+        x = self._embed(params, tokens, layout)
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
-                                page_table=page_table, lengths=lengths)
+                                page_table=page_table, lengths=lengths, layout=layout)
         x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
-        return self._head(params, x)[:, 0], cache
+        return self._head(params, x, layout)[:, 0], cache
 
     def decode_chunk(self, params, tokens, cache, starts, nvalid, slots, first, ctx: RunCtx,
                      page_table, frames=None, patches=None, all_logits: bool = False):
@@ -316,12 +458,19 @@ class LM:
             raise NotImplementedError("chunk mode: a vision patch prefix with SSM layers")
         ctx = ctx.with_mode("chunk")
         B, C = tokens.shape
-        x = self._embed(params, tokens)
         offset = cfg.vision.n_patches if cfg.vision is not None else 0
         ar = torch.arange(C, device=tokens.device)
         starts = starts.long()
         positions = offset + starts[:, None] + ar[None, :]
         valid = ar[None, :] < nvalid[:, None]
+        layout = self._layout(params, ctx, B, cache, positions=positions, page_table=page_table,
+                              valid=valid)
+        if layout is not None:
+            tokens, starts, nvalid, slots, first, page_table, positions, valid = (
+                layout.local_rows(t) for t in (tokens, starts, nvalid, slots, first, page_table,
+                                                positions, valid))
+            B = tokens.shape[0]
+        x = self._embed(params, tokens, layout)
         pack = {"slots": slots, "nvalid": nvalid, "first": first}
         n_prefix = 0
         if cfg.vision is not None and patches is not None:
@@ -344,13 +493,13 @@ class LM:
             memory = self._encode(params, frames.to(x.dtype), ctx)
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
                                 page_table=page_table, lengths=lengths, valid=valid, chunk=pack,
-                                memory=memory)
+                                memory=memory, layout=layout)
         x = rmsnorm(x, params["final_norm"]["w"], cfg.rms_eps)
         if all_logits:
-            return self._head(params, x[:, n_prefix:]), cache
+            return self._head(params, x[:, n_prefix:], layout), cache
         last = n_prefix + torch.clamp(nvalid.long(), min=1) - 1
         x_last = x[torch.arange(B, device=x.device), last]
-        return self._head(params, x_last[:, None])[:, 0], cache
+        return self._head(params, x_last[:, None], layout)[:, 0], cache
 
     # ------------------------------------------------------------------ cache
     def init_cache(self, B: int, max_seq: int, dtype: torch.dtype = torch.float32, *,
@@ -372,9 +521,32 @@ class LM:
         conv_dim, d_conv - 1) in ``dtype``. An enc-dec config's layers also
         hold, under either kind, "cross": "ck" / "cv" (R, B, M, Hkv, hd), M =
         ``memory_len`` or the config's cross_attn_memory.
+
+        Inside ``use_sharding(mesh, rules)``: this rank's ``ShardedCache``,
+        each leaf its shard by ``cache_partition_specs`` of the global cache.
         """
         if kind not in ("dense", "paged"):
             raise ValueError(f"cache kind {kind!r}: 'dense' or 'paged'")
+        from repro_torch.distributed import sharding
+        mesh, rules = sharding.active()
+        if mesh is not None and rules is not None:
+            self._mesh_pspecs(mesh, rules)
+            with sharding.use_sharding(None, None):       # the global cache's shapes
+                whole = self.init_cache(B, max_seq, dtype, kind=kind, page_size=page_size,
+                                        num_pages=num_pages, memory_len=memory_len,
+                                        device="meta")
+            specs = sharding.cache_partition_specs(whole, mesh, rules)
+            dev = resolve_device(device)
+            leaves = []
+            params_lib.map_tree(leaves.append, specs,
+                                is_leaf=lambda x: isinstance(x, sharding.PartitionSpec))
+            it = iter(leaves)
+
+            def local(t):                                  # slot_pos (int32) starts at -1
+                shape = sharding.local_shape(tuple(t.shape), next(it), mesh)
+                return torch.full(shape, -1 if t.dtype == torch.int32 else 0, dtype=t.dtype,
+                                  device=dev)
+            return ShardedCache(params_lib.map_tree(local, whole), specs)
         dev = resolve_device(device)
         cfg = self.cfg
         Hkv, hd = cfg.n_kv_heads, cfg.head_dim

@@ -1,10 +1,14 @@
-"""The kernel build under threads: replica threads that reach a kernel at
-once must share one ``nvcc`` run and one loaded library, and concurrent
-builds must never write through one temporary file. ``nvcc`` and the loader
-are stubbed, so this runs without the CUDA toolkit."""
+"""The kernel build under threads and processes: replica threads that
+reach a kernel at once must share one ``nvcc`` run and one loaded library,
+concurrent builds must never write through one temporary file, and
+processes (a mesh's ranks) take the build lock one after the other.
+``nvcc`` and the loader are stubbed, so this runs without the CUDA
+toolkit."""
+import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import pytest
 
@@ -83,11 +87,34 @@ def test_load_library_from_eight_threads_builds_and_loads_once(stubbed):
 
 
 def test_concurrent_builds_write_distinct_temporary_files(stubbed):
-    """``build`` itself takes no lock: racing callers may each compile, but
-    each into its own temporary file, renamed atomically into place."""
+    """Racing callers of ``build`` queue on its file lock, and a compile
+    writes into its own temporary file, renamed atomically into place."""
     compiles, _ = stubbed
     _together(lambda: build.build(["quant_matmul"]))
     assert len(compiles) >= 1
     assert len(set(compiles)) == len(compiles)
     assert build.library_path("quant_matmul").read_bytes() == b"\x7fELF"
     assert not list(build.BUILD_DIR.glob("*.tmp"))
+
+
+_HOLD = """
+import sys, time
+from pathlib import Path
+from repro_torch.kernels.build import build_lock
+with build_lock(Path(sys.argv[1])):
+    t0 = time.monotonic()
+    time.sleep(0.5)
+    print(t0, time.monotonic())
+"""
+
+
+def test_build_lock_serializes_processes(tmp_path):
+    """Two processes that take the build lock at once hold it one after
+    the other: their guarded steps never overlap."""
+    root = Path(build.__file__).resolve().parents[2]
+    procs = [subprocess.Popen([sys.executable, "-c", _HOLD, str(tmp_path / "kernels")],
+                              stdout=subprocess.PIPE, text=True,
+                              env={"PYTHONPATH": str(root), "PATH": ""}) for _ in range(2)]
+    spans = sorted(tuple(map(float, p.communicate(timeout=60)[0].split())) for p in procs)
+    assert all(p.returncode == 0 for p in procs)
+    assert spans[0][1] <= spans[1][0], spans

@@ -244,10 +244,10 @@ def test_patch_prefix_rows_of_a_mixed_pack(monkeypatch):
     seen = {}
 
     def spy(p, h, ctx, cfg_, kind, cache=None, positions=None, page_table=None, lengths=None,
-            valid=None, memory=None, chunk=None):
+            valid=None, memory=None, chunk=None, layout=None):
         seen.setdefault("args", (positions.clone(), valid.clone(), chunk["q_positions"].clone()))
         return attention_sublayer(p, h, ctx, cfg_, kind, cache, positions, page_table, lengths,
-                                  valid, memory=memory, chunk=chunk)
+                                  valid, memory=memory, chunk=chunk, layout=layout)
 
     cache = model.init_cache(2, 64, kind="paged", page_size=4, num_pages=40, device="cpu")
     tok = torch.ones((2, 6), dtype=torch.int32)

@@ -137,13 +137,19 @@ def test_capacity_equals_dropless_when_nothing_drops(name):
 
 
 def test_strategy_knob():
-    """The port's default stays dropless (its engine's); an unknown strategy
-    and capacity on an int8 tree raise."""
+    """The port's default stays dropless (its engine's); a shard_map
+    strategy without a mesh runs capacity, as the reference's
+    (``repro/models/moe.py:241``); an unknown strategy and capacity on an
+    int8 tree raise."""
     assert RunCtx().moe_strategy == "dropless" and RunCtx().remat is False
     cfg, _, p, xf = _layer("mixtral-8x7b", T=8)
     h = torch.from_numpy(xf)[None]
+    yc, ac = moe.moe_sublayer(_torch(p), h, cfg, RunCtx(moe_strategy="capacity"))
+    for strategy in ("tp_shardmap", "ep_shardmap"):
+        y, a = moe.moe_sublayer(_torch(p), h, cfg, RunCtx(moe_strategy=strategy))
+        assert torch.equal(y, yc) and float(a) == float(ac)
     with pytest.raises(ValueError, match="moe_strategy"):
-        moe.moe_sublayer(_torch(p), h, cfg, RunCtx(moe_strategy="ep_shardmap"))
+        moe.moe_sublayer(_torch(p), h, cfg, RunCtx(moe_strategy="expert_choice"))
     q = dict(_torch(p), wg=quantize_leaf(torch.from_numpy(p["wg"])))
     with pytest.raises(NotImplementedError, match="int8"):
         moe.moe_sublayer(q, h, cfg, RunCtx(moe_strategy="capacity"))
