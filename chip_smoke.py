@@ -45,7 +45,10 @@ exits non-zero and no phase's failure is caught.
      (relative to the plain version's max |grad|: fp32 1e-4, bf16 5e-2 and
      1e-2 at the training shapes), zero dq on rows that see no key,
      twice for bit-equal results, on the CPU tests' edge cases and at
-     phase 12's shapes (qwen2.5-3b and mixtral at 4 x 512 tokens),
+     phase 12's shapes (qwen2.5-3b and mixtral at 4 x 512 tokens), phase
+     14 (c)'s ranks' (2 x 512 tokens, qwen2.5-3b's heads at tensor 2,
+     mixtral's; the forward's rows too), phase 14 (a) / (b)'s fp32 calls
+     (32 tokens a row, checked only),
      seamless-m4t's encoder and gemma2-27b's window and softcap, timed
      beside its bound, its plain version and SDPA's backward. The SSD
      backward (the training path's) in fp32 and bf16: the forward's tile
@@ -58,25 +61,27 @@ exits non-zero and no phase's failure is caught.
      512 tokens), timed beside its bound and its plain version. The grouped
      matmul also at deepseek-moe-16b's routed experts (64 of 2048 -> 1408,
      top-6).
-  3. full-width mixtral-8x7b at depth 2 in fp32, on the card and again on
-     the CPU (plain versions), on the same two sequences of 22 tokens: the
-     engine's ``decode_chunk`` (a pack of their first 16 / 11 tokens, a
-     decode sweep, then a speculative verify sweep with ``all_logits`` at C
-     = 5 over rows feeding 5 / 2 tokens, compared at every valid
-     position), ``forward`` at every position, ``prefill`` of the
-     first 16 then 4 ``decode_step``s over the dense ring, and the same 4
-     over the paged pool filled from the ring. Card vs CPU within
-     LOGIT_ATOL with the same argmax; on the card, every path's logits also
-     within LOGIT_ATOL of ``forward``'s at the same position. The same
-     again on ``quantize_params_int8`` of those weights (w8a16 and the int8
-     grouped matmul on the card). Then the same for mamba2 at depth 2, full
-     width: ``forward``, ``prefill`` + 4 ``decode_step``s, and a
-     ``decode_chunk`` pack whose ``first`` rows reset garbage states, then
-     a decode sweep. Then yi-6b, phi3-mini-3.8b, deepseek-moe-16b and
-     qwen2.5-3b at depth 2 and dbrx-132b at depth 1, full width, fp32:
-     ``decode_chunk`` (a pack, a decode sweep, a verify sweep with
-     ``all_logits``) card vs CPU within LOGIT_ATOL with the same argmax, the
-     MoE configs through the grouped matmul.
+  3. full-width mixtral-8x7b at depth 2 in fp32, on the card, on two
+     sequences of 22 tokens: the engine's ``decode_chunk`` (a pack of their
+     first 16 / 11 tokens, a decode sweep, then a speculative verify sweep
+     with ``all_logits`` at C = 5 over rows feeding 5 / 2 tokens, compared
+     at every valid position), ``forward`` at every position, ``prefill``
+     of the first 16 then 4 ``decode_step``s over the dense ring, and the
+     same 4 over the paged pool filled from the ring; each against
+     ``forward`` on the CPU (plain versions, the same weights) at the same
+     positions within LOGIT_ATOL with the same argmax, and against the
+     card's own ``forward`` within LOGIT_ATOL. The CPU runs ``forward``
+     alone: its other paths equal its forward by the CPU tests, and running
+     each of them took most of the phase. The same again on
+     ``quantize_params_int8`` of those weights (w8a16 and the int8 grouped
+     matmul on the card). Then the same for mamba2 at depth 2, full width:
+     ``forward``, ``prefill`` + 4 ``decode_step``s, and a ``decode_chunk``
+     pack whose ``first`` rows reset garbage states, then a decode sweep.
+     Then yi-6b, phi3-mini-3.8b, deepseek-moe-16b and qwen2.5-3b at depth 2
+     and dbrx-132b at depth 1, full width, fp32: ``decode_chunk`` on the
+     card (a pack, a decode sweep, a verify sweep with ``all_logits``)
+     against the CPU's ``forward`` within LOGIT_ATOL with the same argmax,
+     the MoE configs through the grouped matmul.
   4. the serving path: mixtral-8x7b at full width, depth cut from 32 to 8
      layers, random bf16 weights from a seed, ``InferenceEngine.generate``
      on 4 requests (prompts of 100-300 tokens, 32 new tokens, greedy,
@@ -211,16 +216,47 @@ exits non-zero and no phase's failure is caught.
      flash attention, paged decode and (b)'s chunked attention launched,
      gmm never (the shard_map strategies run their experts as batched
      matmuls). Any rank's failure or a rank not done within 300 s fails.
+ 14. (run after phase 9, once phase 4's model is freed) distributed
+     training (the train rules: FSDP on the data axis; TP / EP backward
+     through the differentiable collectives; the gradient reduction and
+     its int8 form): (a) NCCL at world 1 in this process: qwen2.5-3b at
+     depth 2, full width, fp32, on the (1, 1, 1) train mesh, 4 x 32
+     tokens: ``LM.loss`` and its gradient, then one ``step_fn`` (2
+     microbatches, int8 gradients), against the unsharded step on the card:
+     the loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+     max |g|, m / v and the parameters as phase 12 (c) holds them. (b) four
+     gloo ranks on the one card, fp32, each drawing its shards of the same
+     seeded weights: qwen2.5-3b at depth 2 on (data, expert, tensor) = (2,
+     1, 2) (the same step) and mixtral-8x7b at depth 1 on (2, 2, 1)
+     ep_shardmap (one batch; capacity factor E / K, no token dropped,
+     asserted), against the unsharded step on the card (mixtral's with each
+     data shard's MoE aux, the reference's semantics under a data split),
+     computed first by the parent, which keeps a seeded sample of each
+     leaf's gradient, m and v by global position on the host and frees the
+     card before the spawn: each sampled element within phase 12 (c)'s
+     bounds, each rank's loss (mixtral's: the whole batch's xent plus its
+     shard's aux) within 1e-4, each rank's parameters against AdamW on its
+     own moments, and its parameter, moment and error-feedback bytes equal
+     to its specs' shard sums. (c) the same ranks in bf16 at full width:
+     qwen2.5-3b at depth 4 on (2, 1, 2) and mixtral-8x7b at depth 1 on (2,
+     2, 1) (depth 2 fits but doubles the phase's longest part: see
+     DIST_TRAIN_BF16), phase 12 (a)'s corpus, 4 x 512 tokens a step, remat,
+     xent_chunk 128, peak lr 1e-4, 4 steps, no checkpoint: every rank's
+     losses finite and falling;
+     step ms, tokens/s, each rank's peak memory and bytes and rank 0's
+     launches printed; flash attention and its backward on ``mma`` only, no
+     other kernel. Any rank's failure or a rank not done within 300 s fails.
  10. every call shape of chunked attention, gmm, w8a16, flash attention,
-     the SSD scan and both backwards in phases 4-9, 11, 12 (a, b, d) and 13
-     (recorded at the public ops, on rank 0 in phase 13) must be one phase
-     2 held against the plain version; then
+     the SSD scan and both backwards in phases 4-9, 11, 12 (a, b, d), 13
+     and 14 (recorded at the public ops, on rank 0 in phases 13 and 14)
+     must be one phase 2 held against the plain version; then
      a ``kernels`` JSON line (with each kernel's launches behind the stack
      as ``stack_launches``, in the speculative runs as ``spec_launches``,
      in phase 11 as ``encdec_launches`` / ``vlm_launches``, in phase 12
-     as ``train_launches`` and in phase 13 (rank 0, (a) + (b) + (c)) as
-     ``dist_launches``; the flash and SSD backwards' ``launches`` are
-     phase 12's), then ``{"ok": true, "device": {...}}`` last.
+     as ``train_launches``, in phase 13 (rank 0, (a) + (b) + (c)) as
+     ``dist_launches`` and in phase 14 (rank 0, (a) + (b) + (c)) as
+     ``dist_train_launches``; the flash and SSD backwards' ``launches``
+     are phase 12's), then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
 Options: --out FILE writes every measurement as JSON; --profile skips
@@ -729,6 +765,10 @@ def run_flash(dev, flush, results):
             # phase 13's ranks: the heads of tensor 2 and tensor 4
             ("prefill tensor 2", 4, 297, 297, 16, 4, 128, True, 0, 0.0),
             ("prefill tensor 4", 4, 297, 297, 8, 2, 128, True, 0, 0.0),
+            # phase 14 (c)'s ranks: a data rank's 2 rows of 512 tokens,
+            # qwen2.5-3b's heads at tensor 2, mixtral's whole at (2, 2, 1)
+            ("qwen2.5-3b train tensor 2", 2, 512, 512, 8, 1, 128, True, 0, 0.0),
+            ("mixtral train (2, 2, 1)", 2, 512, 512, 32, 8, 128, True, 0, 0.0),
             (f"{MM_SEAMLESS} encoder pack", 2, 1024, 1024, 16, 16, 64, False, 0, 0.0),
             (f"{MM_SEAMLESS} encoder prefill", 4, 1024, 1024, 16, 16, 64, False, 0, 0.0),
             (f"{MM_SEAMLESS} cross pack", 2, 128, 1024, 16, 16, 64, False, 0, 0.0),
@@ -800,8 +840,17 @@ FLASH_BWD_EDGE = [("edge", 2, 64, 64, 4, 1, 16, True, 0, 0.0, 0),
                   ("edge", 2, 9, 130, 4, 4, 64, False, 0, 0.0, 0),
                   ("edge", 1, 70, 70, 8, 2, 96, True, 0, 0.0, 0),
                   ("edge", 1, 33, 100, 8, 1, 128, True, 0, 20.0, 67)]
+# phase 14 (a) / (b)'s fp32 calls, 32 tokens a row, checked like the edge
+# cases: qwen2.5-3b's heads whole and at tensor 2, its microbatches, and
+# mixtral's, over 4 rows, 2 (a data rank's, a microbatch) and 1
+FLASH_BWD_EDGE += [("edge", B, 32, 32, H, Hkv, 128, True, 0, 0.0, 0)
+                   for B, H, Hkv in ((4, 16, 2), (2, 16, 2), (2, 8, 1), (1, 8, 1), (4, 32, 8),
+                                     (2, 32, 8))]
 FLASH_BWD_FULL = [("qwen2.5-3b train", 4, 512, 512, 16, 2, 128, True, 0, 0.0, 0),
                   ("mixtral train", 4, 512, 512, 32, 8, 128, True, 0, 0.0, 0),
+                  # phase 14 (c)'s ranks (run_flash's rows of the same names)
+                  ("qwen2.5-3b train tensor 2", 2, 512, 512, 8, 1, 128, True, 0, 0.0, 0),
+                  ("mixtral train (2, 2, 1)", 2, 512, 512, 32, 8, 128, True, 0, 0.0, 0),
                   (f"{MM_SEAMLESS} encoder", 2, 1024, 1024, 16, 16, 64, False, 0, 0.0, 0),
                   ("gemma2-27b window softcap", 4, 512, 512, 32, 16, 128, True, 128, 50.0, 0)]
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # relative to max |plain grad|
@@ -1569,9 +1618,13 @@ def fill_pool_from_ring(paged, dense, pt, ps):
 
 
 def run_card_vs_cpu(dev, int8: bool = False):
-    """Every model path at depth 2, full width, fp32, on the card and on the
-    CPU, on the same tokens: returns the worst card-vs-CPU and cross-path
-    logit differences. With ``int8`` the weights are quantize_params_int8
+    """Every model path at depth 2, full width, fp32, on the card, against
+    ``forward`` on the CPU from the same weights and tokens at the same
+    positions (the CPU runs ``forward`` alone: its other paths equal its
+    forward within LOGIT_ATOL by the CPU tests, and running each of them on
+    the CPU took most of phase 3), and against the card's own ``forward``:
+    returns the worst card-vs-CPU and cross-path logit differences. With
+    ``int8`` the weights are quantize_params_int8
     of the same fp32 weights (projections, experts, router, embedding and
     head int8): on the card the projections and the head run the w8a16
     kernel and the experts the int8 grouped matmul."""
@@ -1607,6 +1660,12 @@ def run_card_vs_cpu(dev, int8: bool = False):
     for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
         out = {}
         with torch.inference_mode():
+            tokens = torch.from_numpy(seq).to(where)
+            out["forward"], _ = model.forward(p, {"tokens": tokens}, RunCtx())
+        if key == "cpu":
+            logits[key] = {"forward": out["forward"].float()}
+            continue
+        with torch.inference_mode():
             cache = model.init_cache(2, C + gen, kind="paged", page_size=ps,
                                      num_pages=2 * maxp + 1, device=where)
             t_pt = torch.from_numpy(pt).to(where)
@@ -1622,8 +1681,6 @@ def run_card_vs_cpu(dev, int8: bool = False):
                     out["decode_chunk all_logits"] = lg[vvalid.to(where)]
                 else:
                     out[f"decode_chunk {i}"] = lg
-            tokens = torch.from_numpy(seq).to(where)
-            out["forward"], _ = model.forward(p, {"tokens": tokens}, RunCtx())
             dense = model.init_cache(2, maxp * ps, device=where)
             out["prefill"], dense = model.prefill(p, {"tokens": tokens[:, :C]}, dense, RunCtx())
             paged = model.init_cache(2, C + gen, kind="paged", page_size=ps,
@@ -1637,33 +1694,41 @@ def run_card_vs_cpu(dev, int8: bool = False):
                 out[f"decode_step paged {i}"], paged = model.decode_step(
                     p, tok, paged, pos, RunCtx(), page_table=t_pt, lengths=pos + 1)
         logits[key] = {k: v.float().cpu() for k, v in out.items()}
-        if key == "card":
-            launched = (w8a16_matmul_cuda.launches - n0[0], gmm_tiles_cuda.launches - n0[1])
+        launched = (w8a16_matmul_cuda.launches - n0[0], gmm_tiles_cuda.launches - n0[1])
     assert launched[1] > 0 and (launched[0] > 0) == int8, f"launches on the card: {launched}"
+    card = logits["card"]
+
+    def beside(fwd):
+        """(path, the card's logits, ``fwd``'s at the same positions)."""
+        pairs = [("forward", card["forward"], fwd),
+                 ("decode_chunk 0", card["decode_chunk 0"],
+                  torch.stack([fwd[0, 15], fwd[1, 10]])),
+                 ("decode_chunk 1", card["decode_chunk 1"],
+                  torch.stack([fwd[0, 16], fwd[1, 11]])),
+                 ("prefill", card["prefill"], fwd[:, C - 1]),
+                 ("decode_chunk all_logits", card["decode_chunk all_logits"],
+                  torch.cat([fwd[0, 17:17 + W], fwd[1, 12:14]]))]
+        for i in range(gen):
+            pairs += [(f"decode_step {kind} {i}", card[f"decode_step {kind} {i}"], fwd[:, C + i])
+                      for kind in ("dense", "paged")]
+        return pairs
     worst = 0.0
-    for k, a in logits["card"].items():
-        b = logits["cpu"][k]
+    for k, a, b in beside(logits["cpu"]["forward"]):
         assert torch.isfinite(a).all() and a.shape[-1] == 32000, k
         err = max_err(a, b)
         worst = max(worst, err)
         assert err < LOGIT_ATOL, f"{k}: card vs CPU logits differ by {err}"
         assert torch.equal(a.argmax(-1), b.argmax(-1)), f"{k}: argmax differs"
     # on the card, every path against forward's logits at the same position
-    card, fwd = logits["card"], logits["card"]["forward"]
-    pairs = [(card["decode_chunk 0"][0], fwd[0, 15]), (card["decode_chunk 0"][1], fwd[1, 10]),
-             (card["decode_chunk 1"][0], fwd[0, 16]), (card["decode_chunk 1"][1], fwd[1, 11]),
-             (card["prefill"], fwd[:, C - 1]),
-             (card["decode_chunk all_logits"], torch.cat([fwd[0, 17:17 + W], fwd[1, 12:14]]))]
-    for i in range(gen):
-        pairs += [(card[f"decode_step {kind} {i}"], fwd[:, C + i]) for kind in ("dense", "paged")]
-    cross = max(max_err(a, b) for a, b in pairs)
+    cross = max(max_err(a, b) for _, a, b in beside(card["forward"])[1:])
     assert cross < LOGIT_ATOL, f"paths disagree with forward on the card by {cross}"
     kind = "int8 weights (w8a16 launches {}, gmm {})".format(*launched) if int8 else "fp32"
-    log(f"  depth-2 full-width {kind}, card vs CPU: decode_chunk (pack of 27 tokens, a "
+    log(f"  depth-2 full-width {kind}, on the card against the CPU's forward (2 x "
+        f"{C + gen + 2} tokens) at the same positions: decode_chunk (pack of 27 tokens, a "
         f"decode sweep, then a verify sweep with all_logits at C = {W} over rows feeding "
-        f"{W} / 2 tokens), forward (2 x {C + gen + 2} tokens), prefill (2 x 16) + 4 "
-        f"decode_steps over the dense ring and over the paged pool: max |dlogit| = "
-        f"{worst:.3g} < {LOGIT_ATOL}, argmax equal at every valid position")
+        f"{W} / 2 tokens), forward, prefill (2 x 16) + 4 decode_steps over the dense ring and "
+        f"over the paged pool: max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, argmax equal at "
+        f"every valid position")
     log(f"  on the card, decode_chunk (all_logits too) / prefill / decode_step vs forward at "
         f"the same positions: max |dlogit| = {cross:.3g} < {LOGIT_ATOL}")
     return worst, cross
@@ -1678,13 +1743,14 @@ DECODE_CHUNK_CONFIGS = (("yi-6b", 2), ("phi3-mini-3.8b", 2), ("deepseek-moe-16b"
 
 
 def run_decode_chunk_card_vs_cpu(dev, name: str, n_layers: int):
-    """``name`` at full width, depth ``n_layers``, fp32, on the card and on
-    the CPU from the same weights: ``decode_chunk`` over the paged pool on
-    a pack of 16 / 11 prompt tokens, a decode sweep, then a verify sweep
-    with all_logits at C = 5 whose rows feed 5 / 2 tokens (every valid
-    position compared). Card vs CPU within LOGIT_ATOL with the same
-    argmax; a MoE config's grouped matmul launched on the card. Returns the
-    worst logit difference."""
+    """``name`` at full width, depth ``n_layers``, fp32, from the same
+    weights: ``decode_chunk`` on the card over the paged pool on a pack of
+    16 / 11 prompt tokens, a decode sweep, then a verify sweep with
+    all_logits at C = 5 whose rows feed 5 / 2 tokens, against ``forward``
+    on the CPU at the same positions (every valid one; the CPU runs
+    ``forward`` alone, as ``run_card_vs_cpu``'s), within LOGIT_ATOL with
+    the same argmax; a MoE config's grouped matmul launched on the card.
+    Returns the worst logit difference."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_gmm import gmm_tiles_cuda
     from repro_torch.kernels.paged_attention import chunked_prefill_cuda
@@ -1703,35 +1769,36 @@ def run_decode_chunk_card_vs_cpu(dev, name: str, n_layers: int):
              (np.array([[seq[0, 16]], [seq[1, 11]]], np.int32), [16, 11], [1, 1]),
              (verify, [17, 12], [W, 2])]
     pt = np.stack([np.arange(1, 1 + maxp), np.arange(1 + maxp, 1 + 2 * maxp)]).astype(np.int32)
-    logits = {}
-    for key, where, p in (("card", dev, params), ("cpu", "cpu", cpu_params)):
-        n0 = (gmm_tiles_cuda.launches, chunked_prefill_cuda.launches)
-        out = []
-        with torch.inference_mode():
-            cache = model.init_cache(2, 24, kind="paged", page_size=ps, num_pages=2 * maxp + 1,
-                                     device=where)
-            t_pt = torch.from_numpy(pt).to(where)
-            for tok, st, nv in calls:
-                st, nv = np.asarray(st, np.int32), np.asarray(nv, np.int32)
-                t = [torch.from_numpy(a).to(where) for a in (tok, st, nv, np.arange(2), st == 0)]
-                lg, cache = model.decode_chunk(p, t[0], cache, *t[1:], RunCtx(), t_pt,
-                                               all_logits=tok is verify)
-                out.append(lg[torch.from_numpy(vvalid).to(where)] if tok is verify else lg)
-        logits[key] = [o.float().cpu() for o in out]
-        if key == "card":
-            launched = (gmm_tiles_cuda.launches - n0[0], chunked_prefill_cuda.launches - n0[1])
+    n0 = (gmm_tiles_cuda.launches, chunked_prefill_cuda.launches)
+    out = []
+    with torch.inference_mode():
+        cache = model.init_cache(2, 24, kind="paged", page_size=ps, num_pages=2 * maxp + 1,
+                                 device=dev)
+        t_pt = torch.from_numpy(pt).to(dev)
+        for tok, st, nv in calls:
+            st, nv = np.asarray(st, np.int32), np.asarray(nv, np.int32)
+            t = [torch.from_numpy(a).to(dev) for a in (tok, st, nv, np.arange(2), st == 0)]
+            lg, cache = model.decode_chunk(params, t[0], cache, *t[1:], RunCtx(), t_pt,
+                                           all_logits=tok is verify)
+            out.append(lg[torch.from_numpy(vvalid).to(dev)] if tok is verify else lg)
+        launched = (gmm_tiles_cuda.launches - n0[0], chunked_prefill_cuda.launches - n0[1])
+        fwd, _ = model.forward(cpu_params, {"tokens": torch.from_numpy(seq)}, RunCtx())
     moe = any("1" in (g.moe_mask or "") for g in cfg.layer_groups)
     assert launched[1] > 0 and (launched[0] > 0) == moe, f"{cfg.name}: launches {launched}"
+    want = [torch.stack([fwd[0, 15], fwd[1, 10]]), torch.stack([fwd[0, 16], fwd[1, 11]]),
+            torch.cat([fwd[0, 17:17 + W], fwd[1, 12:14]])]
     worst = 0.0
-    for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
+    for i, (a, b) in enumerate(zip(out, want)):
+        a, b = a.float().cpu(), b.float()
         assert torch.isfinite(a).all() and a.shape[-1] == V, f"{cfg.name} call {i}"
         err = max_err(a, b)
         worst = max(worst, err)
         assert err < LOGIT_ATOL, f"{cfg.name} decode_chunk call {i}: card vs CPU {err}"
         assert torch.equal(a.argmax(-1), b.argmax(-1)), f"{cfg.name} call {i}: argmax differs"
     log(f"  {cfg.name} (full width, depth {n_layers}, fp32, d_model {cfg.d_model}, vocab {V}), "
-        f"card vs CPU: decode_chunk pack of 16 / 11 tokens, a decode sweep, a verify sweep "
-        f"with all_logits at C = {W}: max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, argmax equal; "
+        f"on the card against the CPU's forward at the same positions: decode_chunk pack of "
+        f"16 / 11 tokens, a decode sweep, a verify sweep with all_logits at C = {W}: max "
+        f"|dlogit| = {worst:.3g} < {LOGIT_ATOL}, argmax equal; "
         f"on the card chunked attention {launched[1]} launches, gmm {launched[0]}")
     del model, params, cpu_params, cache
     gc.collect()
@@ -1745,13 +1812,15 @@ def mamba2(n_layers: int):
 
 
 def run_mamba_card_vs_cpu(dev):
-    """mamba2 at depth 2, full width, fp32, on the card and on the CPU, on
-    the same two sequences of 154 tokens: ``forward``; ``prefill`` of the
-    first 150 then 4 ``decode_step``s over the dense cache; the engine's
-    ``decode_chunk``, a pack of 150 / 97 tokens on slots 2 / 0 whose states
-    hold garbage (``first`` must reset them), then a decode sweep over the
-    3 slots (slot 1 idle). Returns the worst card-vs-CPU and cross-path
-    logit differences."""
+    """mamba2 at depth 2, full width, fp32, on the same two sequences of 154
+    tokens: on the card ``forward``; ``prefill`` of the first 150 then 4
+    ``decode_step``s over the dense cache; the engine's ``decode_chunk``, a
+    pack of 150 / 97 tokens on slots 2 / 0 whose states hold garbage
+    (``first`` must reset them), then a decode sweep over the 3 slots (slot
+    1 idle); each against ``forward`` on the CPU at the same positions (the
+    CPU runs ``forward`` alone, as ``run_card_vs_cpu``'s) and against the
+    card's own. Returns the worst card-vs-CPU and cross-path logit
+    differences."""
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     from repro_torch.models import RunCtx, build_model
     from repro_torch.models.params import map_tree
@@ -1772,47 +1841,55 @@ def run_mamba_card_vs_cpu(dev):
         out = {}
         n0 = ssd_scan_cuda.launches
         with torch.inference_mode():
-            cache = model.init_cache(3, C + gen, kind="paged", device=where)
-            g = torch.Generator().manual_seed(5)
-            for c in cache["groups"][0]:                  # garbage states: first resets them
-                for leaf in c["ssm"].values():
-                    leaf.copy_(torch.randn(leaf.shape, generator=g))
-            pt = torch.zeros((3, 1), dtype=torch.int32, device=where)
-            for i, (tok, st, nv, sl, fi) in enumerate(calls):
-                t = [torch.tensor(np.asarray(a), device=where) for a in (tok, st, nv, sl, fi)]
-                lg, cache = model.decode_chunk(p, t[0], cache, *t[1:], RunCtx(), pt[:len(tok)])
-                out[f"decode_chunk {i}"] = lg
             tokens = torch.from_numpy(seq).to(where)
             out["forward"], _ = model.forward(p, {"tokens": tokens}, RunCtx())
-            dense = model.init_cache(2, C + gen, device=where)
-            out["prefill"], dense = model.prefill(p, {"tokens": tokens[:, :C]}, dense, RunCtx())
-            for i in range(gen):
-                pos = torch.full((2,), C + i, dtype=torch.int32, device=where)
-                out[f"decode_step {i}"], dense = model.decode_step(
-                    p, tokens[:, C + i:C + i + 1], dense, pos, RunCtx())
-        if key == "card":
-            launched = ssd_scan_cuda.launches - n0
+            if key == "card":
+                cache = model.init_cache(3, C + gen, kind="paged", device=where)
+                g = torch.Generator().manual_seed(5)
+                for c in cache["groups"][0]:              # garbage states: first resets them
+                    for leaf in c["ssm"].values():
+                        leaf.copy_(torch.randn(leaf.shape, generator=g))
+                pt = torch.zeros((3, 1), dtype=torch.int32, device=where)
+                for i, (tok, st, nv, sl, fi) in enumerate(calls):
+                    t = [torch.tensor(np.asarray(a), device=where) for a in (tok, st, nv, sl, fi)]
+                    lg, cache = model.decode_chunk(p, t[0], cache, *t[1:], RunCtx(),
+                                                   pt[:len(tok)])
+                    out[f"decode_chunk {i}"] = lg
+                dense = model.init_cache(2, C + gen, device=where)
+                out["prefill"], dense = model.prefill(p, {"tokens": tokens[:, :C]}, dense,
+                                                      RunCtx())
+                for i in range(gen):
+                    pos = torch.full((2,), C + i, dtype=torch.int32, device=where)
+                    out[f"decode_step {i}"], dense = model.decode_step(
+                        p, tokens[:, C + i:C + i + 1], dense, pos, RunCtx())
+                launched = ssd_scan_cuda.launches - n0
         logits[key] = {k: v.float().cpu() for k, v in out.items()}
     assert launched > 0, "the SSD kernel never ran on the card"
+    card = logits["card"]
+
+    def beside(fwd):
+        """(path, the card's logits, ``fwd``'s at the same positions)."""
+        return ([("forward", card["forward"], fwd),
+                 ("decode_chunk 0", card["decode_chunk 0"],
+                  torch.stack([fwd[0, C - 1], fwd[1, n1 - 1]])),
+                 ("decode_chunk 1", card["decode_chunk 1"][[0, 2]],
+                  torch.stack([fwd[1, n1], fwd[0, C]])),
+                 ("prefill", card["prefill"], fwd[:, C - 1])]
+                + [(f"decode_step {i}", card[f"decode_step {i}"], fwd[:, C + i])
+                   for i in range(gen)])
     worst = 0.0
-    for k, a in logits["card"].items():
-        b = logits["cpu"][k]
+    for k, a, b in beside(logits["cpu"]["forward"]):
         assert torch.isfinite(a).all() and a.shape[-1] == V, k
         err = max_err(a, b)
         worst = max(worst, err)
         assert err < LOGIT_ATOL, f"mamba2 {k}: card vs CPU logits differ by {err}"
         assert torch.equal(a.argmax(-1), b.argmax(-1)), f"mamba2 {k}: argmax differs"
-    card, fwd = logits["card"], logits["card"]["forward"]
-    pairs = [(card["decode_chunk 0"][0], fwd[0, C - 1]),
-             (card["decode_chunk 0"][1], fwd[1, n1 - 1]),
-             (card["decode_chunk 1"][0], fwd[1, n1]), (card["decode_chunk 1"][2], fwd[0, C]),
-             (card["prefill"], fwd[:, C - 1])]
-    pairs += [(card[f"decode_step {i}"], fwd[:, C + i]) for i in range(gen)]
-    cross = max(max_err(a, b) for a, b in pairs)
+    cross = max(max_err(a, b) for _, a, b in beside(card["forward"])[1:])
     assert cross < LOGIT_ATOL, f"mamba2 paths disagree with forward on the card by {cross}"
     cfg = model.cfg
     log(f"  mamba2 depth-2 fp32 (d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
-        f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, vocab {V}), card vs CPU: forward (2 x {C + gen} tokens), prefill (2 x {C}) + {gen} "
+        f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, vocab {V}), on the card against the "
+        f"CPU's forward (2 x {C + gen} tokens) at the same positions: forward, prefill (2 x {C}) + {gen} "
         f"decode_steps, decode_chunk (a pack of {C} / {n1} tokens over garbage states reset by "
         f"first, then a decode sweep): max |dlogit| = {worst:.3g} < {LOGIT_ATOL}, argmax "
         f"equal; SSD kernel launches on the card: {launched}")
@@ -3606,6 +3683,486 @@ def train_card_vs_cpu(dev, cfg, step: bool):
     return out
 
 
+# ------------------------------------------------------------------ phase 14
+# distributed training, on phase 13's machinery: (a) NCCL at world 1 in
+# this process; (b) and (c) on four gloo ranks spawned on the one card.
+# (a) / (b) hold one step against the unsharded one on the card in fp32;
+# (c) trains in bf16 at full width for a few steps.
+DIST_TRAIN_QWEN = 2                # (a), (b): qwen2.5-3b's depth
+DIST_TRAIN_MOE = 1                 # (b): mixtral-8x7b's depth
+DIST_TRAIN_BATCH, DIST_TRAIN_SEQ = 4, 32   # (a), (b): 2 rows a data rank, 1 a microbatch
+DIST_TRAIN_SAMPLE = 4096           # (b): elements of each leaf held against the card's step
+# (c): (name, arch, depth, mesh, MoE strategy, peak lr). Phase 12 (b)'s lr
+# for both: at phase 12 (a)'s 1e-3 a 4-step qwen2.5-3b run on the CPU
+# rehearsal went 12.40, 11.00, 16.68, 10.69 (random full-width weights).
+# mixtral at depth 1: at depth 2 it fits (17.45 GB peak a rank) but took
+# 53.3 s of a 144.6 s phase 14 (13.3 s a step: each rank's 1.41 GB of
+# gathered bf16 experts a layer goes card -> host -> gloo -> host -> card
+# in the forward, remat's recompute and the backward's reduce-scatter)
+DIST_TRAIN_BF16 = (("qwen", TRAIN_ARCH, 4, (2, 1, 2), "tp_shardmap", MOE_TRAIN_LR),
+                   ("mixtral", "mixtral-8x7b", 1, (2, 2, 1), "ep_shardmap", MOE_TRAIN_LR))
+DIST_TRAIN_STEPS = 4
+DIST_TRAIN_TIMEOUT_S = 300
+DIST_TRAIN_A_LOSS_RTOL = 1e-5      # (a): the mesh's step against the unsharded one, relative
+DIST_TRAIN_A_GRAD_TOL = 1e-4       # (a): each leaf against its max |g|
+
+
+def dist_train_rules(strategy: str):
+    from repro_torch.distributed.sharding import make_rules
+    return make_rules("train", moe="ep" if strategy == "ep_shardmap" else "tp",
+                      tensor_axis="tensor", expert_axis="expert")
+
+
+def dist_train_ctx(strategy: str, mesh=None, remat: bool = True):
+    from repro_torch.models import RunCtx
+    if mesh is None:
+        return RunCtx(mode="train", moe_strategy="capacity", remat=remat)
+    return RunCtx(mode="train", mesh=mesh, moe_strategy=strategy, ep_axis="expert",
+                  tp_axis="tensor", remat=remat)
+
+
+def dist_train_cases():
+    """(b)'s two checks: (name, config, mesh, MoE strategy, train config,
+    data-split aux): qwen2.5-3b with 2 microbatches and int8 gradients (the
+    mesh's step is the unsharded one), mixtral-8x7b with the MoE aux of
+    each data shard (the reference's semantics under a data split)."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.train_step import TrainConfig
+    return (("qwen", depth_cut(get_config(TRAIN_ARCH), DIST_TRAIN_QWEN), (2, 1, 2),
+             "tp_shardmap", TrainConfig(microbatches=2, grad_compression=True, xent_chunk=16),
+             False),
+            ("mixtral", dist_config(DIST_TRAIN_MOE), (2, 2, 1), "ep_shardmap",
+             TrainConfig(xent_chunk=16), True))
+
+
+def dist_train_batch(cfg, dev):
+    from repro_torch.data.pipeline import DataConfig, synthesize_batch
+    data = synthesize_batch(DataConfig(vocab=cfg.vocab, batch=DIST_TRAIN_BATCH,
+                                       seq_len=DIST_TRAIN_SEQ), 0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+
+
+def split_aux_loss(model, params, batch, tcfg, data: int):
+    """The loss a data split of ``data`` ranks trains, unsharded: the whole
+    batch's cross-entropy plus ``aux_weight`` times the mean over the data
+    shards of each shard's MoE aux (the reference's gradient under a data
+    split). Returns (that loss, the xent, each shard's aux)."""
+    ctx = dist_train_ctx("capacity")
+    _, met = model.loss(params, batch, ctx, aux_weight=tcfg.aux_weight,
+                        xent_chunk=tcfg.xent_chunk)
+    n = batch["tokens"].shape[0] // data
+    auxes = [model.loss(params, {k: v[d * n:(d + 1) * n] for k, v in batch.items()}, ctx,
+                        aux_weight=tcfg.aux_weight, xent_chunk=tcfg.xent_chunk)[1]["aux"]
+             for d in range(data)]
+    return met["xent"] + tcfg.aux_weight * torch.stack(auxes).mean(), met["xent"], auxes
+
+
+@contextlib.contextmanager
+def adamw_input(seen: list):
+    """While open, each ``adamw_update`` call of the train step appends the
+    leaves of the gradient it takes to ``seen``: the reduced gradient,
+    after the microbatches and the int8 round trip."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training import train_step as ts
+    real = ts.adamw_update
+
+    def spy(grads, *args, **kw):
+        seen.append(tree_leaves(grads))
+        return real(grads, *args, **kw)
+    ts.adamw_update = spy
+    try:
+        yield seen
+    finally:
+        ts.adamw_update = real
+
+
+def unsharded_train_step(model, params, batch, tcfg, data_aux: int = 0):
+    """One step on the card without a mesh, the parameters updated in
+    place: (the step's loss, the gradient AdamW took, m, v). ``data_aux``:
+    the loss is ``split_aux_loss`` over that many data shards (AdamW on its
+    gradient, as ``step_fn`` without microbatches or compression), and the
+    loss returned is (xent, each shard's aux)."""
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.training.optimizer import adamw_init, adamw_update, cosine_schedule
+    from repro_torch.training.train_step import make_train_step
+    ctx = dist_train_ctx("capacity")
+    if data_aux:
+        assert tcfg.microbatches == 1 and not tcfg.grad_compression, tcfg
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        loss, xent, auxes = split_aux_loss(model, tree_unflatten(params, leaves), batch, tcfg,
+                                           data_aux)
+        grads = list(torch.autograd.grad(loss, leaves))
+        del leaves
+        lr = cosine_schedule(1, peak_lr=tcfg.peak_lr, warmup=tcfg.warmup, total=tcfg.total_steps)
+        with torch.no_grad():
+            _, opt = adamw_update(tree_unflatten(params, grads), adamw_init(params), params,
+                                  lr=lr, weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+        return (float(xent), [float(a) for a in auxes]), grads, opt.m, opt.v
+    init_fn, step_fn = make_train_step(model, tcfg, ctx)
+    with adamw_input([]) as seen:
+        params, (opt, _), met = step_fn(params, init_fn(params), batch)
+    return float(met["loss"]), seen[0], opt.m, opt.v
+
+
+def sample_leaves(trees: dict, seed: int) -> dict:
+    """A seeded sample of each leaf's elements, by global flat position
+    (each leaf's largest |value| of the first tree among them): {"idx":
+    [positions a leaf], "shape": [...], name: [values a leaf], "max_" +
+    name: [each leaf's max |value|]}, on the host."""
+    from repro_torch.models.params import tree_leaves
+    first = next(iter(trees))
+    ref = [t for t in (trees[first] if isinstance(trees[first], (list, tuple))
+                       else tree_leaves(trees[first]))]
+    g = torch.Generator().manual_seed(seed)
+    out = {"idx": [], "shape": [tuple(t.shape) for t in ref]}
+    for t in ref:
+        # drawn with replacement (a permutation of a 470 M-element leaf
+        # takes seconds on the host), then made unique
+        idx = torch.randint(t.numel(), (DIST_TRAIN_SAMPLE,), generator=g)
+        top = int(t.detach().abs().reshape(-1).argmax())
+        out["idx"].append(torch.unique(torch.cat([idx, torch.tensor([top])])))
+    for name, tree in trees.items():
+        leaves = tree if isinstance(tree, (list, tuple)) else tree_leaves(tree)
+        out[name] = [t.detach().reshape(-1)[i.to(t.device)].cpu()
+                     for t, i in zip(leaves, out["idx"])]
+        out["max_" + name] = [float(t.detach().abs().max()) for t in leaves]
+    return out
+
+
+def local_sample(leaves, specs, mesh, sample) -> list:
+    """The rank's values at the sample's global positions that fall in its
+    shards: per leaf (the sample's indices held here, their values)."""
+    from repro_torch.distributed.sharding import shard_slices
+    out = []
+    for t, spec, idx, shape in zip(leaves, specs, sample["idx"], sample["shape"]):
+        coords = np.stack(np.unravel_index(idx.numpy(), shape))
+        sl = shard_slices(shape, spec, mesh)
+        lo = np.array([s.start for s in sl])[:, None]
+        hi = np.array([s.stop for s in sl])[:, None]
+        mine = np.all((coords >= lo) & (coords < hi), axis=0)
+        local = np.ravel_multi_index(tuple(coords[:, mine] - lo), tuple((hi - lo)[:, 0]))
+        vals = t.detach().reshape(-1)[torch.from_numpy(local).to(t.device)].cpu()
+        out.append((np.nonzero(mine)[0], vals))
+    return out
+
+
+def dist_train_check(dev, mesh, name, cfg, strategy, tcfg, data_aux, sample):
+    """(b) on one rank: its shards of the seeded fp32 weights and one
+    ``step_fn`` on the global batch; the step's loss, the sample's
+    positions it holds of the gradient AdamW took, of m and of v, the worst
+    AdamW recompute on its shards, and its trees' bytes against its
+    specs'."""
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import count_drops
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.train_step import make_train_step, mesh_specs, spec_leaves
+    model = build_model(cfg)
+    rules = dist_train_rules(strategy)
+    # no remat: the recompute would gather every leaf once more through the
+    # host, and (c) trains with it
+    ctx = dist_train_ctx(strategy, mesh, remat=False)
+    batch = dist_train_batch(cfg, dev)
+    with use_sharding(mesh, rules), count_drops() as drops, adamw_input([]) as seen:
+        specs = spec_leaves(mesh_specs(model, ctx)[1])
+        params = model.init_params(0, device=dev, dtype=torch.float32, mesh=mesh, rules=rules)
+        before = [t.clone() for t in tree_leaves(params)]
+        init_fn, step_fn = make_train_step(model, tcfg, ctx)
+        params, (opt, err), met = step_fn(params, init_fn(params), batch)
+        torch.cuda.synchronize()
+    return dict(loss=float(met["loss"]), aux=float(met["aux"]), lr=float(met["lr"]),
+                drops=drops.total(), grads=local_sample(seen[0], specs, mesh, sample),
+                m=local_sample(tree_leaves(opt.m), specs, mesh, sample),
+                v=local_sample(tree_leaves(opt.v), specs, mesh, sample),
+                adamw=adamw_step_err(before, tree_leaves(params), tree_leaves(opt.m),
+                                     tree_leaves(opt.v), lr=float(met["lr"]),
+                                     step=int(opt.step), weight_decay=tcfg.weight_decay),
+                bytes={k: tensor_bytes(t) for k, t in (("params", params), ("m", opt.m),
+                                                        ("v", opt.v), ("err", err))
+                       if t is not None},
+                spec_bytes=spec_bytes(model, mesh, rules, 4))
+
+
+def dist_train_rank(rank: int, world: int, job: dict):
+    """One spawned rank of phase 14 (b) and (c), on cuda:0 with gloo. Rank
+    0 zeroes the kernels' counters before (b) and before (c) and reads them
+    after each, and records the call shapes. Returns what the parent
+    checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import count_drops
+    from repro_torch.training.trainer import TrainerConfig, train
+    if job.get("hook"):
+        job["hook"]()                              # the CPU rehearsal's stubs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job["device"])
+    torch.cuda.set_device(dev)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        kbuild.load_library(name)                  # built by phase 1; the build lock guards it
+    meshes = {}
+    for shape in sorted({c[2] for c in dist_train_cases()} | {c[3] for c in DIST_TRAIN_BF16}):
+        meshes[shape] = Mesh(shape, DIST_AXES).bind()
+    out = {"rank": rank, "b": {}, "c": {}}
+    recording = served_shapes if rank == 0 else contextlib.nullcontext
+    with recording():
+        zero_launches()
+        for name, cfg, shape, strategy, tcfg, data_aux in dist_train_cases():
+            t0 = time.perf_counter()
+            out["b"][name] = dist_train_check(dev, meshes[shape], name, cfg, strategy, tcfg,
+                                              data_aux, job["samples"][name])
+            out["b"][name]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["b_launches"] = read_launches()
+        for name, arch, depth, shape, strategy, lr in DIST_TRAIN_BF16:
+            cfg = (depth_cut(get_config(arch), depth) if name == "qwen" else dist_config(depth))
+            model = build_model(cfg)
+            mesh, rules = meshes[shape], dist_train_rules(strategy)
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t0 = time.perf_counter()
+            with use_sharding(mesh, rules), count_drops() as drops:
+                params = model.init_params(0, device=dev, dtype=torch.bfloat16, mesh=mesh,
+                                           rules=rules)
+                run = train(model, DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                                              seq_len=TRAIN_SEQ),
+                            train_config(peak_lr=lr), TrainerConfig(steps=DIST_TRAIN_STEPS),
+                            params=params, ctx=dist_train_ctx(strategy, mesh))
+                torch.cuda.synchronize()
+            opt, _ = run["state"]
+            out["c"][name] = dict(
+                layers=cfg.n_layers, losses=run["losses"], aux=[m["aux"] for m in run["metrics"]],
+                seconds=time.perf_counter() - t0,
+                step_seconds=run["step_seconds"], drops=drops.total(),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                bytes={"params": tensor_bytes(run["params"]), "m": tensor_bytes(opt.m),
+                       "v": tensor_bytes(opt.v)},
+                spec_bytes={"params": spec_bytes(model, mesh, rules, 2),
+                            "m": spec_bytes(model, mesh, rules, 4)},
+                launches=read_launches())
+            del run, params, opt, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    if rank == 0:
+        out["served"] = {k: sorted(v) for k, v in SERVED.items()}
+    return out
+
+
+def run_dist_training(dev, hook=None):
+    """Phase 14. (a) NCCL, world 1, in this process: qwen2.5-3b at depth 2,
+    fp32, on the (1, 1, 1) train mesh: one ``step_fn`` (2 microbatches,
+    int8 gradients) against the unsharded step on the card (its loss within
+    1e-5 relative, each leaf of the gradient AdamW took within 1e-4 of its
+    max |g|, m / v and the parameters as phase 12 (c) holds them). (b) four
+    gloo ranks, fp32: qwen2.5-3b at depth 2 on
+    (2, 1, 2) (FSDP + TP, the same step) and mixtral-8x7b at depth 1 on (2,
+    2, 1) ``ep_shardmap`` (FSDP + EP, capacity factor E / K: no token drops)
+    against the unsharded step (for mixtral with each data shard's aux,
+    ``split_aux_loss``), on a seeded sample of each leaf of the gradient
+    AdamW took, m and v, within phase 12 (c)'s bounds (qwen's int8 gradient
+    with one quantum more: a rounding flip); each rank's loss (mixtral's:
+    the whole batch's xent plus its data shard's aux); each rank's
+    parameters against AdamW on its own moments; its parameter and moment
+    bytes its specs' shard sums. (c) the same ranks in bf16 at full width
+    (DIST_TRAIN_BF16: qwen2.5-3b at depth 4 on (2, 1, 2), mixtral-8x7b at
+    depth 1 on (2, 2, 1)), phase 12 (a)'s corpus, DIST_TRAIN_STEPS steps, no
+    checkpoint: losses finite and
+    falling, flash forward and backward on their ``mma`` path only, no
+    other kernel. ``hook`` (a module-level callable) runs first in each
+    rank: the CPU rehearsal's stubs."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.train_step import make_train_step
+    res = {}
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_train_"))
+    cases = dist_train_cases()
+    samples = {}
+
+    def moment_err(got, want):
+        """The worst of m's and v's errors over phase 12 (c)'s bounds."""
+        return max(max(max_err(a, b) / ((TRAIN_GRAD_TOL + 1 / 127) * float(b.abs().max())
+                                         + 1e-30) for a, b in zip(got[0], want[0])),
+                   max(max_err(a, b) / ((2 * TRAIN_GRAD_TOL + 253 / 127 ** 2)
+                                        * float(b.abs().max()) + 1e-30)
+                       for a, b in zip(got[1], want[1])))
+
+    # the unsharded steps on the card, which (a) and (b) are held against
+    t0 = time.perf_counter()
+    name, cfg, _, strategy, tcfg, _ = cases[0]
+    model = build_model(cfg)
+    batch = dist_train_batch(cfg, dev)
+    params = model.init_params(0, device=dev, dtype=torch.float32)
+    ref_loss, ref_grads, ref_m, ref_v = unsharded_train_step(model, params, batch, tcfg)
+    del params
+
+    # (a) NCCL at world 1 on the (1, 1, 1) train mesh: every shard whole
+    dist.init_process_group(DIST_A_BACKEND, store=dist.FileStore(str(store / "nccl"), 1),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = Mesh((1, 1, 1), DIST_AXES).bind()
+        rules = dist_train_rules(strategy)
+        ctx = dist_train_ctx(strategy, mesh)
+        zero_launches()
+        with use_sharding(mesh, rules), adamw_input([]) as seen:
+            params = model.init_params(0, device=dev, dtype=torch.float32, mesh=mesh,
+                                       rules=rules)
+            before = [t.clone() for t in tree_leaves(params)]
+            init_fn, step_fn = make_train_step(model, tcfg, ctx)
+            params, (opt, _), met = step_fn(params, init_fn(params), batch)
+            torch.cuda.synchronize()
+        a_launches = read_launches()
+    finally:
+        dist.destroy_process_group()
+    loss_err = abs(float(met["loss"]) - ref_loss) / abs(ref_loss)
+    grad_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(seen[0], ref_grads))
+    del seen
+    mom = moment_err((tree_leaves(opt.m), tree_leaves(opt.v)),
+                     (tree_leaves(ref_m), tree_leaves(ref_v)))
+    adamw = adamw_step_err(before, tree_leaves(params), tree_leaves(opt.m), tree_leaves(opt.v),
+                           lr=float(met["lr"]), step=int(opt.step),
+                           weight_decay=tcfg.weight_decay)
+    del before, params, opt
+    assert loss_err <= DIST_TRAIN_A_LOSS_RTOL, \
+        f"(a) loss rel err {loss_err} > {DIST_TRAIN_A_LOSS_RTOL}"
+    assert grad_err <= DIST_TRAIN_A_GRAD_TOL, f"(a) gradient rel err {grad_err}"
+    assert mom <= 1.0 and adamw <= 1.0, f"(a) moments at {mom}, parameters at {adamw} of bound"
+    assert a_launches[0]["flash_attention"] > 0 and a_launches[0]["flash_attention_bwd"] > 0, \
+        a_launches
+    res["a"] = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+                    moment_err_of_bound=mom, adamw_err_of_tol=adamw, launches=a_launches[0],
+                    seconds=time.perf_counter() - t0)
+    log(f"  (a) NCCL, world 1, train mesh (1, 1, 1), {cfg.name} fp32, {DIST_TRAIN_BATCH} x "
+        f"{DIST_TRAIN_SEQ} tokens, one step_fn (2 microbatches, int8 gradients) against the "
+        f"unsharded one: loss rel err {loss_err:.3g}, every leaf of the gradient AdamW took "
+        f"within {grad_err:.3g} of its max |g| (<= {DIST_TRAIN_A_GRAD_TOL}), m / v at "
+        f"{mom:.3g} of phase 12 (c)'s bound, parameters at {adamw:.3g} of AdamW's tolerance; "
+        f"launches {a_launches[0]}")
+    samples[name] = sample_leaves({"g": ref_grads, "m": ref_m, "v": ref_v}, seed=14)
+    expect = {name: dict(loss=ref_loss)}
+    del model, batch, ref_grads, ref_m, ref_v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b)'s mixtral: the unsharded step of the data-split loss
+    name, cfg, shape, strategy, tcfg, _ = cases[1]
+    model = build_model(cfg)
+    batch = dist_train_batch(cfg, dev)
+    params = model.init_params(0, device=dev, dtype=torch.float32)
+    (xent, auxes), grads, m, v = unsharded_train_step(model, params, batch, tcfg,
+                                                      data_aux=shape[0])
+    samples[name] = sample_leaves({"g": grads, "m": m, "v": v}, seed=15)
+    expect[name] = dict(xent=xent, auxes=auxes, aux_weight=tcfg.aux_weight)
+    del model, batch, params, grads, m, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["reference_s"] = time.perf_counter() - t0
+
+    # (b) and (c): four gloo ranks
+    t0 = time.perf_counter()
+    job = dict(samples=samples, device=str(dev), hook=hook)
+    outs = spawn_ranks(dist_train_rank, 4, (job,), store_dir=store / "ranks", backend="gloo",
+                       timeout_s=DIST_TRAIN_TIMEOUT_S)
+    res["ranks_s"] = time.perf_counter() - t0
+    for name, cfg, shape, strategy, tcfg, data_aux in cases:
+        smp, e = samples[name], expect[name]
+        worst = dict(g=0.0, m=0.0, v=0.0, loss=0.0)
+        bounds = dict(g=TRAIN_GRAD_TOL + (1 / 127 if tcfg.grad_compression else 0.0),
+                      m=TRAIN_GRAD_TOL + 1 / 127, v=2 * TRAIN_GRAD_TOL + 253 / 127 ** 2)
+        covered = [np.zeros(len(i), bool) for i in smp["idx"]]
+        for o in outs:
+            b = o["b"][name]
+            if data_aux:       # the whole batch's xent plus the rank's data shard's aux
+                d = np.unravel_index(o["rank"], shape)[0]
+                want = e["xent"] + e["aux_weight"] * e["auxes"][d]
+            else:
+                want = e["loss"]
+            worst["loss"] = max(worst["loss"], abs(b["loss"] - want) / abs(want))
+            for key, name_ in (("grads", "g"), ("m", "m"), ("v", "v")):
+                for i, (pos, vals) in enumerate(b[key]):
+                    ref = smp[name_][i][pos]
+                    top = max(smp["max_" + name_][i], 1e-30)
+                    worst[name_] = max(worst[name_], float((vals - ref).abs().max() / top
+                                                           / bounds[name_]) if len(pos) else 0.0)
+                    if key == "grads":
+                        covered[i][pos] = True
+            assert b["drops"] == 0, f"(b) {name} rank {o['rank']} dropped {b['drops']}"
+            assert b["adamw"] <= 1.0, f"(b) {name} rank {o['rank']}: parameters at {b['adamw']}"
+            assert all(n == b["spec_bytes"] for n in b["bytes"].values()), (o["rank"], b)
+        assert all(c.all() for c in covered), f"(b) {name}: a sampled position no rank holds"
+        assert worst["loss"] <= TRAIN_LOSS_RTOL, f"(b) {name}: loss rel err {worst['loss']}"
+        assert max(worst["g"], worst["m"], worst["v"]) <= 1.0, f"(b) {name}: {worst}"
+        res[f"b_{name}"] = dict(worst_of_bound=worst, adamw=[o["b"][name]["adamw"] for o in outs],
+                                seconds=outs[0]["b"][name]["seconds"],
+                                losses=[o["b"][name]["loss"] for o in outs],
+                                bytes=[o["b"][name]["bytes"] for o in outs])
+        log(f"  (b) gloo, 4 ranks, mesh {shape}, {strategy}, {cfg.name} fp32, "
+            f"{'2 microbatches, int8 gradients' if tcfg.microbatches > 1 else 'one batch'}"
+            f"{', the data-split aux' if data_aux else ''}: each rank's loss within "
+            f"{worst['loss']:.3g} of {'xent + its shard aux' if data_aux else 'the unsharded'} "
+            f"({res[f'b_{name}']['losses']}), the sampled gradient / m / v at "
+            f"{worst['g']:.3g} / {worst['m']:.3g} / {worst['v']:.3g} of phase 12 (c)'s bounds, "
+            f"parameters at <= {max(res[f'b_{name}']['adamw']):.3g} of AdamW's tolerance; "
+            f"bytes per rank {res[f'b_{name}']['bytes']} (each its specs' shard sum)")
+    r0 = outs[0]
+    b_launches, b_paths = r0["b_launches"]
+    assert b_launches["flash_attention"] > 0 and b_launches["flash_attention_bwd"] > 0, \
+        b_launches
+    res["launches"] = {k: a_launches[0][k] + b_launches[k] for k in b_launches}
+    for name, arch, depth, shape, strategy, lr in DIST_TRAIN_BF16:
+        c = r0["c"][name]
+        for o in outs:
+            oc = o["c"][name]
+            assert all(np.isfinite(oc["losses"])) and oc["losses"][-1] < oc["losses"][0], \
+                f"(c) {name} rank {o['rank']}: losses {oc['losses']}"
+            assert oc["drops"] == 0, f"(c) {name} rank {o['rank']} dropped {oc['drops']}"
+            assert oc["bytes"]["params"] == oc["spec_bytes"]["params"] and \
+                oc["bytes"]["m"] == oc["bytes"]["v"] == oc["spec_bytes"]["m"], (o["rank"], oc)
+        launches, paths = c["launches"]
+        assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0, launches
+        assert paths["flash_attention"]["mma"] == launches["flash_attention"] and \
+            paths["flash_attention_bwd"]["mma"] == launches["flash_attention_bwd"], paths
+        idle = {k: n for k, n in launches.items()
+                if k not in ("flash_attention", "flash_attention_bwd")}
+        assert not any(idle.values()), f"(c) {name} reached a kernel it must not: {idle}"
+        step_s = float(np.median(c["step_seconds"][1:]))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        res[f"c_{name}"] = dict(
+            layers=c["layers"], mesh=list(shape), strategy=strategy, losses=c["losses"],
+            seconds=c["seconds"],
+            aux=c["aux"], rank_losses=[o["c"][name]["losses"] for o in outs],
+            step_seconds=c["step_seconds"], step_ms_median=1e3 * step_s,
+            tokens_per_s=tokens / step_s, peak_bytes=[o["c"][name]["peak_bytes"] for o in outs],
+            bytes=[o["c"][name]["bytes"] for o in outs], launches=launches,
+            launches_by_path={k: paths[k] for k in ("flash_attention", "flash_attention_bwd")})
+        res["launches"] = {k: res["launches"][k] + launches[k] for k in launches}
+        log(f"  (c) gloo, 4 ranks, mesh {shape}, {strategy}, {arch} bf16, full width, "
+            f"{c['layers']} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, remat, "
+            f"xent_chunk 128, peak lr {lr}: rank 0's losses {[round(x, 4) for x in c['losses']]}"
+            f" (every rank's finite and falling); step {1e3 * step_s:.1f} ms (median of steps "
+            f"2-{DIST_TRAIN_STEPS}), {tokens / step_s:.0f} tok/s (4 ranks on one card, gloo "
+            f"through the host); peak device GB per rank "
+            f"{[round(x / 1e9, 3) for x in res[f'c_{name}']['peak_bytes']]}; parameter / m GB "
+            f"per rank {[(round(b['params'] / 1e9, 3), round(b['m'] / 1e9, 3)) for b in res[f'c_{name}']['bytes']]}"
+            f" (each its specs' shard sum); rank 0 launches {launches}, flash by path "
+            f"{paths['flash_attention']}, backward {paths['flash_attention_bwd']}")
+    for k, v in r0["served"].items():
+        SERVED[k].update(tuple(x) for x in v)
+    return res
+
+
 # ------------------------------------------------------------------ phase 8
 
 def pct(values, q: float) -> float:
@@ -4059,6 +4616,22 @@ def main() -> int:
     del model, params
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    # after phase 9, not right after phase 13: phase 4's 8-layer bf16 model
+    # (23.7 GB) stays on the card through phases 8 and 9
+    log(f"phase 14: distributed training: (a) NCCL at world 1, {TRAIN_ARCH} depth "
+        f"{DIST_TRAIN_QWEN} fp32 on the (1, 1, 1) train mesh; (b) four gloo ranks in fp32, "
+        f"{TRAIN_ARCH} depth {DIST_TRAIN_QWEN} on (2, 1, 2) (FSDP + TP, 2 microbatches, int8 "
+        f"gradients) and mixtral-8x7b depth {DIST_TRAIN_MOE} on (2, 2, 1) ep_shardmap (FSDP + "
+        f"EP, the data-split aux); (c) the same ranks in bf16: "
+        + ", ".join(f"{a} depth {n} on {m}" for _, a, n, m, _, _ in DIST_TRAIN_BF16)
+        + f", {DIST_TRAIN_STEPS} steps")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_training = run_dist_training(dev)
+    dist_training["seconds"] = time.perf_counter() - t0
+    log(f"  phase 14 took {dist_training['seconds']:.1f} s")
+
     log(f"phase 11: enc-dec ({MM_SEAMLESS}) and VLM ({MM_VISION}) at full width and depth: "
         f"serving with frames / patches, the generation API, then card vs CPU at depth 2")
     t0 = time.perf_counter()
@@ -4142,7 +4715,7 @@ def main() -> int:
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     unchecked = {k: sorted(SERVED[k] - CHECKED[k]) for k in SERVED}
-    log("call shapes of the main paths (phases 4-9, 11, 12) against phase 2's: "
+    log("call shapes of the main paths (phases 4-9, 11-14) against phase 2's: "
         + "; ".join(f"{k} {len(SERVED[k])} served, {len(CHECKED[k])} checked"
                     for k in SERVED))
     assert not any(unchecked.values()), \
@@ -4182,6 +4755,7 @@ def main() -> int:
                             vlm_launches=mm_launches[MM_VISION].get(name, 0),
                             train_launches=train_launches[name],
                             dist_launches=distributed["launches"][name],
+                            dist_train_launches=dist_training["launches"][name],
                             shape=f"{case} bf16: {row['shape']}"))
     if args.out:
         out = Path(args.out)
@@ -4199,6 +4773,7 @@ def main() -> int:
                                        stack=stack, spec=spec, int8_spec=int8_spec,
                                        encdec_vlm=mm, encdec_vlm_card_vs_cpu=mm_checks,
                                        training=training, distributed=distributed,
+                                       dist_training=dist_training,
                                        served_shapes={k: sorted(v) for k, v in SERVED.items()},
                                        kernels=kernels),
                                   indent=1))

@@ -166,6 +166,20 @@ def shard_slices(shape: Sequence[int], spec: PartitionSpec, mesh) -> Tuple[slice
     return tuple(out)
 
 
+def split_axes(spec: PartitionSpec, mesh) -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) that split a tensor laid out by
+    ``spec``, in mesh order."""
+    used = {a for entry in spec for a in spec_axes(entry)}
+    return tuple(a for a in mesh.axis_names if a in used and mesh.shape[a] > 1)
+
+
+def held_alike_axes(spec: PartitionSpec, mesh) -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) along which every rank holds the same
+    shard of a tensor laid out by ``spec``: the ones it does not use."""
+    used = {a for entry in spec for a in spec_axes(entry)}
+    return tuple(a for a in mesh.axis_names if a not in used and mesh.shape[a] > 1)
+
+
 def shard(x, spec: PartitionSpec, mesh):
     """The bound rank's shard of ``x`` (numpy array or tensor) as a new
     contiguous array or tensor: ``jax.device_put(x, NamedSharding(mesh,
@@ -188,6 +202,24 @@ def shard_tree(tree, spec_tree, mesh):
     map_tree(specs.append, spec_tree, is_leaf=_is_spec)
     it = iter(specs)
     return map_tree(lambda leaf: shard(leaf, next(it), mesh), tree)
+
+
+def gather_tree(tree, spec_tree, mesh):
+    """The inverse of ``shard_tree``: every leaf all-gathered over the axes
+    its spec splits it on, so each rank holds the global tree. A collective:
+    every rank of the mesh calls it with its own shards."""
+    from repro_torch.distributed.collectives import all_gather
+    from repro_torch.models.params import map_tree
+    specs = []
+    map_tree(specs.append, spec_tree, is_leaf=_is_spec)
+    it = iter(specs)
+
+    def leaf(t):
+        for dim, entry in enumerate(next(it)):
+            if entry is not None and mesh.count(entry) > 1:
+                t = all_gather(t, mesh, entry, dim=dim)
+        return t
+    return map_tree(leaf, tree)
 
 
 # --------------------------------------------------------------------------

@@ -154,9 +154,13 @@ class Layout:
     batch is split on (None: every rank holds every row) and this rank's
     rows, the global per-row inputs a replicated pool write needs, and,
     inside a layer, that layer's parameter and cache specs (``p``, ``c``:
-    leading repeat dim included)."""
+    leading repeat dim included). ``params`` are the specs the layers see:
+    under the train rules the FSDP (``embed``) dims are gathered before
+    use, ``fsdp`` holds their entries (None: no leaf has one) and ``f`` the
+    layer's."""
     mesh: Any
     params: Any
+    fsdp: Any = None
     cache: Any = None
     batch: Any = None
     B: int = 0
@@ -164,6 +168,7 @@ class Layout:
     glob: Dict[str, Any] = field(default_factory=dict)
     p: Any = None
     c: Any = None
+    f: Any = None
 
     def local_rows(self, t):
         """This rank's rows (dim 0) of a global per-row tensor."""

@@ -208,7 +208,13 @@ def _moe_local_tp(xf, router_w, wg, wu, wd, shared, cfg, mesh, tp_axis, cf):
 
 def _a2a_int8(buf, mesh, axis):
     """int8-compressed all-to-all (beyond the paper): rows quantized with
-    their absmax, int8 payload + f32 scales exchanged."""
+    their absmax, int8 payload + f32 scales exchanged. No gradient: the
+    rounding's is zero almost everywhere (the reference's too), so a loss
+    through it would train nothing before it; it raises under grad."""
+    if buf.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("quant='a2a_int8' under grad: the int8 all-to-all's rounding "
+                                  "has no useful gradient (zero almost everywhere); train with "
+                                  "quant='none'")
     amax = torch.amax(torch.abs(buf.float()), dim=-1, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(buf.float() / scale), -127, 127).to(torch.int8)

@@ -37,6 +37,21 @@ rows plus a psum, the head gives the rank's vocab columns, all-gathered;
 attention and the MLP split on the tensor axis (one psum each), the MoE
 runs a shard_map strategy. The decoder-only attention configs run so;
 mamba layers, enc-dec, VLM and int8 trees raise.
+
+``loss`` runs under a mesh too, with the train rules (``make_rules("train",
+...)``: FSDP, every leaf's ``embed`` dim split on the data axis). Each layer
+all-gathers its leaves over data just before use, inside its remat region
+(the gathered copy is freed after it and gathered again in the recompute),
+and the gather's backward reduce-scatters their gradients; the embedding,
+the final norm and the head gather theirs the same way. The rank's rows of
+the batch give a log-likelihood sum and a mask count, each psum'd over the
+batch axes; the loss is their quotient plus ``aux_weight`` times the MoE aux
+of the rank's own data shard (pmean'd over ep and tp only, the reference's
+``check_rep=False`` output), so ranks of different data shards report
+different losses, as the reference's devices do. Its gradient is the
+rank's share (``distributed.collectives``' convention): the train step
+reduces the shares (``training.train_step.reduce_grads``), and the aux
+term then enters as its mean over the data shards, as in the reference.
 """
 from __future__ import annotations
 
@@ -48,7 +63,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerGroup, ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.collectives import all_gather, psum, shared_out
+from repro_torch.distributed.sharding import PartitionSpec, constrain
 from repro_torch.kernels.quant_matmul import w8a16_matmul
 from repro_torch.models import params as params_lib
 from repro_torch.models.attention import attention_sublayer
@@ -68,6 +84,27 @@ class ShardedCache(dict):
         self.specs = specs
 
 
+def _is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def _fsdp_gather(tree, fspecs, mesh, lead: int = 0):
+    """``tree`` with each leaf all-gathered on the dims its FSDP spec
+    splits (``fspecs`` mirrors ``tree``: a PartitionSpec a leaf, None where
+    whole). ``lead``: the specs' leading dims the leaves lack (a layer's
+    leaves lose the repeat dim)."""
+    specs = []
+    params_lib.map_tree(specs.append, fspecs, is_leaf=_is_spec)
+    it = iter(specs)
+
+    def leaf(t):
+        for i, ax in enumerate(next(it)[lead:]):
+            if ax is not None:
+                t = all_gather(t, mesh, ax, dim=i)
+        return t
+    return params_lib.map_tree(leaf, tree)
+
+
 class LM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -84,10 +121,12 @@ class LM:
                                       f"are not in the port's sharded path yet")
 
     def _mesh_pspecs(self, mesh, rules):
-        """The global parameter specs under (mesh, rules) and each leaf's
-        shard shape, after checking the slice runs there: query and kv
-        heads must split alike. Cached with the mesh and rules themselves,
-        so their ids stay theirs."""
+        """(the global parameter specs under (mesh, rules), each leaf's
+        shard shape, the specs the layers see once the FSDP dims are
+        gathered, the FSDP specs: each leaf's ``embed`` entries alone, None
+        when no leaf has one), after checking the slice runs there: query
+        and kv heads must split alike. Cached with the mesh and rules
+        themselves, so their ids stay theirs."""
         from repro_torch.distributed import sharding
         self._check_mesh_support()
         key = (id(mesh), id(rules))
@@ -106,7 +145,17 @@ class LM:
             params_lib.map_tree(lambda s: shards.append((s, sharding.local_shape(
                 s.shape, sharding.partition_spec(s.shape, s.logical, mesh, rules), mesh))),
                 specs, is_leaf=lambda x: isinstance(x, params_lib.ParamSpec))
-            self._pspecs[key] = (mesh, rules, pspecs, shards)
+
+            def embed_entries(keep):
+                """pspecs with the entries of ``embed`` dims kept (or dropped)."""
+                it = iter(shards)
+                return params_lib.map_tree(lambda ps: PartitionSpec(*(
+                    e if (name == "embed") == keep else None
+                    for e, name in zip(ps, next(it)[0].logical))), pspecs, is_leaf=_is_spec)
+            fsdp, entries = embed_entries(True), []
+            params_lib.map_tree(entries.extend, fsdp, is_leaf=_is_spec)
+            self._pspecs[key] = (mesh, rules, pspecs, shards, embed_entries(False),
+                                 fsdp if any(e is not None for e in entries) else None)
         return self._pspecs[key][2:]
 
     def _layout(self, params, ctx: RunCtx, B: int, cache=None, **glob) -> Optional[Layout]:
@@ -119,7 +168,7 @@ class LM:
         mesh, rules = sharding.active()
         if mesh is not ctx.mesh or rules is None:
             raise ValueError("under a mesh, run inside use_sharding(ctx.mesh, rules)")
-        pspecs, shards = self._mesh_pspecs(mesh, rules)
+        pspecs, shards, gathered, fsdp = self._mesh_pspecs(mesh, rules)
         local = []
         params_lib.map_tree(local.append, params, is_leaf=lambda x: isinstance(x, QuantizedLinear))
         for (s, want), t in zip(shards, local):
@@ -134,7 +183,7 @@ class LM:
         batch = sharding.partition_spec((B,), ("batch",), mesh, rules)[0]
         n = B // mesh.count(batch)
         k = mesh.index(batch) if batch else 0
-        return Layout(mesh=mesh, params=pspecs,
+        return Layout(mesh=mesh, params=gathered, fsdp=fsdp,
                       cache=cache.specs if cache is not None else None, batch=batch, B=B,
                       rows=slice(k * n, (k + 1) * n), glob=glob)
 
@@ -201,9 +250,13 @@ class LM:
                     lay = None
                     if layout is not None:     # this layer's specs (the repeat dim leads)
                         lay = replace(layout, p=layout.params["groups"][gi]["layers"][pos],
-                                      c=layout.cache["groups"][gi][pos] if gc else None)
+                                      c=layout.cache["groups"][gi][pos] if gc else None,
+                                      f=(layout.fsdp["groups"][gi]["layers"][pos]
+                                         if layout.fsdp is not None else None))
 
                     def layer(x, p_r=p_r, c_r=c_r, kind=kind, lay=lay):
+                        if lay is not None and lay.f is not None:   # FSDP: the whole leaves
+                            p_r = _fsdp_gather(p_r, lay.f, lay.mesh, lead=1)
                         return self._apply_layer(p_r, x, c_r, kind=kind, ctx=ctx, layout=lay,
                                                  **kw)
                     if remat:      # nothing random inside: no RNG state to keep
@@ -215,6 +268,15 @@ class LM:
         return x, aux_total
 
     # ------------------------------------------------------------------ embed
+    @staticmethod
+    def _top(params, name: str, layout=None):
+        """``params[name]["w"]``, gathered over its FSDP dims under a mesh
+        with the train rules."""
+        w = params[name]["w"]
+        if layout is None or layout.fsdp is None:
+            return w
+        return _fsdp_gather(w, layout.fsdp[name]["w"], layout.mesh)
+
     def _embed(self, params, tokens, layout=None):
         """Rows of the embedding table. An int8 table's rows are gathered,
         then dequantized to the model's dtype: that of the final norm, a 1-D
@@ -222,10 +284,9 @@ class LM:
         vocab split, each rank looks up the tokens among its rows (zeros
         elsewhere) and a psum gathers them."""
         cfg = self.cfg
-        w, tok = params["embed"]["w"], tokens.long()
+        w, tok = self._top(params, "embed", layout), tokens.long()
         ax = layout.params["embed"]["w"][0] if layout is not None else None
         if ax is not None:
-            from repro_torch.distributed.collectives import psum
             V_l = w.shape[0]
             loc = tok - layout.mesh.index(ax) * V_l
             mine = (loc >= 0) & (loc < V_l)
@@ -280,19 +341,25 @@ class LM:
         per output column of its transpose (read through its strides).
         Under a mesh: the global logits, every rank's vocab columns and
         rows all-gathered."""
-        logits = self._head_local(params, x)
         if layout is None:
-            return logits
-        from repro_torch.distributed.collectives import all_gather
+            return self._head_local(params, x)
+        return layout.gather_rows(self._head_vocab(params, x, layout))
+
+    def _head_weight(self, params, layout=None):
+        return self._top(params, "embed" if self.cfg.tie_embeddings else "lm_head", layout)
+
+    def _head_vocab(self, params, x, layout, w=None):
+        """The logits of this rank's rows ``x`` over the whole vocab: its
+        vocab columns, all-gathered over the axis that splits them. ``w``:
+        the head's gathered weight (default: gathered here)."""
+        logits = self._head_local(params, x, self._head_weight(params, layout) if w is None else w)
         spec = (layout.params["embed"]["w"][0] if self.cfg.tie_embeddings
                 else layout.params["lm_head"]["w"][1])
-        if spec is not None:
-            logits = all_gather(logits, layout.mesh, spec, dim=-1)
-        return layout.gather_rows(logits)
+        return logits if spec is None else all_gather(logits, layout.mesh, spec, dim=-1)
 
-    def _head_local(self, params, x):
+    def _head_local(self, params, x, w=None):
         cfg = self.cfg
-        w = params["embed"]["w"] if cfg.tie_embeddings else params["lm_head"]["w"]
+        w = self._head_weight(params) if w is None else w
         if not isinstance(w, QuantizedLinear):
             logits = x @ (w.T if cfg.tie_embeddings else w).to(x.dtype)
         elif cfg.tie_embeddings:
@@ -317,7 +384,7 @@ class LM:
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions,
                                   memory=memory, layout=layout)
-        return rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps), aux
+        return rmsnorm(x, self._top(params, "final_norm", layout), self.cfg.rms_eps), aux
 
     def forward(self, params, batch, ctx: RunCtx):
         """Teacher-forced full-sequence logits through flash attention and
@@ -337,20 +404,28 @@ class LM:
         aux loss. ``xent_chunk`` > 0 runs the head and logsumexp on
         ``xent_chunk`` positions at a time, each chunk under
         ``torch.utils.checkpoint``, so the (B, S, vocab) fp32 logits never
-        exist at once. Returns (loss, {"xent", "aux"}), fp32 scalars."""
-        if ctx.mesh is not None:
-            raise NotImplementedError("training under a mesh is not in the port yet")
+        exist at once. Returns (loss, {"xent", "aux"}), fp32 scalars.
+
+        Under a mesh (the module's note): ``batch`` is the global batch, of
+        which the rank takes its rows; the loss and xent are the global
+        ones, aux the rank's data shard's, and the gradient is the rank's
+        share (``training.train_step.reduce_grads`` sums the shares)."""
+        layout = self._layout(params, ctx, batch["labels"].shape[0])
         labels = batch["labels"].long()
+        if layout is not None:
+            labels = layout.local_rows(labels)
+            head_w = self._head_weight(params, layout)        # gathered once, not per chunk
         mask = (labels >= 0).float()
         labels_safe = labels.clamp_min(0)
         S = labels.shape[1]
 
         def chunk_ll(x, lab, m):
-            logits = self._head(params, x).float()
+            logits = (self._head(params, x) if layout is None
+                      else self._head_vocab(params, x, layout, head_w)).float()
             ll = logits.gather(-1, lab[..., None])[..., 0] - torch.logsumexp(logits, dim=-1)
             return torch.sum(ll * m)
 
-        x, aux = self._features(params, batch, ctx)
+        x, aux = self._features(params, batch, ctx, layout)
         x = x[:, x.shape[1] - S:]                              # drop patch positions
         if xent_chunk <= 0:
             ll_sum = chunk_ll(x, labels_safe, mask)
@@ -369,9 +444,16 @@ class LM:
                 ll_sum = ll_sum + (checkpoint(chunk_ll, *args, use_reentrant=False,
                                               preserve_rng_state=False)
                                    if torch.is_grad_enabled() else chunk_ll(*args))
-        xent = -ll_sum / torch.clamp_min(mask.sum(), 1.0)
+        count = mask.sum()
+        if layout is not None and layout.batch is not None:
+            ll_sum, count = psum(ll_sum, layout.mesh, layout.batch), psum(count, layout.mesh,
+                                                                          layout.batch)
+        xent = -ll_sum / torch.clamp_min(count, 1.0)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=xent.device)
-        return xent + aux_weight * aux, {"xent": xent, "aux": aux}
+        total = xent + aux_weight * aux
+        if layout is not None:                     # every rank computes it: shares of its gradient
+            total = shared_out(total, layout.mesh)
+        return total, {"xent": xent, "aux": aux}
 
     def prefill(self, params, batch, cache, ctx: RunCtx, last_pos=None):
         """Full-sequence pass through flash attention and the SSD scan that

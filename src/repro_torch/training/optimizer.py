@@ -7,7 +7,9 @@ update in fp32 and casts it back to the leaf's dtype, as the reference does
 (``torch.optim.AdamW`` would do its arithmetic in bf16 on bf16 leaves, a
 different result). Unlike the reference's pure function it updates the
 parameters and moments in place, so a full-width model never holds two
-copies of its training state; it returns them.
+copies of its training state; it returns them. Under a mesh the moments are
+the parameters' shards (the reference's moments take the parameters'
+shardings), updated where they lie.
 """
 from __future__ import annotations
 
@@ -39,10 +41,25 @@ def adamw_init(params) -> AdamWState:
                       m=map_tree(zeros, params), v=map_tree(zeros, params))
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt(sum of every leaf's squares + 1e-20), fp32."""
+def global_norm(grads, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt(sum of every leaf's squares + 1e-20), fp32. Under a mesh
+    (``grads`` the rank's shards, ``specs`` their PartitionSpec tree) each
+    leaf's squares are summed over the axes that split it, and a leaf held
+    alike along an axis counts once: the norm of the global tree, on every
+    rank."""
     sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
-    return torch.sqrt(torch.stack(sq).sum() + 1e-20)
+    if mesh is None:
+        return torch.sqrt(torch.stack(sq).sum() + 1e-20)
+    from repro_torch.distributed.collectives import psum
+    from repro_torch.distributed.sharding import PartitionSpec, split_axes
+    spec_list = []
+    map_tree(spec_list.append, specs, is_leaf=lambda x: isinstance(x, PartitionSpec))
+    by_axes = {}                                   # one psum per set of splitting axes
+    for s, spec in zip(sq, spec_list):
+        by_axes.setdefault(split_axes(spec, mesh), []).append(s)
+    total = sum((psum(torch.stack(v), mesh, axes) if axes else torch.stack(v)).sum()
+                for axes, v in by_axes.items())
+    return torch.sqrt(total + 1e-20)
 
 
 def _update_leaf(p, g, m, v, *, lr, b1, b2, eps, wd, scale, bc1, bc2) -> None:
@@ -54,13 +71,14 @@ def _update_leaf(p, g, m, v, *, lr, b1, b2, eps, wd, scale, bc1, bc2) -> None:
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, grad_clip=1.0):
+                 weight_decay=0.1, grad_clip=1.0, mesh=None, specs=None):
     """One AdamW step: a global-norm clip of ``grads`` to ``grad_clip``,
     bias correction with the incremented step, weight decay on every leaf
     inside the update. ``lr`` is a float or a 0-d tensor. Updates
     ``params``, ``state.m`` and ``state.v`` in place; returns (params, new
-    state)."""
-    gnorm = global_norm(grads)
+    state). Under a mesh every tree holds the rank's shards (``specs``:
+    their PartitionSpecs): only the norm needs the other ranks'."""
+    gnorm = global_norm(grads, mesh, specs)
     # a true division (a Python number over a tensor is a reciprocal times it)
     scale = torch.clamp_max(torch.full_like(gnorm, grad_clip) / gnorm, 1.0)
     step = state.step + 1
