@@ -18,9 +18,13 @@
 //
 // The fold r = c * G + g (the TPU kernel's (chunk, G) row axis) lets one
 // staged KV tile serve every query head of its GQA group and every token of
-// the chunk; the public layout stays (B, C, H, D). A block reads its own
-// starts / lengths / page ids; key positions map to (page, slot) one by
-// one, so any page size works. Head dims 16, 64, 96 and 128 (tiny test
+// the chunk; the public layout stays (B, C, H, D). The fold G and the first
+// kv head kv0 are arguments: G = H / Hkv and kv0 = 0 on one process, while a
+// rank whose query heads split wider than the kv heads (the kv_seq layout:
+// the pool whole on every rank) folds its H heads onto their one kv head
+// kv0 (G = H) and reads it with the pool's own head stride. A block reads
+// its own starts / lengths / page ids; key positions map to (page, slot) one
+// by one, so any page size works. Head dims 16, 64, 96 and 128 (tiny test
 // configs, seamless-m4t, phi3 and phi-3-vision, the rest): the P V products
 // of the tiled and split kernels give a thread the outputs at flat indices
 // tid + 128 i, so a head dim need not divide the block (96 does not).
@@ -69,8 +73,8 @@ template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __restrict__ vp,
     const int* __restrict__ page_table, const int* __restrict__ lengths,
-    const int* __restrict__ starts, TQ* __restrict__ out, int C, int H, int Hkv, int ps,
-    int maxp, float scale, float softcap, int window) {
+    const int* __restrict__ starts, TQ* __restrict__ out, int C, int H, int Hkv, int G,
+    int kv0, int ps, int maxp, float scale, float softcap, int window) {
   // P V: a thread owns the outputs at flat indices tid + kThreads i of the
   // tile's kRows x D values (row e / D, column e % D): one column and rows
   // tid / D + i kThreads / D where D divides the block, else (D = 96) a
@@ -85,8 +89,7 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
   __shared__ float m_s[kRows], l_s[kRows], a_s[kRows];
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int G = H / Hkv;
+  const int b = blockIdx.z, h = blockIdx.y;   // query heads h G .. h G + G - 1
   const int r0 = blockIdx.x * kRows;
   const int nr = min(kRows, C * G - r0);
   const int length = lengths[b];
@@ -118,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
       const int nk = min(kKeys, ps - j0);
       for (int i = tid; i < nk * D; i += kThreads) {
         const int j = i / D, d = i % D;
-        const size_t off = ((page * ps + j0 + j) * Hkv + h) * D + d;
+        const size_t off = ((page * ps + j0 + j) * Hkv + kv0 + h) * D + d;
         ks[j][d] = to_f32(kp[off]);
         vs[j][d] = to_f32(vp[off]);
       }
@@ -195,14 +198,14 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
 template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* kp, const void* vp, const void* page_table,
            const void* lengths, const void* starts, void* out, int B, int C, int H, int Hkv,
-           int ps, int maxp, float scale, float softcap, int window, cudaStream_t stream) {
-  const int G = H / Hkv;
-  const dim3 grid((C * G + kRows - 1) / kRows, Hkv, B);
+           int G, int kv0, int ps, int maxp, float scale, float softcap, int window,
+           cudaStream_t stream) {
+  const dim3 grid((C * G + kRows - 1) / kRows, H / G, B);
   chunked_prefill_kernel<TQ, TKV, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp), static_cast<const TKV*>(vp),
       static_cast<const int*>(page_table), static_cast<const int*>(lengths),
-      static_cast<const int*>(starts), static_cast<TQ*>(out), C, H, Hkv, ps, maxp, scale,
-      softcap, window);
+      static_cast<const int*>(starts), static_cast<TQ*>(out), C, H, Hkv, G, kv0, ps, maxp,
+      scale, softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -291,15 +294,15 @@ struct SplitSmem {
   }
 };
 
-// grid (splits, Hkv, B); MR >= C * G rows. part_acc (B, Hkv, splits, C*G,
-// D) and part_ml (..., 2) fp32; a block that exits early writes nothing.
+// grid (splits, H / G, B); MR >= C * G rows. part_acc (B, H / G, splits,
+// C*G, D) and part_ml (..., 2) fp32; a block that exits early writes nothing.
 template <typename TQ, typename TKV, int D, int MR>
 __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __restrict__ vp,
     const int* __restrict__ page_table, const int* __restrict__ lengths,
     const int* __restrict__ starts, float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int C, int H, int Hkv, int ps, int maxp, int splits, float scale, float softcap,
-    int window) {
+    int C, int H, int Hkv, int G, int kv0, int ps, int maxp, int splits, float scale,
+    float softcap, int window) {
   using S = SplitSmem<TKV, D>;
   constexpr int kPer = 16 / static_cast<int>(sizeof(TKV));            // elements a 16-byte chunk
   constexpr int kChunksRow = D / kPer;                                // chunks a key row
@@ -313,7 +316,7 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
   static_assert(D % 8 == 0, "head_dim must be a whole number of 16-byte chunks");
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv, R = C * G, cap = maxp * ps;
+  const int R = C * G, cap = maxp * ps;
   const int start = row_start(starts, lengths, b);
   int lo, hi, s_lo, s_hi;
   chunk_keys(lengths[b], start, C, cap, window, lo, hi);
@@ -346,7 +349,7 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
       size_t off = 0;
       if (ok) {
         const size_t page = static_cast<size_t>(page_table[prow + pos / ps]);
-        off = ((page * ps + pos % ps) * Hkv + h) * D + c;
+        off = ((page * ps + pos % ps) * Hkv + kv0 + h) * D + c;
       }
       cp_async16(ks + j * S::kRow + c, kp + off, ok ? 16 : 0);
       cp_async16(vs + j * S::kRow + c, vp + off, ok ? 16 : 0);
@@ -467,7 +470,7 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
   // the merge may launch now; it waits for this grid's writes
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
 
-  const size_t part = (static_cast<size_t>(b) * Hkv + h) * splits + split;
+  const size_t part = (static_cast<size_t>(b) * (H / G) + h) * splits + split;
 #pragma unroll
   for (int i = 0; i < kItemsPV; ++i) {
     const int e = tid + i * kSplitThreads, r = e / D;
@@ -485,7 +488,7 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_split_kernel(
   }
 }
 
-// grid (ceil(C * G * D / kSplitThreads), Hkv, B): one output value a
+// grid (ceil(C * G * D / kSplitThreads), H / G, B): one output value a
 // thread (folded row i / D, column i % D) from its row's live splits: each
 // split's P V rescaled to their common max and summed in split order, so a
 // call gives the same bits every time; a row with no visible key (every
@@ -494,9 +497,9 @@ template <typename TQ>
 __global__ void __launch_bounds__(kSplitThreads) chunked_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     const int* __restrict__ lengths, const int* __restrict__ starts, TQ* __restrict__ out,
-    int C, int H, int Hkv, int D, int ps, int maxp, int splits, int window) {
+    int C, int H, int G, int D, int ps, int maxp, int splits, int window) {
   const int h = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv, R = C * G;
+  const int R = C * G;
   const int i = blockIdx.x * kSplitThreads + threadIdx.x;
   int lo, hi, s_lo, s_hi;
   chunk_keys(lengths[b], row_start(starts, lengths, b), C, maxp * ps, window, lo, hi);
@@ -506,7 +509,7 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_merge_kernel(
   if (i >= R * D) return;
   const int r = i / D, d = i % D;
   // split s of this row: (max, sum) at ml[2 s R], P V at acc[s R D]
-  const size_t row = ((static_cast<size_t>(b) * Hkv + h) * splits + s_lo) * R + r;
+  const size_t row = ((static_cast<size_t>(b) * (H / G) + h) * splits + s_lo) * R + r;
   const float* ml = part_ml + row * 2;
   const float* acc = part_acc + row * D + d;
   float M = -INFINITY;
@@ -524,23 +527,23 @@ __global__ void __launch_bounds__(kSplitThreads) chunked_merge_kernel(
 template <typename TQ, typename TKV, int D, int MR>
 int launch_split(const TQ* q, const TKV* kp, const TKV* vp, const int* page_table,
                  const int* lengths, const int* starts, TQ* out, float* part_acc, float* part_ml,
-                 int B, int C, int H, int Hkv, int ps, int maxp, int splits, float scale,
-                 float softcap, int window, cudaStream_t s) {
+                 int B, int C, int H, int Hkv, int G, int kv0, int ps, int maxp, int splits,
+                 float scale, float softcap, int window, cudaStream_t s) {
   using S = SplitSmem<TKV, D>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(chunked_split_kernel<TQ, TKV, D, MR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, S::bytes(MR));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int R = C * (H / Hkv);
-  chunked_split_kernel<TQ, TKV, D, MR><<<dim3(splits, Hkv, B), kSplitThreads, S::bytes(R), s>>>(
-      q, kp, vp, page_table, lengths, starts, part_acc, part_ml, C, H, Hkv, ps, maxp, splits,
-      scale, softcap, window);
+  const int R = C * G;
+  chunked_split_kernel<TQ, TKV, D, MR><<<dim3(splits, H / G, B), kSplitThreads, S::bytes(R), s>>>(
+      q, kp, vp, page_table, lengths, starts, part_acc, part_ml, C, H, Hkv, G, kv0, ps, maxp,
+      splits, scale, softcap, window);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   // the merge, as a programmatic dependent: it starts while the split
   // kernel drains, hiding its launch latency
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((R * D + kSplitThreads - 1) / kSplitThreads, Hkv, B);
+  cfg.gridDim = dim3((R * D + kSplitThreads - 1) / kSplitThreads, H / G, B);
   cfg.blockDim = dim3(kSplitThreads);
   cfg.stream = s;
   cudaLaunchAttribute attr_pdl[1];
@@ -551,26 +554,27 @@ int launch_split(const TQ* q, const TKV* kp, const TKV* vp, const int* page_tabl
   return static_cast<int>(cudaLaunchKernelEx(&cfg, chunked_merge_kernel<TQ>,
                                              static_cast<const float*>(part_acc),
                                              static_cast<const float*>(part_ml), lengths, starts,
-                                             out, C, H, Hkv, D, ps, maxp, splits, window));
+                                             out, C, H, G, D, ps, maxp, splits, window));
 }
 
 // ------------------------------------------------------------------ mma
-// grid (ceil(C * G / 64), Hkv, B); bf16 q, pool and out. The body is
-// attention_mma.cuh's, with a key's K/V row found through the page table.
+// grid (ceil(C * G / 64), H / G, B); bf16 q, pool and out. The body is
+// attention_mma.cuh's, with a key's K/V row (kv head kv0 + h of the pool's
+// Hkv) found through the page table.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads, 2) chunked_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ page_table,
     const int* __restrict__ lengths, const int* __restrict__ starts,
-    __nv_bfloat16* __restrict__ out, int C, int H, int Hkv, int ps, int maxp, float scale,
-    float softcap, int window) {
+    __nv_bfloat16* __restrict__ out, int C, int H, int Hkv, int G, int kv0, int ps, int maxp,
+    float scale, float softcap, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y;
   const int* pages = page_table + static_cast<size_t>(b) * maxp;
   auto kv_row = [&](int pos) {
-    return ((static_cast<size_t>(pages[pos / ps]) * ps + pos % ps) * Hkv + h) * D;
+    return ((static_cast<size_t>(pages[pos / ps]) * ps + pos % ps) * Hkv + kv0 + h) * D;
   };
-  mma_attention_block<D, true>(q, kp, vp, out, nullptr, b, h, blockIdx.x * kMmaRows, C, H, H / Hkv,
+  mma_attention_block<D, true>(q, kp, vp, out, nullptr, b, h, blockIdx.x * kMmaRows, C, H, G,
                                starts[b], min(lengths[b], maxp * ps), scale, softcap, window,
                                kv_row, smem);
 }
@@ -578,15 +582,15 @@ __global__ void __launch_bounds__(kMmaThreads, 2) chunked_mma_kernel(
 template <int D>
 int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* kp, const __nv_bfloat16* vp,
                const int* page_table, const int* lengths, const int* starts,
-               __nv_bfloat16* out, int B, int C, int H, int Hkv, int ps, int maxp, float scale,
-               float softcap, int window, cudaStream_t s) {
+               __nv_bfloat16* out, int B, int C, int H, int Hkv, int G, int kv0, int ps,
+               int maxp, float scale, float softcap, int window, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       chunked_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem<D>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int R = C * (H / Hkv);
-  chunked_mma_kernel<D><<<dim3((R + kMmaRows - 1) / kMmaRows, Hkv, B), kMmaThreads,
+  const int R = C * G;
+  chunked_mma_kernel<D><<<dim3((R + kMmaRows - 1) / kMmaRows, H / G, B), kMmaThreads,
                           mma_smem<D>(), s>>>(q, kp, vp, page_table, lengths, starts, out, C, H,
-                                              Hkv, ps, maxp, scale, softcap, window);
+                                              Hkv, G, kv0, ps, maxp, scale, softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -595,8 +599,8 @@ enum Path : int { kTiled = 0, kSplit = 1, kMma = 2 };
 template <typename TQ, typename TKV, int D>
 int launch_path(int path, int splits, const void* q, const void* kp, const void* vp,
                 const void* page_table, const void* lengths, const void* starts, void* out,
-                void* part_acc, void* part_ml, int B, int C, int H, int Hkv, int ps, int maxp,
-                float scale, float softcap, int window, cudaStream_t s) {
+                void* part_acc, void* part_ml, int B, int C, int H, int Hkv, int G, int kv0,
+                int ps, int maxp, float scale, float softcap, int window, cudaStream_t s) {
   const auto* qt = static_cast<const TQ*>(q);
   const auto* kt = static_cast<const TKV*>(kp);
   const auto* vt = static_cast<const TKV*>(vp);
@@ -604,11 +608,11 @@ int launch_path(int path, int splits, const void* q, const void* kp, const void*
   const auto* ln = static_cast<const int*>(lengths);
   const auto* st = static_cast<const int*>(starts);
   auto* ot = static_cast<TQ*>(out);
-  const int R = C * (H / Hkv);
+  const int R = C * G;
   switch (path) {
     case kTiled:
-      return launch<TQ, TKV, D>(q, kp, vp, page_table, lengths, starts, out, B, C, H, Hkv, ps,
-                                maxp, scale, softcap, window, s);
+      return launch<TQ, TKV, D>(q, kp, vp, page_table, lengths, starts, out, B, C, H, Hkv, G,
+                                kv0, ps, maxp, scale, softcap, window, s);
     case kSplit: {
       if (splits < 1 || splits > split_units(maxp * ps) || part_acc == nullptr ||
           part_ml == nullptr)
@@ -617,20 +621,20 @@ int launch_path(int path, int splits, const void* q, const void* kp, const void*
       auto* ml = static_cast<float*>(part_ml);
       if (R <= 4)
         return launch_split<TQ, TKV, D, 4>(qt, kt, vt, pt, ln, st, ot, acc, ml, B, C, H, Hkv,
-                                           ps, maxp, splits, scale, softcap, window, s);
+                                           G, kv0, ps, maxp, splits, scale, softcap, window, s);
       if (R <= 16)   // row classes: predicated-off rows still cost issue slots
         return launch_split<TQ, TKV, D, 16>(qt, kt, vt, pt, ln, st, ot, acc, ml, B, C, H, Hkv,
-                                            ps, maxp, splits, scale, softcap, window, s);
+                                            G, kv0, ps, maxp, splits, scale, softcap, window, s);
       if (R <= kSplitMaxRows)
         return launch_split<TQ, TKV, D, kSplitMaxRows>(qt, kt, vt, pt, ln, st, ot, acc, ml, B,
-                                                       C, H, Hkv, ps, maxp, splits, scale,
-                                                       softcap, window, s);
+                                                       C, H, Hkv, G, kv0, ps, maxp, splits,
+                                                       scale, softcap, window, s);
       return -1;
     }
     case kMma:
       if constexpr (std::is_same_v<TQ, __nv_bfloat16> && std::is_same_v<TKV, __nv_bfloat16>)
-        return launch_mma<D>(qt, kt, vt, pt, ln, st, ot, B, C, H, Hkv, ps, maxp, scale, softcap,
-                             window, s);
+        return launch_mma<D>(qt, kt, vt, pt, ln, st, ot, B, C, H, Hkv, G, kv0, ps, maxp, scale,
+                             softcap, window, s);
       return -1;
     default:
       return -1;
@@ -655,17 +659,23 @@ extern "C" void chunked_prefill_constants(int* c) {
 // split (its merge follows on the stream), 2 mma (bf16 only). Layouts: q /
 // out (B, C, H, D); k / v pools (P, ps, Hkv, D); page_table (B, maxp)
 // int32; lengths, starts (B,) int32 (split: starts may be null, the decode
-// mode of row_start); split: part_acc (B, Hkv, splits, C*H/Hkv, D) and
-// part_ml (B, Hkv, splits, C*H/Hkv, 2) fp32 scratch, null otherwise; all
-// contiguous, q and the pools 16-byte aligned on the split and mma paths.
+// mode of row_start); split: part_acc (B, H/G, splits, C*G, D) and part_ml
+// (B, H/G, splits, C*G, 2) fp32 scratch, null otherwise; all contiguous, q
+// and the pools 16-byte aligned on the split and mma paths. The query heads
+// fold G to a kv head: q head h G + g reads the pool's kv head kv0 + h (G =
+// H / Hkv and kv0 = 0 when every kv head of the pool is read; a rank of a
+// tensor split wider than the kv heads holds the whole pool and H query
+// heads of one kv head's group, G = H).
 extern "C" int chunked_prefill_launch(int path, int splits, const void* q, const void* kp,
                                       const void* vp, const void* page_table,
                                       const void* lengths, const void* starts, void* out,
                                       void* part_acc, void* part_ml, int B, int C, int H,
-                                      int Hkv, int D, int ps, int maxp, float scale,
-                                      float softcap, int window, int q_dtype, int kv_dtype,
-                                      void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || (starts == nullptr && path != kSplit)) return -1;
+                                      int Hkv, int G, int kv0, int D, int ps, int maxp,
+                                      float scale, float softcap, int window, int q_dtype,
+                                      int kv_dtype, void* stream) {
+  if (G <= 0 || H % G != 0 || kv0 < 0 || kv0 + H / G > Hkv ||
+      (starts == nullptr && path != kSplit))
+    return -1;
   auto s = static_cast<cudaStream_t>(stream);
   return dispatch_dtype(q_dtype, [&](auto tq) {
     using TQ = std::remove_pointer_t<decltype(tq)>;
@@ -674,20 +684,20 @@ extern "C" int chunked_prefill_launch(int path, int splits, const void* q, const
       switch (D) {
         case 16:
           return launch_path<TQ, TKV, 16>(path, splits, q, kp, vp, page_table, lengths, starts,
-                                          out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
-                                          softcap, window, s);
+                                          out, part_acc, part_ml, B, C, H, Hkv, G, kv0, ps, maxp,
+                                          scale, softcap, window, s);
         case 64:
           return launch_path<TQ, TKV, 64>(path, splits, q, kp, vp, page_table, lengths, starts,
-                                          out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
-                                          softcap, window, s);
+                                          out, part_acc, part_ml, B, C, H, Hkv, G, kv0, ps, maxp,
+                                          scale, softcap, window, s);
         case 96:
           return launch_path<TQ, TKV, 96>(path, splits, q, kp, vp, page_table, lengths, starts,
-                                          out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
-                                          softcap, window, s);
+                                          out, part_acc, part_ml, B, C, H, Hkv, G, kv0, ps, maxp,
+                                          scale, softcap, window, s);
         case 128:
           return launch_path<TQ, TKV, 128>(path, splits, q, kp, vp, page_table, lengths, starts,
-                                           out, part_acc, part_ml, B, C, H, Hkv, ps, maxp, scale,
-                                           softcap, window, s);
+                                           out, part_acc, part_ml, B, C, H, Hkv, G, kv0, ps, maxp,
+                                           scale, softcap, window, s);
         default: return -1;
       }
     });

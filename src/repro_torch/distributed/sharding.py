@@ -155,6 +155,12 @@ def local_shape(shape: Sequence[int], spec: PartitionSpec, mesh) -> Tuple[int, .
     return tuple(out) + tuple(shape[len(spec):])
 
 
+def shard_start(n: int, entry, mesh) -> int:
+    """The first index of the bound rank's block of a dim of ``n`` split
+    on ``entry`` (None, a mesh axis or a tuple of axes): 0 where whole."""
+    return 0 if entry is None else mesh.index(entry) * (n // mesh.count(entry))
+
+
 def shard_slices(shape: Sequence[int], spec: PartitionSpec, mesh) -> Tuple[slice, ...]:
     """The bound rank's slice of each dim."""
     local = local_shape(shape, spec, mesh)

@@ -34,6 +34,14 @@ so nothing is read back; blocks whose keys no query can see exit at once):
 - ``tiled`` for fp32 or mixed dtypes above that: IEEE fp32 on the CUDA
   cores, ``TILED_ROWS`` folded rows a block.
 
+Both wrappers take the query heads' place among the config's (``q_head0``,
+``group``: the first query head's index and the GQA group): a rank whose
+query heads split on a tensor axis wider than the kv heads holds the whole
+pool (the reference's ``kv_seq`` layout) and H heads of one kv head's
+group, which the kernels fold onto kv head ``q_head0 // group`` of the pool
+(``head_fold``). The defaults (0, H / Hkv) read every kv head, as on one
+process.
+
 Each wrapper validates its operands, allocates the output (and scratch),
 launches on the current stream and raises if the launch failed; a call no
 kernel takes raises ValueError. Its ``launches`` counts the calls that
@@ -83,38 +91,64 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def head_fold(H: int, Hkv: int, q_head0: int = 0, group: int = 0) -> tuple:
+    """(G, kv0): the H query heads of q, whose first is head ``q_head0`` of
+    a config with GQA group ``group`` (0: H / Hkv), fold G to a kv head,
+    the first of them kv head kv0 of a pool of Hkv: whole groups (G =
+    group) or the part of one group (G = H). Raises ValueError where they
+    do neither."""
+    if group == 0:
+        if Hkv <= 0 or H % Hkv:
+            raise ValueError(f"chunked_prefill_cuda: {H} query heads over {Hkv} kv heads")
+        group = H // Hkv
+    if group <= 0 or q_head0 < 0:
+        raise ValueError(f"chunked_prefill_cuda: q_head0 {q_head0}, group {group}")
+    if H % group == 0 and q_head0 % group == 0:
+        G = group
+    elif q_head0 % group + H <= group:
+        G = H
+    else:
+        raise ValueError(f"chunked_prefill_cuda: query heads [{q_head0}, {q_head0 + H}) split "
+                         f"groups of {group}")
+    kv0 = q_head0 // group
+    if kv0 + H // G > Hkv:
+        raise ValueError(f"chunked_prefill_cuda: query heads [{q_head0}, {q_head0 + H}) read kv "
+                         f"heads past the pool's {Hkv}")
+    return G, kv0
+
+
 def _plan(B: int, C: int, H: int, Hkv: int, D: int, ps: int, maxp: int, q_dtype, kv_dtype,
-          n_sm: int) -> Plan:
+          n_sm: int, q_head0: int = 0, group: int = 0) -> Plan:
     """The kernel and grid for q (B, C, H, D) over a pool of pages of ``ps``
-    with ``maxp`` pages a row. Raises ValueError for a call no kernel
-    takes."""
+    with ``maxp`` pages a row and Hkv kv heads (``q_head0`` / ``group``:
+    ``head_fold``'s). Rows fold by the local group G: the grid's y is
+    H / G. Raises ValueError for a call no kernel takes."""
     if D not in HEAD_DIMS:
         raise ValueError(f"chunked_prefill_cuda: head_dim {D} not in {HEAD_DIMS}")
     if q_dtype not in DTYPE_CODES or kv_dtype not in DTYPE_CODES:
         raise ValueError(f"chunked_prefill_cuda: dtypes {q_dtype} / {kv_dtype} not in "
                          f"{list(DTYPE_CODES)}")
-    if Hkv <= 0 or H % Hkv:
-        raise ValueError(f"chunked_prefill_cuda: {H} query heads over {Hkv} kv heads")
-    R = C * (H // Hkv)
+    G, _ = head_fold(H, Hkv, q_head0, group)
+    R, nh = C * G, H // G
     if R <= SPLIT_MAX_ROWS:
-        plan = _split_plan(B, Hkv, ps, maxp, n_sm)
+        plan = _split_plan(B, nh, ps, maxp, n_sm)
     elif q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
-        plan = Plan("mma", 1, (_cdiv(R, MMA_ROWS), Hkv, B))
+        plan = Plan("mma", 1, (_cdiv(R, MMA_ROWS), nh, B))
     else:
-        plan = Plan("tiled", 1, (_cdiv(R, TILED_ROWS), Hkv, B))
+        plan = Plan("tiled", 1, (_cdiv(R, TILED_ROWS), nh, B))
     if not all(g <= lim for g, lim in zip(plan.grid, GRID_LIMITS)):
         raise ValueError(f"chunked_prefill_cuda: grid {plan.grid} of q {(B, C, H, D)} exceeds "
                          f"CUDA's limits")
     return plan
 
 
-def _split_plan(B: int, Hkv: int, ps: int, maxp: int, n_sm: int) -> Plan:
+def _split_plan(B: int, nh: int, ps: int, maxp: int, n_sm: int) -> Plan:
     """The split path's grid: the pool row's positions cut into whole
     tiles, as many splits as give ``SPLIT_BLOCKS_PER_SM`` blocks a SM over
-    the B * Hkv (row, KV head) pairs, at most one a tile."""
+    the B * nh (row, KV head read) pairs, at most one a tile."""
     units = max(1, _cdiv(maxp * ps, SPLIT_KEYS))
-    splits = min(units, max(1, _cdiv(SPLIT_BLOCKS_PER_SM * n_sm, B * Hkv)))
-    return Plan("split", splits, (splits, Hkv, B))
+    splits = min(units, max(1, _cdiv(SPLIT_BLOCKS_PER_SM * n_sm, B * nh)))
+    return Plan("split", splits, (splits, nh, B))
 
 
 def split_ranges(cap: int, splits: int) -> list:
@@ -152,14 +186,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan_for(q, k_pages, page_table) -> Plan:
+def plan_for(q, k_pages, page_table, q_head0: int = 0, group: int = 0) -> Plan:
     """The plan of a call on CUDA tensors: q (B, C, H, D), the pool (P, ps,
     Hkv, D), page_table (B, maxp)."""
     B, C, H, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
     return _plan(B, C, H, Hkv, D, ps, page_table.shape[1], q.dtype, k_pages.dtype,
-                 _sm_count(index))
+                 _sm_count(index), q_head0, group)
 
 
 @functools.cache
@@ -173,7 +207,7 @@ def _launcher():
     if tuple(consts) != want:
         raise RuntimeError(f"chunked_prefill library constants {tuple(consts)}, expected {want}")
     fn = lib.chunked_prefill_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -184,9 +218,10 @@ def _check(cond: bool, msg: str, who: str = "chunked_prefill_cuda") -> None:
         raise ValueError(f"{who}: {msg}")
 
 
-def _check_pool(q, k_pages, v_pages, page_table, lengths, who):
+def _check_pool(q, k_pages, v_pages, page_table, lengths, who, q_head0=0, group=0):
     """Checks shared by both wrappers: devices, layouts, dtypes, head dims,
-    the page table and lengths. Returns (Hkv, D, ps, maxp)."""
+    the heads' fold, the page table and lengths. Returns (G, kv0), the
+    fold."""
     H, D = q.shape[-2:]
     P, ps, Hkv, Dk = k_pages.shape
     dev = q.device
@@ -200,7 +235,10 @@ def _check_pool(q, k_pages, v_pages, page_table, lengths, who):
            f"pool dtypes {k_pages.dtype}/{v_pages.dtype}", who)
     _check(v_pages.shape == k_pages.shape, "k/v pools differ in shape", who)
     _check(Dk == D and D in HEAD_DIMS, f"head_dim {D} (pool {Dk}) not in {HEAD_DIMS}", who)
-    _check(Hkv > 0 and H % Hkv == 0, f"{H} query heads over {Hkv} kv heads", who)
+    try:
+        fold = head_fold(H, Hkv, q_head0, group)
+    except ValueError as e:
+        raise ValueError(f"{who}: {str(e).split(': ', 1)[1]}") from None
     B = q.shape[0]
     _check(B <= 65535, f"{B} rows exceed the grid's z limit", who)
     maxp = page_table.shape[1] if page_table.dim() == 2 else -1
@@ -208,13 +246,14 @@ def _check_pool(q, k_pages, v_pages, page_table, lengths, who):
            "page_table must be (B, max_pages) int32", who)
     _check(lengths.shape == (B,) and lengths.dtype == torch.int32,
            "lengths must be (B,) int32", who)
-    return Hkv, D, ps, maxp
+    return fold
 
 
-def _launch(plan, q, k_pages, v_pages, page_table, lengths, starts, out, *, scale, softcap,
-            window, who):
-    """Launch ``plan`` for q / out (B, C, H, D) over the pool; ``starts``
-    None is the split path's decode mode."""
+def _launch(plan, fold, q, k_pages, v_pages, page_table, lengths, starts, out, *, scale,
+            softcap, window, who):
+    """Launch ``plan`` for q / out (B, C, H, D) over the pool, its heads
+    folded by ``fold`` = (G, kv0); ``starts`` None is the split path's
+    decode mode."""
     B, C, H, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
     dev = q.device
@@ -222,8 +261,8 @@ def _launch(plan, q, k_pages, v_pages, page_table, lengths, starts, out, *, scal
         _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
                "q and the pools must be 16-byte aligned", who)
     part_acc = part_ml = None
-    if plan.path == "split":   # (B, Hkv, splits, C * G) rows of P V (D), then of (max, sum)
-        rows = B * Hkv * plan.splits * C * (H // Hkv)
+    if plan.path == "split":   # (B, H / G, splits, C * G) rows of P V (D), then of (max, sum)
+        rows = B * plan.splits * C * H
         part_acc = torch.empty(rows * (D + 2), dtype=torch.float32, device=dev)
         part_ml = part_acc[rows * D:]
     with torch.cuda.device(dev):
@@ -233,7 +272,8 @@ def _launch(plan, q, k_pages, v_pages, page_table, lengths, starts, out, *, scal
             None if starts is None else starts.data_ptr(), out.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
-            B, C, H, Hkv, D, ps, page_table.shape[1], float(scale), float(softcap), int(window),
+            B, C, H, Hkv, *fold, D, ps, page_table.shape[1], float(scale), float(softcap),
+            int(window),
             DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -241,14 +281,16 @@ def _launch(plan, q, k_pages, v_pages, page_table, lengths, starts, out, *, scal
 
 
 def chunked_prefill_cuda(q, k_pages, v_pages, page_table, lengths, starts, *,
-                         scale: float, softcap: float = 0.0, window: int = 0):
+                         scale: float, softcap: float = 0.0, window: int = 0, q_head0: int = 0,
+                         group: int = 0):
     """q (B, C, H, D) at positions starts[b] + c attends causally over the
     paged pool (P, ps, Hkv, D), which already holds the chunk's own KV.
     fp32 or bf16 in (q and the pool may differ), fp32 softmax, output in
-    q's dtype; the kernel is the one ``plan_for`` names."""
+    q's dtype; the kernel is the one ``plan_for`` names. ``q_head0`` /
+    ``group``: the heads' place (the module's note)."""
     who = "chunked_prefill_cuda"
     B = q.shape[0]
-    _check_pool(q, k_pages, v_pages, page_table, lengths, who)
+    fold = _check_pool(q, k_pages, v_pages, page_table, lengths, who, q_head0, group)
     dev = q.device
     _check(starts.device == dev and starts.is_contiguous(),
            f"starts must be contiguous on {dev}")
@@ -257,8 +299,8 @@ def chunked_prefill_cuda(q, k_pages, v_pages, page_table, lengths, starts, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    plan = plan_for(q, k_pages, page_table)
-    _launch(plan, q, k_pages, v_pages, page_table, lengths, starts, out, scale=scale,
+    plan = plan_for(q, k_pages, page_table, q_head0, group)
+    _launch(plan, fold, q, k_pages, v_pages, page_table, lengths, starts, out, scale=scale,
             softcap=softcap, window=window, who=who)
     chunked_prefill_cuda.launches += 1
     chunked_prefill_cuda.launches_by_path[plan.path] += 1
@@ -270,27 +312,29 @@ chunked_prefill_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
-                         scale: float, softcap: float = 0.0, window: int = 0):
+                         scale: float, softcap: float = 0.0, window: int = 0, q_head0: int = 0,
+                         group: int = 0):
     """q (B, H, D), one new token per row, attends to its row's pool
     entries at positions < lengths[b] (and, with a window, > lengths[b] - 1
     - window). fp32 or bf16 in (q and the pool may differ), fp32 math,
     output in q's dtype. One call launches the split kernel and its merge
     on the current stream, at any GQA group up to ``SPLIT_ROWS``
-    (``_split_plan`` names the splits)."""
+    (``_split_plan`` names the splits). ``q_head0`` / ``group``: the heads'
+    place (the module's note)."""
     who = "paged_attention_cuda"
     _check(q.dim() == 3, f"q must be (B, H, D), got {tuple(q.shape)}", who)
     B, H, D = q.shape
-    Hkv = _check_pool(q, k_pages, v_pages, page_table, lengths, who)[0]
-    _check(H // Hkv <= SPLIT_ROWS,
-           f"{H // Hkv} query heads per kv head > {SPLIT_ROWS}, the split path's most", who)
+    fold = _check_pool(q, k_pages, v_pages, page_table, lengths, who, q_head0, group)
+    _check(fold[0] <= SPLIT_ROWS,
+           f"{fold[0]} query heads per kv head > {SPLIT_ROWS}, the split path's most", who)
 
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     q4 = q.view(B, 1, H, D)
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    plan = _split_plan(B, Hkv, k_pages.shape[1], page_table.shape[1], _sm_count(index))
-    _launch(plan, q4, k_pages, v_pages, page_table, lengths, None, out.view(B, 1, H, D),
+    plan = _split_plan(B, H // fold[0], k_pages.shape[1], page_table.shape[1], _sm_count(index))
+    _launch(plan, fold, q4, k_pages, v_pages, page_table, lengths, None, out.view(B, 1, H, D),
             scale=scale, softcap=softcap, window=window, who=who)
     paged_attention_cuda.launches += 1
     return out

@@ -12,15 +12,31 @@ key range (``chunked_prefill_partials``) and the merge of such states
   page_table:  (B, max_pages)   int32 physical page id per logical page
   lengths:     (B,)             total resident kv entries (incl. this chunk)
   q_positions: (B, S) int32     absolute position of each query token
+
+Query head i reads kv head i // (H / Hkv), or, with ``q_head0`` / ``group``
+given (q's heads are heads q_head0 .. q_head0 + H - 1 of a config whose
+GQA group is ``group``), kv head (q_head0 + i) // group of the pool.
 """
 from __future__ import annotations
 
 import torch
 
 
+def _gather_pool(pages, pt, B, K, H, q_head0, group):
+    """The rows' keys or values (B, K, H, D): each query head's kv head."""
+    Hkv = pages.shape[2]
+    group = group or H // Hkv
+    if group <= 0 or (q_head0 + H - 1) // group >= Hkv:
+        raise ValueError(f"query heads [{q_head0}, {q_head0 + H}) of groups of {group} over "
+                         f"{Hkv} kv heads read kv heads past the pool's")
+    idx = (q_head0 + torch.arange(H, device=pages.device)) // group
+    return pages[pt].reshape(B, K, Hkv, pages.shape[3])[:, :, idx]
+
+
 def chunked_prefill_partials(
     q, k_pages, v_pages, page_table, lengths, q_positions, *,
-    scale=None, softcap: float = 0.0, window: int = 0, key_range=None,
+    scale=None, softcap: float = 0.0, window: int = 0, key_range=None, q_head0: int = 0,
+    group: int = 0,
 ):
     """The softmax state of each query over the kv positions in
     ``key_range`` = (lo, hi) (the whole pool row by default), with the
@@ -29,15 +45,14 @@ def chunked_prefill_partials(
     exp(score - m) over the visible keys; acc (B, S, H, D), the unnormalised
     P V. All fp32: the split kernel's first pass on one key range."""
     B, S, H, D = q.shape
-    P, ps, Hkv, _ = k_pages.shape
+    ps = k_pages.shape[1]
     maxp = page_table.shape[1]
-    group = H // Hkv
     if scale is None:
         scale = D ** -0.5
 
     pt = page_table.long()
-    k = k_pages[pt].reshape(B, maxp * ps, Hkv, D).repeat_interleave(group, dim=2)
-    v = v_pages[pt].reshape(B, maxp * ps, Hkv, D).repeat_interleave(group, dim=2)
+    k = _gather_pool(k_pages, pt, B, maxp * ps, H, q_head0, group)
+    v = _gather_pool(v_pages, pt, B, maxp * ps, H, q_head0, group)
 
     s = torch.einsum("bshd,bkhd->bhsk", q.float(), k.float()) * scale
     if softcap > 0.0:
@@ -74,32 +89,33 @@ def merge_partials(parts):
 
 def chunked_prefill_reference(
     q, k_pages, v_pages, page_table, lengths, q_positions, *,
-    scale=None, softcap: float = 0.0, window: int = 0,
+    scale=None, softcap: float = 0.0, window: int = 0, q_head0: int = 0, group: int = 0,
 ):
     """Returns (B, S, H, D) in q's dtype. Query token i of row b attends
     causally to kv positions <= q_positions[b, i] (clipped to lengths[b]);
     a row with no visible key gives zeros."""
     part = chunked_prefill_partials(q, k_pages, v_pages, page_table, lengths, q_positions,
-                                    scale=scale, softcap=softcap, window=window)
+                                    scale=scale, softcap=softcap, window=window,
+                                    q_head0=q_head0, group=group)
     return merge_partials([part]).to(q.dtype)
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, lengths, *,
-                              scale=None, softcap: float = 0.0, window: int = 0):
+                              scale=None, softcap: float = 0.0, window: int = 0,
+                              q_head0: int = 0, group: int = 0):
     """Decode over the pool: q (B, H, D), one token per row, attends to
     the row's kv positions < lengths[b] and, with a window, >
     lengths[b] - 1 - window. Returns (B, H, D) in q's dtype; a row of
     length 0 gives zeros."""
     B, H, D = q.shape
-    P, ps, Hkv, _ = k_pages.shape
+    ps = k_pages.shape[1]
     maxp = page_table.shape[1]
-    group = H // Hkv
     if scale is None:
         scale = D ** -0.5
 
     pt = page_table.long()
-    k = k_pages[pt].reshape(B, maxp * ps, Hkv, D).repeat_interleave(group, dim=2)
-    v = v_pages[pt].reshape(B, maxp * ps, Hkv, D).repeat_interleave(group, dim=2)
+    k = _gather_pool(k_pages, pt, B, maxp * ps, H, q_head0, group)
+    v = _gather_pool(v_pages, pt, B, maxp * ps, H, q_head0, group)
 
     s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
     if softcap > 0.0:

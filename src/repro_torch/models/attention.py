@@ -34,20 +34,27 @@ Every cache write is in place (``index_put_`` on the cache's tensors, which
 are views of the stacked per-group cache), where the JAX version returns a
 new cache: the caller owns the only reference to it.
 
-Under a mesh (``layout`` given) a rank projects its own query and kv heads
-(``heads`` / ``kv_heads`` on the tensor axis), runs the kernels on them,
-and ``wo`` is row-split with a psum over the axis. Its cache holds the
-shards ``cache_partition_specs`` gives: its kv heads of the pool; of the
-dense ring its rows, its kv heads and, where the rules split the ring's
-sequence (``kv_seq`` on the expert axis of the Exp4 mesh, ``slot_pos`` on
-the tensor axis), its slots: a decode step then combines the softmax over
-the slots' ranks (a max, then two sums). The pool is whole on every rank
-of a batch split, so each rank writes every row's keys there. Heads split
-while kv heads are not (qwen2.5's kv 2 at tensor 4: the reference's kv_seq
-fallback) raises (``LM._mesh_pspecs``).
+Under a mesh (``layout`` given) a rank projects its own query heads
+(``heads`` on the tensor axis), runs the kernels on them, and ``wo`` is
+row-split with a psum over the axis. Its cache holds the shards
+``cache_partition_specs`` gives; of the dense ring its rows and, where the
+rules split the ring's sequence (``kv_seq``), its slots: a decode step then
+combines the softmax over the slots' ranks (a max, then two sums). The pool
+is whole on every rank of a batch split, so each rank writes every row's
+keys there. The kv heads take the tensor axis where it divides them; where
+it does not (the reference's ``kv_seq`` fallback: qwen2.5's 2 kv heads at
+tensor 4, mixtral's 8 at 16) ``wk`` / ``wv`` are whole, each rank projects
+every kv head and its query heads read the one (or ones) of their group
+(``_Heads``): a contiguous slice of the fresh K / V for flash attention,
+the whole pool through the kernels' ``q_head0`` / ``group`` (every rank
+writes every kv head of the pool, the same values), and the ring, split on
+the sequence over the tensor axis, through a regrouping: a decode step
+all-gathers the step's queries over the axis, scores every head against
+the rank's slots, combines over the axis and keeps the rank's heads.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
@@ -56,7 +63,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import chunked_prefill_attention, paged_attention
 from repro_torch.distributed.collectives import all_gather, pmax, psum
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, shard_start
+from repro_torch.launch.mesh import spec_axes
 from repro_torch.models.common import RunCtx, dequant, linear, rope, row_linear
 
 
@@ -73,6 +81,37 @@ def _project_qkv(p, h, cfg: ModelConfig):
 
 def _out_proj(p, o, mesh=None, heads_ax=None):
     return row_linear(o, p["wo"], mesh, heads_ax, n_in=2)
+
+
+@dataclass(frozen=True)
+class _Heads:
+    """This rank's query heads and the kv heads they read: its first query
+    head ``h0`` of the config's, split on ``axis``; ``kv0``, the first kv
+    head of the k / v / pool it holds (0 where they hold every kv head:
+    the kv_seq layout); the config's GQA ``group``."""
+    axis: Any
+    h0: int
+    kv0: int
+    group: int
+
+    @staticmethod
+    def of(layout, cfg: ModelConfig) -> "_Heads":
+        wq, wk = layout.p["attn"]["wq"][2], layout.p["attn"]["wk"][2]
+        return _Heads(wq, shard_start(cfg.n_heads, wq, layout.mesh),
+                      shard_start(cfg.n_kv_heads, wk, layout.mesh),
+                      cfg.n_heads // cfg.n_kv_heads)
+
+    @property
+    def q_head0(self) -> int:
+        """The first query head's index against the held kv heads: the
+        kernels' ``q_head0``."""
+        return self.h0 - self.kv0 * self.group
+
+    def kv(self, t, n: int):
+        """The held kv heads (dim 2 of ``t``) that query heads [h0, h0 + n)
+        read: a contiguous slice (a view)."""
+        return t[:, :, self.h0 // self.group - self.kv0:
+                 (self.h0 + n - 1) // self.group + 1 - self.kv0]
 
 
 class _RingShard:
@@ -98,13 +137,25 @@ class _RingShard:
 
 
 def _decode_dense_attn(q, cache, positions, *, window: int, softcap: float, scale: float,
-                       ring: Optional[_RingShard] = None):
+                       ring: Optional[_RingShard] = None, heads: Optional[_Heads] = None):
     """q: (B,1,H,hd); ring-buffer cache. Plain einsum in fp32 (one query
     token needs no tiling), as the reference computes it. With the ring's
     slots split over ranks (``ring.k_axes``), each rank's softmax partials
-    are combined over them."""
+    are combined over them. Where those ranks also split the query heads
+    (``heads.axis``; the kv_seq layout) each scores every head: the step's
+    queries are all-gathered over the heads' axis first, and the rank's
+    heads kept after the combine."""
     k, v = cache["k"], cache["v"]
     slot_pos = cache["slot_pos"] if ring is None else ring.slot_pos(cache)
+    Hq = q.shape[2]
+    regroup = (ring is not None and heads is not None and heads.axis is not None
+               and set(spec_axes(heads.axis)) <= set(spec_axes(ring.k_axes)))
+    if regroup:
+        own = heads.h0                             # the rank's heads, kept after the combine
+        q = all_gather(q, ring.mesh, heads.axis, dim=2)
+        heads = _Heads(None, 0, heads.kv0, heads.group)
+    if heads is not None:
+        k, v = heads.kv(k, q.shape[2]), heads.kv(v, q.shape[2])
     B, W, Hkv, hd = k.shape
     H = q.shape[2]
     q5 = q.reshape(B, 1, Hkv, H // Hkv, hd)
@@ -126,7 +177,10 @@ def _decode_dense_attn(q, cache, positions, *, window: int, softcap: float, scal
         den = psum(p_attn.sum(dim=-1), mesh, axes)                  # (B, Hkv, 1, G)
         o = psum(torch.einsum("bnqgs,bsnd->bqngd", p_attn, v.float()), mesh, axes)
         o = o / den.permute(0, 2, 1, 3)[..., None]
-    return o.reshape(B, 1, H, hd).to(q.dtype)
+    o = o.reshape(B, 1, H, hd)
+    if regroup:
+        o = o[:, :, own:own + Hq]
+    return o.to(q.dtype)
 
 
 def _write_ring_shard(cache, k, v, positions, ring: _RingShard):
@@ -261,10 +315,13 @@ def attention_sublayer(
     window = cfg.sliding_window if kind == "L" else 0
     softcap = cfg.attn_softcap
     scale = cfg.head_dim ** -0.5
-    mesh = heads_ax = ring = None
+    mesh = heads_ax = ring = heads = None
+    fold = {}                                     # the kernels' q_head0 / group
     if layout is not None:
         mesh = layout.mesh
-        heads_ax = layout.p["attn"]["wq"][2]      # kv heads split alike (LM._mesh_pspecs)
+        heads = _Heads.of(layout, cfg)
+        heads_ax = heads.axis
+        fold = dict(q_head0=heads.q_head0, group=heads.group)
         if cache is not None and "k" in cache:
             ring = _RingShard(cache, layout.c["attn"], mesh)
             ring = ring if ring.k_axes or ring.s_axes else None   # slots whole: the plain ring
@@ -294,7 +351,7 @@ def attention_sublayer(
         q_positions = positions if chunk is None else chunk.get("q_positions", positions)
         o = chunked_prefill_attention(
             q, cache["kp"], cache["vp"], page_table, lengths, q_positions,
-            scale=scale, softcap=softcap, window=window,
+            scale=scale, softcap=softcap, window=window, **fold,
         )
         return _out_proj(p, o, mesh, heads_ax)
 
@@ -307,12 +364,12 @@ def attention_sublayer(
             _write_paged_chunk(cache, kw, vw, pos, pt, torch.ones_like(pos, dtype=torch.bool))
             o = paged_attention(
                 q[:, 0], cache["kp"], cache["vp"], page_table, lengths,
-                scale=scale, softcap=softcap, window=window,
+                scale=scale, softcap=softcap, window=window, **fold,
             )[:, None]                                    # (B,1,H,hd)
         else:                                             # dense ring cache
             _write_ring(cache, k, v, positions, ring)
             o = _decode_dense_attn(q, cache, positions, window=window,
-                                   softcap=softcap, scale=scale, ring=ring)
+                                   softcap=softcap, scale=scale, ring=ring, heads=heads)
         return _out_proj(p, o, mesh, heads_ax)
 
     # ---------------- train / prefill / encoder ----------------
@@ -320,7 +377,8 @@ def attention_sublayer(
         positions = torch.arange(h.shape[1], device=h.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=kind != "E", window=window, softcap=softcap,
+    kq, vq = (k, v) if heads is None else (heads.kv(k, q.shape[2]), heads.kv(v, q.shape[2]))
+    o = flash_attention(q, kq, vq, causal=kind != "E", window=window, softcap=softcap,
                         scale=scale)
     if cache is not None and "k" in cache:                # prefill: persist kv
         _write_ring(cache, k, v, positions, ring)

@@ -34,11 +34,15 @@ holds the shards ``param_partition_specs`` gives it and a cache from
 keep this rank's rows where the rules split the batch on data, and return
 the global logits: the embedding is a masked lookup of the rank's vocab
 rows plus a psum, the head gives the rank's vocab columns, all-gathered;
-attention and the MLP split on the tensor axis (one psum each), the MoE
-runs a shard_map strategy. The decoder-only attention configs run so;
-mamba layers, enc-dec, VLM and int8 trees raise.
+attention and the MLP split on the tensor axis (one psum each; where the
+tensor axis outgrows the kv heads, the reference's ``kv_seq`` layout:
+``models.attention``), the mamba layers on the ``ssm_*`` / ``conv_dim``
+rules (``models.mamba``), the MoE runs a shard_map strategy. The
+decoder-only attention configs, mamba2 and jamba serve so; enc-dec, VLM
+and int8 trees raise.
 
-``loss`` runs under a mesh too, with the train rules (``make_rules("train",
+``loss`` runs under a mesh too (not yet with mamba layers or the kv_seq
+layout, which raise), with the train rules (``make_rules("train",
 ...)``: FSDP, every leaf's ``embed`` dim split on the data axis). Each layer
 all-gathers its leaves over data just before use, inside its remat region
 (the gathered copy is freed after it and gathered again in the recompute),
@@ -113,34 +117,53 @@ class LM:
     # ------------------------------------------------------------------ mesh
     def _check_mesh_support(self):
         cfg = self.cfg
-        if any("M" in g.pattern for g in cfg.layer_groups):
-            raise NotImplementedError(f"{cfg.name} under a mesh: mamba layers (the ssm_* and "
-                                      f"conv_dim rules) are not in the port's sharded path yet")
         if cfg.encoder is not None or cfg.vision is not None:
             raise NotImplementedError(f"{cfg.name} under a mesh: the enc-dec and VLM extras "
                                       f"are not in the port's sharded path yet")
+
+    def _train_check(self, layout) -> None:
+        """``loss`` under a mesh: what its backward does not cover yet."""
+        cfg = self.cfg
+        if any("M" in g.pattern for g in cfg.layer_groups):
+            raise NotImplementedError(
+                f"{cfg.name}: training under a mesh with mamba layers (the ssm_* / conv_dim "
+                f"layout and the SSD backward at H / t heads) is not in the port yet (ROADMAP "
+                f"Queue 1 item 3)")
+        for g in layout.params["groups"]:
+            for lay in g["layers"]:
+                if "attn" in lay and lay["attn"]["wq"][2] != lay["attn"]["wk"][2]:
+                    raise NotImplementedError(
+                        f"{cfg.name}: training under the kv_seq layout (query heads on "
+                        f"{lay['attn']['wq'][2]!r}, its {cfg.n_kv_heads} kv heads whole) is "
+                        f"not in the port yet (ROADMAP Queue 1 item 3)")
 
     def _mesh_pspecs(self, mesh, rules):
         """(the global parameter specs under (mesh, rules), each leaf's
         shard shape, the specs the layers see once the FSDP dims are
         gathered, the FSDP specs: each leaf's ``embed`` entries alone, None
-        when no leaf has one), after checking the slice runs there: query
-        and kv heads must split alike. Cached with the mesh and rules
-        themselves, so their ids stay theirs."""
+        when no leaf has one), after checking the slice runs there: a
+        rank's query heads, where the kv heads do not split with them, must
+        be whole GQA groups or the part of one. Cached with the mesh and
+        rules themselves, so their ids stay theirs."""
         from repro_torch.distributed import sharding
         self._check_mesh_support()
         key = (id(mesh), id(rules))
         if key not in self._pspecs:
             specs = self.param_specs()
             pspecs = sharding.param_partition_specs(specs, mesh, rules)
+            cfg = self.cfg
             for g in pspecs["groups"]:
                 for lay in g["layers"]:
-                    if "attn" in lay and lay["attn"]["wq"][2] != lay["attn"]["wk"][2]:
+                    if "attn" not in lay or lay["attn"]["wq"][2] == lay["attn"]["wk"][2]:
+                        continue
+                    Hq, group = cfg.n_heads // mesh.count(lay["attn"]["wq"][2]), (
+                        cfg.n_heads // cfg.n_kv_heads)
+                    if lay["attn"]["wk"][2] is not None or (Hq % group and group % Hq):
                         raise NotImplementedError(
-                            f"{self.cfg.name}: query heads split on {lay['attn']['wq'][2]!r}, "
-                            f"its {self.cfg.n_kv_heads} kv heads on {lay['attn']['wk'][2]!r}: "
-                            f"the reference's kv_seq cache layout (a softmax combine across "
-                            f"the sequence's ranks) is not in the port yet")
+                            f"{cfg.name}: query heads split on {lay['attn']['wq'][2]!r} "
+                            f"({Hq} a rank), its {cfg.n_kv_heads} kv heads on "
+                            f"{lay['attn']['wk'][2]!r}: a rank's heads must be whole groups "
+                            f"of {group} or the part of one")
             shards = []
             params_lib.map_tree(lambda s: shards.append((s, sharding.local_shape(
                 s.shape, sharding.partition_spec(s.shape, s.logical, mesh, rules), mesh))),
@@ -187,6 +210,23 @@ class LM:
                       cache=cache.specs if cache is not None else None, batch=batch, B=B,
                       rows=slice(k * n, (k + 1) * n), glob=glob)
 
+    @staticmethod
+    def _check_slots(cache, layout, slots) -> None:
+        """Under a batch split of the slot-pooled SSM cache each rank holds
+        its block of the slots' rows: a pack row's slot must lie in its
+        rank's block."""
+        for gc, gs in zip(cache["groups"], layout.cache["groups"]):
+            for c, s in zip(gc, gs):
+                if "ssm" not in c or s["ssm"]["state"][1] is None:
+                    continue
+                n = c["ssm"]["state"].shape[1]
+                lo = layout.mesh.index(s["ssm"]["state"][1]) * n
+                if bool(((slots < lo) | (slots >= lo + n)).any()):
+                    raise ValueError(f"decode_chunk under a batch split: this rank's rows "
+                                     f"{layout.rows} hold slots {slots.tolist()}, its block of "
+                                     f"the SSM cache is slots [{lo}, {lo + n})")
+                return
+
     # ------------------------------------------------------------------ params
     def param_specs(self):
         return params_lib.param_specs(self.cfg)
@@ -204,7 +244,8 @@ class LM:
         aux = 0.0
         h = rmsnorm(x, p["ln1"], cfg.rms_eps)
         if kind == "M":
-            x = x + mamba_sublayer(p["ssm"], h, cfg, ctx, c["ssm"] if c else None, chunk)
+            x = x + mamba_sublayer(p["ssm"], h, cfg, ctx, c["ssm"] if c else None, chunk,
+                                   layout=layout)
         else:
             x = x + attention_sublayer(p["attn"], h, ctx, cfg, kind, c["attn"] if c else None,
                                        positions, page_table, lengths, valid, chunk=chunk,
@@ -413,6 +454,7 @@ class LM:
         layout = self._layout(params, ctx, batch["labels"].shape[0])
         labels = batch["labels"].long()
         if layout is not None:
+            self._train_check(layout)
             labels = layout.local_rows(labels)
             head_w = self._head_weight(params, layout)        # gathered once, not per chunk
         mask = (labels >= 0).float()
@@ -552,6 +594,7 @@ class LM:
                 layout.local_rows(t) for t in (tokens, starts, nvalid, slots, first, page_table,
                                                 positions, valid))
             B = tokens.shape[0]
+            self._check_slots(cache, layout, slots)
         x = self._embed(params, tokens, layout)
         pack = {"slots": slots, "nvalid": nvalid, "first": first}
         n_prefix = 0

@@ -219,3 +219,30 @@ def test_split_emulation_matches_pallas(ps, window, softcap, splits):
     whole = chunked_prefill_reference(*map(torch.from_numpy, (q, kp, vp, pt, lengths, qpos)),
                                       **kw).numpy()
     np.testing.assert_allclose(emu, whole, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("H,Hkv,q_head0,group,C,G,kv0,grid", [
+    (32, 8, 0, 0, 1, 4, 0, (17, 8, 4)),          # the defaults: every kv head
+    (32, 8, 0, 4, 1, 4, 0, (17, 8, 4)),          # the same, named
+    (4, 2, 12, 8, 1, 4, 1, (128, 1, 4)),         # qwen2.5-3b at tensor 4, rank 3: 4 of 8
+    (4, 2, 4, 8, 5, 4, 0, (1, 1, 4)),            # its verify width 5: 20 rows, mma
+    (1, 2, 3, 2, 1, 1, 1, (128, 1, 4)),          # tiny qwen2.5 at tensor 4, rank 3
+    (4, 4, 4, 2, 1, 2, 2, (66, 2, 4)),           # two whole groups of 2, kv heads 2 and 3
+])
+def test_plan_folds_rows_by_the_local_group(H, Hkv, q_head0, group, C, G, kv0, grid):
+    """A rank's query heads over the whole pool fold by the local group G
+    (whole groups, or the part of one), the grid's y is H / G, and kv head
+    kv0 is the first they read; the defaults give the plan of all heads."""
+    assert pk.head_fold(H, Hkv, q_head0, group) == (G, kv0)
+    plan = _plan(4, C, H, Hkv, 128, 16, 256, BF16, BF16, 132, q_head0, group)
+    assert plan.grid == grid and plan.path == ("split" if C * G <= pk.SPLIT_MAX_ROWS else "mma")
+
+
+@pytest.mark.parametrize("H,Hkv,q_head0,group,msg", [
+    (3, 2, 2, 4, "split groups"),                # heads 2..4 cross a group boundary
+    (4, 2, 8, 4, "past the pool"),               # kv head 2 of 2
+    (3, 2, 0, 0, "query heads over"),            # no group named and H % Hkv
+])
+def test_head_fold_rejects_heads_no_kernel_folds(H, Hkv, q_head0, group, msg):
+    with pytest.raises(ValueError, match=msg):
+        _plan(4, 1, H, Hkv, 128, 16, 32, BF16, BF16, 132, q_head0, group)

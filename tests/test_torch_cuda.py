@@ -128,6 +128,45 @@ def test_attention_reaches_planned_path(cuda, case, ps, D, window, softcap):
     assert not a[3].any(), "a length-0 row must give zeros"
 
 
+# (C, rank heads Hl, config heads H / kv heads Hkv, dtype, path): a rank's
+# heads over the whole pool (the kv_seq layout) on each of the three paths
+FOLD_CASES = [
+    (1, 4, 16, 2, torch.bfloat16, "split"),      # qwen2.5-3b's decode sweep at tensor 4
+    (3, 4, 16, 2, torch.float32, "split"),       # its verify width 3: 12 folded rows
+    (24, 4, 16, 2, torch.bfloat16, "mma"),       # a pack: 96 rows of one kv head
+    (24, 4, 16, 2, torch.float32, "tiled"),
+    (8, 1, 4, 2, torch.float32, "split"),        # tiny qwen2.5 at tensor 4: one head
+    (24, 4, 8, 4, torch.bfloat16, "mma"),        # two whole groups of 2
+]
+
+
+@pytest.mark.parametrize("C,Hl,H,Hkv,dtype,want", FOLD_CASES)
+def test_attention_q_head0_matches_plain_on_every_path(cuda, C, Hl, H, Hkv, dtype, want):
+    """Chunked attention and paged decode on a rank's heads [q_head0,
+    q_head0 + Hl) of H over the whole pool of Hkv heads: the planned path,
+    each rank's heads within test_attention_kernel_matches_plain's
+    tolerances of the plain twin, bit-equal repeats."""
+    q, kp, vp, pt, lengths, qpos = _attn_case(C + Hl, ps=8, D=128, C=C, H=Hl, Hkv=Hkv)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, pt, lengths, qpos)]
+    for i in range(3):
+        args[i] = args[i].to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for h0 in range(0, H, Hl):
+        kw = dict(scale=128 ** -0.5, q_head0=h0, group=H // Hkv)
+        assert attn_plan_for(args[0], args[1], args[3], h0, H // Hkv).path == want
+        before = dict(chunked_prefill_cuda.launches_by_path)
+        a = chunked_prefill_attention(*args, **kw)
+        assert chunked_prefill_cuda.launches_by_path[want] == before[want] + 1
+        assert torch.equal(a, chunked_prefill_attention(*args, **kw))
+        torch.testing.assert_close(a.float(), chunked_prefill_reference(*args, **kw).float(),
+                                   atol=tol, rtol=tol)
+        if C == 1:
+            d = paged_attention(args[0][:, 0], *args[1:5], **kw)
+            torch.testing.assert_close(
+                d.float(), paged_attention_reference(args[0][:, 0], *args[1:5], **kw).float(),
+                atol=3e-2 if dtype == torch.bfloat16 else 2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("name,B,C,starts,nvalid,maxp,want", [
     ("decode", 4, 1, [131, 219, 299, 166], [1, 1, 1, 1], 32, "split"),
     ("decode C=4", 4, 4, [128, 216, 296, 163], [4, 4, 4, 4], 32, "split"),

@@ -187,3 +187,39 @@ def test_decode_cuda_wrapper_rejects_cpu_tensors():
     t = [torch.from_numpy(a) for a in _decode_case(10, H=4, Hkv=2, D=16, ps=4)]
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention_cuda(*t, scale=0.25)
+
+
+# ------------------------------------------------ a rank's heads (q_head0)
+# (config heads, kv heads, a rank's heads): tiny qwen2.5 at tensor 4 (one
+# head of a group of 2), qwen2.5-3b's 16 / 2 at tensor 4 (4 heads of a
+# group of 8), mixtral's 32 / 8 at tensor 16 (2 of 4), and whole groups (4
+# heads, 2 groups of 2)
+RANK_HEADS = [(4, 2, 1), (16, 2, 4), (32, 8, 2), (8, 4, 4)]
+
+
+@pytest.mark.parametrize("H,Hkv,Hl", RANK_HEADS)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (5, 2.0)])
+def test_plain_twins_with_q_head0_equal_all_heads_sliced(H, Hkv, Hl, window, softcap):
+    """The plain chunked and paged twins on a rank's heads [q_head0, q_head0
+    + Hl) over the whole pool give, bit for bit, the same twins run on all
+    H heads and then sliced to those heads: each head reads kv head
+    (q_head0 + i) // (H / Hkv) of the pool."""
+    q, kp, vp, pt, lengths, qpos, _ = _case(H + window, ps=4, H=H, Hkv=Hkv)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, pt, lengths, qpos)]
+    kw = dict(scale=q.shape[-1] ** -0.5, softcap=softcap, window=window)
+    full = chunked_prefill_reference(*t, **kw)
+    qd, kpd, vpd, ptd, ld = map(torch.from_numpy, _decode_case(H, H=H, Hkv=Hkv, D=16, ps=4))
+    full_d = paged_attention_reference(qd, kpd, vpd, ptd, ld, **kw)
+    for h0 in range(0, H, Hl):
+        fold = dict(q_head0=h0, group=H // Hkv)
+        part = chunked_prefill_attention(t[0][:, :, h0:h0 + Hl], *t[1:], **kw, **fold)
+        assert torch.equal(part, full[:, :, h0:h0 + Hl]), h0
+        part_d = paged_attention(qd[:, h0:h0 + Hl], kpd, vpd, ptd, ld, **kw, **fold)
+        assert torch.equal(part_d, full_d[:, h0:h0 + Hl]), h0
+
+
+def test_plain_twin_with_q_head0_rejects_heads_past_the_pool():
+    q, kp, vp, pt, lengths, qpos, _ = _case(0, ps=4, H=4, Hkv=2)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, pt, lengths, qpos)]
+    with pytest.raises(ValueError, match="past the pool"):
+        chunked_prefill_reference(t[0][:, :, :2], *t[1:], q_head0=4, group=2)
