@@ -236,12 +236,22 @@ exits non-zero and no phase's failure is caught.
      two 16-expert MoE layers; 28.6 GB) on (1, 2, 2) ep_shardmap; each
      model's kernels launched (flash, paged and chunked attention where it
      has attention, the SSD scan where it has mamba layers, gmm never);
-     prefill, decode step and pack ms and peak memory printed. Any rank's
-     failure or a rank not done within 300 s fails.
+     prefill, decode step and pack ms and peak memory printed. (g), (h) the
+     enc-dec and VLM families the same way, fp32, full width, 2 decoder
+     layers, with seeded extras: prefill into the dense ring (and cross
+     cache), 2 decode_steps over it, a decode_chunk pack of the prompts
+     with the same extras into a fresh pool, 4 decode_steps over that pool,
+     each against the unsharded card run within LOGIT_ATOL, argmax equal:
+     (g) seamless-m4t-large-v2 (2 encoder layers over 64 frames a row) on
+     (2, 1, 2) (a rank's rows of the batch and of the cross cache, its 8
+     heads of 16); (h) phi-3-vision-4.2b (576 patches a row ahead of each
+     prompt) on (1, 1, 4) (8 heads of 32); flash, paged and chunked
+     attention launched. Any rank's failure or a rank not done within 300 s
+     fails.
  14. (run after phase 9, once phase 4's model is freed) distributed
      training (the train rules: FSDP on the data axis; TP / EP backward
      through the differentiable collectives; the gradient reduction and
-     its int8 form): (a) NCCL at world 1 in this process: qwen2.5-3b at
+     its int8 form; every family): (a) NCCL at world 1 in this process: qwen2.5-3b at
      depth 2, full width, fp32, on the (1, 1, 1) train mesh, 4 x 32
      tokens: ``LM.loss`` and its gradient, then one ``step_fn`` (2
      microbatches, int8 gradients), against the unsharded step on the card:
@@ -259,7 +269,18 @@ exits non-zero and no phase's failure is caught.
      bounds, each rank's loss (mixtral's: the whole batch's xent plus its
      shard's aux) within 1e-4, each rank's parameters against AdamW on its
      own moments, and its parameter, moment and error-feedback bytes equal
-     to its specs' shard sums. (c) the same ranks in bf16 at full width:
+     to its specs' shard sums. (d) the layouts training under a mesh once
+     refused, held the same way: qwen2.5-3b at depth 2 on (1, 1, 4) (kv_seq:
+     its 2 kv heads whole on every tensor rank) and mamba2-1.3b at depth 2
+     on (1, 1, 2), qwen's step; jamba-v0.1-52b's first two layers (a mamba
+     layer with a dense MLP, then one with the 16-expert MoE) on (1, 2, 2)
+     ep_shardmap, its loss and reduced gradient alone (its fp32 step would
+     not fit: 4 copies of the 11.3 GB MoE layer on the ranks); the SSD scan
+     and its backward launched for both mamba models. (e) seamless-m4t-
+     large-v2 (2 encoder and 2 decoder layers, 64 frames a row) and
+     phi-3-vision-4.2b (2 layers, 576 patches a row) on (2, 1, 2), qwen's
+     step. Each case's step ms and peak device memory per rank printed.
+     (c) the same ranks in bf16 at full width:
      qwen2.5-3b at depth 4 on (2, 1, 2) and mixtral-8x7b at depth 1 on (2,
      2, 1) (depth 2 fits but doubles the phase's longest part: see
      DIST_TRAIN_BF16), phase 12 (a)'s corpus, 4 x 512 tokens a step, remat,
@@ -330,6 +351,12 @@ INT8_SPEC_SLOTS = 8                # phase 7's speculative run: max_slots, as ma
 PROMPT_LENS = (113, 178, 241, 297)  # phases 4-7 and 11: the serving and generation prompts
 # phase 11: the enc-dec and VLM engines (4 slots, pages of 16, packs of 2 x 128)
 MM_SEAMLESS, MM_VISION = "seamless-m4t-large-v2", "phi-3-vision-4.2b"
+# phase 13 (d)-(h): each prompt's first tokens, no padding (two of the SSD
+# scan's 64-token tiles); (f)'s MoE layers move (E, T, d) fp32 buffers
+# through the host (capacity factor E / K), 4 x 113 tokens took 5-8 s a
+# prefill
+DIST_PROMPT = 80
+DIST_FRAMES = 64                   # phases 13 (g) and 14 (e): seamless's frames a row
 MM_SLOTS = 4
 MM_MAX_SEQ = {MM_SEAMLESS: 512, MM_VISION: 1024}   # VLM: 576 patches + 297 + 32 fit
 MM_FRAMES = (300, 640, 1024, 1536)  # each request's frames: padded / exact / cropped to 1024
@@ -725,6 +752,20 @@ def run_attention(dev, flush, results):
     shapes["pack jamba"] = dict(new, H=32, Hkv=8)
     shapes["pack jamba (1, 2, 2)"] = dict(new, H=16, Hkv=4)
     dtypes = {name: (torch.float32, torch.bfloat16) for name in shapes}
+    # phase 13 (g) / (h)'s packs, fp32 as they serve: seamless (MHA, head dim
+    # 64) unsharded and a rank's 2 rows and 8 heads at (2, 1, 2);
+    # phi-3-vision (head dim 96) unsharded and a rank's 8 heads at (1, 1, 4),
+    # 576 patches ahead of each prompt
+    for arch, D, cuts in ((MM_SEAMLESS, 64, ((4, 16), (2, 8))),
+                          (MM_VISION, 96, ((4, 32), (4, 8)))):
+        cfg = mm_config(arch, 2)
+        maxp = dist_mm_pages(cfg)
+        C = (cfg.vision.n_patches if cfg.vision is not None else 0) + DIST_PROMPT
+        for B, H in cuts:
+            name = f"pack {arch} {H} heads"
+            shapes[name] = dict(B=B, C=C, H=H, Hkv=H, D=D, starts=[0] * B, nvalid=[C] * B,
+                                maxp=maxp, num_pages=B * maxp + 1)
+            dtypes[name] = (torch.float32,)
     served = dict(stack_attention_shapes(), **spec_attention_shapes())
     shapes.update(served)
     dtypes.update({name: (torch.bfloat16,) for name in served})
@@ -914,6 +955,31 @@ FLASH_BWD_EDGE = [("edge", 2, 64, 64, 4, 1, 16, True, 0, 0.0, 0),
 FLASH_BWD_EDGE += [("edge", B, 32, 32, H, Hkv, 128, True, 0, 0.0, 0)
                    for B, H, Hkv in ((4, 16, 2), (2, 16, 2), (2, 8, 1), (1, 8, 1), (4, 32, 8),
                                      (2, 32, 8))]
+# phase 14 (d): qwen2.5-3b's microbatch at (1, 1, 4), a rank's 4 query heads
+# with the one kv head they read (kv_seq). (e), a microbatch of 2 rows of 32
+# tokens, unsharded and a rank's 1 row at (2, 1, 2): seamless's decoder,
+# encoder (DIST_FRAMES frames) and cross attention (MHA, head dim 64),
+# phi-3-vision's 576 patches + 32 tokens (head dim 96). Phase 13 (g) / (h),
+# forward only (checked with the backward here): seamless at (2, 1, 2) (a
+# rank's 2 rows) and unsharded, the decoder's prefill of DIST_PROMPT
+# tokens, the encoder over DIST_FRAMES frames, the cross attention of
+# the prompt and of one token; phi-3-vision's prefill of 576 patches +
+# DIST_PROMPT tokens at (1, 1, 4) and unsharded
+FLASH_BWD_EDGE += [("edge", 2, 32, 32, 4, 1, 128, True, 0, 0.0, 0)]
+FLASH_BWD_EDGE += [("edge", B, Sq, Skv, H, H, 64, causal, 0, 0.0, 0)
+                   for B, H in ((2, 16), (1, 8))
+                   for Sq, Skv, causal in ((32, 32, True), (DIST_FRAMES, DIST_FRAMES, False),
+                                           (32, DIST_FRAMES, False))]
+FLASH_BWD_EDGE += [("edge", B, 576 + 32, 576 + 32, H, H, 96, True, 0, 0.0, 0)
+                   for B, H in ((2, 32), (1, 16))]
+FLASH_BWD_EDGE += [("edge", B, Sq, Skv, H, H, 64, causal, 0, 0.0, 0)
+                   for B, H in ((4, 16), (2, 8))
+                   for Sq, Skv, causal in ((DIST_PROMPT, DIST_PROMPT, True),
+                                           (DIST_FRAMES, DIST_FRAMES, False),
+                                           (DIST_PROMPT, DIST_FRAMES, False),
+                                           (1, DIST_FRAMES, False))]
+FLASH_BWD_EDGE += [("edge", 4, 576 + DIST_PROMPT, 576 + DIST_PROMPT, H, H, 96, True, 0, 0.0, 0)
+                   for H in (32, 8)]
 FLASH_BWD_FULL = [("qwen2.5-3b train", 4, 512, 512, 16, 2, 128, True, 0, 0.0, 0),
                   ("mixtral train", 4, 512, 512, 32, 8, 128, True, 0, 0.0, 0),
                   # phase 14 (c)'s ranks (run_flash's rows of the same names)
@@ -1535,7 +1601,14 @@ SSD_BWD_EDGE = [("edge", 2, 32, 3, 8, 4, 3, False, None, False),
                 ("edge", 2, 17, 3, 4, 5, 3, True, None, True),
                 ("edge", 1, 16, 2, 3, 4, 2, True, None, False),
                 ("edge", 2, 40, 8, 16, 16, 1, True, [40, 13], True),
-                ("edge", 2, 150, 4, 64, 128, 2, True, [150, 70], True)]
+                ("edge", 2, 150, 4, 64, 128, 2, True, [150, 70], True),
+                # phase 14 (d)'s fp32 calls, 32 tokens a row: mamba2-1.3b
+                # unsharded (a microbatch of 2 rows) and its heads at tensor 2;
+                # jamba unsharded (4 rows) and its heads at (1, 2, 2)
+                ("edge", 2, 32, 64, 64, 128, 1, False, None, False),
+                ("edge", 2, 32, 32, 64, 128, 1, False, None, False),
+                ("edge", 4, 32, 128, 64, 16, 1, False, None, False),
+                ("edge", 4, 32, 64, 64, 16, 1, False, None, False)]
 SSD_BWD_FULL = [("mamba2 train", 4, 512, 64, 64, 128, 1, False, None, False),
                 ("jamba train", 4, 512, 128, 64, 16, 1, False, None, False)]
 # relative to each gradient's max |plain grad|: the kernel's math is fp32
@@ -1628,6 +1701,9 @@ def run_ssd_bwd(dev, flush, results):
             shape = (f"x{tuple(x.shape)} B/C{tuple(Bm.shape)} init_state={init} "
                      f"nvalid={nvalid} d_final={dfin}")
             rel = " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            key = ssd_key(x, Bm, s0 is not None)
+            CHECKED["ssd_scan"].add(key)
+            CHECKED["ssd_scan_bwd"].add(key)
             if name == "edge":
                 log(f"  ssd bwd edge {shape} {str(dtype)[6:]} ({where}): forward / states err "
                     f"{fwd_err:.3g}, rel errs {rel} (tol {SSD_BWD_TOL}), repeat bit-equal")
@@ -1641,7 +1717,6 @@ def run_ssd_bwd(dev, flush, results):
             plain_ms = cuda_ms(lambda: ssd_reference_bwd(x, dt, A, Bm, Cm, s0, st, dy, d_final),
                                flush=flush, queued=False)
             bms, by = ssd_bwd_bound(x, Bm, init, dtype)
-            key = ssd_key(x, Bm, s0 is not None)
             row = dict(kernel="ssd_scan_bwd", case=name, dtype=str(dtype)[6:], shape=shape,
                        path=plan["path"], hb=plan["hb"], grid=plan["grid"],
                        max_abs_err=abs_err, rel_errs=errs, fwd_err=fwd_err, ms=ms,
@@ -1653,8 +1728,6 @@ def run_ssd_bwd(dev, flush, results):
                 f"plain_ms={plain_ms:.4f} library_ms=none (no single PyTorch call) "
                 f"bound_ms={bms:.6f} ({by}) rel errs {rel} (tol {SSD_BWD_TOL}), forward / states "
                 f"err {fwd_err:.3g}, repeat bit-equal")
-            CHECKED["ssd_scan"].add(key)
-            CHECKED["ssd_scan_bwd"].add(key)
             del x, Bm, Cm, dy, st, args
             torch.cuda.empty_cache()
 
@@ -2452,11 +2525,11 @@ DIST_A_BACKEND = "nccl"     # (a): a multi-card machine's backend
 DIST_LAYOUTS = (("d", "qwen2.5-3b", 2, (1, 1, 4), "tp_shardmap"),
                 ("e", "mamba2-1.3b", 2, (1, 1, 4), "tp_shardmap"),
                 ("f", "jamba-v0.1-52b", 5, (1, 2, 2), "ep_shardmap"))
-# (d)-(f): each prompt's first tokens, no padding (two of the SSD scan's
-# 64-token tiles); (f)'s MoE layers move (E, T, d) fp32 buffers through the
-# host (capacity factor E / K), 4 x 113 tokens took 5-8 s a prefill
-DIST_PROMPT = 80
 DIST_RING_STEPS = 2         # (d)-(f): decode_steps over the dense ring before the pool's
+# (g), (h): the enc-dec and VLM families at full width, fp32, 2 decoder
+# layers (seamless: and 2 encoder layers over DIST_FRAMES frames a row;
+# phi-3-vision: 576 patches a row ahead of the prompt): (name, arch, mesh)
+DIST_MM = (("g", "seamless-m4t-large-v2", (2, 1, 2)), ("h", "phi-3-vision-4.2b", (1, 1, 4)))
 # (c): decode_steps, teacher-forced with the first of phase 5's tokens
 DIST_C_STEPS = 16
 # (c): each logit row against phase 5's at the same context, relative to the
@@ -2618,6 +2691,77 @@ def dist_paths(dev, model, params, ctx, tokens, feed, timed=False):
     return out, secs
 
 
+def dist_mm_pages(cfg) -> int:
+    """(g) / (h)'s pages a row: the patch prefix, the prompt and every decode
+    step, 16 positions a page."""
+    off = cfg.vision.n_patches if cfg.vision is not None else 0
+    return -(-(off + DIST_PROMPT + DIST_RING_STEPS + DIST_STEPS) // 16)
+
+
+def dist_mm_extras(cfg, B: int) -> dict:
+    """(g) / (h)'s seeded frames (B, DIST_FRAMES, d) or patches (B,
+    n_patches, d_patch), fp32 on the host."""
+    g = torch.Generator().manual_seed(17)
+    if cfg.encoder is not None:
+        return {"frames": torch.randn((B, DIST_FRAMES, cfg.d_model), generator=g)}
+    return {"patches": torch.randn((B, cfg.vision.n_patches, cfg.vision.d_patch), generator=g)}
+
+
+def dist_mm_paths(dev, model, params, ctx, tokens, feed, ext, timed=False):
+    """(g) / (h)'s paths on prompts (B, S) with the batch's ``ext`` (frames
+    or patches), teacher-forced with ``feed`` (B, DIST_RING_STEPS +
+    DIST_STEPS): ``prefill`` into a dense ring (and cross cache),
+    DIST_RING_STEPS ``decode_step``s over it; a ``decode_chunk`` pack of the
+    prompts with the same extras into a fresh pool (every row a first
+    chunk: the encoder runs and the cross keys and values go to the rows'
+    slots, or the patch prefix takes positions [0, 576)), then DIST_STEPS
+    ``decode_step``s over that pool (positions past the patch prefix).
+    Returns ({path: logits}, wall seconds of each call when ``timed``)."""
+    ps, cfg = 16, model.cfg
+    B, S = tokens.shape
+    maxp = dist_mm_pages(cfg)
+    off = cfg.vision.n_patches if cfg.vision is not None else 0
+    M = DIST_FRAMES if cfg.encoder is not None else 0
+    pt = torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp) + 1
+    dtype = params["final_norm"]["w"].dtype
+    ext = {k: v.to(dev) for k, v in ext.items()}
+    out, secs = {}, {}
+
+    def tick():
+        if timed:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+    t0 = tick()
+    dense = model.init_cache(B, maxp * ps, dtype, memory_len=M, device=dev)
+    out["prefill"], dense = model.prefill(params, {"tokens": tokens, **ext}, dense, ctx)
+    secs["prefill"] = tick() - t0
+    pos = torch.full((B,), off + S, dtype=torch.int32, device=dev)
+    for i in range(DIST_RING_STEPS):
+        t0 = tick()
+        out[f"ring{i}"], dense = model.decode_step(params, feed[:, i:i + 1], dense, pos, ctx)
+        secs.setdefault("ring", []).append(tick() - t0)
+        pos = pos + 1
+    del dense
+    pool = model.init_cache(B, maxp * ps, dtype, kind="paged", page_size=ps,
+                            num_pages=B * maxp + 1, memory_len=M, device=dev)
+    t0 = tick()
+    out["pack"], pool = model.decode_chunk(
+        params, tokens, pool, torch.zeros(B, dtype=torch.int32, device=dev),
+        torch.full((B,), S, dtype=torch.int32, device=dev),
+        torch.arange(B, dtype=torch.int32, device=dev),
+        torch.ones(B, dtype=torch.bool, device=dev), ctx, pt, **ext)
+    secs["pack"] = tick() - t0
+    pos = torch.full((B,), off + S, dtype=torch.int32, device=dev)
+    for i in range(DIST_STEPS):
+        t0 = tick()
+        j = DIST_RING_STEPS + i
+        out[f"paged{i}"], pool = model.decode_step(params, feed[:, j:j + 1], pool, pos, ctx,
+                                                   page_table=pt, lengths=pos + 1)
+        secs.setdefault("paged", []).append(tick() - t0)
+        pos = pos + 1
+    return out, secs
+
+
 def padded_prompts(dev, streams):
     lens = [len(p) for p, _ in streams]
     toks = np.zeros((len(lens), max(lens)), np.int32)
@@ -2661,7 +2805,8 @@ def dist_rank(rank: int, world: int, job: dict):
     torch.cuda.set_device(dev)
     for name in ("flash_attention", "chunked_prefill"):
         kbuild.load_library(name)                  # built by phase 1; the build lock guards it
-    meshes = {name: Mesh(shape, DIST_AXES).bind() for name, shape, _ in DIST_MESHES}
+    meshes = {shape: Mesh(shape, DIST_AXES).bind()
+              for shape in sorted({m[1] for m in DIST_MESHES} | {m[2] for m in DIST_MM})}
     tokens, lens = job["tokens"].to(dev), job["lens"]
     out = {"rank": rank, "b": {}}
     recording = served_shapes if rank == 0 else contextlib.nullcontext
@@ -2669,8 +2814,8 @@ def dist_rank(rank: int, world: int, job: dict):
         # (b) fp32 depth 2 on both meshes, teacher-forced with the card's
         # unsharded greedy tokens
         model = build_model(dist_config(DIST_DEPTH))
-        for name, _, strategy in DIST_MESHES:
-            mesh, rules = meshes[name], dist_rules(strategy)
+        for name, shape, strategy in DIST_MESHES:
+            mesh, rules = meshes[shape], dist_rules(strategy)
             ctx = dist_ctx(strategy, mesh)
             with use_sharding(mesh, rules):
                 params = model.init_params(0, device=dev, dtype=torch.float32, mesh=mesh,
@@ -2690,8 +2835,8 @@ def dist_rank(rank: int, world: int, job: dict):
         # (c) bf16 at SERVE_LAYERS on the ep mesh, phase 4's seed, teacher-
         # forced with phase 5's greedy tokens
         model = build_model(dist_config(SERVE_LAYERS))
-        name, _, strategy = DIST_MESHES[0]
-        mesh, rules = meshes[name], dist_rules(strategy)
+        _, shape, strategy = DIST_MESHES[0]
+        mesh, rules = meshes[shape], dist_rules(strategy)
         ctx = dist_ctx(strategy, mesh)
         torch.cuda.reset_peak_memory_stats()
         with use_sharding(mesh, rules):
@@ -2721,11 +2866,10 @@ def dist_rank(rank: int, world: int, job: dict):
         torch.cuda.empty_cache()
         # (d)-(f): the kv_seq and mamba layouts, fp32, teacher-forced with
         # the parent's tokens
-        by_shape = {shape: meshes[name] for name, shape, _ in DIST_MESHES}
         out["layouts"] = {}
         for key, arch, depth, shape, strategy in DIST_LAYOUTS:
             model = build_model(dist_config(depth, arch))
-            mesh, rules = by_shape[shape], dist_rules(strategy)
+            mesh, rules = meshes[shape], dist_rules(strategy)
             ctx = dist_ctx(strategy, mesh)
             torch.cuda.reset_peak_memory_stats()
             with use_sharding(mesh, rules):
@@ -2740,6 +2884,30 @@ def dist_rank(rank: int, world: int, job: dict):
                     logits={k: v.cpu() for k, v in logits.items()}, secs=secs,
                     drops=drops.total(), launches=read_launches(),
                     param_bytes=tensor_bytes(params), spec_bytes=spec_bytes(model, mesh, rules, 4),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+            del params, model, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        # (g), (h): the enc-dec and VLM families, fp32, with the parent's
+        # frames / patches, teacher-forced with its tokens
+        for key, arch, shape in DIST_MM:
+            model = build_model(mm_config(arch, 2))
+            mesh, rules = meshes[shape], dist_rules("tp_shardmap")
+            ctx = dist_ctx("tp_shardmap", mesh)
+            torch.cuda.reset_peak_memory_stats()
+            with use_sharding(mesh, rules):
+                params = model.init_params(0, device=dev, dtype=torch.float32, mesh=mesh,
+                                           rules=rules)
+                zero_launches()
+                with recording():
+                    logits, secs = dist_mm_paths(dev, model, params, ctx,
+                                                 job["d_tokens"].to(dev), job["d_feed"].to(dev),
+                                                 job["mm_extras"][key], timed=True)
+                torch.cuda.synchronize()
+                out["layouts"][key] = dict(
+                    logits={k: v.cpu() for k, v in logits.items()}, secs=secs, drops=0,
+                    launches=read_launches(), param_bytes=tensor_bytes(params),
+                    spec_bytes=spec_bytes(model, mesh, rules, 4),
                     peak_bytes=torch.cuda.max_memory_allocated())
             del params, model, logits
             gc.collect()
@@ -2771,8 +2939,12 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
     ep_shardmap; the prompts cut to DIST_PROMPT tokens, teacher-forced with
     seeded tokens: ``dist_paths``' prefill, ring and pool decode_steps and
     pack, rank 0's gathered logits against the unsharded card run within
-    LOGIT_ATOL, argmax equal, each model's kernels launched. ``hook`` (a
-    module-level callable) runs first in each rank: the CPU rehearsal's
+    LOGIT_ATOL, argmax equal, each model's kernels launched. (g), (h)
+    (DIST_MM): seamless-m4t-large-v2 (2 encoder and 2 decoder layers) on
+    (2, 1, 2) and phi-3-vision-4.2b (2 layers) on (1, 1, 4), fp32, with
+    the parent's seeded frames / patches: ``dist_mm_paths``' prefill, ring
+    decode_steps, pack and pool decode_steps, held the same way. ``hook``
+    (a module-level callable) runs first in each rank: the CPU rehearsal's
     stubs."""
     import datetime
     import tempfile
@@ -2845,11 +3017,23 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
         del model, params, logits
         gc.collect()
         torch.cuda.empty_cache()
+    mm_extras = {}
+    for key, arch, _ in DIST_MM:
+        model = build_model(mm_config(arch, 2))
+        params = model.init_params(0, device=dev, dtype=torch.float32)
+        mm_extras[key] = dist_mm_extras(model.cfg, len(lens))
+        with torch.inference_mode():
+            logits, _ = dist_mm_paths(dev, model, params, dist_ctx("capacity"),
+                                      d_tokens.to(dev), d_feed.to(dev), mm_extras[key])
+        layout_ref[key] = {k: v.cpu() for k, v in logits.items()}
+        del model, params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # (b) and (c): four gloo ranks
     t0 = time.perf_counter()
     job = dict(tokens=tokens.cpu(), lens=lens, b_fed=b_fed, c_fed=gen_tokens, device=str(dev),
-               hook=hook, d_tokens=d_tokens, d_feed=d_feed)
+               hook=hook, d_tokens=d_tokens, d_feed=d_feed, mm_extras=mm_extras)
     outs = spawn_ranks(dist_rank, 4, (job,), store_dir=store / "ranks", backend="gloo",
                        timeout_s=DIST_TIMEOUT_S)
     res["ranks_s"] = time.perf_counter() - t0
@@ -2918,9 +3102,11 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
         f"(each its specs' shard sum), peak device GB per rank "
         f"{[round(x / 1e9, 3) for x in res['c']['peak_bytes']]}; rank 0 launches "
         f"{c['launches']}, by path {c['paths']}")
-    for key, arch, depth, shape, strategy in DIST_LAYOUTS:
+    layouts = ([(key, dist_config(depth, arch), shape, strategy)
+                for key, arch, depth, shape, strategy in DIST_LAYOUTS]
+               + [(key, mm_config(arch, 2), shape, "tp_shardmap") for key, arch, shape in DIST_MM])
+    for key, cfg, shape, strategy in layouts:
         lay, ref = r0["layouts"][key], layout_ref[key]
-        cfg = dist_config(depth, arch)
         what = f"({key}) {cfg.name} {shape} {strategy}"
         errs = {p: max_err(lay["logits"][p], ref[p]) for p in ref}
         assert set(lay["logits"]) == set(ref) and max(errs.values()) < LOGIT_ATOL, \
@@ -2947,8 +3133,11 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
                         pack_ms=1e3 * secs["pack"],
                         param_bytes=[o["layouts"][key]["param_bytes"] for o in outs],
                         peak_bytes=[o["layouts"][key]["peak_bytes"] for o in outs])
+        extra = ("" if cfg.encoder is None and cfg.vision is None else
+                 f" ({DIST_FRAMES} frames a row)" if cfg.encoder is not None else
+                 f" ({cfg.vision.n_patches} patches a row)")
         log(f"  ({key}) gloo, 4 ranks, mesh {shape}, {strategy}, {cfg.name} fp32, {B} prompts of "
-            f"{DIST_PROMPT} tokens: prefill, {DIST_RING_STEPS} ring and {DIST_STEPS} pool "
+            f"{DIST_PROMPT} tokens{extra}: prefill, {DIST_RING_STEPS} ring and {DIST_STEPS} pool "
             f"decode_steps and the decode_chunk pack within {max(errs.values()):.3g} of the "
             f"unsharded run (< {LOGIT_ATOL}), argmax equal, no token dropped; rank 0 launches "
             f"{ {k: v for k, v in launched.items() if v} }")
@@ -2963,7 +3152,7 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
     res["launches"] = {k: res["a"]["launches"][k] + sum(res[f"b_{n}"]["launches"][k]
                                                          for n, _, _ in DIST_MESHES)
                        + c["launches"][k] + sum(res[key]["launches"][k]
-                                                for key, *_ in DIST_LAYOUTS)
+                                                for key, *_ in DIST_LAYOUTS + DIST_MM)
                        for k in c["launches"]}
     return res
 
@@ -3975,24 +4164,52 @@ def dist_train_ctx(strategy: str, mesh=None, remat: bool = True):
 
 
 def dist_train_cases():
-    """(b)'s two checks: (name, config, mesh, MoE strategy, train config,
-    data-split aux): qwen2.5-3b with 2 microbatches and int8 gradients (the
-    mesh's step is the unsharded one), mixtral-8x7b with the MoE aux of
-    each data shard (the reference's semantics under a data split)."""
+    """(b), (d) and (e)'s checks: (name, config, mesh, MoE strategy, train
+    config, data-split aux, a whole step (else the loss and its gradient)).
+    (b): qwen2.5-3b with 2 microbatches and int8 gradients (the mesh's step
+    is the unsharded one), mixtral-8x7b with the MoE aux of each data shard
+    (the reference's semantics under a data split). (d), the layouts
+    training under a mesh once refused, qwen's step: qwen2.5-3b on (1, 1, 4)
+    (kv_seq: its 2 kv heads whole on every tensor rank), mamba2-1.3b on (1,
+    1, 2) (in_proj, conv channels, SSD heads and d_inner split), jamba's
+    first two layers on (1, 2, 2) ep_shardmap (a mamba layer with a dense
+    MLP, then one with the 16-expert MoE), its loss and gradient alone: its
+    fp32 step would hold 4 copies of its 11.3 GB MoE layer on the ranks
+    and 4 of the whole 14.7 GB in the parent. (e) seamless (2 encoder and 2
+    decoder layers, DIST_FRAMES frames a row) and phi-3-vision (2 layers,
+    576 patches a row) on (2, 1, 2), qwen's step."""
     from repro_torch.configs import get_config
     from repro_torch.training.train_step import TrainConfig
-    return (("qwen", depth_cut(get_config(TRAIN_ARCH), DIST_TRAIN_QWEN), (2, 1, 2),
-             "tp_shardmap", TrainConfig(microbatches=2, grad_compression=True, xent_chunk=16),
-             False),
+    both = TrainConfig(microbatches=2, grad_compression=True, xent_chunk=16)
+    qwen = depth_cut(get_config(TRAIN_ARCH), DIST_TRAIN_QWEN)
+    return (("qwen", qwen, (2, 1, 2), "tp_shardmap", both, False, True),
             ("mixtral", dist_config(DIST_TRAIN_MOE), (2, 2, 1), "ep_shardmap",
-             TrainConfig(xent_chunk=16), True))
+             TrainConfig(xent_chunk=16), True, True),
+            ("qwen kv_seq", qwen, (1, 1, 4), "tp_shardmap", both, False, True),
+            ("mamba2", mamba2(2), (1, 1, 2), "tp_shardmap", both, False, True),
+            ("jamba", dist_config(2, "jamba-v0.1-52b"), (1, 2, 2), "ep_shardmap",
+             TrainConfig(xent_chunk=16), False, False),
+            ("seamless", mm_config(MM_SEAMLESS, 2), (2, 1, 2), "tp_shardmap", both, False, True),
+            ("phi-3-vision", mm_config(MM_VISION, 2), (2, 1, 2), "tp_shardmap", both, False,
+             True))
 
 
 def dist_train_batch(cfg, dev):
+    """phase 12 (a)'s corpus, DIST_TRAIN_BATCH rows of DIST_TRAIN_SEQ
+    tokens; seeded frames (DIST_FRAMES a row) for an enc-dec config and
+    patches for a VLM."""
     from repro_torch.data.pipeline import DataConfig, synthesize_batch
     data = synthesize_batch(DataConfig(vocab=cfg.vocab, batch=DIST_TRAIN_BATCH,
                                        seq_len=DIST_TRAIN_SEQ), 0)
-    return {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    g = torch.Generator().manual_seed(16)
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn((DIST_TRAIN_BATCH, DIST_FRAMES, cfg.d_model),
+                                      generator=g).to(dev)
+    if cfg.vision is not None:
+        batch["patches"] = torch.randn((DIST_TRAIN_BATCH, cfg.vision.n_patches,
+                                        cfg.vision.d_patch), generator=g).to(dev)
+    return batch
 
 
 def split_aux_loss(model, params, batch, tcfg, data: int):
@@ -4029,16 +4246,23 @@ def adamw_input(seen: list):
         ts.adamw_update = real
 
 
-def unsharded_train_step(model, params, batch, tcfg, data_aux: int = 0):
+def unsharded_train_step(model, params, batch, tcfg, data_aux: int = 0, step: bool = True):
     """One step on the card without a mesh, the parameters updated in
     place: (the step's loss, the gradient AdamW took, m, v). ``data_aux``:
     the loss is ``split_aux_loss`` over that many data shards (AdamW on its
     gradient, as ``step_fn`` without microbatches or compression), and the
-    loss returned is (xent, each shard's aux)."""
+    loss returned is (xent, each shard's aux). Without ``step``: (the loss,
+    its gradient, None, None), the parameters untouched."""
     from repro_torch.models.params import tree_leaves, tree_unflatten
     from repro_torch.training.optimizer import adamw_init, adamw_update, cosine_schedule
     from repro_torch.training.train_step import make_train_step
     ctx = dist_train_ctx("capacity")
+    if not step:
+        assert not data_aux, "the data-split aux is held through a step"
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch, ctx,
+                             aux_weight=tcfg.aux_weight, xent_chunk=tcfg.xent_chunk)
+        return float(loss), list(torch.autograd.grad(loss, leaves)), None, None
     if data_aux:
         assert tcfg.microbatches == 1 and not tcfg.grad_compression, tcfg
         leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
@@ -4099,31 +4323,53 @@ def local_sample(leaves, specs, mesh, sample) -> list:
     return out
 
 
-def dist_train_check(dev, mesh, name, cfg, strategy, tcfg, data_aux, sample):
-    """(b) on one rank: its shards of the seeded fp32 weights and one
-    ``step_fn`` on the global batch; the step's loss, the sample's
+def dist_train_check(dev, mesh, name, cfg, strategy, tcfg, data_aux, sample, step=True):
+    """(b), (d) or (e) on one rank: its shards of the seeded fp32 weights
+    and one ``step_fn`` on the global batch; the step's loss, the sample's
     positions it holds of the gradient AdamW took, of m and of v, the worst
     AdamW recompute on its shards, and its trees' bytes against its
-    specs'."""
+    specs'; the step's wall ms and the rank's peak device bytes. Without
+    ``step``: the loss and its reduced gradient alone."""
     from repro_torch.distributed.sharding import use_sharding
     from repro_torch.models import build_model
     from repro_torch.models.moe import count_drops
-    from repro_torch.models.params import tree_leaves
-    from repro_torch.training.train_step import make_train_step, mesh_specs, spec_leaves
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.training.train_step import (make_train_step, mesh_specs, reduce_grads,
+                                                spec_leaves)
     model = build_model(cfg)
     rules = dist_train_rules(strategy)
     # no remat: the recompute would gather every leaf once more through the
     # host, and (c) trains with it
     ctx = dist_train_ctx(strategy, mesh, remat=False)
     batch = dist_train_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
     with use_sharding(mesh, rules), count_drops() as drops, adamw_input([]) as seen:
-        specs = spec_leaves(mesh_specs(model, ctx)[1])
+        tree = mesh_specs(model, ctx)[1]
+        specs = spec_leaves(tree)
         params = model.init_params(0, device=dev, dtype=torch.float32, mesh=mesh, rules=rules)
+        torch.cuda.synchronize()
+        if not step:
+            t0 = time.perf_counter()
+            leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+            loss, met = model.loss(tree_unflatten(params, leaves), batch, ctx,
+                                   aux_weight=tcfg.aux_weight, xent_chunk=tcfg.xent_chunk)
+            grads = reduce_grads(list(torch.autograd.grad(loss, leaves)), mesh, tree)
+            torch.cuda.synchronize()
+            del leaves
+            return dict(loss=float(loss), aux=float(met["aux"]), drops=drops.total(),
+                        grads=local_sample(grads, specs, mesh, sample),
+                        ms=1e3 * (time.perf_counter() - t0),
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        bytes={"params": tensor_bytes(params)},
+                        spec_bytes=spec_bytes(model, mesh, rules, 4))
         before = [t.clone() for t in tree_leaves(params)]
         init_fn, step_fn = make_train_step(model, tcfg, ctx)
+        t0 = time.perf_counter()
         params, (opt, err), met = step_fn(params, init_fn(params), batch)
         torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
     return dict(loss=float(met["loss"]), aux=float(met["aux"]), lr=float(met["lr"]),
+                ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
                 drops=drops.total(), grads=local_sample(seen[0], specs, mesh, sample),
                 m=local_sample(tree_leaves(opt.m), specs, mesh, sample),
                 v=local_sample(tree_leaves(opt.v), specs, mesh, sample),
@@ -4157,21 +4403,25 @@ def dist_train_rank(rank: int, world: int, job: dict):
     torch.cuda.set_device(dev)
     for name in ("flash_attention", "flash_attention_bwd"):
         kbuild.load_library(name)                  # built by phase 1; the build lock guards it
+    # a mesh of fewer ranks than the world binds the first ones; the
+    # others skip its cases
     meshes = {}
     for shape in sorted({c[2] for c in dist_train_cases()} | {c[3] for c in DIST_TRAIN_BF16}):
-        meshes[shape] = Mesh(shape, DIST_AXES).bind()
+        meshes[shape] = Mesh(shape, DIST_AXES).bind(ranks=range(int(np.prod(shape))))
     out = {"rank": rank, "b": {}, "c": {}}
     recording = served_shapes if rank == 0 else contextlib.nullcontext
     with recording():
-        zero_launches()
-        for name, cfg, shape, strategy, tcfg, data_aux in dist_train_cases():
+        for name, cfg, shape, strategy, tcfg, data_aux, step in dist_train_cases():
+            if meshes[shape].rank < 0:
+                continue
+            zero_launches()
             t0 = time.perf_counter()
             out["b"][name] = dist_train_check(dev, meshes[shape], name, cfg, strategy, tcfg,
-                                              data_aux, job["samples"][name])
+                                              data_aux, job["samples"][name], step)
             out["b"][name]["seconds"] = time.perf_counter() - t0
+            out["b"][name]["launches"] = read_launches()
             gc.collect()
             torch.cuda.empty_cache()
-        out["b_launches"] = read_launches()
         for name, arch, depth, shape, strategy, lr in DIST_TRAIN_BF16:
             cfg = (depth_cut(get_config(arch), depth) if name == "qwen" else dist_config(depth))
             model = build_model(cfg)
@@ -4221,7 +4471,11 @@ def run_dist_training(dev, hook=None):
     with one quantum more: a rounding flip); each rank's loss (mixtral's:
     the whole batch's xent plus its data shard's aux); each rank's
     parameters against AdamW on its own moments; its parameter and moment
-    bytes its specs' shard sums. (c) the same ranks in bf16 at full width
+    bytes its specs' shard sums. (d), (e): the rest of ``dist_train_cases``
+    held the same way (jamba's loss and gradient alone), each on the first
+    ranks its mesh binds: the kv_seq layout, the mamba layers (the SSD scan
+    and its backward launched), the enc-dec and VLM families. (c) the same
+    ranks in bf16 at full width
     (DIST_TRAIN_BF16: qwen2.5-3b at depth 4 on (2, 1, 2), mixtral-8x7b at
     depth 1 on (2, 2, 1)), phase 12 (a)'s corpus, DIST_TRAIN_STEPS steps, no
     checkpoint: losses finite and
@@ -4251,9 +4505,10 @@ def run_dist_training(dev, hook=None):
                                         * float(b.abs().max()) + 1e-30)
                        for a, b in zip(got[1], want[1])))
 
-    # the unsharded steps on the card, which (a) and (b) are held against
+    # the unsharded steps on the card, which (a), (b), (d) and (e) are held
+    # against
     t0 = time.perf_counter()
-    name, cfg, _, strategy, tcfg, _ = cases[0]
+    name, cfg, _, strategy, tcfg, _, _ = cases[0]
     model = build_model(cfg)
     batch = dist_train_batch(cfg, dev)
     params = model.init_params(0, device=dev, dtype=torch.float32)
@@ -4309,18 +4564,22 @@ def run_dist_training(dev, hook=None):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b)'s mixtral: the unsharded step of the data-split loss
-    name, cfg, shape, strategy, tcfg, _ = cases[1]
-    model = build_model(cfg)
-    batch = dist_train_batch(cfg, dev)
-    params = model.init_params(0, device=dev, dtype=torch.float32)
-    (xent, auxes), grads, m, v = unsharded_train_step(model, params, batch, tcfg,
-                                                      data_aux=shape[0])
-    samples[name] = sample_leaves({"g": grads, "m": m, "v": v}, seed=15)
-    expect[name] = dict(xent=xent, auxes=auxes, aux_weight=tcfg.aux_weight)
-    del model, batch, params, grads, m, v
-    gc.collect()
-    torch.cuda.empty_cache()
+    # (b)'s mixtral (the unsharded step of the data-split loss), (d), (e)
+    for seed, (name, cfg, shape, strategy, tcfg, data_aux, step) in enumerate(cases[1:], 15):
+        model = build_model(cfg)
+        batch = dist_train_batch(cfg, dev)
+        params = model.init_params(0, device=dev, dtype=torch.float32)
+        loss, grads, m, v = unsharded_train_step(model, params, batch, tcfg,
+                                                 data_aux=shape[0] if data_aux else 0, step=step)
+        samples[name] = sample_leaves({"g": grads, "m": m, "v": v} if step else {"g": grads},
+                                      seed=seed)
+        if data_aux:
+            expect[name] = dict(xent=loss[0], auxes=loss[1], aux_weight=tcfg.aux_weight)
+        else:
+            expect[name] = dict(loss=loss)
+        del model, batch, params, grads, m, v
+        gc.collect()
+        torch.cuda.empty_cache()
     res["reference_s"] = time.perf_counter() - t0
 
     # (b) and (c): four gloo ranks
@@ -4329,13 +4588,16 @@ def run_dist_training(dev, hook=None):
     outs = spawn_ranks(dist_train_rank, 4, (job,), store_dir=store / "ranks", backend="gloo",
                        timeout_s=DIST_TRAIN_TIMEOUT_S)
     res["ranks_s"] = time.perf_counter() - t0
-    for name, cfg, shape, strategy, tcfg, data_aux in cases:
+    b_launches = {k: 0 for k in outs[0]["b"]["qwen"]["launches"][0]}
+    for name, cfg, shape, strategy, tcfg, data_aux, step in cases:
         smp, e = samples[name], expect[name]
         worst = dict(g=0.0, m=0.0, v=0.0, loss=0.0)
         bounds = dict(g=TRAIN_GRAD_TOL + (1 / 127 if tcfg.grad_compression else 0.0),
                       m=TRAIN_GRAD_TOL + 1 / 127, v=2 * TRAIN_GRAD_TOL + 253 / 127 ** 2)
         covered = [np.zeros(len(i), bool) for i in smp["idx"]]
-        for o in outs:
+        held = [o for o in outs if name in o["b"]]        # the ranks of the case's mesh
+        assert len(held) == int(np.prod(shape)), f"{name}: {len(held)} ranks of {shape}"
+        for o in held:
             b = o["b"][name]
             if data_aux:       # the whole batch's xent plus the rank's data shard's aux
                 d = np.unravel_index(o["rank"], shape)[0]
@@ -4343,7 +4605,7 @@ def run_dist_training(dev, hook=None):
             else:
                 want = e["loss"]
             worst["loss"] = max(worst["loss"], abs(b["loss"] - want) / abs(want))
-            for key, name_ in (("grads", "g"), ("m", "m"), ("v", "v")):
+            for key, name_ in (("grads", "g"), ("m", "m"), ("v", "v"))[:3 if step else 1]:
                 for i, (pos, vals) in enumerate(b[key]):
                     ref = smp[name_][i][pos]
                     top = max(smp["max_" + name_][i], 1e-30)
@@ -4352,27 +4614,46 @@ def run_dist_training(dev, hook=None):
                     if key == "grads":
                         covered[i][pos] = True
             assert b["drops"] == 0, f"(b) {name} rank {o['rank']} dropped {b['drops']}"
-            assert b["adamw"] <= 1.0, f"(b) {name} rank {o['rank']}: parameters at {b['adamw']}"
+            assert not step or b["adamw"] <= 1.0, \
+                f"(b) {name} rank {o['rank']}: parameters at {b['adamw']}"
             assert all(n == b["spec_bytes"] for n in b["bytes"].values()), (o["rank"], b)
         assert all(c.all() for c in covered), f"(b) {name}: a sampled position no rank holds"
         assert worst["loss"] <= TRAIN_LOSS_RTOL, f"(b) {name}: loss rel err {worst['loss']}"
         assert max(worst["g"], worst["m"], worst["v"]) <= 1.0, f"(b) {name}: {worst}"
-        res[f"b_{name}"] = dict(worst_of_bound=worst, adamw=[o["b"][name]["adamw"] for o in outs],
-                                seconds=outs[0]["b"][name]["seconds"],
-                                losses=[o["b"][name]["loss"] for o in outs],
-                                bytes=[o["b"][name]["bytes"] for o in outs])
-        log(f"  (b) gloo, 4 ranks, mesh {shape}, {strategy}, {cfg.name} fp32, "
-            f"{'2 microbatches, int8 gradients' if tcfg.microbatches > 1 else 'one batch'}"
-            f"{', the data-split aux' if data_aux else ''}: each rank's loss within "
+        # rank 0's launches in this case: the attention layers' flash
+        # forward and backward, the mamba layers' SSD scan and backward
+        launched, kinds = outs[0]["b"][name]["launches"][0], "".join(
+            g.pattern for g in cfg.layer_groups)
+        for k, want in (("flash_attention", "A" in kinds), ("flash_attention_bwd", "A" in kinds),
+                        ("ssd_scan", "M" in kinds), ("ssd_scan_bwd", "M" in kinds)):
+            assert (launched[k] > 0) == want, f"(b) {name}: {k} launched {launched[k]}"
+        b_launches = {k: n + launched[k] for k, n in b_launches.items()}
+        tag = ("b" if name in ("qwen", "mixtral") else "e" if cfg.encoder or cfg.vision
+               else "d")
+        res[f"b_{name}"] = dict(
+            part=tag, config=cfg.name, mesh=list(shape), strategy=strategy, step=step,
+            worst_of_bound=worst, max_rel_grad=worst["g"] * bounds["g"],
+            adamw=[o["b"][name]["adamw"] for o in held] if step else None,
+            seconds=held[0]["b"][name]["seconds"], step_ms=[o["b"][name]["ms"] for o in held],
+            peak_bytes=[o["b"][name]["peak_bytes"] for o in held],
+            losses=[o["b"][name]["loss"] for o in held], launches=launched,
+            bytes=[o["b"][name]["bytes"] for o in held])
+        what = ("one step_fn, " + ("2 microbatches, int8 gradients" if tcfg.microbatches > 1
+                                   else "one batch") if step else "the loss and its gradient")
+        log(f"  ({tag}) gloo, {len(held)} ranks, mesh {shape}, {strategy}, {cfg.name} fp32, "
+            f"{what}{', the data-split aux' if data_aux else ''}: each rank's loss within "
             f"{worst['loss']:.3g} of {'xent + its shard aux' if data_aux else 'the unsharded'} "
-            f"({res[f'b_{name}']['losses']}), the sampled gradient / m / v at "
-            f"{worst['g']:.3g} / {worst['m']:.3g} / {worst['v']:.3g} of phase 12 (c)'s bounds, "
-            f"parameters at <= {max(res[f'b_{name}']['adamw']):.3g} of AdamW's tolerance; "
-            f"bytes per rank {res[f'b_{name}']['bytes']} (each its specs' shard sum)")
+            f"({res[f'b_{name}']['losses']}), the sampled gradient"
+            + (f" / m / v at {worst['g']:.3g} / {worst['m']:.3g} / {worst['v']:.3g} of phase 12 "
+               f"(c)'s bounds, parameters at <= {max(res[f'b_{name}']['adamw']):.3g} of AdamW's "
+               f"tolerance" if step else f" at {worst['g']:.3g} of phase 12 (c)'s bound")
+            + f" (max rel gradient err {res[f'b_{name}']['max_rel_grad']:.3g}); "
+            f"{'step' if step else 'loss + backward'} ms per rank "
+            f"{[round(x, 1) for x in res[f'b_{name}']['step_ms']]}, peak device GB per rank "
+            f"{[round(x / 1e9, 3) for x in res[f'b_{name}']['peak_bytes']]}; bytes per rank "
+            f"{res[f'b_{name}']['bytes']} (each its specs' shard sum); rank 0 launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
     r0 = outs[0]
-    b_launches, b_paths = r0["b_launches"]
-    assert b_launches["flash_attention"] > 0 and b_launches["flash_attention_bwd"] > 0, \
-        b_launches
     res["launches"] = {k: a_launches[0][k] + b_launches[k] for k in b_launches}
     for name, arch, depth, shape, strategy, lr in DIST_TRAIN_BF16:
         c = r0["c"][name]
@@ -4864,7 +5145,8 @@ def main() -> int:
     log("phase 13: distributed serving: (a) NCCL at world 1, (b) four gloo ranks on mixtral "
         f"depth {DIST_DEPTH} fp32 on meshes (1, 2, 2) ep_shardmap and (1, 1, 4) tp_shardmap, "
         f"(c) the same ranks on phase 4's {SERVE_LAYERS}-layer bf16 mixtral, (1, 2, 2); "
-        + ", ".join(f"({k}) {a} depth {n} fp32 on {m} {st}" for k, a, n, m, st in DIST_LAYOUTS))
+        + ", ".join(f"({k}) {a} depth {n} fp32 on {m} {st}" for k, a, n, m, st in DIST_LAYOUTS)
+        + ", " + ", ".join(f"({k}) {a} depth 2 fp32 on {m}" for k, a, m in DIST_MM))
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4877,7 +5159,9 @@ def main() -> int:
         f"{DIST_TRAIN_QWEN} fp32 on the (1, 1, 1) train mesh; (b) four gloo ranks in fp32, "
         f"{TRAIN_ARCH} depth {DIST_TRAIN_QWEN} on (2, 1, 2) (FSDP + TP, 2 microbatches, int8 "
         f"gradients) and mixtral-8x7b depth {DIST_TRAIN_MOE} on (2, 2, 1) ep_shardmap (FSDP + "
-        f"EP, the data-split aux); (c) the same ranks in bf16: "
+        f"EP, the data-split aux); (d) / (e) the same ranks in fp32: "
+        + ", ".join(f"{c.name} on {m}" for _, c, m, *_ in dist_train_cases()[2:])
+        + "; (c) the same ranks in bf16: "
         + ", ".join(f"{a} depth {n} on {m}" for _, a, n, m, _, _ in DIST_TRAIN_BF16)
         + f", {DIST_TRAIN_STEPS} steps")
     t0 = time.perf_counter()

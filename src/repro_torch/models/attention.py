@@ -51,6 +51,18 @@ writes every kv head of the pool, the same values), and the ring, split on
 the sequence over the tensor axis, through a regrouping: a decode step
 all-gathers the step's queries over the axis, scores every head against
 the rank's slots, combines over the axis and keeps the rank's heads.
+Under grad (training: no cache) a kv_seq rank's ``wk`` / ``wv`` gradient
+is the share of its query heads' slice, summed over the tensor axis by the
+train step.
+
+The encoder's kind "E" runs under a mesh as self-attention does, on the
+encoder's own layout (its heads on the tensor axis, ``_Heads``' slice of
+a whole K / V under kv_seq). Kind "X" projects the rank's query heads from
+its rows and the kv heads of its ``ck`` / ``cv`` shard from the memory of
+those rows (every kv head where kv_seq keeps them whole; its query heads
+read theirs through ``_Heads``), writes them at its slots of the cross
+cache, which holds the slots of its batch block, and ``wo`` is row-split
+with a psum.
 """
 from __future__ import annotations
 
@@ -95,8 +107,9 @@ class _Heads:
     group: int
 
     @staticmethod
-    def of(layout, cfg: ModelConfig) -> "_Heads":
-        wq, wk = layout.p["attn"]["wq"][2], layout.p["attn"]["wk"][2]
+    def of(layout, cfg: ModelConfig, name: str = "attn") -> "_Heads":
+        """Of the layer's sublayer ``name`` ("attn", or "cross" for X)."""
+        wq, wk = layout.p[name]["wq"][2], layout.p[name]["wk"][2]
         return _Heads(wq, shard_start(cfg.n_heads, wq, layout.mesh),
                       shard_start(cfg.n_kv_heads, wk, layout.mesh),
                       cfg.n_heads // cfg.n_kv_heads)
@@ -258,16 +271,28 @@ def _write_paged_chunk(cache, k, v, positions, page_table, valid):
     cache["vp"].index_put_((pf, sf), vf)
 
 
-def _cross_attention(p, h, ctx: RunCtx, cfg: ModelConfig, cache, memory, chunk):
+def _cross_attention(p, h, ctx: RunCtx, cfg: ModelConfig, cache, memory, chunk, layout=None):
     """Kind "X": queries from h, keys and values of the encoder memory
     (B, M, d). chunk mode: with ``memory`` (a pack with a first chunk) they
     are computed and written at the rows' slots where the row feeds a token
     (other rows keep their slot's values); without it they are gathered
     from the slots. decode: read from the cache. train / prefill: computed,
-    and written into the cache when there is one."""
+    and written into the cache when there is one. Under a mesh h and the
+    memory are the rank's rows, the rank computes the kv heads of its
+    ``ck`` / ``cv`` shard (every kv head where the kv_seq layout keeps
+    them whole) and its query heads read theirs (``_Heads``); the cache
+    holds the slots of its batch block."""
+    mesh = heads = heads_ax = None
+    slot0 = 0
+    if layout is not None:
+        mesh, heads = layout.mesh, _Heads.of(layout, cfg, "cross")
+        heads_ax = heads.axis
+        if cache is not None:
+            batch = layout.c["cross"]["ck"][1]
+            slot0 = shard_start(cache["ck"].shape[0] * mesh.count(batch), batch, mesh)
     q = linear(h, p["wq"])
     if ctx.mode == "chunk":
-        slots = chunk["slots"].long()
+        slots = chunk["slots"].long() - slot0
         if memory is not None:
             ck, cv = linear(memory, p["wk"]), linear(memory, p["wv"])
             keep = chunk["nvalid"] > 0
@@ -286,9 +311,11 @@ def _cross_attention(p, h, ctx: RunCtx, cfg: ModelConfig, cache, memory, chunk):
                                  f"memory's keys {tuple(ck.shape)}: init_cache(memory_len=)")
             cache["ck"].copy_(ck)
             cache["cv"].copy_(cv)
+    if heads is not None:
+        ck, cv = heads.kv(ck, q.shape[2]), heads.kv(cv, q.shape[2])
     o = flash_attention(q, ck.to(q.dtype), cv.to(q.dtype), causal=False,
                         softcap=cfg.attn_softcap, scale=cfg.head_dim ** -0.5)
-    return _out_proj(p, o)
+    return _out_proj(p, o, mesh, heads_ax)
 
 
 def attention_sublayer(
@@ -311,7 +338,7 @@ def attention_sublayer(
     Under a mesh h holds this rank's rows, and so do positions /
     page_table / lengths / valid (``layout.glob`` holds every row's)."""
     if kind == "X":
-        return _cross_attention(p, h, ctx, cfg, cache, memory, chunk)
+        return _cross_attention(p, h, ctx, cfg, cache, memory, chunk, layout)
     window = cfg.sliding_window if kind == "L" else 0
     softcap = cfg.attn_softcap
     scale = cfg.head_dim ** -0.5

@@ -23,6 +23,16 @@ cache, ``A_log`` / ``D`` / ``dt_bias``) against the whole B / C; then the
 gated norm over its block of d_inner, the sum of squares psum'd, and
 ``out_proj`` row-split with a psum. A dimension its rule leaves whole is
 computed whole, with no collective.
+
+Under grad (training under a mesh) every collective's backward is its
+transpose (``distributed.collectives``): the all-gathers after ``in_proj``
+and the conv reduce-scatter the ranks' shares of their cotangents, so a
+rank's B / C groups, which get only its heads' part of dB / dC, are summed
+there; a leaf kept whole (``conv_w`` / ``conv_b`` where the conv is whole,
+``norm`` where d_inner is, ``A_log`` / ``D`` / ``dt_bias`` where the heads
+are) gets on each rank the share its own heads or channels give, which the
+train step's reduction sums once. The SSD backward runs on the rank's H / t
+heads against their groups (on the card ``kernels.ssd_scan.ops.SSDScan``).
 """
 from __future__ import annotations
 

@@ -302,7 +302,8 @@ def moe_shardmap(p, h, cfg: ModelConfig, ctx: RunCtx, batch_axes=None):
     E = m.num_experts
     dp, tp = mesh.shape[ep_ax], mesh.shape[tp_ax]
     if any(isinstance(p[n], QuantizedLinear) for n in ("wg", "wu", "wd")):
-        raise NotImplementedError("int8 experts under a mesh are not in the port yet")
+        raise NotImplementedError("int8 experts under a mesh are not in the port yet (ROADMAP "
+                                  "Queue 1 item 3 (c))")
     B_l, S, d = h.shape
     B = B_l * mesh.count(batch_axes)
     b_ax = "data" if "data" in mesh.axis_names else ep_ax

@@ -37,13 +37,19 @@ rows plus a psum, the head gives the rank's vocab columns, all-gathered;
 attention and the MLP split on the tensor axis (one psum each; where the
 tensor axis outgrows the kv heads, the reference's ``kv_seq`` layout:
 ``models.attention``), the mamba layers on the ``ssm_*`` / ``conv_dim``
-rules (``models.mamba``), the MoE runs a shard_map strategy. The
-decoder-only attention configs, mamba2 and jamba serve so; enc-dec, VLM
-and int8 trees raise.
+rules (``models.mamba``), the MoE runs a shard_map strategy. An enc-dec
+batch's frames and a VLM's patches are taken at the rank's rows: the
+encoder runs its layers on the layout of its own parameters (heads on the
+tensor axis, the MLP row-split), the memory is whole on each rank's rows,
+and the cross keys and values go to the rank's shard of the cross cache
+(``ck`` / ``cv``: the rows of its batch block, its kv heads); the vision
+projector runs on the rank's rows. Every family serves so; int8 trees
+raise (ROADMAP Queue 1 item 3 (c)).
 
-``loss`` runs under a mesh too (not yet with mamba layers or the kv_seq
-layout, which raise), with the train rules (``make_rules("train",
-...)``: FSDP, every leaf's ``embed`` dim split on the data axis). Each layer
+``loss`` runs under a mesh too, for every family and layout that serves,
+with the train rules (``make_rules("train", ...)``: FSDP, every leaf's
+``embed`` dim split on the data axis, the encoder's and the vision
+projector's too). Each layer
 all-gathers its leaves over data just before use, inside its remat region
 (the gathered copy is freed after it and gathered again in the recompute),
 and the gather's backward reduce-scatters their gradients; the embedding,
@@ -56,6 +62,11 @@ different losses, as the reference's devices do. Its gradient is the
 rank's share (``distributed.collectives``' convention): the train step
 reduces the shares (``training.train_step.reduce_grads``), and the aux
 term then enters as its mean over the data shards, as in the reference.
+A leaf a layout keeps whole on the tensor axis (``wk`` / ``wv`` under
+``kv_seq``, a mamba layer's conv, norm or SSD scalars where their
+dimension does not split) is held alike there, and each rank's gradient of
+it is the share its own heads or channels give: the reduction sums them
+once over that axis.
 """
 from __future__ import annotations
 
@@ -115,28 +126,6 @@ class LM:
         self._pspecs = {}
 
     # ------------------------------------------------------------------ mesh
-    def _check_mesh_support(self):
-        cfg = self.cfg
-        if cfg.encoder is not None or cfg.vision is not None:
-            raise NotImplementedError(f"{cfg.name} under a mesh: the enc-dec and VLM extras "
-                                      f"are not in the port's sharded path yet")
-
-    def _train_check(self, layout) -> None:
-        """``loss`` under a mesh: what its backward does not cover yet."""
-        cfg = self.cfg
-        if any("M" in g.pattern for g in cfg.layer_groups):
-            raise NotImplementedError(
-                f"{cfg.name}: training under a mesh with mamba layers (the ssm_* / conv_dim "
-                f"layout and the SSD backward at H / t heads) is not in the port yet (ROADMAP "
-                f"Queue 1 item 3)")
-        for g in layout.params["groups"]:
-            for lay in g["layers"]:
-                if "attn" in lay and lay["attn"]["wq"][2] != lay["attn"]["wk"][2]:
-                    raise NotImplementedError(
-                        f"{cfg.name}: training under the kv_seq layout (query heads on "
-                        f"{lay['attn']['wq'][2]!r}, its {cfg.n_kv_heads} kv heads whole) is "
-                        f"not in the port yet (ROADMAP Queue 1 item 3)")
-
     def _mesh_pspecs(self, mesh, rules):
         """(the global parameter specs under (mesh, rules), each leaf's
         shard shape, the specs the layers see once the FSDP dims are
@@ -146,7 +135,6 @@ class LM:
         be whole GQA groups or the part of one. Cached with the mesh and
         rules themselves, so their ids stay theirs."""
         from repro_torch.distributed import sharding
-        self._check_mesh_support()
         key = (id(mesh), id(rules))
         if key not in self._pspecs:
             specs = self.param_specs()
@@ -197,7 +185,7 @@ class LM:
         for (s, want), t in zip(shards, local):
             if isinstance(t, QuantizedLinear):
                 raise NotImplementedError("int8 weight trees under a mesh are not in the port "
-                                          "yet")
+                                          "yet (ROADMAP Queue 1 item 3 (c))")
             if tuple(t.shape) != want:
                 raise ValueError(f"a parameter of {s.shape} {s.logical} is held as "
                                  f"{tuple(t.shape)}, not this rank's shard {want}")
@@ -212,20 +200,21 @@ class LM:
 
     @staticmethod
     def _check_slots(cache, layout, slots) -> None:
-        """Under a batch split of the slot-pooled SSM cache each rank holds
-        its block of the slots' rows: a pack row's slot must lie in its
-        rank's block."""
+        """Under a batch split of the slot-pooled caches (the SSM states,
+        the cross keys and values) each rank holds its block of the slots'
+        rows: a pack row's slot must lie in its rank's block."""
         for gc, gs in zip(cache["groups"], layout.cache["groups"]):
             for c, s in zip(gc, gs):
-                if "ssm" not in c or s["ssm"]["state"][1] is None:
-                    continue
-                n = c["ssm"]["state"].shape[1]
-                lo = layout.mesh.index(s["ssm"]["state"][1]) * n
-                if bool(((slots < lo) | (slots >= lo + n)).any()):
-                    raise ValueError(f"decode_chunk under a batch split: this rank's rows "
-                                     f"{layout.rows} hold slots {slots.tolist()}, its block of "
-                                     f"the SSM cache is slots [{lo}, {lo + n})")
-                return
+                for name, leaf in (("ssm", "state"), ("cross", "ck")):
+                    if name not in c or s[name][leaf][1] is None:
+                        continue
+                    n = c[name][leaf].shape[1]
+                    lo = layout.mesh.index(s[name][leaf][1]) * n
+                    if bool(((slots < lo) | (slots >= lo + n)).any()):
+                        raise ValueError(f"decode_chunk under a batch split: this rank's rows "
+                                         f"{layout.rows} hold slots {slots.tolist()}, its block "
+                                         f"of the {name} cache is slots [{lo}, {lo + n})")
+                    return
 
     # ------------------------------------------------------------------ params
     def param_specs(self):
@@ -253,7 +242,7 @@ class LM:
         if "cross" in p:
             hx = rmsnorm(x, p["ln_x"], cfg.rms_eps)
             x = x + attention_sublayer(p["cross"], hx, ctx, cfg, "X", c["cross"] if c else None,
-                                       memory=memory, chunk=chunk)
+                                       memory=memory, chunk=chunk, layout=layout)
         if "moe" in p:
             h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
             mo, aux = moe_sublayer(p["moe"], h2, cfg, ctx,
@@ -342,38 +331,52 @@ class LM:
             constrain(x, ("batch", "seq", None), (layout.B, *x.shape[1:]))
         return x
 
-    def _patch_prefix(self, params, patches, dtype):
+    def _patch_prefix(self, params, patches, dtype, layout=None):
         """The VLM prefix: stub patch embeddings (B, n_patches, d_patch)
-        through the vision projector -> (B, n_patches, d) in ``dtype``."""
+        through the vision projector -> (B, n_patches, d) in ``dtype``.
+        Under a mesh ``patches`` are the rank's rows, and the train rules'
+        FSDP dims of the projector are gathered first."""
         p = params["vision_proj"]
+        if layout is not None and layout.fsdp is not None:
+            p = _fsdp_gather(p, layout.fsdp["vision_proj"], layout.mesh)
         return linear(patches.to(dtype), p["w"]) + dequant(p["b"], dtype)
 
-    def _embed_batch(self, params, batch):
-        """Token embeddings, after the patch prefix where the config has a
-        vision frontend and the batch carries ``patches``. Returns (x,
-        offset): offset is the number of prefix positions before the first
-        text token."""
-        x = self._embed(params, batch["tokens"])
+    def _embed_batch(self, params, batch, layout=None):
+        """Token embeddings (of the rank's rows under a mesh), after the
+        patch prefix where the config has a vision frontend and the batch
+        carries ``patches``. Returns (x, offset): offset is the number of
+        prefix positions before the first text token."""
+        rows = (lambda t: t) if layout is None else layout.local_rows
+        x = self._embed(params, rows(batch["tokens"]), layout)
         if self.cfg.vision is None or "patches" not in batch:
             return x, 0
-        prefix = self._patch_prefix(params, batch["patches"], x.dtype)
+        prefix = self._patch_prefix(params, rows(batch["patches"]), x.dtype, layout)
         return torch.cat([prefix, x], dim=1), prefix.shape[1]
 
-    def _encode(self, params, frames, ctx: RunCtx):
+    def _encode(self, params, frames, ctx: RunCtx, layout=None):
         """The enc-dec encoder over stub frame embeddings (B, M, d): its
         layers (kind "E": bidirectional flash attention, RoPE at arange(M))
-        and final norm -> the memory (B, M, d)."""
+        and final norm -> the memory (B, M, d). Under a mesh ``frames`` are
+        the rank's rows and the encoder runs on the layout of its own
+        parameters: heads split on the tensor axis as the decoder's, the
+        MLP row-split with a psum, FSDP-gathered under the train rules."""
         enc = params["encoder"]
+        if layout is not None:
+            layout = replace(layout, params=layout.params["encoder"], cache=None,
+                             fsdp=layout.fsdp["encoder"] if layout.fsdp is not None else None)
         x, _ = self._run_groups(enc["groups"], frames, None, ctx=ctx,
                                 layer_groups=(LayerGroup("E", self.cfg.encoder.n_layers),),
-                                positions=torch.arange(frames.shape[1], device=frames.device))
-        return rmsnorm(x, enc["final_norm"]["w"], self.cfg.rms_eps)
+                                positions=torch.arange(frames.shape[1], device=frames.device),
+                                layout=layout)
+        return rmsnorm(x, self._top(enc, "final_norm", layout), self.cfg.rms_eps)
 
-    def _memory(self, params, batch, dtype, ctx: RunCtx):
-        """The encoder memory of an enc-dec batch (its ``frames``), else None."""
+    def _memory(self, params, batch, dtype, ctx: RunCtx, layout=None):
+        """The encoder memory of an enc-dec batch (its ``frames``, the
+        rank's rows under a mesh), else None."""
         if self.cfg.encoder is None:
             return None
-        return self._encode(params, batch["frames"].to(dtype), ctx)
+        frames = batch["frames"] if layout is None else layout.local_rows(batch["frames"])
+        return self._encode(params, frames.to(dtype), ctx, layout)
 
     def _head(self, params, x, layout=None):
         """Logits from an lm_head (K, V) or the tied embedding (V, K). On
@@ -416,12 +419,8 @@ class LM:
     def _features(self, params, batch, ctx: RunCtx, layout=None):
         """The final-normed features (B, S', d) of a full-sequence pass and
         the summed MoE aux loss (0.0 without MoE)."""
-        if layout is not None:
-            x = self._embed(params, layout.local_rows(batch["tokens"]), layout)
-            memory = None
-        else:
-            x, _ = self._embed_batch(params, batch)
-            memory = self._memory(params, batch, x.dtype, ctx)
+        x, _ = self._embed_batch(params, batch, layout)
+        memory = self._memory(params, batch, x.dtype, ctx, layout)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions,
                                   memory=memory, layout=layout)
@@ -454,7 +453,6 @@ class LM:
         layout = self._layout(params, ctx, batch["labels"].shape[0])
         labels = batch["labels"].long()
         if layout is not None:
-            self._train_check(layout)
             labels = layout.local_rows(labels)
             head_w = self._head_weight(params, layout)        # gathered once, not per chunk
         mask = (labels >= 0).float()
@@ -510,11 +508,9 @@ class LM:
         ctx = ctx.with_mode("prefill")
         layout = self._layout(params, ctx, batch["tokens"].shape[0], cache)
         if layout is not None:
-            x, offset = self._embed(params, layout.local_rows(batch["tokens"]), layout), 0
-            memory, last_pos = None, layout.local_rows(last_pos)
-        else:
-            x, offset = self._embed_batch(params, batch)
-            memory = self._memory(params, batch, x.dtype, ctx)
+            last_pos = layout.local_rows(last_pos)
+        x, offset = self._embed_batch(params, batch, layout)
+        memory = self._memory(params, batch, x.dtype, ctx, layout)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
                                 memory=memory, layout=layout)
@@ -587,21 +583,9 @@ class LM:
         starts = starts.long()
         positions = offset + starts[:, None] + ar[None, :]
         valid = ar[None, :] < nvalid[:, None]
-        layout = self._layout(params, ctx, B, cache, positions=positions, page_table=page_table,
-                              valid=valid)
-        if layout is not None:
-            tokens, starts, nvalid, slots, first, page_table, positions, valid = (
-                layout.local_rows(t) for t in (tokens, starts, nvalid, slots, first, page_table,
-                                                positions, valid))
-            B = tokens.shape[0]
-            self._check_slots(cache, layout, slots)
-        x = self._embed(params, tokens, layout)
-        pack = {"slots": slots, "nvalid": nvalid, "first": first}
-        n_prefix = 0
+        n_prefix, q_positions = 0, None
         if cfg.vision is not None and patches is not None:
-            prefix = self._patch_prefix(params, patches, x.dtype)
-            n_prefix = prefix.shape[1]
-            x = torch.cat([prefix, x], dim=1)
+            n_prefix = patches.shape[1]
             live = ((starts == 0) & (nvalid > 0))[:, None]
             ap = torch.arange(n_prefix, device=tokens.device)
             positions = torch.cat([ap[None, :].expand(B, -1), positions], dim=1)
@@ -610,12 +594,26 @@ class LM:
             # prefix's on rows with starts == 0, the text's (offset ==
             # n_prefix) on all rows. The attention kernel takes that affine
             # form; it differs only on the dead prefix columns.
-            pack["q_positions"] = starts[:, None] + torch.arange(n_prefix + C,
-                                                                 device=tokens.device)[None, :]
+            q_positions = starts[:, None] + torch.arange(n_prefix + C,
+                                                         device=tokens.device)[None, :]
+        layout = self._layout(params, ctx, B, cache, positions=positions, page_table=page_table,
+                              valid=valid)
+        if layout is not None:
+            (tokens, starts, nvalid, slots, first, page_table, positions, valid, q_positions,
+             frames, patches) = (layout.local_rows(t) for t in (
+                 tokens, starts, nvalid, slots, first, page_table, positions, valid, q_positions,
+                 frames, patches))
+            B = tokens.shape[0]
+            self._check_slots(cache, layout, slots)
+        x = self._embed(params, tokens, layout)
+        pack = {"slots": slots, "nvalid": nvalid, "first": first}
+        if n_prefix:
+            x = torch.cat([self._patch_prefix(params, patches, x.dtype, layout), x], dim=1)
+            pack["q_positions"] = q_positions
         lengths = offset + starts + nvalid
         memory = None
         if cfg.encoder is not None and frames is not None:
-            memory = self._encode(params, frames.to(x.dtype), ctx)
+            memory = self._encode(params, frames.to(x.dtype), ctx, layout)
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
                                 page_table=page_table, lengths=lengths, valid=valid, chunk=pack,
                                 memory=memory, layout=layout)

@@ -2,24 +2,29 @@
 step under the same mesh.
 
 The port's side runs on four spawned ranks (``distributed.ranks``,
-``tests/torch_dist_train_worker.py``); the reference's in one child process
-whose environment alone sets
+``tests/torch_dist_train_worker.py``; a mesh of two binds the first two);
+the reference's in two child processes whose environment alone sets
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``
 (``tests/torch_dist_train_reference.py``: ``value_and_grad(model.loss)`` and
 ``make_train_step``'s ``step_fn``, jitted with the train rules' shardings as
-the reference's dry-run builds its train cell); both from the same numpy
+the reference's dry-run builds its train cell); all from the same numpy
 parameters and batch, at once. Cases, tiny configs in fp32 on meshes
 (data, expert, tensor): qwen2.5 and gemma2 (tied head, softcaps) at (2, 1,
-2); mixtral at (1, 2, 2) ``ep_shardmap``, (2, 1, 2) ``tp_shardmap`` and (2,
-2, 1) ``ep_shardmap``; deepseek-moe (shared experts) at (2, 2, 1); MoE
-capacity factor E / K (nothing drops). Held:
+2); qwen2.5 at (1, 1, 4) (``kv_seq``: its 2 kv heads whole on every
+tensor rank); mixtral at (1, 2, 2) ``ep_shardmap``, (2, 1, 2)
+``tp_shardmap`` and (2, 2, 1) ``ep_shardmap``; deepseek-moe (shared
+experts) at (2, 2, 1); mamba2 at (1, 1, 2) and (2, 1, 2); jamba (mamba,
+attention and the MoE) at (1, 2, 2) ``ep_shardmap``; seamless (encoder,
+cross attention, 12 frames a row) and phi-3-vision (the patch prefix) at
+(2, 1, 2); MoE capacity factor E / K (nothing drops). Held:
 
 - each rank's loss against its device's (the MoE aux of its own data
   shard, as the reference's ``shard_map(check_rep=False)`` reports it),
   within 1e-5 relative;
 - each rank's reduced gradient shard against the slice of the reference's
-  gradient, within 1e-5 of the leaf's max |g| (the aux term enters as its
-  mean over the data shards);
+  gradient, within 1e-5 of the slice's max |g| (the aux term enters as its
+  mean over the data shards); jamba's through the next two checks alone
+  (``NOISY_GRADS``);
 - ``global_norm`` of the rank's shards against the norm of the reference's
   gradient, within 1e-5 relative;
 - one ``step_fn`` with 2 microbatches and int8 gradients: each rank's loss;
@@ -53,11 +58,16 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.params import map_tree, tree_leaves  # noqa: E402
 
 TOL = 1e-5
-# the reference child lowers them in this order while earlier ones compile:
-# the slowest to compile first
-CASES = [("deepseek-moe-16b", (2, 2, 1), "ep_shardmap"),
+# the reference children lower them in this order while earlier ones
+# compile: the slowest to compile first
+CASES = [("jamba-v0.1-52b", (1, 2, 2), "ep_shardmap"),          # mamba, the MoE and attention
+         ("deepseek-moe-16b", (2, 2, 1), "ep_shardmap"),
+         ("seamless-m4t-large-v2", (2, 1, 2), "tp_shardmap"),   # encoder and cross attention
          ("mixtral-8x7b", (1, 2, 2), "ep_shardmap"), ("mixtral-8x7b", (2, 1, 2), "tp_shardmap"),
          ("mixtral-8x7b", (2, 2, 1), "ep_shardmap"),
+         ("phi-3-vision-4.2b", (2, 1, 2), "tp_shardmap"),       # the patch prefix
+         ("mamba2-1.3b", (1, 1, 2), "tp_shardmap"), ("mamba2-1.3b", (2, 1, 2), "tp_shardmap"),
+         ("qwen2.5-3b", (1, 1, 4), "tp_shardmap"),              # kv_seq: kv 2 at tensor 4
          ("gemma2-27b", (2, 1, 2), "tp_shardmap"), ("qwen2.5-3b", (2, 1, 2), "tp_shardmap")]
 LOSS_KW = dict(xent_chunk=0)           # the step below runs the chunked cross-entropy
 # lr 1e-4, as tests/test_torch_train_step.py: AdamW's first step turns a
@@ -69,45 +79,71 @@ ADAMW_RTOL = 1e-5
 ids = [f"{a}-{'x'.join(map(str, s))}-{st}" for a, s, st in CASES]
 
 
-def _batch():
+def _batch(arch):
     """4 rows of 16 tokens (2 microbatches of a row a data rank at data
-    2), a tenth of the labels masked."""
+    2), a tenth of the labels masked; 12 frames a row for an enc-dec
+    config, the patches for a VLM."""
     r = np.random.default_rng(5)
     labels = r.integers(0, 256, (4, 16)).astype(np.int32)
     labels[r.random(labels.shape) < 0.1] = -1
-    return {"tokens": r.integers(1, 256, (4, 16)).astype(np.int32), "labels": labels}
+    batch = {"tokens": r.integers(1, 256, (4, 16)).astype(np.int32), "labels": labels}
+    cfg = tiny_config(arch)
+    if cfg.encoder is not None:
+        batch["frames"] = r.standard_normal((4, 12, cfg.d_model)).astype(np.float32)
+    if cfg.vision is not None:
+        batch["patches"] = r.standard_normal(
+            (4, cfg.vision.n_patches, cfg.vision.d_patch)).astype(np.float32)
+    return batch
+
+
+def _ranks(case):
+    """The ranks of the case's mesh: the first of the world's four."""
+    return range(int(np.prod(case[1])))
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist_train")
     # the port's seeded init as numpy (no JAX compile before the child starts)
+    archs = sorted({c[0] for c in CASES})
     params = {a: map_tree(lambda t: t.numpy(), build_model(tiny_config(a)).init_params(
-        1, device="cpu")) for a in sorted({c[0] for c in CASES})}
+        1, device="cpu")) for a in archs}
     inputs = d / "inputs.pkl"
+    common = {"params": params, "batches": {a: _batch(a) for a in archs}, "loss_kw": LOSS_KW,
+              "step_kw": STEP_KW, "trainer": TRAINER}
     with open(inputs, "wb") as f:
-        pickle.dump({"cases": CASES, "params": params, "batch": _batch(), "loss_kw": LOSS_KW,
-                     "step_kw": STEP_KW, "trainer": TRAINER}, f)
+        pickle.dump(dict(common, cases=CASES), f)
     # LLVM's optimization level 0 compiles the six steps ~6 s sooner (the
     # float semantics are XLA's: no fast math at either level)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                          "--xla_backend_optimization_level=0")
     env["PYTHONPATH"] = os.pathsep.join([str(HERE.parent / "src"), env.get("PYTHONPATH", "")])
-    child = subprocess.Popen([sys.executable, str(HERE / "torch_dist_train_reference.py"),
-                              str(inputs), str(d / "ref.pkl")], env=env, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
+    # two reference children, each tracing its cases while the other does
+    # (a child traces one case at a time): the slowest case alone (jamba:
+    # 17 s to trace, 37 s to compile) and the rest (46 s to trace)
+    children = []
+    for i, group in enumerate((CASES[:1], CASES[1:])):
+        with open(d / f"inputs{i}.pkl", "wb") as f:
+            pickle.dump(dict(common, cases=group), f)
+        children.append(subprocess.Popen(
+            [sys.executable, str(HERE / "torch_dist_train_reference.py"), str(d / f"inputs{i}.pkl"),
+             str(d / f"ref{i}.pkl")], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
     try:
         port = spawn_ranks(torch_dist_train_worker.run_all, 4, (str(inputs),),
                            store_dir=d / "ranks", timeout_s=240)
-        log, _ = child.communicate(timeout=240)
+        logs = [child.communicate(timeout=240)[0] for child in children]
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
-    assert child.returncode == 0, log
-    with open(d / "ref.pkl", "rb") as f:
-        ref = pickle.load(f)
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    ref = {}
+    for i, (child, log) in enumerate(zip(children, logs)):
+        assert child.returncode == 0, log
+        with open(d / f"ref{i}.pkl", "rb") as f:
+            ref.update(pickle.load(f))
     return params, ref, port
 
 
@@ -149,14 +185,24 @@ def _rel(a, b):
     return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
 
 
+# jamba's gradient shards are held by the global norm and the step alone:
+# its SSD leaves' (A_log) gradients cancel to ~1e-4 of their terms, and the
+# JAX package's own fp32 gradient of layer 0's A_log is 1.04e-5 of the
+# leaf's max off its float64 value, so a 1e-5 bound there holds the
+# reference's rounding, not the port's
+NOISY_GRADS = ("jamba-v0.1-52b",)
+
+
 @pytest.mark.parametrize("case", CASES, ids=ids)
 def test_loss_and_gradient_match_the_reference_mesh(runs, case):
     _, ref, port = runs
     want = ref[case]
-    for rank in range(4):
+    for rank in _ranks(case):
         got = port[rank]["cases"][case]
         assert got["loss"] == pytest.approx(want["loss"][rank], rel=TOL), rank
         assert got["aux"] == pytest.approx(want["aux"][rank], rel=TOL, abs=1e-7), rank
+        if case[0] in NOISY_GRADS:
+            continue
         errs = [_rel(g, _slice(w, s)) for g, w, s in zip(got["grads"], want["grads"],
                                                           got["slices"])]
         assert len(errs) == len(want["grads"]) and max(errs) <= TOL, (rank, max(errs))
@@ -168,7 +214,7 @@ def test_global_norm_of_the_shards_is_the_reference_gradient_s(runs, case):
     summed over the axes that split it, a leaf held alike counted once)
     against the norm of the reference's global gradient: the clip scale."""
     _, ref, port = runs
-    for rank in range(4):
+    for rank in _ranks(case):
         assert port[rank]["cases"][case]["gnorm"] == pytest.approx(ref[case]["gnorm"],
                                                                    rel=TOL), rank
 
@@ -178,7 +224,7 @@ def test_the_data_split_aux_is_the_reference_s(runs):
     their shards' aux, as the devices' do; elsewhere they are one value."""
     _, ref, port = runs
     for case in CASES:
-        losses = [port[r]["cases"][case]["loss"] for r in range(4)]
+        losses = [port[r]["cases"][case]["loss"] for r in _ranks(case)]
         split = case[1][0] > 1 and tiny_config(case[0]).moe is not None
         assert (len(set(losses)) > 1) == split, (case, losses)
         assert (len(set(ref[case]["loss"])) > 1) == split, (case, ref[case]["loss"])
@@ -232,7 +278,7 @@ ERR_TOL, ERR_FLIP = 254 * TOL, 2.02
 def test_step_with_microbatches_and_int8_gradients_matches(runs, case):
     _, ref, port = runs
     want = ref[case]
-    for rank in range(4):
+    for rank in _ranks(case):
         got = port[rank]["cases"][case]
         assert got["step_loss"] == pytest.approx(want["step_loss"][rank], rel=TOL), rank
         assert got["lr"] == pytest.approx(want["lr"], rel=1e-6) and got["step"] == 1
@@ -252,7 +298,7 @@ def test_every_rank_holds_only_its_shards(runs, case):
     of the global leaf, and the slices of the ranks tile it."""
     params, _, port = runs
     leaves = tree_leaves(params[case[0]])
-    for rank in range(4):
+    for rank in _ranks(case):
         got = port[rank]["cases"][case]
         for name in ("after", "m", "v", "err"):
             assert [a.shape for a in got[name]] == [_slice(w, s).shape for w, s in

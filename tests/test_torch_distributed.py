@@ -25,7 +25,12 @@ once. Held:
   whole), and with mamba layers (tiny mamba2 at (1, 1, 2), (1, 1, 4) and (2,
   1, 2); tiny jamba at (1, 2, 2) with ep_shardmap and at (1, 1, 4) with
   tp_shardmap, where kv_seq, mamba and the MoE meet);
-- what raises under a mesh, ``LM.loss`` under those two layouts among it.
+- the enc-dec and VLM families: tiny seamless at (2, 1, 2) (the encoder,
+  the cross cache's rows split on data) and at (1, 1, 4) (kv_seq: every
+  rank projects both kv heads of the encoder, the cross attention and the
+  decoder), tiny phi-3-vision at (1, 1, 2), through the same paths with 12
+  frames a row (the batch's, the pack's) or the patch prefix;
+- what raises under a mesh: int8 trees, the int8 all-to-all under grad.
 """
 import os
 import pickle
@@ -69,7 +74,10 @@ MODEL_CASES += [("qwen2.5-3b", (1, 1, 4), "tp_shardmap"),        # kv_seq: kv 2 
                 ("mamba2-1.3b", (1, 1, 4), "tp_shardmap"),
                 ("mamba2-1.3b", (2, 1, 2), "tp_shardmap"),
                 ("jamba-v0.1-52b", (1, 2, 2), "ep_shardmap"),
-                ("jamba-v0.1-52b", (1, 1, 4), "tp_shardmap")]    # kv_seq, mamba and the MoE
+                ("jamba-v0.1-52b", (1, 1, 4), "tp_shardmap"),    # kv_seq, mamba and the MoE
+                ("seamless-m4t-large-v2", (2, 1, 2), "tp_shardmap"),   # encoder, cross cache
+                ("seamless-m4t-large-v2", (1, 1, 4), "tp_shardmap"),   # ... under kv_seq
+                ("phi-3-vision-4.2b", (1, 1, 2), "tp_shardmap")]       # the patch prefix
 MODEL_ARCHS = tuple(sorted({c[0] for c in MODEL_CASES}))
 PATHS = ("prefill", "ring0", "ring1", "pack", "paged0", "paged1", "verify")
 
@@ -77,14 +85,29 @@ PATHS = ("prefill", "ring0", "ring1", "pack", "paged0", "paged1", "verify")
 def _io():
     """The model paths' inputs: 2 prompts of 20 tokens (gemma2's window of
     16 bites), 2 decode steps on each cache, a ragged pack of 20 / 13
-    tokens, a verify sweep of 3 / 2."""
+    tokens, a verify sweep of 3 / 2; and each arch's extras: (12 frames a
+    row for an enc-dec config, the patches for a VLM, as the batch's
+    ``frames`` / ``patches`` and the pack's; the cross memory's length;
+    the patch offset the decode steps' positions count), the pages 40
+    positions a row (the VLM's 8 patches ahead of the verify sweep's 25)."""
     r = np.random.default_rng(11)
-    B, S, ps, maxp = 2, 20, 4, 8
+    B, S, ps, maxp = 2, 20, 4, 10
     tok = lambda *shape: r.integers(1, 256, shape).astype(np.int32)  # noqa: E731
     pt = (1 + np.arange(B * maxp, dtype=np.int32)).reshape(B, maxp)
     nv = np.asarray([20, 13], np.int32)
+    extras, rx = {}, np.random.default_rng(12)
+    for arch in MODEL_ARCHS:
+        cfg, ext = jax_tiny_config(arch), {}
+        if cfg.encoder is not None:
+            ext["frames"] = rx.standard_normal((B, 12, cfg.d_model)).astype(np.float32)
+        if cfg.vision is not None:
+            ext["patches"] = rx.standard_normal(
+                (B, cfg.vision.n_patches, cfg.vision.d_patch)).astype(np.float32)
+        extras[arch] = (ext, 12 if cfg.encoder is not None else 0,
+                        cfg.vision.n_patches if cfg.vision is not None else 0)
     return {
-        "prompt": tok(B, S), "max_seq": ps * maxp, "ps": ps, "num_pages": 1 + B * maxp,
+        "prompt": tok(B, S), "max_seq": 32, "ps": ps, "num_pages": 1 + B * maxp,
+        "extras": extras,
         "ring_steps": [(tok(B, 1), np.full(B, S + i, np.int32)) for i in range(2)],
         "pack": (tok(B, S), np.zeros(B, np.int32), nv, pt),
         "paged_steps": [(tok(B, 1), nv + i) for i in range(2)],
@@ -173,6 +196,17 @@ def test_sharded_paths_match_unsharded_jax(runs, case):
             np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1), err_msg=path)
 
 
+@pytest.mark.parametrize("case", [c for c in MODEL_CASES if c[1][0] > 1 and c[0] in (
+    "mamba2-1.3b", "seamless-m4t-large-v2")], ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_a_pack_row_outside_its_rank_s_slot_block_is_refused(runs, case):
+    """Under a batch split the SSM states and the cross cache hold the
+    slots of each rank's batch block: a pack whose rows name each other's
+    slots raises on every rank, naming the block."""
+    _, port = runs
+    for rank in range(int(np.prod(case[1]))):
+        assert "its block of the" in port[rank]["model"][case]["refused"], rank
+
+
 def test_every_moe_case_ran_on_its_ranks(runs):
     _, port = runs
     for case in MOE_CASES:
@@ -206,44 +240,9 @@ def test_shardmap_strategies_without_a_mesh_run_capacity():
         assert torch.equal(y, y0) and float(a) == float(a0)
 
 
-@pytest.mark.parametrize("arch,shape,match", [
-    ("seamless-m4t-large-v2", (1, 1, 2), "enc-dec"),
-    ("phi-3-vision-4.2b", (1, 1, 2), "VLM"),
-])
-def test_layouts_not_in_the_slice_raise(arch, shape, match):
-    model = build_model(torch_dist_worker.config(arch))
-    mesh = Mesh(shape, torch_dist_worker.AXES)
-    with use_sharding(mesh, make_rules("serve", tensor_axis="tensor", expert_axis="expert")):
-        with pytest.raises(NotImplementedError, match=match):
-            model.init_cache(2, 32, device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            model.prefill({}, {"tokens": torch.zeros(2, 4, dtype=torch.int64)}, None,
-                          RunCtx(mesh=mesh, tp_axis="tensor", ep_axis="expert"))
-
-
-@pytest.mark.parametrize("arch,shape,match", [
-    ("qwen2.5-3b", (1, 1, 4), "kv_seq"),            # kv 2 at tensor 4
-    ("mamba2-1.3b", (1, 1, 2), "mamba"),
-    ("jamba-v0.1-52b", (1, 1, 2), "mamba"),
-])
-def test_loss_raises_under_the_layouts_that_only_serve(arch, shape, match):
-    """The kv_seq layout and mamba layers serve under a mesh; training
-    under them is a later item of the ROADMAP's queue, which the message
-    names."""
-    model = build_model(torch_dist_worker.config(arch))
-    mesh = Mesh(shape, torch_dist_worker.AXES)
-    batch = {"tokens": torch.zeros(2, 4, dtype=torch.int64),
-             "labels": torch.zeros(2, 4, dtype=torch.int64)}
-    with use_sharding(mesh, make_rules("train", tensor_axis="tensor", expert_axis="expert")):
-        with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP Queue 1 item 3"):
-            model.loss({}, batch, RunCtx(mode="train", mesh=mesh, tp_axis="tensor",
-                                         ep_axis="expert"))
-
-
 def test_int8_trees_and_training_raise_under_a_mesh():
     """What still raises: int8 trees under a mesh; the int8 all-to-all
-    under grad (its rounding has no useful gradient); training mamba and
-    enc-dec configs under a mesh (their sharded paths are not in the port)."""
+    under grad (its rounding has no useful gradient)."""
     from repro_torch.quant.quantize import quantize_leaf
     cfg = torch_dist_worker.config("mixtral-8x7b")
     model = build_model(cfg)
@@ -259,11 +258,25 @@ def test_int8_trees_and_training_raise_under_a_mesh():
     with pytest.raises(NotImplementedError, match="a2a_int8.*no useful gradient"):
         moe_sublayer(p, h, cfg, RunCtx(moe_strategy="ep_shardmap", mesh=mesh, quant="a2a_int8",
                                        ep_axis="expert", tp_axis="tensor"))
+
+
+@pytest.mark.parametrize("mode", ["serve", "train"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "seamless-m4t-large-v2", "phi-3-vision-4.2b"])
+def test_an_int8_tree_is_what_still_raises_under_a_mesh(arch, mode):
+    """Every family serves and trains under a mesh on float trees; an int8
+    tree there (the reference shards one only in its dry-run) is the
+    ROADMAP's next item, which the message names."""
+    from repro_torch.quant.quantize import quantize_leaf
+    model = build_model(torch_dist_worker.config(arch))
+    mesh = Mesh((1, 1, 1), torch_dist_worker.AXES)
+    ctx = RunCtx(mode="train", mesh=mesh, tp_axis="tensor", ep_axis="expert")
+    q = model.init_params(0, device="cpu")
+    q["embed"]["w"] = quantize_leaf(q["embed"]["w"])
     batch = {"tokens": torch.zeros(2, 4, dtype=torch.int64),
              "labels": torch.zeros(2, 4, dtype=torch.int64)}
-    for arch, match in (("mamba2-1.3b", "mamba"), ("seamless-m4t-large-v2", "enc-dec")):
-        with use_sharding(mesh, make_rules("train", tensor_axis="tensor", expert_axis="expert")):
-            with pytest.raises(NotImplementedError, match=match):
-                build_model(torch_dist_worker.config(arch)).loss(
-                    {}, batch, RunCtx(mode="train", mesh=mesh, tp_axis="tensor",
-                                      ep_axis="expert"))
+    with use_sharding(mesh, make_rules(mode, tensor_axis="tensor", expert_axis="expert")):
+        with pytest.raises(NotImplementedError, match=r"int8.*ROADMAP Queue 1 item 3 \(c\)"):
+            if mode == "serve":
+                model.prefill(q, batch, None, ctx)
+            else:
+                model.loss(q, batch, ctx)

@@ -4,10 +4,12 @@ process whose environment alone sets
 the JAX package's ``value_and_grad(model.loss)`` and one ``step_fn`` of its
 ``make_train_step``, jitted with the train rules' shardings as
 ``repro/launch/dryrun.py``'s train cell builds them (the parameters', the
-moments' and the error feedback's ``NamedSharding``s, the batch's). Each
-case is traced and lowered here while the earlier ones compile and run on
-four threads (XLA compiles outside the GIL): 44 s for the six cases on 8
-CPU cores, against 67 s one after another.
+moments' and the error feedback's ``NamedSharding``s, the batch's; an
+enc-dec batch's frames and a VLM's patches as its ``_batch_shardings``).
+Each case is traced and lowered here while the earlier ones compile and run
+on four threads (XLA compiles outside the GIL): 44 s for six cases on 8 CPU
+cores, against 67 s one after another. The test runs two such children on
+parts of its cases at once (tracing holds one core a child).
 
     python tests/torch_dist_train_reference.py INPUTS.pkl OUTPUTS.pkl
 """
@@ -29,6 +31,11 @@ from repro.training.train_step import TrainConfig, make_train_step
 from torch_dist_reference import AXES, config, per_device
 
 
+# dryrun.py's ``_batch_shardings``
+BATCH_LOGICAL = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+                 "frames": ("batch", "seq", None), "patches": ("batch", None, None)}
+
+
 def lower(case, params_np, batch_np, loss_kw, step_kw):
     arch, shape, strategy = case
     cfg = config(arch)
@@ -45,7 +52,7 @@ def lower(case, params_np, batch_np, loss_kw, step_kw):
                         param_partition_specs(param_specs(cfg), mesh, rules))
     opt_sh = AdamWState(step=NamedSharding(mesh, partition_spec((), (), mesh, rules)),
                         m=p_sh, v=p_sh)
-    b_sh = {k: NamedSharding(mesh, partition_spec(v.shape, ("batch", "seq"), mesh, rules))
+    b_sh = {k: NamedSharding(mesh, partition_spec(v.shape, BATCH_LOGICAL[k], mesh, rules))
             for k, v in batch_np.items()}
     params = jax.tree.map(jnp.asarray, params_np)
     batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
@@ -79,8 +86,9 @@ def main(inputs_path, outputs_path):
     with open(inputs_path, "rb") as f:
         inp = pickle.load(f)
     with ThreadPoolExecutor(4) as pool:
-        futures = {case: pool.submit(run, *lower(case, inp["params"][case[0]], inp["batch"],
-                                                 inp["loss_kw"], inp["step_kw"]))
+        futures = {case: pool.submit(run, *lower(case, inp["params"][case[0]],
+                                                 inp["batches"][case[0]], inp["loss_kw"],
+                                                 inp["step_kw"]))
                    for case in inp["cases"]}
         out = {case: f.result() for case, f in futures.items()}
     with open(outputs_path, "wb") as f:

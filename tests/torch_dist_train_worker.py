@@ -1,11 +1,13 @@
 """The port's side of tests/test_torch_dist_train.py, run by every spawned
 gloo rank (torch only, so the ranks never import JAX): on each case's mesh
 with the train rules, ``LM.loss`` and its reduced gradient, then one
-``step_fn`` with microbatches and int8 gradients; on (2, 1, 2) each
+``step_fn`` with microbatches and int8 gradients (the batch carries an
+enc-dec config's frames and a VLM's patches); on (2, 1, 2) each
 collective's backward and the trainer's crash, resume and checkpoint."""
 import pickle
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import restore_checkpoint
@@ -131,16 +133,19 @@ def _collectives(mesh):
 
 
 def run_all(rank, world, inputs_path):
+    """Every case on this rank; a mesh smaller than the world binds the
+    first ranks, and the others skip its cases."""
     with open(inputs_path, "rb") as f:
         inp = pickle.load(f)
     meshes = {}
     for case in inp["cases"]:
         if case[1] not in meshes:
-            meshes[case[1]] = Mesh(case[1], AXES).bind()
+            meshes[case[1]] = Mesh(case[1], AXES).bind(ranks=range(int(np.prod(case[1]))))
     out = {"cases": {}, "collectives": _collectives(meshes[(2, 1, 2)])}
     for case in inp["cases"]:
-        out["cases"][case] = _case(meshes[case[1]], case, inp["params"][case[0]], inp["batch"],
-                                   inp["loss_kw"], inp["step_kw"])
+        if meshes[case[1]].rank >= 0:
+            out["cases"][case] = _case(meshes[case[1]], case, inp["params"][case[0]],
+                                       inp["batches"][case[0]], inp["loss_kw"], inp["step_kw"])
     job = inp["trainer"]
     out["trainer"] = _trainer(meshes[job["case"][1]], job,
                               str(Path(inputs_path).parent / "ckpt"))

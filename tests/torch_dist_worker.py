@@ -59,28 +59,42 @@ def _model_case(mesh, case, params_np, io):
     rules = rules_for(strategy)
     ctx = RunCtx(moe_strategy=strategy, mesh=mesh, ep_axis="expert", tp_axis="tensor")
     t = torch.from_numpy
+    ext, M, off = io["extras"][arch]
+    ext = {k: t(v) for k, v in ext.items()}
     out = {}
     with use_sharding(mesh, rules), torch.inference_mode():
         specs = param_partition_specs(model.param_specs(), mesh, rules)
         params = params_from_numpy(shard_tree(params_np, specs, mesh), device="cpu")
         B = io["prompt"].shape[0]
-        ring = model.init_cache(B, io["max_seq"], device="cpu")
-        out["prefill"], ring = model.prefill(params, {"tokens": t(io["prompt"])}, ring, ctx)
+        ring = model.init_cache(B, io["max_seq"], memory_len=M, device="cpu")
+        out["prefill"], ring = model.prefill(params, {"tokens": t(io["prompt"]), **ext}, ring,
+                                             ctx)
         for i, (tok, pos) in enumerate(io["ring_steps"]):
-            out[f"ring{i}"], ring = model.decode_step(params, t(tok), ring, t(pos), ctx)
+            out[f"ring{i}"], ring = model.decode_step(params, t(tok), ring, t(pos + off), ctx)
         pool = model.init_cache(B, io["max_seq"], kind="paged", page_size=io["ps"],
-                                num_pages=io["num_pages"], device="cpu")
+                                num_pages=io["num_pages"], memory_len=M, device="cpu")
         tok, st, nv, pt = io["pack"]
         slots, first = t(np.arange(B, dtype=np.int32)), t(st == 0)
         out["pack"], pool = model.decode_chunk(params, t(tok), pool, t(st), t(nv), slots, first,
-                                               ctx, t(pt))
+                                               ctx, t(pt), **ext)
         for i, (tok, pos) in enumerate(io["paged_steps"]):
-            out[f"paged{i}"], pool = model.decode_step(params, t(tok), pool, t(pos), ctx,
-                                                       page_table=t(pt), lengths=t(pos + 1))
+            out[f"paged{i}"], pool = model.decode_step(params, t(tok), pool, t(pos + off), ctx,
+                                                       page_table=t(pt),
+                                                       lengths=t(pos + off + 1))
         tok, st, nv = io["verify"]
         out["verify"], pool = model.decode_chunk(params, t(tok), pool, t(st), t(nv), slots,
                                                  t(st == 0), ctx, t(pt), all_logits=True)
-    return {k: v.numpy() for k, v in out.items()}
+        out = {k: v.numpy() for k, v in out.items()}
+        if mesh.shape["data"] > 1 and (model.cfg.ssm is not None or model.cfg.encoder is not None):
+            # the slot-pooled caches hold the slots of the rank's batch block:
+            # a pack whose rows name each other's slots is refused
+            try:
+                model.decode_chunk(params, t(tok), pool, t(st), t(nv), slots.flip(0), t(st == 0),
+                                   ctx, t(pt))
+                out["refused"] = ""
+            except ValueError as e:
+                out["refused"] = str(e)
+    return out
 
 
 def run_all(rank, world, inputs_path):
