@@ -751,6 +751,8 @@ def run_attention(dev, flush, results):
         shapes[f"pack qwen2.5-3b tensor 4 q_head0 {h0}"] = dict(new, H=4, Hkv=2, fold=(h0, 8))
     shapes["pack jamba"] = dict(new, H=32, Hkv=8)
     shapes["pack jamba (1, 2, 2)"] = dict(new, H=16, Hkv=4)
+    # phase 13 (i) / (j)'s mixtral ranks at tensor 4 (8 heads over 2)
+    shapes["pack mixtral tensor 4"] = dict(new, H=8, Hkv=2)
     dtypes = {name: (torch.float32, torch.bfloat16) for name in shapes}
     # phase 13 (g) / (h)'s packs, fp32 as they serve: seamless (MHA, head dim
     # 64) unsharded and a rank's 2 rows and 8 heads at (2, 1, 2);
@@ -874,6 +876,8 @@ def run_flash(dev, flush, results):
              0.0),
             ("jamba prefill", 4, DIST_PROMPT, DIST_PROMPT, 32, 8, 128, True, 0, 0.0),
             ("jamba prefill (1, 2, 2)", 4, DIST_PROMPT, DIST_PROMPT, 16, 4, 128, True, 0, 0.0),
+            # phase 13 (i) / (j)'s mixtral ranks at tensor 4 over DIST_PROMPT tokens
+            ("mixtral prefill tensor 4", 4, DIST_PROMPT, DIST_PROMPT, 8, 2, 128, True, 0, 0.0),
             # phase 14 (c)'s ranks: a data rank's 2 rows of 512 tokens,
             # qwen2.5-3b's heads at tensor 2, mixtral's whole at (2, 2, 1)
             ("qwen2.5-3b train tensor 2", 2, 512, 512, 8, 1, 128, True, 0, 0.0),
@@ -1278,14 +1282,29 @@ def run_gmm(dev, flush, results):
             for dtype in (torch.float32, torch.bfloat16):
                 run_gmm_case(dev, flush, results, tokens=tokens, K=K, N=N, dtype=dtype,
                              int8=False, tol=tols[False, dtype], E=64, top_k=6)
+    # phase 13 (i)'s ranks: their int8 experts over the capacity buffers,
+    # each expert's cap rows one group, in the dtype each mesh serves
+    for rows, K, N, dtype, E in sorted(dist_int8_shapes()["gmm"], key=str):
+        run_gmm_case(dev, flush, results, tokens=0, K=K, N=N, dtype=dtype, int8=True,
+                     tol=tols[True, dtype], E=E, buffers=rows // E)
 
 
-def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol, E=8, top_k=2):
+def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol, E=8, top_k=2,
+                 buffers=0):
+    """One grouped matmul case: ``tokens`` routed top-k, or with
+    ``buffers`` every expert's capacity buffer of that many rows a group
+    (the shard_map strategies' layout)."""
     from repro_torch.kernels.moe_gmm import gmm, gmm_reference, gmm_tiles_cuda, tile_layout
     from repro_torch.kernels.moe_gmm.kernel import block_m_for, plan_for
     from repro_torch.quant import quantize_leaf
-    x, w, gs = gmm_case(dev, tokens=tokens, E=E, K=K, N=N, dtype=dtype, seed=tokens,
-                        top_k=top_k)
+    if buffers:
+        g = torch.Generator(device=dev).manual_seed(buffers)
+        x = torch.randn((E * buffers, K), generator=g, device=dev).to(dtype)
+        w = (torch.randn((E, K, N), generator=g, device=dev) * K ** -0.5).to(dtype)
+        gs = torch.full((E,), buffers, dtype=torch.int64, device=dev)
+    else:
+        x, w, gs = gmm_case(dev, tokens=tokens, E=E, K=K, N=N, dtype=dtype, seed=tokens,
+                            top_k=top_k)
     wk = quantize_leaf(w) if int8 else w
     M = x.shape[0]
     out = gmm(x, wk, gs)
@@ -1314,21 +1333,27 @@ def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol, E=8, to
              if bounds[i + 1] > bounds[i]]
     # one matmul an active expert: past 16 of them the host's dispatch
     # outruns the queue, so each call is timed alone
-    lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b], w[i]) for i, a, b in parts], flush=flush,
-                     queued=len(parts) <= 16)
+    if buffers:        # one batched matmul over the buffers, as the float experts run
+        lib_ms = cuda_ms(lambda: torch.bmm(x.view(E, buffers, K), w), flush=flush)
+    else:
+        lib_ms = cuda_ms(lambda: [torch.matmul(x[a:b], w[i]) for i, a, b in parts], flush=flush,
+                         queued=len(parts) <= 16)
     active = len(parts)
     es = x.element_size()
     wbytes = active * K * (N + 4) if int8 else active * K * N * es
     nbytes = (M * K + M * N) * es + wbytes + gs.numel() * gs.element_size()
     bms, by = bound_ms(nbytes, 2.0 * M * K * N, dtype)
     experts = f" E{E}" if E != 8 else ""
-    row = dict(kernel="moe_gmm", case=f"{tokens}tok {K}->{N}{kind}{experts}", dtype=str(dtype)[6:],
-               shape=f"x({M},{K}) w({E},{K},{N}){kind} top-{top_k} experts_active={active}",
+    case = (f"rank buffers {E}x{buffers} {K}->{N}{kind}" if buffers else
+            f"{tokens}tok {K}->{N}{kind}{experts}")
+    routing = f"{E} buffers of {buffers} rows" if buffers else f"top-{top_k}"
+    row = dict(kernel="moe_gmm", case=case, dtype=str(dtype)[6:],
+               shape=f"x({M},{K}) w({E},{K},{N}){kind} {routing} experts_active={active}",
                path=plan.path, splits=plan.splits, grid=list(plan.grid),
                max_abs_err=err, ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=bms, bound_by=by)
     results.append(row)
-    log(f"  gmm{kind} {tokens} tokens {E} experts top-{top_k} K={K} N={N} {row['dtype']} "
+    log(f"  gmm{kind} {case} {routing} K={K} N={N} {row['dtype']} "
         f"path={plan.path} "
         f"splits={plan.splits} grid={plan.grid}: kernel_ms={ms:.4f} op_ms={op_ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) max_abs_err={err:.3g}, "
@@ -1416,8 +1441,12 @@ def run_w8a16(dev, flush, results):
     cases += [(f"{n} M={M}", M, N, G, (torch.bfloat16,)) for M in sorted(rows)
               for n, N, G in proj if (n, M) != ("wq", 256)]
     cases += [(f"head M={M}", M, 32000, 1, (torch.bfloat16,)) for M in sorted(head_rows)]
-    for name, M, N, G, dtypes in cases:
-        K = 4096
+    # phase 13 (i)'s ranks: the int8 tree's projections and head at a rank's
+    # heads and vocab columns, in the dtype each mesh serves
+    cases += [(f"rank {str(dtype)[6:]} K={K} N={N} M={M}", M, N, G, (dtype,), K)
+              for M, K, N, G, dtype in sorted(dist_int8_shapes()["w8a16"], key=str)]
+    for name, M, N, G, dtypes, *k in cases:
+        K = k[0] if k else 4096
         for dtype in dtypes:
             x, w, q, row = w8a16_case(dev, M=M, K=K, N=N, G=G, dtype=dtype, seed=M + N)
             plan = plan_for(x, q)
@@ -2530,6 +2559,16 @@ DIST_RING_STEPS = 2         # (d)-(f): decode_steps over the dense ring before t
 # layers (seamless: and 2 encoder layers over DIST_FRAMES frames a row;
 # phi-3-vision: 576 patches a row ahead of the prompt): (name, arch, mesh)
 DIST_MM = (("g", "seamless-m4t-large-v2", (2, 1, 2)), ("h", "phi-3-vision-4.2b", (1, 1, 4)))
+# (i): the int8 tree under a mesh (paper §4.1 on the TP / EP shards):
+# mixtral-8x7b at full width and depth DIST_DEPTH, each rank's shards from
+# ``init_params_int8(mesh=)``: (name, mesh, MoE strategy, activations)
+DIST_INT8 = (("i fp32", (1, 1, 4), "tp_shardmap", torch.float32),
+             ("i bf16", (1, 2, 2), "ep_shardmap", torch.bfloat16))
+# (j): the sequence-parallel rule (``make_rules(seq_shard=True)``) on cases
+# built above, fp32 on DIST_PROMPT-token prompts (which tensor 4 divides):
+# (name, arch, depth, mesh, MoE strategy, the unsharded run held against)
+DIST_SEQ = (("j mixtral", "mixtral-8x7b", DIST_DEPTH, (1, 1, 4), "tp_shardmap", "j mixtral"),
+            ("j qwen", "qwen2.5-3b", 2, (1, 1, 4), "tp_shardmap", "d"))
 # (c): decode_steps, teacher-forced with the first of phase 5's tokens
 DIST_C_STEPS = 16
 # (c): each logit row against phase 5's at the same context, relative to the
@@ -2550,10 +2589,75 @@ def dist_config(n_layers: int, arch: str = "mixtral-8x7b"):
                                               / cfg.moe.top_k))
 
 
-def dist_rules(strategy: str):
+def dist_rules(strategy: str, seq_shard: bool = False):
     from repro_torch.distributed.sharding import make_rules
     return make_rules("serve", moe="ep" if strategy == "ep_shardmap" else "tp",
-                      tensor_axis="tensor", expert_axis="expert")
+                      tensor_axis="tensor", expert_axis="expert", seq_shard=seq_shard)
+
+
+def dist_int8_shapes() -> dict:
+    """(i)'s calls of the w8a16 and grouped matmuls on a rank, as the model
+    makes them over DIST_PROMPT-token prompts: {"w8a16": {(M, K, N, G,
+    dtype)}, "gmm": {(rows, K, N, dtype, experts)}}. w8a16: wq / wk / wv /
+    wo at the prefill's and the pack's B x DIST_PROMPT rows and a decode
+    step's B, the head (its vocab columns) at B rows (each call's last
+    positions); gmm: the rank's capacity buffers, every expert's ``cap``
+    rows a group (the MoE's capacity formulas at those token counts)."""
+    import math
+    cfg = dist_config(DIST_DEPTH)
+    m, d, hd = cfg.moe, cfg.d_model, cfg.head_dim
+    fe, K, cf = m.d_expert or cfg.d_ff, m.top_k, m.capacity_factor
+    B = len(PROMPT_LENS)
+    up = lambda x, k: -(-x // k) * k  # noqa: E731
+    out = {"w8a16": set(), "gmm": set()}
+    for _, (_, ep, tp), strategy, dtype in DIST_INT8:
+        H, Hkv = (n // tp if n % tp == 0 else n for n in (cfg.n_heads, cfg.n_kv_heads))
+        for T in (B * DIST_PROMPT, B):
+            out["w8a16"] |= {(T, d, H * hd, H, dtype), (T, d, Hkv * hd, Hkv, dtype),
+                             (T, H * hd, d, 1, dtype)}
+            if strategy == "ep_shardmap":
+                E = m.num_experts // ep
+                cap_s = up(max(math.ceil(T * K * cf / ep), 4), 4)
+                cap = up(max(math.ceil(ep * cap_s / E * cf), 8), 8)
+            else:
+                E = m.num_experts
+                cap = up(max(math.ceil(T * K / E * cf), 8), 8)
+            out["gmm"] |= {(E * cap, d, fe // tp, dtype, E), (E * cap, fe // tp, d, dtype, E)}
+        out["w8a16"].add((B, d, cfg.vocab // tp, 1, dtype))
+    return out
+
+
+@contextlib.contextmanager
+def unrecorded():
+    """Calls that check the card and serve nothing (a mesh case's unsharded
+    reference run): their call shapes leave SERVED as it was."""
+    saved = {k: set(v) for k, v in SERVED.items()}
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            SERVED[k] = v
+
+
+@contextlib.contextmanager
+def counting_reduce_scatters():
+    """While open, counts the sequence-parallel rule's reduce-scatters
+    (``distributed.collectives.reduce_scatter``) in ``.n``."""
+    from repro_torch.distributed import collectives
+    real = collectives.reduce_scatter
+
+    class Count:
+        n = 0
+    count = Count()
+
+    def counted(*args, **kw):
+        count.n += 1
+        return real(*args, **kw)
+    collectives.reduce_scatter = counted
+    try:
+        yield count
+    finally:
+        collectives.reduce_scatter = real
 
 
 def dist_ctx(strategy: str, mesh=None):
@@ -2770,14 +2874,29 @@ def padded_prompts(dev, streams):
     return torch.from_numpy(toks).to(dev), lens
 
 
-def spec_bytes(model, mesh, rules, nbytes: int) -> int:
-    """What the rank's shards of the parameters weigh by their specs."""
-    from repro_torch.distributed.sharding import local_shape, partition_spec
-    from repro_torch.models.params import map_tree
-    sizes = []
-    map_tree(lambda s: sizes.append(int(np.prod(local_shape(
-        s.shape, partition_spec(s.shape, s.logical, mesh, rules), mesh)))), model.param_specs())
-    return sum(sizes) * nbytes
+def spec_bytes(model, mesh, rules, nbytes: int, int8: bool = False) -> int:
+    """What the rank's shards of the parameters weigh by their specs, at
+    ``nbytes`` an element; ``int8``: the int8 tree's (``param_partition_specs
+    (..., quant="int8")``: q one byte an element and its fp32 scale by its
+    own spec; a leaf the quantization leaves at ``nbytes``)."""
+    from repro_torch.distributed.sharding import (PartitionSpec, local_shape,
+                                                  param_partition_specs)
+    from repro_torch.models.params import ParamSpec, map_tree
+    from repro_torch.quant.quantize import QuantizedLinear
+    specs = []
+    map_tree(specs.append, model.param_specs(), is_leaf=lambda x: isinstance(x, ParamSpec))
+    parts = []
+    map_tree(parts.append, param_partition_specs(model.param_specs(), mesh, rules,
+                                                 quant="int8" if int8 else "none"),
+             is_leaf=lambda x: isinstance(x, (QuantizedLinear, PartitionSpec)))
+    total = 0
+    for s, ps in zip(specs, parts):
+        if isinstance(ps, QuantizedLinear):
+            total += int(np.prod(local_shape(s.shape, ps.q, mesh))) + 4 * int(np.prod(
+                local_shape(s.shape[:-1] + (1,), ps.scale, mesh)))
+        else:
+            total += nbytes * int(np.prod(local_shape(s.shape, ps, mesh)))
+    return total
 
 
 def tensor_bytes(tree) -> int:
@@ -2797,13 +2916,14 @@ def dist_rank(rank: int, world: int, job: dict):
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.models.moe import count_drops
+    from repro_torch.models.params import init_params_int8
     if job.get("hook"):
         job["hook"]()                              # the CPU rehearsal's stubs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(job["device"])
     torch.cuda.set_device(dev)
-    for name in ("flash_attention", "chunked_prefill"):
+    for name in ("flash_attention", "chunked_prefill", "quant_matmul", "moe_gmm"):
         kbuild.load_library(name)                  # built by phase 1; the build lock guards it
     meshes = {shape: Mesh(shape, DIST_AXES).bind()
               for shape in sorted({m[1] for m in DIST_MESHES} | {m[2] for m in DIST_MM})}
@@ -2912,9 +3032,78 @@ def dist_rank(rank: int, world: int, job: dict):
             del params, model, logits
             gc.collect()
             torch.cuda.empty_cache()
+        # (i): the int8 tree, each rank's shards from init_params_int8(mesh=)
+        # (each repeat quantized whole, then sliced), teacher-forced with the
+        # parent's tokens: fp32 activations on (1, 1, 4), bf16 on (1, 2, 2)
+        model = build_model(dist_config(DIST_DEPTH))
+        for key, shape, strategy, dtype in DIST_INT8:
+            mesh, rules = meshes[shape], dist_rules(strategy)
+            ctx = dist_ctx(strategy, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            with use_sharding(mesh, rules):
+                params = init_params_int8(model.cfg, 0, device=dev, dtype=dtype, mesh=mesh,
+                                          rules=rules)
+                zero_launches()
+                with recording(), count_drops() as drops:
+                    logits, secs = dist_paths(dev, model, params, ctx, job["d_tokens"].to(dev),
+                                              job["d_feed"].to(dev), timed=True)
+                torch.cuda.synchronize()
+                out["layouts"][key] = dict(
+                    logits={k: v.cpu() for k, v in logits.items()}, secs=secs,
+                    drops=drops.total(), launches=read_launches(),
+                    param_bytes=tensor_bytes(params),
+                    spec_bytes=spec_bytes(model, mesh, rules, dtype.itemsize, int8=True),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+            del params, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        del model
+        # (j): the sequence-parallel rule on (b)'s mixtral and (d)'s qwen2.5-3b
+        # at (1, 1, 4), over DIST_PROMPT-token prompts
+        for key, arch, depth, shape, strategy, _ in DIST_SEQ:
+            model = build_model(dist_config(depth, arch))
+            mesh, rules = meshes[shape], dist_rules(strategy, seq_shard=True)
+            ctx = dist_ctx(strategy, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            with use_sharding(mesh, rules):
+                params = model.init_params(0, device=dev, dtype=torch.float32, mesh=mesh,
+                                           rules=rules)
+                zero_launches()
+                with recording(), count_drops() as drops, counting_reduce_scatters() as rs:
+                    logits, secs = dist_paths(dev, model, params, ctx, job["d_tokens"].to(dev),
+                                              job["d_feed"].to(dev), timed=True)
+                torch.cuda.synchronize()
+                out["layouts"][key] = dict(
+                    logits={k: v.cpu() for k, v in logits.items()}, secs=secs,
+                    drops=drops.total(), launches=read_launches(), reduce_scatters=rs.n,
+                    param_bytes=tensor_bytes(params), spec_bytes=spec_bytes(model, mesh, rules, 4),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+            del params, model, logits
+            gc.collect()
+            torch.cuda.empty_cache()
     if rank == 0:
         out["served"] = {k: sorted(v) for k, v in SERVED.items()}
     return out
+
+
+def bf16_held(logits, ref, what: str):
+    """Each logit row within DIST_BF16_RTOL of the row's max |logit| of
+    ``ref``'s (the same contexts, teacher-forced), each argmax flip a tie:
+    each path's top-2 margin within the rows' largest gap. Returns (the
+    worst relative error, the flips)."""
+    worst, flips = 0.0, []
+    for t, (a, b) in enumerate(zip(logits, ref)):
+        a, b = a.float(), b.float()
+        worst = max(worst, float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max()))
+        for row in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten().tolist():
+            gap = float((a[row] - b[row]).abs().max())
+            margins = [float(v[0] - v[1]) for v in (torch.topk(a[row], 2)[0],
+                                                    torch.topk(b[row], 2)[0])]
+            flips.append(dict(request=row, token=t, gap=gap, margins=margins,
+                              tie=max(margins) <= gap))
+    assert worst < DIST_BF16_RTOL, f"{what}: logits differ from the reference by {worst:.3g} of max"
+    assert all(f["tie"] for f in flips), f"{what}: an argmax flip is no tie: {flips}"
+    return worst, flips
 
 
 def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
@@ -2953,7 +3142,7 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
     from repro_torch.distributed.ranks import spawn_ranks
     from repro_torch.distributed.sharding import use_sharding
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.models import build_model
+    from repro_torch.models import RunCtx, build_model
     from repro_torch.models.moe import count_drops
     res = {}
     tokens, lens = padded_prompts(dev, streams)
@@ -2998,15 +3187,31 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
     log(f"  (a) NCCL, world 1, mesh (1, 1, 1), ep_shardmap, {model.cfg.name} fp32: prefill + "
         f"{DIST_STEPS} decode_steps within {res['a']['max_abs_logit']:.3g} of the unsharded "
         f"capacity run (< {LOGIT_ATOL}), argmax equal; launches {a_launches}")
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
 
-    # the unsharded card runs (d)-(f) are held against
+    # the unsharded card runs (d)-(j) are held against; (i)'s int8 trees and
+    # (j)'s mixtral over DIST_PROMPT tokens check the card and serve nothing
     d_tokens = tokens[:, :DIST_PROMPT].cpu()
     d_feed = torch.randint(1, 32000, (len(lens), DIST_RING_STEPS + DIST_STEPS),
                            generator=torch.Generator().manual_seed(13), dtype=torch.int32)
     layout_ref = {}
+    with torch.inference_mode(), unrecorded():
+        logits, _ = dist_paths(dev, model, params, dist_ctx("capacity"), d_tokens.to(dev),
+                               d_feed.to(dev))
+    layout_ref["j mixtral"] = {k: v.cpu() for k, v in logits.items()}
+    del model, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, _, _, dtype in DIST_INT8:
+        from repro_torch.models.params import init_params_int8
+        model = build_model(dist_config(DIST_DEPTH))
+        params = init_params_int8(model.cfg, 0, device=dev, dtype=dtype)
+        with torch.inference_mode(), unrecorded():
+            logits, _ = dist_paths(dev, model, params, RunCtx(moe_strategy="dropless"),
+                                   d_tokens.to(dev), d_feed.to(dev))
+        layout_ref[key] = {k: v.cpu() for k, v in logits.items()}
+        del model, params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
     for key, arch, depth, _, _ in DIST_LAYOUTS:
         model = build_model(dist_config(depth, arch))
         params = model.init_params(0, device=dev, dtype=torch.float32)
@@ -3060,20 +3265,7 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
             f"no token dropped; rank 0 launches {b['launches']}; parameter bytes per rank "
             f"{res[f'b_{name}']['param_bytes']} (each its specs' shard sum)")
     c = r0["c"]
-    worst, flips = 0.0, []
-    for t, (a, b) in enumerate(zip(c["logits"], gen_logits)):
-        a, b = a.float(), b.float()
-        worst = max(worst, float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max()))
-        for row in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten().tolist():
-            # teacher forcing: both rows saw the same context. A flip is a
-            # tie when each path's top-2 margin is within the rows' largest gap
-            gap = float((a[row] - b[row]).abs().max())
-            margins = [float(v[0] - v[1]) for v in (torch.topk(a[row], 2)[0],
-                                                    torch.topk(b[row], 2)[0])]
-            flips.append(dict(request=row, token=t, gap=gap, margins=margins,
-                              tie=max(margins) <= gap))
-    assert worst < DIST_BF16_RTOL, f"(c) logits differ from phase 5's by {worst:.3g} of max"
-    assert all(f["tie"] for f in flips), f"(c) an argmax flip is no tie: {flips}"
+    worst, flips = bf16_held(c["logits"], gen_logits, "(c) against phase 5's")
     for o in outs:
         assert o["c"]["drops"] == 0 and o["c"]["param_bytes"] == o["c"]["spec_bytes"], \
             (o["rank"], o["c"]["drops"], o["c"]["param_bytes"], o["c"]["spec_bytes"])
@@ -3147,12 +3339,102 @@ def run_distributed(dev, streams, gen_tokens, gen_logits, hook=None):
             f"the host); parameter GB per rank "
             f"{[round(x / 1e9, 3) for x in res[key]['param_bytes']]} (each its specs' shard "
             f"sum), peak device GB per rank {[round(x / 1e9, 3) for x in res[key]['peak_bytes']]}")
+    # (i): the int8 trees against the card's unsharded int8 runs
+    cfg = dist_config(DIST_DEPTH)
+    for key, shape, strategy, dtype in DIST_INT8:
+        lay, ref = r0["layouts"][key], layout_ref[key]
+        what = f"({key}) {cfg.name} int8 {shape} {strategy}"
+        assert set(lay["logits"]) == set(ref), what
+        if dtype == torch.float32:
+            errs = {p: max_err(lay["logits"][p], ref[p]) for p in ref}
+            assert max(errs.values()) < LOGIT_ATOL, \
+                f"{what}: logits differ from the unsharded int8 run by {errs}"
+            flips = [p for p in ref
+                     if not torch.equal(lay["logits"][p].argmax(-1), ref[p].argmax(-1))]
+            assert not flips, f"{what}: greedy tokens differ from the unsharded run at {flips}"
+            err = max(errs.values())
+        else:
+            err, flips = bf16_held([lay["logits"][p] for p in ref], list(ref.values()), what)
+        for o in outs:
+            ol = o["layouts"][key]
+            assert ol["drops"] == 0 and ol["param_bytes"] == ol["spec_bytes"], \
+                (o["rank"], key, ol["drops"], ol["param_bytes"], ol["spec_bytes"])
+        launched = lay["launches"][0]
+        for k in ("flash_attention", "paged_attention", "chunked_prefill_attention",
+                  "w8a16_matmul", "moe_gmm"):
+            assert launched[k] > 0, f"{what}: {k} never launched: {launched}"
+        secs = lay["secs"]
+        res[key] = dict(config=cfg.name, layers=cfg.n_layers, mesh=list(shape), strategy=strategy,
+                        weights="int8", dtype=str(dtype)[6:], prompt=DIST_PROMPT,
+                        max_logit_err=err, err_kind="abs" if dtype == torch.float32 else
+                        "rel to the row's max |logit|", argmax_flips=flips,
+                        launches=launched, launches_by_path=lay["launches"][1],
+                        prefill_ms=1e3 * secs["prefill"],
+                        ring_step_ms=1e3 * float(np.mean(secs["ring"])),
+                        decode_step_ms=1e3 * float(np.mean(secs["paged"])),
+                        pack_ms=1e3 * secs["pack"],
+                        param_bytes=[o["layouts"][key]["param_bytes"] for o in outs],
+                        peak_bytes=[o["layouts"][key]["peak_bytes"] for o in outs])
+        log(f"  ({key}) gloo, 4 ranks, mesh {shape}, {strategy}, {cfg.name} int8 weights "
+            f"(init_params_int8(mesh=)), {str(dtype)[6:]} activations, {B} prompts of "
+            f"{DIST_PROMPT} tokens: prefill, {DIST_RING_STEPS} ring and {DIST_STEPS} pool "
+            f"decode_steps and the decode_chunk pack within {err:.3g} "
+            + (f"(< {LOGIT_ATOL}) of the unsharded int8 run, argmax equal" if not flips and
+               dtype == torch.float32 else
+               f"of each row's max |logit| (< {DIST_BF16_RTOL}) of the unsharded int8 run, "
+               f"{len(flips)} argmax flips, each a tie")
+            + f", no token dropped; rank 0 launches {launched}, by path {lay['launches'][1]}")
+        log(f"  ({key}) prefill {res[key]['prefill_ms']:.3f} ms, ring decode_step "
+            f"{res[key]['ring_step_ms']:.3f} ms, pool decode_step {res[key]['decode_step_ms']:.3f} "
+            f"ms, pack {res[key]['pack_ms']:.3f} ms (rank 0); int8 parameter GB per rank "
+            f"{[round(x / 1e9, 3) for x in res[key]['param_bytes']]} (each its int8 specs' "
+            f"shard sum), peak device GB per rank "
+            f"{[round(x / 1e9, 3) for x in res[key]['peak_bytes']]}")
+    # (j): the sequence-parallel rule against the unsharded runs
+    for key, arch, depth, shape, strategy, base in DIST_SEQ:
+        cfg = dist_config(depth, arch)
+        lay, ref = r0["layouts"][key], layout_ref[base]
+        what = f"({key}) {cfg.name} {shape} {strategy} seq_shard"
+        errs = {p: max_err(lay["logits"][p], ref[p]) for p in ref}
+        assert set(lay["logits"]) == set(ref) and max(errs.values()) < LOGIT_ATOL, \
+            f"{what}: logits differ from the unsharded run by {errs}"
+        flips = [p for p in ref if not torch.equal(lay["logits"][p].argmax(-1), ref[p].argmax(-1))]
+        assert not flips, f"{what}: greedy tokens differ from the unsharded run at {flips}"
+        for o in outs:
+            ol = o["layouts"][key]
+            assert ol["drops"] == 0 and ol["param_bytes"] == ol["spec_bytes"], \
+                (o["rank"], key, ol["drops"], ol["param_bytes"], ol["spec_bytes"])
+            assert ol["reduce_scatters"] > 0, f"{what}: rank {o['rank']} reduce-scattered nothing"
+        launched = lay["launches"][0]
+        for k in ("flash_attention", "paged_attention", "chunked_prefill_attention"):
+            assert launched[k] > 0, f"{what}: {k} never launched: {launched}"
+        secs = lay["secs"]
+        res[key] = dict(config=cfg.name, layers=cfg.n_layers, mesh=list(shape), strategy=strategy,
+                        dtype="float32", prompt=DIST_PROMPT, seq_shard=True,
+                        max_abs_logit=max(errs.values()), max_abs_logit_by_path=errs,
+                        reduce_scatters=[o["layouts"][key]["reduce_scatters"] for o in outs],
+                        launches=launched, launches_by_path=lay["launches"][1],
+                        prefill_ms=1e3 * secs["prefill"],
+                        ring_step_ms=1e3 * float(np.mean(secs["ring"])),
+                        decode_step_ms=1e3 * float(np.mean(secs["paged"])),
+                        pack_ms=1e3 * secs["pack"],
+                        param_bytes=[o["layouts"][key]["param_bytes"] for o in outs],
+                        peak_bytes=[o["layouts"][key]["peak_bytes"] for o in outs])
+        log(f"  ({key}) gloo, 4 ranks, mesh {shape}, {strategy}, {cfg.name} fp32 under "
+            f"make_rules(seq_shard=True), {B} prompts of {DIST_PROMPT} tokens: every path within "
+            f"{max(errs.values()):.3g} of the unsharded run (< {LOGIT_ATOL}), argmax equal; "
+            f"reduce-scatters per rank {res[key]['reduce_scatters']}; prefill "
+            f"{res[key]['prefill_ms']:.3f} ms, ring decode_step {res[key]['ring_step_ms']:.3f} ms, "
+            f"pool decode_step {res[key]['decode_step_ms']:.3f} ms, pack "
+            f"{res[key]['pack_ms']:.3f} ms (rank 0); peak device GB per rank "
+            f"{[round(x / 1e9, 3) for x in res[key]['peak_bytes']]}")
     for k, v in r0["served"].items():
         SERVED[k].update(tuple(x) for x in v)
     res["launches"] = {k: res["a"]["launches"][k] + sum(res[f"b_{n}"]["launches"][k]
                                                          for n, _, _ in DIST_MESHES)
                        + c["launches"][k] + sum(res[key]["launches"][k]
-                                                for key, *_ in DIST_LAYOUTS + DIST_MM)
+                                                for key, *_ in (DIST_LAYOUTS + DIST_MM
+                                                                + DIST_INT8 + DIST_SEQ))
                        for k in c["launches"]}
     return res
 
@@ -4144,15 +4426,19 @@ DIST_TRAIN_SAMPLE = 4096           # (b): elements of each leaf held against the
 DIST_TRAIN_BF16 = (("qwen", TRAIN_ARCH, 4, (2, 1, 2), "tp_shardmap", MOE_TRAIN_LR),
                    ("mixtral", "mixtral-8x7b", 1, (2, 2, 1), "ep_shardmap", MOE_TRAIN_LR))
 DIST_TRAIN_STEPS = 2
+# (f): the sequence-parallel rule (``make_rules("train", seq_shard=True)``)
+# on a case of (d): its name -> the case whose unsharded step it is held
+# against
+DIST_TRAIN_SEQ_OF = {"qwen kv_seq seq": "qwen kv_seq"}
 DIST_TRAIN_TIMEOUT_S = 300
 DIST_TRAIN_A_LOSS_RTOL = 1e-5      # (a): the mesh's step against the unsharded one, relative
 DIST_TRAIN_A_GRAD_TOL = 1e-4       # (a): each leaf against its max |g|
 
 
-def dist_train_rules(strategy: str):
+def dist_train_rules(strategy: str, seq_shard: bool = False):
     from repro_torch.distributed.sharding import make_rules
     return make_rules("train", moe="ep" if strategy == "ep_shardmap" else "tp",
-                      tensor_axis="tensor", expert_axis="expert")
+                      tensor_axis="tensor", expert_axis="expert", seq_shard=seq_shard)
 
 
 def dist_train_ctx(strategy: str, mesh=None, remat: bool = True):
@@ -4177,7 +4463,9 @@ def dist_train_cases():
     fp32 step would hold 4 copies of its 11.3 GB MoE layer on the ranks
     and 4 of the whole 14.7 GB in the parent. (e) seamless (2 encoder and 2
     decoder layers, DIST_FRAMES frames a row) and phi-3-vision (2 layers,
-    576 patches a row) on (2, 1, 2), qwen's step."""
+    576 patches a row) on (2, 1, 2), qwen's step. (f) (d)'s qwen2.5-3b on (1,
+    1, 4) under the sequence-parallel rule (DIST_TRAIN_SEQ_OF: held against
+    (d)'s unsharded step), where kv_seq and seq meet."""
     from repro_torch.configs import get_config
     from repro_torch.training.train_step import TrainConfig
     both = TrainConfig(microbatches=2, grad_compression=True, xent_chunk=16)
@@ -4191,7 +4479,8 @@ def dist_train_cases():
              TrainConfig(xent_chunk=16), False, False),
             ("seamless", mm_config(MM_SEAMLESS, 2), (2, 1, 2), "tp_shardmap", both, False, True),
             ("phi-3-vision", mm_config(MM_VISION, 2), (2, 1, 2), "tp_shardmap", both, False,
-             True))
+             True),
+            ("qwen kv_seq seq", qwen, (1, 1, 4), "tp_shardmap", both, False, True))
 
 
 def dist_train_batch(cfg, dev):
@@ -4337,13 +4626,14 @@ def dist_train_check(dev, mesh, name, cfg, strategy, tcfg, data_aux, sample, ste
     from repro_torch.training.train_step import (make_train_step, mesh_specs, reduce_grads,
                                                 spec_leaves)
     model = build_model(cfg)
-    rules = dist_train_rules(strategy)
+    rules = dist_train_rules(strategy, seq_shard=name in DIST_TRAIN_SEQ_OF)
     # no remat: the recompute would gather every leaf once more through the
     # host, and (c) trains with it
     ctx = dist_train_ctx(strategy, mesh, remat=False)
     batch = dist_train_batch(cfg, dev)
     torch.cuda.reset_peak_memory_stats()
-    with use_sharding(mesh, rules), count_drops() as drops, adamw_input([]) as seen:
+    with use_sharding(mesh, rules), count_drops() as drops, adamw_input([]) as seen, \
+            counting_reduce_scatters() as rs:
         tree = mesh_specs(model, ctx)[1]
         specs = spec_leaves(tree)
         params = model.init_params(0, device=dev, dtype=torch.float32, mesh=mesh, rules=rules)
@@ -4357,7 +4647,7 @@ def dist_train_check(dev, mesh, name, cfg, strategy, tcfg, data_aux, sample, ste
             torch.cuda.synchronize()
             del leaves
             return dict(loss=float(loss), aux=float(met["aux"]), drops=drops.total(),
-                        grads=local_sample(grads, specs, mesh, sample),
+                        reduce_scatters=rs.n, grads=local_sample(grads, specs, mesh, sample),
                         ms=1e3 * (time.perf_counter() - t0),
                         peak_bytes=torch.cuda.max_memory_allocated(),
                         bytes={"params": tensor_bytes(params)},
@@ -4369,7 +4659,7 @@ def dist_train_check(dev, mesh, name, cfg, strategy, tcfg, data_aux, sample, ste
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
     return dict(loss=float(met["loss"]), aux=float(met["aux"]), lr=float(met["lr"]),
-                ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+                ms=ms, peak_bytes=torch.cuda.max_memory_allocated(), reduce_scatters=rs.n,
                 drops=drops.total(), grads=local_sample(seen[0], specs, mesh, sample),
                 m=local_sample(tree_leaves(opt.m), specs, mesh, sample),
                 v=local_sample(tree_leaves(opt.v), specs, mesh, sample),
@@ -4564,8 +4854,11 @@ def run_dist_training(dev, hook=None):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b)'s mixtral (the unsharded step of the data-split loss), (d), (e)
+    # (b)'s mixtral (the unsharded step of the data-split loss), (d), (e);
+    # (f) is held against its case's
     for seed, (name, cfg, shape, strategy, tcfg, data_aux, step) in enumerate(cases[1:], 15):
+        if name in DIST_TRAIN_SEQ_OF:
+            continue
         model = build_model(cfg)
         batch = dist_train_batch(cfg, dev)
         params = model.init_params(0, device=dev, dtype=torch.float32)
@@ -4580,6 +4873,8 @@ def run_dist_training(dev, hook=None):
         del model, batch, params, grads, m, v
         gc.collect()
         torch.cuda.empty_cache()
+    for name, base in DIST_TRAIN_SEQ_OF.items():
+        samples[name], expect[name] = samples[base], expect[base]
     res["reference_s"] = time.perf_counter() - t0
 
     # (b) and (c): four gloo ranks
@@ -4617,6 +4912,8 @@ def run_dist_training(dev, hook=None):
             assert not step or b["adamw"] <= 1.0, \
                 f"(b) {name} rank {o['rank']}: parameters at {b['adamw']}"
             assert all(n == b["spec_bytes"] for n in b["bytes"].values()), (o["rank"], b)
+            assert (b["reduce_scatters"] > 0) == (name in DIST_TRAIN_SEQ_OF), \
+                f"(b) {name} rank {o['rank']}: {b['reduce_scatters']} reduce-scatters"
         assert all(c.all() for c in covered), f"(b) {name}: a sampled position no rank holds"
         assert worst["loss"] <= TRAIN_LOSS_RTOL, f"(b) {name}: loss rel err {worst['loss']}"
         assert max(worst["g"], worst["m"], worst["v"]) <= 1.0, f"(b) {name}: {worst}"
@@ -4629,7 +4926,7 @@ def run_dist_training(dev, hook=None):
             assert (launched[k] > 0) == want, f"(b) {name}: {k} launched {launched[k]}"
         b_launches = {k: n + launched[k] for k, n in b_launches.items()}
         tag = ("b" if name in ("qwen", "mixtral") else "e" if cfg.encoder or cfg.vision
-               else "d")
+               else "f" if name in DIST_TRAIN_SEQ_OF else "d")
         res[f"b_{name}"] = dict(
             part=tag, config=cfg.name, mesh=list(shape), strategy=strategy, step=step,
             worst_of_bound=worst, max_rel_grad=worst["g"] * bounds["g"],
@@ -4637,10 +4934,12 @@ def run_dist_training(dev, hook=None):
             seconds=held[0]["b"][name]["seconds"], step_ms=[o["b"][name]["ms"] for o in held],
             peak_bytes=[o["b"][name]["peak_bytes"] for o in held],
             losses=[o["b"][name]["loss"] for o in held], launches=launched,
-            bytes=[o["b"][name]["bytes"] for o in held])
+            bytes=[o["b"][name]["bytes"] for o in held],
+            reduce_scatters=[o["b"][name]["reduce_scatters"] for o in held])
         what = ("one step_fn, " + ("2 microbatches, int8 gradients" if tcfg.microbatches > 1
                                    else "one batch") if step else "the loss and its gradient")
-        log(f"  ({tag}) gloo, {len(held)} ranks, mesh {shape}, {strategy}, {cfg.name} fp32, "
+        log(f"  ({tag}) gloo, {len(held)} ranks, mesh {shape}, {strategy}, {cfg.name} fp32"
+            f"{' under make_rules(seq_shard=True)' if tag == 'f' else ''}, "
             f"{what}{', the data-split aux' if data_aux else ''}: each rank's loss within "
             f"{worst['loss']:.3g} of {'xent + its shard aux' if data_aux else 'the unsharded'} "
             f"({res[f'b_{name}']['losses']}), the sampled gradient"
@@ -5146,7 +5445,11 @@ def main() -> int:
         f"depth {DIST_DEPTH} fp32 on meshes (1, 2, 2) ep_shardmap and (1, 1, 4) tp_shardmap, "
         f"(c) the same ranks on phase 4's {SERVE_LAYERS}-layer bf16 mixtral, (1, 2, 2); "
         + ", ".join(f"({k}) {a} depth {n} fp32 on {m} {st}" for k, a, n, m, st in DIST_LAYOUTS)
-        + ", " + ", ".join(f"({k}) {a} depth 2 fp32 on {m}" for k, a, m in DIST_MM))
+        + ", " + ", ".join(f"({k}) {a} depth 2 fp32 on {m}" for k, a, m in DIST_MM)
+        + f", (i) mixtral-8x7b depth {DIST_DEPTH} int8 on "
+        + ", ".join(f"{m} {st} {str(dt)[6:]}" for _, m, st, dt in DIST_INT8)
+        + ", (j) make_rules(seq_shard=True): "
+        + ", ".join(f"{a} depth {n} fp32 on {m}" for _, a, n, m, _, _ in DIST_SEQ))
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5159,7 +5462,8 @@ def main() -> int:
         f"{DIST_TRAIN_QWEN} fp32 on the (1, 1, 1) train mesh; (b) four gloo ranks in fp32, "
         f"{TRAIN_ARCH} depth {DIST_TRAIN_QWEN} on (2, 1, 2) (FSDP + TP, 2 microbatches, int8 "
         f"gradients) and mixtral-8x7b depth {DIST_TRAIN_MOE} on (2, 2, 1) ep_shardmap (FSDP + "
-        f"EP, the data-split aux); (d) / (e) the same ranks in fp32: "
+        f"EP, the data-split aux); (d) / (e) / (f: make_rules(seq_shard=True)) the same ranks "
+        f"in fp32: "
         + ", ".join(f"{c.name} on {m}" for _, c, m, *_ in dist_train_cases()[2:])
         + "; (c) the same ranks in bf16: "
         + ", ".join(f"{a} depth {n} on {m}" for _, a, n, m, _, _ in DIST_TRAIN_BF16)
@@ -5284,6 +5588,12 @@ def main() -> int:
              "src/repro/kernels/quant_matmul/kernel.py:40", "decode wq")):
         row = next(r for r in results if r["kernel"] == name and r["case"] == case
                    and r["dtype"] == "bfloat16")
+        # phase 13 (i)'s rank shapes: the int8 tree's projections, head and
+        # expert buffers on a rank of (1, 1, 4) (fp32) and (1, 2, 2) (bf16)
+        rank_rows = [{k: r[k] for k in ("case", "dtype", "shape", "path", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                     for r in results if r["kernel"] == name and r["case"].startswith("rank ")]
+        extra = {"mesh_int8_rows": rank_rows} if rank_rows else {}
         kernels.append(dict(name=name, route="cuda", source=route_src, replaces=replaces,
                             launches=launches[name], max_abs_err=row["max_abs_err"],
                             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -5295,7 +5605,7 @@ def main() -> int:
                             train_launches=train_launches[name],
                             dist_launches=distributed["launches"][name],
                             dist_train_launches=dist_training["launches"][name],
-                            shape=f"{case} bf16: {row['shape']}"))
+                            shape=f"{case} bf16: {row['shape']}", **extra))
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

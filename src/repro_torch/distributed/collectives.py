@@ -1,7 +1,9 @@
 """Collectives over one axis of a bound mesh (``launch.mesh.Mesh.bind``),
 the ``jax.lax`` ones the reference's sharded code calls: ``psum``,
-``pmean``, ``pmax``, ``all_to_all`` (split and concatenate on dim 0) and
-``all_gather``; and the int8 gradient compression with error feedback (the
+``pmean``, ``pmax``, ``all_to_all`` (split and concatenate on dim 0),
+``all_gather`` and ``reduce_scatter`` (the sum of which each rank keeps its
+part along a dim, the sequence-parallel rule's pair of the gather); and
+the int8 gradient compression with error feedback (the
 reference's ``repro.distributed.collectives``, the part the train step
 imports).
 
@@ -24,6 +26,9 @@ transpose:
   the inputs that hold the max (shared among ties).
 - ``all_gather``: its backward sums the shares and keeps the rank's slice
   (a reduce-scatter).
+- ``reduce_scatter``: each input is the rank's own partial of the sum, and
+  each output the rank's own part of it; its backward all-gathers the
+  parts' cotangents (every input gets the whole cotangent of the sum).
 - ``all_to_all``: a permutation of chunks among ranks; its backward is the
   same all_to_all (it is its own inverse).
 
@@ -186,6 +191,17 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
 class _SharedOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, n):
@@ -222,6 +238,15 @@ def all_gather(x, mesh, axis, dim: int = 0):
     row-major as a PartitionSpec entry splits) concatenated on ``dim``."""
     dim = dim % x.dim()
     return _AllGather.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter(x, mesh, axis, dim: int = 0):
+    """The sum of ``x`` over the ranks along ``axis``, of which this rank
+    keeps its part along ``dim`` (``all_gather``'s row-major order): a
+    row-split projection's partial sum onto the sequence shard. Returns a
+    new tensor."""
+    dim = dim % x.dim()
+    return _ReduceScatter.apply(x, mesh, axis, dim)
 
 
 def shared_out(x, mesh):

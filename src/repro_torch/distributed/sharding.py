@@ -14,6 +14,14 @@ port runs explicit collectives over local tensors, so here a spec says which
 slice of each global tensor a rank holds (``shard`` / ``shard_tree``, what
 ``jax.device_put(x, NamedSharding)`` does), and ``constrain`` checks that a
 local tensor has the shape of its spec's shard.
+
+An int8 tree (``quant.quantize_params_int8``) is sharded as the reference's
+dry-run shards it (``launch/dryrun.py``'s ``_quantize_abstract``): a
+``QuantizedLinear`` leaf's ``q`` takes the float leaf's spec, its ``scale``
+(the leaf's shape with the last dim 1) that spec with its last entry None
+(``int8_spec``). ``param_partition_specs(..., quant="int8")`` gives such a
+spec tree, one spec a tensor; ``shard_tree`` and ``gather_tree`` take it,
+or pair a float spec tree with an int8 tree by that rule.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch.mesh import spec_axes
+from repro_torch.quant.quantize import QuantizedLinear, quantizable
 
 Candidate = Tuple[str, ...]          # one candidate = tuple of mesh axes used together
 
@@ -200,13 +209,45 @@ def _is_spec(x) -> bool:
     return isinstance(x, PartitionSpec)
 
 
+def int8_spec(spec: PartitionSpec, ndim: int) -> PartitionSpec:
+    """The spec of an int8 leaf's scale (its shape with the last dim 1):
+    the float leaf's ``spec`` padded to ``ndim`` entries, the last None
+    (``_quantize_abstract``'s rule)."""
+    entries = tuple(spec) + (None,) * (ndim - len(spec))
+    return PartitionSpec(*entries[:-1], None)
+
+
+def _paired_specs(tree, spec_tree) -> list:
+    """The PartitionSpec of each tensor of ``tree``, in ``map_tree``'s
+    order. A ``QuantizedLinear`` of ``tree`` takes a ``QuantizedLinear`` of
+    specs, or a leaf's float spec by ``int8_spec``."""
+    if isinstance(tree, QuantizedLinear):
+        if not isinstance(spec_tree, QuantizedLinear):
+            if not _is_spec(spec_tree):
+                raise ValueError(f"an int8 leaf paired with {spec_tree!r}")
+            spec_tree = QuantizedLinear(spec_tree, int8_spec(spec_tree, tree.q.ndim))
+        return [spec_tree.q, spec_tree.scale]
+    if isinstance(tree, dict):
+        if not isinstance(spec_tree, dict) or set(tree) != set(spec_tree):
+            raise ValueError(f"tree keys {sorted(tree)} against specs {spec_tree!r}")
+        return [s for k in sorted(tree) for s in _paired_specs(tree[k], spec_tree[k])]
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(spec_tree):
+            raise ValueError(f"{len(tree)} nodes against {len(spec_tree)} specs")
+        return [s for t, st in zip(tree, spec_tree) for s in _paired_specs(t, st)]
+    if tree is None:
+        return []
+    if not _is_spec(spec_tree):
+        raise ValueError(f"a tensor paired with {spec_tree!r}: an int8 spec needs an int8 leaf")
+    return [spec_tree]
+
+
 def shard_tree(tree, spec_tree, mesh):
     """``shard`` leaf by leaf; ``spec_tree`` mirrors ``tree`` (as
-    ``param_partition_specs`` / ``cache_partition_specs`` give it)."""
+    ``param_partition_specs`` / ``cache_partition_specs`` give it; an int8
+    tree's ``QuantizedLinear`` leaves as the module's note says)."""
     from repro_torch.models.params import map_tree      # the models import this module
-    specs = []
-    map_tree(specs.append, spec_tree, is_leaf=_is_spec)
-    it = iter(specs)
+    it = iter(_paired_specs(tree, spec_tree))
     return map_tree(lambda leaf: shard(leaf, next(it), mesh), tree)
 
 
@@ -216,9 +257,7 @@ def gather_tree(tree, spec_tree, mesh):
     every rank of the mesh calls it with its own shards."""
     from repro_torch.distributed.collectives import all_gather
     from repro_torch.models.params import map_tree
-    specs = []
-    map_tree(specs.append, spec_tree, is_leaf=_is_spec)
-    it = iter(specs)
+    it = iter(_paired_specs(tree, spec_tree))
 
     def leaf(t):
         for dim, entry in enumerate(next(it)):
@@ -276,11 +315,20 @@ def constrain(x, logical: Sequence[Optional[str]], shape: Optional[Sequence[int]
 # --------------------------------------------------------------------------
 # Whole-tree spec builders
 # --------------------------------------------------------------------------
-def param_partition_specs(spec_tree, mesh, ruleset: RuleSet):
-    """ParamSpec tree -> PartitionSpec tree."""
+def param_partition_specs(spec_tree, mesh, ruleset: RuleSet, quant: str = "none"):
+    """ParamSpec tree -> PartitionSpec tree. ``quant="int8"``: the specs of
+    ``quantize_params_int8``'s tree, a ``QuantizedLinear`` of the q and
+    scale specs (``int8_spec``) at each leaf the quantization takes."""
     from repro_torch.models.params import ParamSpec, map_tree
-    return map_tree(lambda s: partition_spec(s.shape, s.logical, mesh, ruleset), spec_tree,
-                    is_leaf=lambda x: isinstance(x, ParamSpec))
+    if quant not in ("none", "int8"):
+        raise ValueError(f"quant {quant!r}: 'none' or 'int8'")
+
+    def leaf(s):
+        spec = partition_spec(s.shape, s.logical, mesh, ruleset)
+        if quant == "int8" and quantizable(s.shape, torch.float32):
+            return QuantizedLinear(spec, int8_spec(spec, len(s.shape)))
+        return spec
+    return map_tree(leaf, spec_tree, is_leaf=lambda x: isinstance(x, ParamSpec))
 
 
 _CACHE_LOGICAL = {

@@ -55,6 +55,10 @@ Under grad (training: no cache) a kv_seq rank's ``wk`` / ``wv`` gradient
 is the share of its query heads' slice, summed over the tensor axis by the
 train step.
 
+Under the sequence-parallel rule (``layout.seq``) ``h`` is the whole
+sequence, gathered by the caller, and ``wo``'s partial sum is
+reduce-scattered onto the rank's part of the sequence in place of the psum.
+
 The encoder's kind "E" runs under a mesh as self-attention does, on the
 encoder's own layout (its heads on the tensor axis, ``_Heads``' slice of
 a whole K / V under kv_seq). Kind "X" projects the rank's query heads from
@@ -91,8 +95,13 @@ def _project_qkv(p, h, cfg: ModelConfig):
     return q, k, v
 
 
-def _out_proj(p, o, mesh=None, heads_ax=None):
-    return row_linear(o, p["wo"], mesh, heads_ax, n_in=2)
+def _out_proj(p, o, layout=None, heads_ax=None):
+    """``wo``, row-split on the heads' axis under a mesh: the psum, or the
+    reduce-scatter onto the rank's part of the sequence under the
+    sequence-parallel rule."""
+    if layout is None:
+        return row_linear(o, p["wo"], n_in=2)
+    return row_linear(o, p["wo"], layout.mesh, heads_ax, n_in=2, seq=layout.seq)
 
 
 @dataclass(frozen=True)
@@ -315,7 +324,7 @@ def _cross_attention(p, h, ctx: RunCtx, cfg: ModelConfig, cache, memory, chunk, 
         ck, cv = heads.kv(ck, q.shape[2]), heads.kv(cv, q.shape[2])
     o = flash_attention(q, ck.to(q.dtype), cv.to(q.dtype), causal=False,
                         softcap=cfg.attn_softcap, scale=cfg.head_dim ** -0.5)
-    return _out_proj(p, o, mesh, heads_ax)
+    return _out_proj(p, o, layout, heads_ax)
 
 
 def attention_sublayer(
@@ -380,7 +389,7 @@ def attention_sublayer(
             q, cache["kp"], cache["vp"], page_table, lengths, q_positions,
             scale=scale, softcap=softcap, window=window, **fold,
         )
-        return _out_proj(p, o, mesh, heads_ax)
+        return _out_proj(p, o, layout, heads_ax)
 
     if ctx.mode == "decode":
         q = rope(q, positions[:, None], cfg.rope_theta)   # (B,1,...)
@@ -397,7 +406,7 @@ def attention_sublayer(
             _write_ring(cache, k, v, positions, ring)
             o = _decode_dense_attn(q, cache, positions, window=window,
                                    softcap=softcap, scale=scale, ring=ring, heads=heads)
-        return _out_proj(p, o, mesh, heads_ax)
+        return _out_proj(p, o, layout, heads_ax)
 
     # ---------------- train / prefill / encoder ----------------
     if positions is None:
@@ -409,4 +418,4 @@ def attention_sublayer(
                         scale=scale)
     if cache is not None and "k" in cache:                # prefill: persist kv
         _write_ring(cache, k, v, positions, ring)
-    return _out_proj(p, o, mesh, heads_ax)
+    return _out_proj(p, o, layout, heads_ax)

@@ -6,7 +6,12 @@ leaves of ``quant.quantize_params_int8``): ``linear`` for a projection and
 a layer holds the shards ``distributed.sharding`` gives it: ``row_linear``
 runs a projection whose input dims are split (the local partial product,
 then a psum), a column-split projection is ``linear`` on the local columns,
-and ``Layout`` carries one entry point call's specs down to the layers."""
+and ``Layout`` carries one entry point call's specs down to the layers.
+Under the sequence-parallel rule (``make_rules(seq_shard=True)``) the
+residual stream between sublayers holds the rank's part of the sequence
+(``Layout.seq``): a sublayer reads the whole sequence (``seq_gather``) and
+its row-split partial is reduce-scattered onto the rank's part in place of
+the psum (``reduce_out``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
@@ -126,24 +131,46 @@ def act_fn(name: str):
     return F.silu
 
 
-def row_linear(x, w, mesh=None, axis=None, n_in: int = 1):
+def seq_part(t, mesh=None, seq=None):
+    """This rank's part of dim 1 (the sequence) of ``t``, which every rank
+    along ``seq`` holds whole (``seq`` None: ``t``)."""
+    if seq is None:
+        return t
+    n = t.shape[1] // mesh.count(seq)
+    k = mesh.index(seq)
+    return t[:, k * n:(k + 1) * n]
+
+
+def reduce_out(y, mesh=None, axis=None, seq=None):
+    """A sublayer's output (B, S, ...) from its partials over the mesh axis
+    ``axis`` (None: every rank holds it whole): their psum, or with the
+    stream's sequence split on ``seq``, this rank's part of the sum, a
+    reduce-scatter where the two split the same axes."""
+    from repro_torch.distributed.collectives import psum, reduce_scatter
+    from repro_torch.launch.mesh import spec_axes
+    if axis is not None and seq is not None and spec_axes(axis) == spec_axes(seq):
+        return reduce_scatter(y, mesh, axis, dim=1)
+    if axis is not None:
+        y = psum(y, mesh, axis)
+    return seq_part(y, mesh, seq)
+
+
+def row_linear(x, w, mesh=None, axis=None, n_in: int = 1, seq=None):
     """``linear`` of a projection whose input dims are split on the mesh
     axis ``axis`` (x and w's rows both local): the local partial product,
-    summed over the axis's ranks in its own dtype. ``axis`` None: whole."""
-    y = linear(x, w, n_in)
-    if axis is None:
-        return y
-    from repro_torch.distributed.collectives import psum
-    return psum(y, mesh, axis)
+    summed over the axis's ranks in its own dtype (``reduce_out``: onto the
+    rank's part of the sequence under ``seq``). ``axis`` None: whole."""
+    return reduce_out(linear(x, w, n_in), mesh, axis, seq)
 
 
-def dense_mlp(p, x, act_name: str, mesh=None, axis=None):
+def dense_mlp(p, x, act_name: str, mesh=None, axis=None, seq=None):
     """The gated MLP; under a mesh ``wi`` / ``wg`` split by columns and
-    ``wo`` by rows on ``axis`` (the spec's "mlp" entry), one psum."""
+    ``wo`` by rows on ``axis`` (the spec's "mlp" entry), one psum (a
+    reduce-scatter onto the sequence split ``seq``)."""
     act = act_fn(act_name)
     h = linear(x, p["wi"])
     g = linear(x, p["wg"])
-    return row_linear(act(g) * h, p["wo"], mesh, axis)
+    return row_linear(act(g) * h, p["wo"], mesh, axis, seq=seq)
 
 
 @dataclass
@@ -157,7 +184,10 @@ class Layout:
     leading repeat dim included). ``params`` are the specs the layers see:
     under the train rules the FSDP (``embed``) dims are gathered before
     use, ``fsdp`` holds their entries (None: no leaf has one) and ``f`` the
-    layer's."""
+    layer's. ``seq``: the mesh axes the residual stream's sequence is split
+    on (the sequence-parallel rule; None: whole), which each sublayer
+    gathers (``seq_gather``) and reduce-scatters back (``reduce_out``).
+    """
     mesh: Any
     params: Any
     fsdp: Any = None
@@ -169,6 +199,18 @@ class Layout:
     p: Any = None
     c: Any = None
     f: Any = None
+    seq: Any = None
+
+    def seq_gather(self, t):
+        """The whole sequence (dim 1) of the stream's part ``t``."""
+        if self.seq is None:
+            return t
+        from repro_torch.distributed.collectives import all_gather
+        return all_gather(t, self.mesh, self.seq, dim=1)
+
+    def seq_part(self, t):
+        """This rank's part of the sequence of ``t``, held whole."""
+        return seq_part(t, self.mesh, self.seq)
 
     def local_rows(self, t):
         """This rank's rows (dim 0) of a global per-row tensor."""

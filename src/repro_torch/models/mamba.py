@@ -21,8 +21,10 @@ runs the depthwise conv on its channels (its ``conv`` cache holds theirs)
 and all-gathers the conv's output; scans its heads (with its ``state``
 cache, ``A_log`` / ``D`` / ``dt_bias``) against the whole B / C; then the
 gated norm over its block of d_inner, the sum of squares psum'd, and
-``out_proj`` row-split with a psum. A dimension its rule leaves whole is
-computed whole, with no collective.
+``out_proj`` row-split with a psum (under the sequence-parallel rule a
+reduce-scatter onto the rank's part of the sequence, the layer having read
+the whole sequence: the conv and the scan need it). A dimension its rule
+leaves whole is computed whole, with no collective.
 
 Under grad (training under a mesh) every collective's backward is its
 transpose (``distributed.collectives``): the all-gathers after ``in_proj``
@@ -94,7 +96,9 @@ class _Shard:
     [c0, c0 + nc) on ``conv``, the SSD heads [h0, h0 + nh) on ``heads``,
     d_inner [i0, i0 + ni) on ``inner`` (the norm and out_proj's rows); and
     the first engine slot of its rows of the slot-pooled cache
-    (``slot0``: its batch block)."""
+    (``slot0``: its batch block); ``seq``, the stream's sequence split
+    under the sequence-parallel rule (the output goes to the rank's part).
+    """
     mesh: Any = None
     proj: Any = None
     conv: Any = None
@@ -107,6 +111,7 @@ class _Shard:
     i0: int = 0
     ni: int = 0
     slot0: int = 0
+    seq: Any = None
 
     @staticmethod
     def of(cfg: ModelConfig, layout=None, cache=None) -> "_Shard":
@@ -125,7 +130,7 @@ class _Shard:
                       shard_start(cfg.ssm_heads, heads, mesh),
                       cfg.ssm_heads // mesh.count(heads),
                       shard_start(cfg.d_inner, inner, mesh), cfg.d_inner // mesh.count(inner),
-                      slot0)
+                      slot0, layout.seq)
 
     def gather(self, t, axis):
         """``t`` (last dim this rank's block on ``axis``) all-gathered over
@@ -170,11 +175,11 @@ def _gated_out(y, z, p, cfg: ModelConfig, sh: _Shard, dtype):
         y = sh.gather(y, sh.heads)[..., sh.i0:sh.i0 + sh.ni]
     g = (y * F.silu(z[..., sh.i0:sh.i0 + sh.ni].float())).to(dtype)
     if sh.inner is None:
-        return linear(rmsnorm(g, p["norm"], cfg.rms_eps), p["out_proj"])
+        return row_linear(rmsnorm(g, p["norm"], cfg.rms_eps), p["out_proj"], sh.mesh, seq=sh.seq)
     x = g.float()
     ss = psum(torch.sum(torch.square(x), dim=-1, keepdim=True), sh.mesh, sh.inner)
     x = (x * torch.rsqrt(ss / cfg.d_inner + cfg.rms_eps) * p["norm"].float()).to(dtype)
-    return row_linear(x, p["out_proj"], sh.mesh, sh.inner)
+    return row_linear(x, p["out_proj"], sh.mesh, sh.inner, seq=sh.seq)
 
 
 def mamba_sublayer(

@@ -26,9 +26,12 @@ The two shard_map strategies are the reference's ``shard_map`` bodies run
 by each rank on its own shards over ``torch.distributed``; without a mesh
 they run "capacity", as in the reference. Under a mesh "dropless" and
 "capacity" raise: on local shards they would compute something else. The
-per-expert products stay batched matmuls outside any kernel, as the
-reference computes them with ``jnp.einsum``; the grouped matmul kernel
-runs only on "dropless".
+per-expert products on float experts stay batched matmuls outside any
+kernel, as the reference computes them with ``jnp.einsum``; on the rank's
+int8 experts (an int8 tree under a mesh: q and the scale of its shard, as
+``distributed.sharding.int8_spec`` lays them out) each capacity buffer of
+``cap`` rows an expert goes through the grouped matmul kernel as one group
+an expert, on the int8 weights (``expert_ffn``), never a dequantized copy.
 """
 from __future__ import annotations
 
@@ -128,6 +131,21 @@ def expert_ffn_dense(ebuf, wg, wu, wd):
     return torch.bmm(F.silu(h1) * h2, wd)
 
 
+def expert_ffn(ebuf, wg, wu, wd):
+    """``expert_ffn_dense`` on float experts; on int8 experts
+    (``QuantizedLinear``, scale (E, K, 1)) the three products through the
+    grouped matmul, each expert's ``cap`` rows one group (its kernel on the
+    card, the plain version on the CPU)."""
+    if not isinstance(wg, QuantizedLinear):
+        return expert_ffn_dense(ebuf, wg, wu, wd)
+    E, C, d = ebuf.shape
+    xf = ebuf.reshape(E * C, d)
+    rows = GroupedRows(torch.full((E,), C, dtype=torch.int64, device=xf.device), xf)
+    xb = rows.pack(xf)
+    h = F.silu(rows.matmul(xb, wg)) * rows.matmul(xb, wu)
+    return rows.unpack(rows.matmul(h, wd)).reshape(E, C, -1)
+
+
 def _shared_ffn(p_shared, xf, act_name):
     h = linear(xf, p_shared["wi"])
     g = linear(xf, p_shared["wg"])
@@ -199,7 +217,7 @@ def _moe_local_tp(xf, router_w, wg, wu, wd, shared, cfg, mesh, tp_axis, cf):
     cap = _round_up(max(int(math.ceil(T * K / E * cf)), 8), 8)
     topw, topi, aux = router_topk(xf, router_w, K)
     ebuf, info = capacity_dispatch(xf, topi, E, cap)
-    ye = psum(expert_ffn_dense(ebuf, wg, wu, wd), mesh, tp_axis)     # partials over f
+    ye = psum(expert_ffn(ebuf, wg, wu, wd), mesh, tp_axis)     # partials over f
     y = capacity_combine(ye, info, topw)
     if shared is not None:
         y = y + _shared_ffn_tp(shared, xf, cfg.act, mesh, tp_axis)
@@ -262,7 +280,7 @@ def _moe_local_ep(xf, router_w, wg, wu, wd, shared, cfg, mesh, ep_axis, tp_axis,
     e2 = torch.where(rvf, ref_, torch.full_like(ref_, E_l))       # invalid -> trash id
     cap2 = _round_up(max(int(math.ceil(R / E_l * cf)), 8), 8)
     ebuf2, info2 = capacity_dispatch(rxf, e2[:, None], E_l, cap2)
-    ye = psum(expert_ffn_dense(ebuf2, wg, wu, wd), mesh, tp_axis)   # partials over f (TP)
+    ye = psum(expert_ffn(ebuf2, wg, wu, wd), mesh, tp_axis)   # partials over f (TP)
     y_rows = capacity_combine(ye, info2, torch.ones((R, 1), dtype=torch.float32, device=dev))
     ybuf = y_rows.reshape(dp, cap_s, d).to(xf.dtype)
 
@@ -283,9 +301,17 @@ def _split_axes(mesh, axes):
 
 
 def _check_shard(name, t, want):
-    if tuple(t.shape) != tuple(want):
-        raise ValueError(f"MoE weight {name}: this rank holds {tuple(t.shape)}, the strategy "
-                         f"wants its shard {tuple(want)}")
+    """``t`` (a tensor, or an int8 leaf: q of the shard's shape, its scale
+    that with the last dim 1) is the shard of shape ``want``."""
+    want = tuple(want)
+    if isinstance(t, QuantizedLinear):
+        ok = tuple(t.q.shape) == want and tuple(t.scale.shape) == want[:-1] + (1,)
+        held = f"q {tuple(t.q.shape)}, scale {tuple(t.scale.shape)}"
+    else:
+        ok, held = tuple(t.shape) == want, str(tuple(t.shape))
+    if not ok:
+        raise ValueError(f"MoE weight {name}: this rank holds {held}, the strategy wants its "
+                         f"shard {want}")
 
 
 def moe_shardmap(p, h, cfg: ModelConfig, ctx: RunCtx, batch_axes=None):
@@ -295,15 +321,13 @@ def moe_shardmap(p, h, cfg: ModelConfig, ctx: RunCtx, batch_axes=None):
     divides it (else replicated), EP only when E divides the ep axis (else
     the TP body), and the weights must be the rank's shards of that layout:
     experts split on ``ep_axis`` (EP) or whole (TP), the FFN dim on
-    ``tp_axis``. Returns (out (B_l, S, d), aux pmean'd over ep, then tp)."""
+    ``tp_axis``, float or int8 (``expert_ffn``). Returns (out (B_l, S, d),
+    aux pmean'd over ep, then tp)."""
     mesh = ctx.mesh
     ep_ax, tp_ax = ctx.ep_axis, ctx.tp_axis
     m = cfg.moe
     E = m.num_experts
     dp, tp = mesh.shape[ep_ax], mesh.shape[tp_ax]
-    if any(isinstance(p[n], QuantizedLinear) for n in ("wg", "wu", "wd")):
-        raise NotImplementedError("int8 experts under a mesh are not in the port yet (ROADMAP "
-                                  "Queue 1 item 3 (c))")
     B_l, S, d = h.shape
     B = B_l * mesh.count(batch_axes)
     b_ax = "data" if "data" in mesh.axis_names else ep_ax

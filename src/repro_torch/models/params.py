@@ -236,24 +236,47 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device,
 
 
 def _init_leaf_int8(spec: ParamSpec, gen: torch.Generator, device: torch.device,
-                    dtype: torch.dtype):
+                    dtype: torch.dtype, where: Optional[Tuple[slice, ...]] = None):
     """``quantize_leaf`` of ``_init_leaf``'s tensor when the reference's
     predicate takes the leaf, quantized one repeat at a time; the float
-    leaf otherwise."""
+    leaf otherwise. With ``where`` (the rank's slice of each dim, the
+    repeat dim whole) only that shard of q and its scale's rows: each
+    repeat is quantized whole, then sliced (the scale is the absmax over
+    the whole last axis, which a shard of its columns would not see)."""
     if not quantizable(spec.shape, dtype):
-        return _init_leaf(spec, gen, device, dtype)
+        return _init_leaf(spec, gen, device, dtype, where)
+
+    def part_of(ql: QuantizedLinear, sl) -> QuantizedLinear:
+        if sl is None:
+            return ql
+        return QuantizedLinear(ql.q[sl], ql.scale[sl[:-1] + (slice(None),)])
     out = None
     for r, part in _init_slices(spec, gen, device, dtype):
         if r is None:
-            return quantize_leaf(part)
+            ql = part_of(quantize_leaf(part), where)
+            return ql if where is None else QuantizedLinear(ql.q.clone(), ql.scale.clone())
+        qr = part_of(quantize_leaf(part), None if where is None else where[1:])
         if out is None:
             out = QuantizedLinear(
-                q=torch.empty(spec.shape, dtype=torch.int8, device=device),
-                scale=torch.empty((*spec.shape[:-1], 1), dtype=torch.float32, device=device))
-        qr = quantize_leaf(part)
+                q=torch.empty((spec.shape[0], *qr.q.shape), dtype=torch.int8, device=device),
+                scale=torch.empty((spec.shape[0], *qr.scale.shape), dtype=torch.float32,
+                                  device=device))
         out.q[r].copy_(qr.q)
         out.scale[r].copy_(qr.scale)
     return out
+
+
+def _sharded(cfg: ModelConfig, mesh, rules, init):
+    """``init(spec, where)`` of each leaf with ``where`` this rank's slice
+    of it by ``param_partition_specs`` (the repeat dim never split)."""
+    from repro_torch.distributed.sharding import partition_spec, shard_slices
+
+    def leaf(s):
+        ps = partition_spec(s.shape, s.logical, mesh, rules)
+        if len(s.shape) >= 3 and ps[0] is not None:
+            raise ValueError(f"the repeat dim of {s.shape} is split: {ps}")
+        return init(s, shard_slices(s.shape, ps, mesh))
+    return map_tree(leaf, param_specs(cfg))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -275,30 +298,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     gen.manual_seed(seed)
     if mesh is None:
         return map_tree(lambda s: _init_leaf(s, gen, dev, dtype), param_specs(cfg))
-    from repro_torch.distributed.sharding import partition_spec, shard_slices
-
-    def leaf(s):
-        ps = partition_spec(s.shape, s.logical, mesh, rules)
-        where = shard_slices(s.shape, ps, mesh)
-        if len(s.shape) >= 3 and ps[0] is not None:
-            raise ValueError(f"the repeat dim of {s.shape} is split: {ps}")
-        return _init_leaf(s, gen, dev, dtype, where)
-    return map_tree(leaf, param_specs(cfg))
+    return _sharded(cfg, mesh, rules, lambda s, where: _init_leaf(s, gen, dev, dtype, where))
 
 
 def init_params_int8(cfg: ModelConfig, seed: int = 0, *,
                      device: Optional[Union[str, torch.device]] = None,
-                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                     dtype: torch.dtype = torch.float32, mesh=None, rules=None) -> Dict[str, Any]:
     """``quantize_params_int8(init_params(cfg, seed, device=device,
     dtype=dtype))``, leaf for leaf and bit for bit (the same generator
     stream, each repeat rounded to ``dtype`` before it is quantized), while
     never holding more than one repeat of a leaf in float: the full-depth
     mixtral-8x7b is ~93 GB in bf16 and ~47 GB in int8, so only this way
-    does it fit on one 80 GB card."""
+    does it fit on one 80 GB card. With a bound ``mesh`` and its ``rules``:
+    this rank's shards by ``param_partition_specs(..., quant="int8")``,
+    equal to ``shard_tree`` of the whole int8 init bit for bit (each repeat
+    is quantized whole, then sliced)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return map_tree(lambda s: _init_leaf_int8(s, gen, dev, dtype), param_specs(cfg))
+    if mesh is None:
+        return map_tree(lambda s: _init_leaf_int8(s, gen, dev, dtype), param_specs(cfg))
+    return _sharded(cfg, mesh, rules, lambda s, where: _init_leaf_int8(s, gen, dev, dtype, where))
 
 
 def _is_quantized(a) -> bool:

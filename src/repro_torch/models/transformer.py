@@ -43,11 +43,30 @@ encoder runs its layers on the layout of its own parameters (heads on the
 tensor axis, the MLP row-split), the memory is whole on each rank's rows,
 and the cross keys and values go to the rank's shard of the cross cache
 (``ck`` / ``cv``: the rows of its batch block, its kv heads); the vision
-projector runs on the rank's rows. Every family serves so; int8 trees
-raise (ROADMAP Queue 1 item 3 (c)).
+projector runs on the rank's rows. Every family serves so, on float or
+int8 trees: an int8 leaf's ``q`` is the shard of the float leaf's spec and
+its ``scale`` the shard of that spec with its last entry None
+(``distributed.sharding.int8_spec``, the reference dry-run's), the
+vocab-split embedding looks its rows up in ``q`` and ``scale``, and the
+rank's int8 experts run in the grouped matmul (``models.moe``).
+
+Under the sequence-parallel rule (``make_rules(..., seq_shard=True)``) the
+residual stream between sublayers, and the norms on it, hold the rank's
+part of the sequence, ``("batch", "seq", None)``, wherever the sequence
+divides the tensor axis (``Layout.seq``; else it stays whole and nothing
+changes, as at ``decode_step``'s one token): the embedding's psum becomes
+a reduce-scatter (a VLM's prefix and text are joined whole, then split),
+each sublayer all-gathers the sequence (attention's causal mask, the
+mamba conv and scan, and the MoE's capacity groups need all of it) and
+reduce-scatters its row-split partial back (a sublayer whose output is
+whole on every rank, the MoE's, keeps its part), and the stream is
+gathered before the final norm and the head. ``constrain`` checks the
+stream at each of the reference's ``shard_act`` sites. The enc-dec
+encoder's frames follow the same rule.
 
 ``loss`` runs under a mesh too, for every family and layout that serves,
-with the train rules (``make_rules("train", ...)``: FSDP, every leaf's
+on float trees (an int8 tree raises: see ``_refuse_int8_training``), with
+the train rules (``make_rules("train", ...)``: FSDP, every leaf's
 ``embed`` dim split on the data axis, the encoder's and the vision
 projector's too). Each layer
 all-gathers its leaves over data just before use, inside its remat region
@@ -79,12 +98,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerGroup, ModelConfig
 from repro_torch.distributed.collectives import all_gather, psum, shared_out
-from repro_torch.distributed.sharding import PartitionSpec, constrain
+from repro_torch.distributed.sharding import PartitionSpec, constrain, partition_spec
 from repro_torch.kernels.quant_matmul import w8a16_matmul
 from repro_torch.models import params as params_lib
 from repro_torch.models.attention import attention_sublayer
 from repro_torch.models.common import (Layout, QuantizedLinear, RunCtx, dense_mlp, dequant,
-                                       linear, resolve_device, rmsnorm)
+                                       linear, reduce_out, resolve_device, rmsnorm)
 from repro_torch.models.mamba import mamba_sublayer
 from repro_torch.models.moe import moe_sublayer
 
@@ -183,12 +202,13 @@ class LM:
         local = []
         params_lib.map_tree(local.append, params, is_leaf=lambda x: isinstance(x, QuantizedLinear))
         for (s, want), t in zip(shards, local):
-            if isinstance(t, QuantizedLinear):
-                raise NotImplementedError("int8 weight trees under a mesh are not in the port "
-                                          "yet (ROADMAP Queue 1 item 3 (c))")
-            if tuple(t.shape) != want:
-                raise ValueError(f"a parameter of {s.shape} {s.logical} is held as "
-                                 f"{tuple(t.shape)}, not this rank's shard {want}")
+            if isinstance(t, QuantizedLinear):      # q the shard, its scale int8_spec's
+                held, want = (tuple(t.q.shape), tuple(t.scale.shape)), (want, want[:-1] + (1,))
+            else:
+                held = tuple(t.shape)
+            if held != want:
+                raise ValueError(f"a parameter of {s.shape} {s.logical} is held as {held}, "
+                                 f"not this rank's shard {want}")
         if cache is not None and not isinstance(cache, ShardedCache):
             raise ValueError("under a mesh the cache comes from init_cache inside use_sharding")
         batch = sharding.partition_spec((B,), ("batch",), mesh, rules)[0]
@@ -197,6 +217,55 @@ class LM:
         return Layout(mesh=mesh, params=gathered, fsdp=fsdp,
                       cache=cache.specs if cache is not None else None, batch=batch, B=B,
                       rows=slice(k * n, (k + 1) * n), glob=glob)
+
+    def _with_seq(self, layout, S: int):
+        """``layout`` with ``seq``: the mesh axes the rules split a residual
+        stream of ``S`` positions on (None where they leave it whole)."""
+        if layout is None:
+            return None
+        from repro_torch.distributed import sharding
+        _, rules = sharding.active()
+        spec = partition_spec((layout.B, S, self.cfg.d_model), ("batch", "seq", None),
+                              layout.mesh, rules)
+        return replace(layout, seq=spec[1])
+
+    @staticmethod
+    def _stream(x, layout):
+        """The reference's ``shard_act(x, ("batch", "seq", None))`` on the
+        residual stream: under a mesh, a check that ``x`` is the rank's
+        shard of the call's stream."""
+        if layout is not None:
+            constrain(x, ("batch", "seq", None),
+                      (layout.B, x.shape[1] * layout.mesh.count(layout.seq), x.shape[2]))
+        return x
+
+    def _stream_in(self, x, layout):
+        """The stream from ``x`` (the rank's rows, the whole sequence):
+        its part of the sequence under the sequence-parallel rule."""
+        return x if layout is None else self._stream(layout.seq_part(x), layout)
+
+    @staticmethod
+    def _stream_out(x, layout):
+        """The whole sequence of the stream, for the final norm and head."""
+        return x if layout is None else layout.seq_gather(x)
+
+    @staticmethod
+    def _refuse_int8_training(params, layout) -> None:
+        """An int8 tree does not train under a mesh: the reference shards one
+        only for its decode cells (``launch/dryrun.py``, ``--quant int8``,
+        on ``decode_step``), and the grouped matmul, w8a16 and paged
+        attention kernels have no backward, so on the card it would not
+        train either."""
+        if layout is None:
+            return
+        found = []
+        params_lib.map_tree(found.append, params,
+                            is_leaf=lambda x: isinstance(x, QuantizedLinear))
+        if any(isinstance(t, QuantizedLinear) for t in found):
+            raise NotImplementedError(
+                "int8 weight trees serve under a mesh but do not train there: the reference "
+                "shards an int8 tree only for its decode cells (launch/dryrun.py --quant int8), "
+                "and the grouped matmul, w8a16 and paged attention kernels have no backward")
 
     @staticmethod
     def _check_slots(cache, layout, slots) -> None:
@@ -228,10 +297,17 @@ class LM:
     # ------------------------------------------------------------------ layers
     def _apply_layer(self, p, x, c, *, kind: str, ctx: RunCtx, positions, page_table=None,
                      lengths=None, valid=None, chunk=None, memory=None, layout=None):
-        """Returns (x, aux): aux is the MoE load-balance loss (0.0 without MoE)."""
+        """Returns (x, aux): aux is the MoE load-balance loss (0.0 without MoE).
+        Under the sequence-parallel rule ``x`` is the rank's part of the
+        sequence: each sublayer reads the whole normed sequence and gives
+        back the rank's part of its output."""
         cfg = self.cfg
         aux = 0.0
-        h = rmsnorm(x, p["ln1"], cfg.rms_eps)
+
+        def normed(name):
+            h = rmsnorm(x, p[name], cfg.rms_eps)
+            return h if layout is None else layout.seq_gather(h)
+        h = normed("ln1")
         if kind == "M":
             x = x + mamba_sublayer(p["ssm"], h, cfg, ctx, c["ssm"] if c else None, chunk,
                                    layout=layout)
@@ -239,22 +315,25 @@ class LM:
             x = x + attention_sublayer(p["attn"], h, ctx, cfg, kind, c["attn"] if c else None,
                                        positions, page_table, lengths, valid, chunk=chunk,
                                        layout=layout)
+        x = self._stream(x, layout)
         if "cross" in p:
-            hx = rmsnorm(x, p["ln_x"], cfg.rms_eps)
+            hx = normed("ln_x")
             x = x + attention_sublayer(p["cross"], hx, ctx, cfg, "X", c["cross"] if c else None,
                                        memory=memory, chunk=chunk, layout=layout)
+            x = self._stream(x, layout)
         if "moe" in p:
-            h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
+            h2 = normed("ln2")
             mo, aux = moe_sublayer(p["moe"], h2, cfg, ctx,
                                    batch_axes=layout.batch if layout is not None else None)
-            x = x + mo
+            x = x + (mo if layout is None else layout.seq_part(mo))   # whole on every rank
         elif "mlp" in p:
-            h2 = rmsnorm(x, p["ln2"], cfg.rms_eps)
+            h2 = normed("ln2")
             if layout is None:
                 x = x + dense_mlp(p["mlp"], h2, cfg.act)
             else:
-                x = x + dense_mlp(p["mlp"], h2, cfg.act, layout.mesh, layout.p["mlp"]["wo"][1])
-        return x, aux
+                x = x + dense_mlp(p["mlp"], h2, cfg.act, layout.mesh, layout.p["mlp"]["wo"][1],
+                                  seq=layout.seq)
+        return self._stream(x, layout), aux
 
     def _run_groups(self, groups_params, x, cache, *, ctx: RunCtx, layer_groups=None,
                     layout=None, **kw):
@@ -307,28 +386,37 @@ class LM:
             return w
         return _fsdp_gather(w, layout.fsdp[name]["w"], layout.mesh)
 
-    def _embed(self, params, tokens, layout=None):
+    def _embed(self, params, tokens, layout=None, whole: bool = False):
         """Rows of the embedding table. An int8 table's rows are gathered,
         then dequantized to the model's dtype: that of the final norm, a 1-D
         leaf that quantization never takes. Under a mesh with the table's
         vocab split, each rank looks up the tokens among its rows (zeros
-        elsewhere) and a psum gathers them."""
+        elsewhere; an int8 table's q and scale rows) and a psum gathers
+        them, or under the sequence-parallel rule a reduce-scatter gives the
+        rank its part of the sequence (``whole``: the whole sequence, for a
+        VLM's prefix to join before the split)."""
         cfg = self.cfg
         w, tok = self._top(params, "embed", layout), tokens.long()
         ax = layout.params["embed"]["w"][0] if layout is not None else None
+        seq = None if layout is None or whole else layout.seq
+
+        def rows(i):
+            if isinstance(w, QuantizedLinear):
+                return dequant(QuantizedLinear(w.q[i], w.scale[i]), params["final_norm"]["w"].dtype)
+            return w[i]
         if ax is not None:
-            V_l = w.shape[0]
+            V_l = (w.q if isinstance(w, QuantizedLinear) else w).shape[0]
             loc = tok - layout.mesh.index(ax) * V_l
             mine = (loc >= 0) & (loc < V_l)
-            x = psum(w[loc.clamp(0, V_l - 1)] * mine[..., None].to(w.dtype), layout.mesh, ax)
-        elif isinstance(w, QuantizedLinear):
-            x = dequant(QuantizedLinear(w.q[tok], w.scale[tok]), params["final_norm"]["w"].dtype)
+            part = rows(loc.clamp(0, V_l - 1))
+            part = part * mine[..., None].to(part.dtype)
         else:
-            x = w[tok]
+            part = rows(tok)
+        x = reduce_out(part, layout.mesh if layout is not None else None, ax, seq)
         if cfg.scale_embedding:
             x = x * (cfg.d_model ** 0.5)
-        if layout is not None:                    # the reference's shard_act on the embedding
-            constrain(x, ("batch", "seq", None), (layout.B, *x.shape[1:]))
+        if layout is not None and not whole:      # the reference's shard_act on the embedding
+            self._stream(x, layout)
         return x
 
     def _patch_prefix(self, params, patches, dtype, layout=None):
@@ -344,14 +432,19 @@ class LM:
     def _embed_batch(self, params, batch, layout=None):
         """Token embeddings (of the rank's rows under a mesh), after the
         patch prefix where the config has a vision frontend and the batch
-        carries ``patches``. Returns (x, offset): offset is the number of
-        prefix positions before the first text token."""
+        carries ``patches``. Returns (x, offset, layout): offset is the
+        number of prefix positions before the first text token; under a
+        mesh ``layout`` takes the stream's sequence split (``_with_seq``)
+        and ``x`` is the rank's part of the stream."""
         rows = (lambda t: t) if layout is None else layout.local_rows
-        x = self._embed(params, rows(batch["tokens"]), layout)
-        if self.cfg.vision is None or "patches" not in batch:
-            return x, 0
+        vlm = self.cfg.vision is not None and "patches" in batch
+        offset = batch["patches"].shape[1] if vlm else 0
+        layout = self._with_seq(layout, offset + batch["tokens"].shape[1])
+        x = self._embed(params, rows(batch["tokens"]), layout, whole=vlm)
+        if not vlm:
+            return x, 0, layout
         prefix = self._patch_prefix(params, rows(batch["patches"]), x.dtype, layout)
-        return torch.cat([prefix, x], dim=1), prefix.shape[1]
+        return self._stream_in(torch.cat([prefix, x], dim=1), layout), offset, layout
 
     def _encode(self, params, frames, ctx: RunCtx, layout=None):
         """The enc-dec encoder over stub frame embeddings (B, M, d): its
@@ -364,11 +457,13 @@ class LM:
         if layout is not None:
             layout = replace(layout, params=layout.params["encoder"], cache=None,
                              fsdp=layout.fsdp["encoder"] if layout.fsdp is not None else None)
-        x, _ = self._run_groups(enc["groups"], frames, None, ctx=ctx,
+            layout = self._with_seq(layout, frames.shape[1])
+        x, _ = self._run_groups(enc["groups"], self._stream_in(frames, layout), None, ctx=ctx,
                                 layer_groups=(LayerGroup("E", self.cfg.encoder.n_layers),),
                                 positions=torch.arange(frames.shape[1], device=frames.device),
                                 layout=layout)
-        return rmsnorm(x, self._top(enc, "final_norm", layout), self.cfg.rms_eps)
+        return rmsnorm(self._stream_out(x, layout), self._top(enc, "final_norm", layout),
+                       self.cfg.rms_eps)
 
     def _memory(self, params, batch, dtype, ctx: RunCtx, layout=None):
         """The encoder memory of an enc-dec batch (its ``frames``, the
@@ -419,12 +514,13 @@ class LM:
     def _features(self, params, batch, ctx: RunCtx, layout=None):
         """The final-normed features (B, S', d) of a full-sequence pass and
         the summed MoE aux loss (0.0 without MoE)."""
-        x, _ = self._embed_batch(params, batch, layout)
+        x, offset, layout = self._embed_batch(params, batch, layout)
         memory = self._memory(params, batch, x.dtype, ctx, layout)
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = torch.arange(offset + batch["tokens"].shape[1], device=x.device)
         x, aux = self._run_groups(params["groups"], x, None, ctx=ctx, positions=positions,
                                   memory=memory, layout=layout)
-        return rmsnorm(x, self._top(params, "final_norm", layout), self.cfg.rms_eps), aux
+        return rmsnorm(self._stream_out(x, layout), self._top(params, "final_norm", layout),
+                       self.cfg.rms_eps), aux
 
     def forward(self, params, batch, ctx: RunCtx):
         """Teacher-forced full-sequence logits through flash attention and
@@ -451,6 +547,7 @@ class LM:
         ones, aux the rank's data shard's, and the gradient is the rank's
         share (``training.train_step.reduce_grads`` sums the shares)."""
         layout = self._layout(params, ctx, batch["labels"].shape[0])
+        self._refuse_int8_training(params, layout)
         labels = batch["labels"].long()
         if layout is not None:
             labels = layout.local_rows(labels)
@@ -509,12 +606,12 @@ class LM:
         layout = self._layout(params, ctx, batch["tokens"].shape[0], cache)
         if layout is not None:
             last_pos = layout.local_rows(last_pos)
-        x, offset = self._embed_batch(params, batch, layout)
+        x, offset, layout = self._embed_batch(params, batch, layout)
         memory = self._memory(params, batch, x.dtype, ctx, layout)
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = torch.arange(offset + batch["tokens"].shape[1], device=x.device)
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
                                 memory=memory, layout=layout)
-        x = rmsnorm(x, params["final_norm"]["w"], self.cfg.rms_eps)
+        x = rmsnorm(self._stream_out(x, layout), params["final_norm"]["w"], self.cfg.rms_eps)
         if last_pos is None:
             last = x[:, -1:]
         else:
@@ -605,10 +702,12 @@ class LM:
                  frames, patches))
             B = tokens.shape[0]
             self._check_slots(cache, layout, slots)
-        x = self._embed(params, tokens, layout)
+            layout = self._with_seq(layout, n_prefix + C)
+        x = self._embed(params, tokens, layout, whole=bool(n_prefix))
         pack = {"slots": slots, "nvalid": nvalid, "first": first}
         if n_prefix:
             x = torch.cat([self._patch_prefix(params, patches, x.dtype, layout), x], dim=1)
+            x = self._stream_in(x, layout)
             pack["q_positions"] = q_positions
         lengths = offset + starts + nvalid
         memory = None
@@ -617,7 +716,7 @@ class LM:
         x, _ = self._run_groups(params["groups"], x, cache, ctx=ctx, positions=positions,
                                 page_table=page_table, lengths=lengths, valid=valid, chunk=pack,
                                 memory=memory, layout=layout)
-        x = rmsnorm(x, params["final_norm"]["w"], cfg.rms_eps)
+        x = rmsnorm(self._stream_out(x, layout), params["final_norm"]["w"], cfg.rms_eps)
         if all_logits:
             return self._head(params, x[:, n_prefix:], layout), cache
         last = n_prefix + torch.clamp(nvalid.long(), min=1) - 1

@@ -37,7 +37,13 @@ cross attention, 12 frames a row) and phi-3-vision (the patch prefix) at
 - the trainer on (2, 1, 2): a crash at step 2 after a checkpoint there, and
   the resume, equal the uninterrupted run; the checkpoint holds the global
   tree, which the unsharded trainer restores equal to the ranks' gathered
-  state.
+  state;
+- the sequence-parallel rule (``make_rules("train", seq_shard=True)``) on
+  tiny qwen2.5 at (2, 1, 2) and (1, 1, 4) (kv_seq), mixtral at (2, 1, 2)
+  ``tp_shardmap`` and (1, 2, 2) ``ep_shardmap``: each rank's loss, reduced
+  gradient shards and ``global_norm`` against the reference's on the same
+  mesh without the rule (``with_sharding_constraint`` changes nothing the
+  reference computes), at the bounds above.
 """
 import os
 import pickle
@@ -69,6 +75,11 @@ CASES = [("jamba-v0.1-52b", (1, 2, 2), "ep_shardmap"),          # mamba, the MoE
          ("mamba2-1.3b", (1, 1, 2), "tp_shardmap"), ("mamba2-1.3b", (2, 1, 2), "tp_shardmap"),
          ("qwen2.5-3b", (1, 1, 4), "tp_shardmap"),              # kv_seq: kv 2 at tensor 4
          ("gemma2-27b", (2, 1, 2), "tp_shardmap"), ("qwen2.5-3b", (2, 1, 2), "tp_shardmap")]
+# the sequence-parallel rule on cases above: held against their reference
+SEQ_CASES = [("qwen2.5-3b", (2, 1, 2), "tp_shardmap", "seq"),
+             ("qwen2.5-3b", (1, 1, 4), "tp_shardmap", "seq"),      # kv_seq and seq meet
+             ("mixtral-8x7b", (2, 1, 2), "tp_shardmap", "seq"),
+             ("mixtral-8x7b", (1, 2, 2), "ep_shardmap", "seq")]
 LOSS_KW = dict(xent_chunk=0)           # the step below runs the chunked cross-entropy
 # lr 1e-4, as tests/test_torch_train_step.py: AdamW's first step turns a
 # rounding difference of a gradient element near eps into ~lr
@@ -77,6 +88,7 @@ STEP_KW = dict(peak_lr=1e-4, warmup=2, total_steps=10, microbatches=2, grad_comp
 TRAINER = dict(case=CASES[-1], step_kw=dict(STEP_KW, peak_lr=1e-3))
 ADAMW_RTOL = 1e-5
 ids = [f"{a}-{'x'.join(map(str, s))}-{st}" for a, s, st in CASES]
+seq_ids = [f"{a}-{'x'.join(map(str, s))}-{st}-seq" for a, s, st, _ in SEQ_CASES]
 
 
 def _batch(arch):
@@ -112,7 +124,7 @@ def runs(tmp_path_factory):
     common = {"params": params, "batches": {a: _batch(a) for a in archs}, "loss_kw": LOSS_KW,
               "step_kw": STEP_KW, "trainer": TRAINER}
     with open(inputs, "wb") as f:
-        pickle.dump(dict(common, cases=CASES), f)
+        pickle.dump(dict(common, cases=CASES, seq_cases=SEQ_CASES), f)
     # LLVM's optimization level 0 compiles the six steps ~6 s sooner (the
     # float semantics are XLA's: no fast math at either level)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -193,10 +205,14 @@ def _rel(a, b):
 NOISY_GRADS = ("jamba-v0.1-52b",)
 
 
-@pytest.mark.parametrize("case", CASES, ids=ids)
+@pytest.mark.parametrize("case", CASES + SEQ_CASES, ids=ids + seq_ids)
 def test_loss_and_gradient_match_the_reference_mesh(runs, case):
+    """A "seq" case (the sequence-parallel rule) against the reference's
+    case on the same mesh: a norm weight's gradient on a sequence shard is
+    the share of the rank's own tokens, summed over the tensor axis with
+    the rest."""
     _, ref, port = runs
-    want = ref[case]
+    want = ref[case[:3]]
     for rank in _ranks(case):
         got = port[rank]["cases"][case]
         assert got["loss"] == pytest.approx(want["loss"][rank], rel=TOL), rank
@@ -208,14 +224,14 @@ def test_loss_and_gradient_match_the_reference_mesh(runs, case):
         assert len(errs) == len(want["grads"]) and max(errs) <= TOL, (rank, max(errs))
 
 
-@pytest.mark.parametrize("case", CASES, ids=ids)
+@pytest.mark.parametrize("case", CASES + SEQ_CASES, ids=ids + seq_ids)
 def test_global_norm_of_the_shards_is_the_reference_gradient_s(runs, case):
     """``global_norm`` over the rank's reduced shards (each leaf's squares
     summed over the axes that split it, a leaf held alike counted once)
     against the norm of the reference's global gradient: the clip scale."""
     _, ref, port = runs
     for rank in _ranks(case):
-        assert port[rank]["cases"][case]["gnorm"] == pytest.approx(ref[case]["gnorm"],
+        assert port[rank]["cases"][case]["gnorm"] == pytest.approx(ref[case[:3]]["gnorm"],
                                                                    rel=TOL), rank
 
 

@@ -30,7 +30,22 @@ once. Held:
   rank projects both kv heads of the encoder, the cross attention and the
   decoder), tiny phi-3-vision at (1, 1, 2), through the same paths with 12
   frames a row (the batch's, the pack's) or the patch prefix;
-- what raises under a mesh: int8 trees, the int8 all-to-all under grad.
+- int8 trees (every leaf of two dims or more quantized, ``_QUANT_MIN_SIZE``
+  set to 1 on both packages, so norms, routers, convs and SSM scalars are
+  int8 too), sharded by the reference dry-run's rule: tiny mixtral at (1,
+  2, 2) ep_shardmap and (2, 1, 2) tp_shardmap (the rank's int8 experts in
+  the grouped matmul), qwen2.5 at (1, 1, 4) (kv_seq: whole int8 ``wk`` /
+  ``wv``), mamba2 at (1, 1, 2) and seamless at (2, 1, 2), through the same
+  paths against the JAX package's unsharded calls on
+  ``dequantize_tree(quantize_params_int8(params), float32)``;
+- the sequence-parallel rule (``make_rules(seq_shard=True)``): tiny qwen2.5
+  and mixtral at (2, 1, 2), qwen2.5 at (1, 1, 4) (kv_seq), mamba2 and
+  phi-3-vision (the patch prefix joined before the split) at (1, 1, 2),
+  seamless at (2, 1, 2) (the encoder's frames too), through the same paths
+  against the same unsharded calls, the prefill and the pack reduce-scattering
+  (the one-token steps and the 3-token verify sweep at tensor 2 stay whole);
+- what raises under a mesh: an int8 tree's loss, the int8 all-to-all under
+  grad; an int8 tree on the (1, 1, 1) mesh serves as it does unsharded.
 """
 import os
 import pickle
@@ -79,6 +94,19 @@ MODEL_CASES += [("qwen2.5-3b", (1, 1, 4), "tp_shardmap"),        # kv_seq: kv 2 
                 ("seamless-m4t-large-v2", (1, 1, 4), "tp_shardmap"),   # ... under kv_seq
                 ("phi-3-vision-4.2b", (1, 1, 2), "tp_shardmap")]       # the patch prefix
 MODEL_ARCHS = tuple(sorted({c[0] for c in MODEL_CASES}))
+INT8_CASES = [("mixtral-8x7b", (1, 2, 2), "ep_shardmap", "int8"),
+              ("mixtral-8x7b", (2, 1, 2), "tp_shardmap", "int8"),
+              ("qwen2.5-3b", (1, 1, 4), "tp_shardmap", "int8"),       # kv_seq
+              ("mamba2-1.3b", (1, 1, 2), "tp_shardmap", "int8"),
+              ("seamless-m4t-large-v2", (2, 1, 2), "tp_shardmap", "int8")]
+INT8_ARCHS = tuple(sorted({c[0] for c in INT8_CASES}))
+INT8_MIN_SIZE = 1                      # every leaf of two dims or more
+SEQ_CASES = [("qwen2.5-3b", (2, 1, 2), "tp_shardmap", "seq"),
+             ("mixtral-8x7b", (2, 1, 2), "tp_shardmap", "seq"),
+             ("qwen2.5-3b", (1, 1, 4), "tp_shardmap", "seq"),        # kv_seq and seq meet
+             ("mamba2-1.3b", (1, 1, 2), "tp_shardmap", "seq"),
+             ("phi-3-vision-4.2b", (1, 1, 2), "tp_shardmap", "seq"),
+             ("seamless-m4t-large-v2", (2, 1, 2), "tp_shardmap", "seq")]
 PATHS = ("prefill", "ring0", "ring1", "pack", "paged0", "paged1", "verify")
 
 
@@ -115,12 +143,34 @@ def _io():
     }
 
 
+def _int8_trees(params):
+    """Per int8 arch: the port's int8 tree (numpy ``QuantizedLinear``
+    leaves, what the ranks shard) and the JAX package's dequantized one
+    (``dequantize_tree(quantize_params_int8(p), float32)``, what the
+    reference runs), both at ``INT8_MIN_SIZE``."""
+    import jax.numpy as jnp
+    from repro.quant import quantize as jax_quant
+    from repro_torch.models.params import map_tree, params_from_numpy
+    from repro_torch.quant import quantize as quant
+    port, ref = {}, {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_quant, "_QUANT_MIN_SIZE", INT8_MIN_SIZE)
+        mp.setattr(quant, "_QUANT_MIN_SIZE", INT8_MIN_SIZE)
+        for a in INT8_ARCHS:
+            tq = quant.quantize_params_int8(params_from_numpy(params[a], device="cpu"))
+            port[a] = map_tree(lambda t: t.numpy(), tq)
+            jq = jax_quant.quantize_params_int8(jax.tree.map(jnp.asarray, params[a]))
+            ref[a] = jax.tree.map(np.asarray, jax_quant.dequantize_tree(jq, jnp.float32))
+    return port, ref
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist")
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     params = {a: to_np(jax_build_model(jax_tiny_config(a)).init_params(jax.random.PRNGKey(0)))
               for a in sorted(set(MODEL_ARCHS) | set(MOE_ARCHS))}
+    int8_params, int8_ref_params = _int8_trees(params)
     moe_params = {}
     for a in MOE_ARCHS:
         lay = next(lay for g in params[a]["groups"] for lay in g["layers"] if "moe" in lay)
@@ -128,8 +178,10 @@ def runs(tmp_path_factory):
     h = np.random.default_rng(0).standard_normal((2, 16, 64)).astype(np.float32)
     inputs = d / "inputs.pkl"
     with open(inputs, "wb") as f:
-        pickle.dump({"moe_cases": MOE_CASES, "model_cases": MODEL_CASES, "params": params,
-                     "moe_params": moe_params, "moe_h": h, "io": _io()}, f)
+        pickle.dump({"moe_cases": MOE_CASES, "model_cases": MODEL_CASES + INT8_CASES + SEQ_CASES,
+                     "params": params, "int8_params": int8_params,
+                     "int8_ref_params": int8_ref_params, "moe_params": moe_params, "moe_h": h,
+                     "io": _io()}, f)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = os.pathsep.join([str(HERE.parent / "src"), env.get("PYTHONPATH", "")])
@@ -179,10 +231,19 @@ def test_moe_shardmap_matches_reference_mesh(runs, case):
             assert drops > 0               # 64 assignments, 32 dispatch slots
 
 
-@pytest.mark.parametrize("case", MODEL_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def _case_id(c):
+    return "-".join([c[0], str(c[1]), c[2], *c[3:]])
+
+
+@pytest.mark.parametrize("case", MODEL_CASES + INT8_CASES + SEQ_CASES, ids=_case_id)
 def test_sharded_paths_match_unsharded_jax(runs, case):
+    """Every path of each rank against the JAX package's unsharded calls:
+    on the same parameters (a "seq" case too: ``with_sharding_constraint``
+    changes nothing the reference computes, and there the sublayers'
+    partials are reduce-scattered, nowhere else), or for an "int8" case on
+    ``dequantize_tree(quantize_params_int8(params), float32)``."""
     ref, port = runs
-    want = ref["model"][case[0]]
+    want = ref["int8" if case[3:] == ("int8",) else "model"][case[0]]
     valid = np.arange(3)[None, :] < np.asarray([3, 2])[:, None]
     for rank in range(int(np.prod(case[1]))):     # the ranks the case's mesh binds
         got = port[rank]["model"][case]
@@ -194,6 +255,16 @@ def test_sharded_paths_match_unsharded_jax(runs, case):
             err = np.abs(a - b).max()
             assert err < LOGIT_ATOL, (path, rank, err)
             np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1), err_msg=path)
+        assert (got["scattered"] > 0) == (case[3:] == ("seq",)), (rank, got["scattered"])
+
+
+@pytest.mark.parametrize("case", INT8_CASES, ids=_case_id)
+def test_an_int8_tree_round_trips_through_shard_and_gather(runs, case):
+    """``gather_tree`` of the rank's ``shard_tree`` of the int8 tree (its
+    q and scale by their own specs) is the whole tree, bit for bit and
+    int8 still, on every rank."""
+    _, port = runs
+    assert all(port[rank]["model"][case]["round_trip"] for rank in range(int(np.prod(case[1]))))
 
 
 @pytest.mark.parametrize("case", [c for c in MODEL_CASES if c[1][0] > 1 and c[0] in (
@@ -240,19 +311,28 @@ def test_shardmap_strategies_without_a_mesh_run_capacity():
         assert torch.equal(y, y0) and float(a) == float(a0)
 
 
+INT8_TRAIN_REFUSAL = r"int8 weight trees serve under a mesh but do not train there"
+
+
 def test_int8_trees_and_training_raise_under_a_mesh():
-    """What still raises: int8 trees under a mesh; the int8 all-to-all
-    under grad (its rounding has no useful gradient)."""
-    from repro_torch.quant.quantize import quantize_leaf
+    """An int8 tree serves on the (1, 1, 1) mesh (ep_shardmap: its int8
+    experts in the grouped matmul) as it does unsharded (dropless over the
+    same int8 experts); its loss under a mesh raises; so does the int8
+    all-to-all under grad (its rounding has no useful gradient)."""
+    from repro_torch.quant.quantize import quantize_params_int8
     cfg = torch_dist_worker.config("mixtral-8x7b")
     model = build_model(cfg)
     mesh = Mesh((1, 1, 1), torch_dist_worker.AXES)
     ctx = RunCtx(mesh=mesh, moe_strategy="ep_shardmap", tp_axis="tensor", ep_axis="expert")
-    q = model.init_params(0, device="cpu")
-    q["embed"]["w"] = quantize_leaf(q["embed"]["w"])
+    q = quantize_params_int8(model.init_params(0, device="cpu"))
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(1, 256, (2, 6)))
+    want, _ = model.prefill(q, {"tokens": tokens}, None, RunCtx(moe_strategy="dropless"))
     with use_sharding(mesh, make_rules("serve", tensor_axis="tensor", expert_axis="expert")):
-        with pytest.raises(NotImplementedError, match="int8"):
-            model.prefill(q, {"tokens": torch.zeros(2, 4, dtype=torch.int64)}, None, ctx)
+        got, _ = model.prefill(q, {"tokens": tokens}, None, ctx)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    with use_sharding(mesh, make_rules("train", tensor_axis="tensor", expert_axis="expert")):
+        with pytest.raises(NotImplementedError, match=INT8_TRAIN_REFUSAL):
+            model.loss(q, {"tokens": tokens, "labels": tokens}, ctx)
     cfg, p = _moe_layer()
     h = torch.zeros(2, 3, cfg.d_model, requires_grad=True)
     with pytest.raises(NotImplementedError, match="a2a_int8.*no useful gradient"):
@@ -263,20 +343,34 @@ def test_int8_trees_and_training_raise_under_a_mesh():
 @pytest.mark.parametrize("mode", ["serve", "train"])
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "seamless-m4t-large-v2", "phi-3-vision-4.2b"])
 def test_an_int8_tree_is_what_still_raises_under_a_mesh(arch, mode):
-    """Every family serves and trains under a mesh on float trees; an int8
-    tree there (the reference shards one only in its dry-run) is the
-    ROADMAP's next item, which the message names."""
-    from repro_torch.quant.quantize import quantize_leaf
+    """An int8 tree (embedding quantized, the rest by the reference's
+    threshold) serves under a mesh: its (1, 1, 1) ``forward`` equals the
+    unsharded one; its loss there raises, saying why (the reference shards
+    an int8 tree for its decode cells only, and the int8 kernels have no
+    backward)."""
+    from repro_torch.quant.quantize import quantize_leaf, quantize_params_int8
     model = build_model(torch_dist_worker.config(arch))
+    cfg = model.cfg
     mesh = Mesh((1, 1, 1), torch_dist_worker.AXES)
     ctx = RunCtx(mode="train", mesh=mesh, tp_axis="tensor", ep_axis="expert")
     q = model.init_params(0, device="cpu")
     q["embed"]["w"] = quantize_leaf(q["embed"]["w"])
-    batch = {"tokens": torch.zeros(2, 4, dtype=torch.int64),
-             "labels": torch.zeros(2, 4, dtype=torch.int64)}
+    q = quantize_params_int8(q)
+    r = np.random.default_rng(3)
+    tokens = torch.from_numpy(r.integers(1, 256, (2, 4)))
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.encoder is not None:
+        batch["frames"] = torch.from_numpy(r.standard_normal((2, 6, cfg.d_model))
+                                           .astype(np.float32))
+    if cfg.vision is not None:
+        batch["patches"] = torch.from_numpy(r.standard_normal(
+            (2, cfg.vision.n_patches, cfg.vision.d_patch)).astype(np.float32))
     with use_sharding(mesh, make_rules(mode, tensor_axis="tensor", expert_axis="expert")):
-        with pytest.raises(NotImplementedError, match=r"int8.*ROADMAP Queue 1 item 3 \(c\)"):
-            if mode == "serve":
-                model.prefill(q, batch, None, ctx)
-            else:
+        if mode == "serve":
+            got, _ = model.forward(q, batch, ctx)
+        else:
+            with pytest.raises(NotImplementedError, match=INT8_TRAIN_REFUSAL):
                 model.loss(q, batch, ctx)
+    if mode == "serve":
+        want, _ = model.forward(q, batch, RunCtx(mode="train"))
+        assert torch.equal(got, want)

@@ -250,3 +250,155 @@ def test_distribution_modules_import_first(module):
                          capture_output=True, text=True, env={"PYTHONPATH": str(src), "PATH": ""},
                          timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# ------------------------------------------------------------- int8 trees
+def _dry_run_quantize_abstract():
+    """The reference dry-run's ``_quantize_abstract``, its source compiled
+    alone: importing ``repro.launch.dryrun`` sets XLA_FLAGS to 512 devices
+    for the whole process."""
+    import ast
+    from pathlib import Path
+    path = Path(jsharding.__file__).parents[1] / "launch" / "dryrun.py"
+    fn = next(n for n in ast.parse(path.read_text()).body
+              if isinstance(n, ast.FunctionDef) and n.name == "_quantize_abstract")
+    ns = {"jax": jax}
+    exec(compile(ast.Module([fn], []), str(path), "exec"), ns)
+    return ns["_quantize_abstract"]
+
+
+class FakeNamed:
+    """Shape-only stand-in for ``NamedSharding`` over a FakeMesh."""
+    def __init__(self, mesh, spec):
+        self.mesh, self.spec = mesh, spec
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_int8_specs_equal_the_dry_run_s(arch, monkeypatch):
+    """``param_partition_specs(..., quant="int8")``: for every leaf the
+    reference's threshold quantizes, q's spec and the scale's (the last
+    entry None) equal ``_quantize_abstract``'s, on the production,
+    multi-pod and Exp4 meshes under every rule kind."""
+    from repro_torch.distributed.sharding import QuantizedLinear
+    monkeypatch.setattr(jax.sharding, "NamedSharding", FakeNamed)
+    quantize_abstract = _dry_run_quantize_abstract()
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    abstract = jax_build_model(jcfg).abstract_params(jnp.bfloat16)
+    jspec_type = jax.sharding.PartitionSpec
+    for mesh_name, (sizes, kw) in sorted(MESHES.items()):
+        mesh = FakeMesh(sizes)
+        for mode, moe in RULE_KINDS:
+            jspecs = jsharding.param_partition_specs(jax_param_specs(jcfg), mesh,
+                                                     jsharding.make_rules(mode, moe, **kw))
+            p_sh = jax.tree.map(lambda sp: FakeNamed(mesh, sp), jspecs,
+                                is_leaf=lambda x: isinstance(x, jspec_type))
+            _, q_sh = quantize_abstract(abstract, p_sh)
+            ref = [tuple(x.spec) for x in jax.tree.leaves(
+                q_sh, is_leaf=lambda x: isinstance(x, FakeNamed))]
+            tree = param_partition_specs(param_specs(cfg), mesh, make_rules(mode, moe, **kw),
+                                         quant="int8")
+            ours = _spec_leaves(tree, PartitionSpec)
+            assert len(ours) == len(ref) > 0 and ours == ref, (mesh_name, mode, moe)
+            n_int8 = []
+            map_tree(n_int8.append, tree, is_leaf=lambda x: isinstance(x, QuantizedLinear))
+            assert any(isinstance(x, QuantizedLinear) for x in n_int8)
+
+
+@pytest.mark.parametrize("min_size", [1, 1 << 14])
+@pytest.mark.parametrize("arch,shape", [("deepseek-moe-16b", (1, 2, 2)),
+                                        ("gemma2-27b", (2, 1, 2)),
+                                        ("mamba2-1.3b", (1, 1, 4)), ("qwen2.5-3b", (1, 1, 4))])
+def test_int8_shards_tile_the_tree(arch, shape, min_size, monkeypatch):
+    """The ranks' shards of an int8 tree, by the int8 specs (one a tensor)
+    or by the float specs paired by the same rule, have ``local_shape`` of
+    their specs, and put back at their slices give the whole tree: q by the
+    float leaf's spec, the scale by it with the last entry None (a scale is
+    the absmax over the whole last axis, so every rank that splits that
+    axis holds the same scale rows)."""
+    from repro_torch.distributed.sharding import shard_slices
+    from repro_torch.quant import quantize as quant
+    monkeypatch.setattr(quant, "_QUANT_MIN_SIZE", min_size)
+    cfg = tiny_config(arch)
+    rules = make_rules("serve", tensor_axis="tensor", expert_axis="expert")
+    whole = quant.quantize_params_int8(init_params(cfg, 4, device="cpu"))
+    leaves = []
+    map_tree(leaves.append, whole)
+    rebuilt = [torch.zeros_like(t) for t in leaves]
+    for rank in range(int(np.prod(shape))):
+        m = _bound(shape, ("data", "expert", "tensor"), rank)
+        ispecs = param_partition_specs(param_specs(cfg), m, rules, quant="int8")
+        specs, a, b = [], [], []
+        map_tree(specs.append, ispecs, is_leaf=lambda x: isinstance(x, PartitionSpec))
+        map_tree(a.append, shard_tree(whole, ispecs, m))
+        map_tree(b.append, shard_tree(whole, param_partition_specs(param_specs(cfg), m, rules), m))
+        assert len(specs) == len(leaves) == len(a) == len(b)
+        for t, part, other, spec, out in zip(leaves, a, b, specs, rebuilt):
+            assert torch.equal(part, other) and part.shape == local_shape(t.shape, spec, m)
+            out[shard_slices(t.shape, spec, m)] = part
+    assert all(torch.equal(u, v) for u, v in zip(leaves, rebuilt))
+    assert sum(t.dtype == torch.int8 for t in leaves) > (5 if min_size == 1 else 0)
+
+
+def test_an_int8_spec_needs_an_int8_leaf():
+    """A spec tree pairs with a tree tensor for tensor: an int8 spec against
+    a float leaf raises rather than slicing by the wrong spec."""
+    cfg = tiny_config("qwen2.5-3b")
+    m = _bound((1, 1, 2), ("data", "expert", "tensor"), 1)
+    rules = make_rules("serve", tensor_axis="tensor", expert_axis="expert")
+    with pytest.raises(ValueError, match="int8 spec needs an int8 leaf"):
+        shard_tree(init_params(cfg, 0, device="cpu"),
+                   param_partition_specs(param_specs(cfg), m, rules, quant="int8"), m)
+
+
+@pytest.mark.parametrize("min_size", [1, 1 << 14])
+@pytest.mark.parametrize("arch,shape,moe", [("deepseek-moe-16b", (1, 2, 2), "ep"),
+                                            ("deepseek-moe-16b", (1, 2, 2), "tp"),
+                                            ("mamba2-1.3b", (1, 1, 4), "ep"),
+                                            ("gemma2-27b", (2, 1, 2), "ep")])
+def test_rank_int8_init_is_the_slice_of_the_whole(arch, shape, moe, min_size, monkeypatch):
+    """``init_params_int8(mesh=)`` for one rank equals ``shard_tree`` of the
+    whole int8 init bit for bit: each repeat is quantized whole, then
+    sliced (a rank that quantized its own columns would take another
+    scale)."""
+    from repro_torch.models.params import init_params_int8
+    from repro_torch.quant import quantize as quant
+    monkeypatch.setattr(quant, "_QUANT_MIN_SIZE", min_size)
+    cfg = tiny_config(arch)
+    rules = make_rules("serve", moe, tensor_axis="tensor", expert_axis="expert")
+    whole = init_params_int8(cfg, 5, device="cpu")
+    for rank in range(int(np.prod(shape))):
+        m = _bound(shape, ("data", "expert", "tensor"), rank)
+        mine = init_params_int8(cfg, 5, device="cpu", mesh=m, rules=rules)
+        sliced = shard_tree(whole, param_partition_specs(param_specs(cfg), m, rules), m)
+        a, b = [], []
+        map_tree(a.append, mine)
+        map_tree(b.append, sliced)
+        assert len(a) == len(b) and all(u.dtype == v.dtype and torch.equal(u, v)
+                                        for u, v in zip(a, b)), rank
+
+
+SEQ_SHAPES = [(8, 512, 32000), (6, 20, 256), (2, 7, 96), (128, 4096, 152064), (4, 1, 64)]
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+def test_seq_rule_specs_equal_reference(mesh_name):
+    """``make_rules(seq_shard=True)``: the residual stream's ("batch",
+    "seq", None), the logits' ("batch", "seq", "vocab") and the frames'
+    specs equal the reference's at sequences that divide the tensor axis
+    and ones that do not (left whole), and the parameter and cache specs
+    are the ones without the rule."""
+    sizes, kw = MESHES[mesh_name]
+    mesh = FakeMesh(sizes)
+    for mode, moe in RULE_KINDS:
+        rules = make_rules(mode, moe, seq_shard=True, **kw)
+        jrules = jsharding.make_rules(mode, moe, seq_shard=True, **kw)
+        for shape in SEQ_SHAPES:
+            for logical in (("batch", "seq", None), ("batch", "seq", "vocab")):
+                ours = partition_spec(shape, logical, mesh, rules)
+                assert tuple(ours) == tuple(jsharding.partition_spec(shape, logical, mesh,
+                                                                     jrules)), (shape, logical)
+        cfg = get_config("mixtral-8x7b")
+        plain = make_rules(mode, moe, **kw)
+        assert (_spec_leaves(param_partition_specs(param_specs(cfg), mesh, rules), PartitionSpec)
+                == _spec_leaves(param_partition_specs(param_specs(cfg), mesh, plain),
+                                PartitionSpec))

@@ -4,8 +4,10 @@ process whose environment alone sets
 one device in-process): the JAX package's ``tp_shardmap`` / ``ep_shardmap``
 on meshes of the test's shapes, and its unsharded model calls on the same
 numpy parameters (an enc-dec config's with the io's frames, a VLM's with
-its patches), on four threads: 37 s against 71 s one case after another
-(8 CPU cores).
+its patches) and, for the archs the test serves an int8 tree of, on
+``dequantize_tree(quantize_params_int8(params), float32)`` through the
+same jitted functions (the same shapes and dtypes: no new compile), on
+four threads: 37 s against 71 s one case after another (8 CPU cores).
 
     python tests/torch_dist_reference.py INPUTS.pkl OUTPUTS.pkl
 """
@@ -56,9 +58,10 @@ def per_device(a, mesh):
     return out
 
 
-def model_case(arch, params_np, io):
+def model_case(arch, trees, io):
+    """The unsharded paths on each of ``trees`` (numpy parameter trees of
+    one shape), through one set of jitted functions."""
     model = build_model(config(arch))
-    jp = jax.tree.map(jnp.asarray, params_np)
     ctx = RunCtx(attn_backend="xla", moe_strategy="capacity")
     j = jnp.asarray
     ext, M, off = io["extras"][arch]
@@ -70,6 +73,12 @@ def model_case(arch, params_np, io):
     chunk = jax.jit(lambda p, t, c, st, nv, pt, e, a: model.decode_chunk(
         p, t, c, st, nv, jnp.arange(t.shape[0], dtype=jnp.int32), st == 0, ctx, pt, **e,
         all_logits=a), static_argnums=7)
+    return [paths(jax.tree.map(jnp.asarray, t), io, ext, M, off, model, prefill, step, paged,
+                  chunk) for t in trees]
+
+
+def paths(jp, io, ext, M, off, model, prefill, step, paged, chunk):
+    j = jnp.asarray
     out = {}
     B = io["prompt"].shape[0]
     ring = model.init_cache(B, io["max_seq"], jnp.float32, memory_len=M)
@@ -94,12 +103,16 @@ def main(inputs_path, outputs_path):
     # four threads: XLA compiles outside the GIL, so one case compiles
     # while others trace; the slowest (jamba's model calls) first
     archs = sorted({c[0] for c in inp["model_cases"]}, key=lambda a: a != "jamba-v0.1-52b")
+    int8 = inp["int8_ref_params"]
     with ThreadPoolExecutor(4) as pool:
-        model = {a: pool.submit(model_case, a, inp["params"][a], inp["io"]) for a in archs}
+        model = {a: pool.submit(model_case, a, [inp["params"][a]] + ([int8[a]] if a in int8
+                                                                     else []), inp["io"])
+                 for a in archs}
         moe = {c: pool.submit(moe_case, c, inp["moe_params"][c[0]], inp["moe_h"])
                for c in inp["moe_cases"]}
         out = {"moe": {c: f.result() for c, f in moe.items()},
-               "model": {a: f.result() for a, f in model.items()}}
+               "model": {a: f.result()[0] for a, f in model.items()},
+               "int8": {a: model[a].result()[1] for a in archs if a in int8}}
     with open(outputs_path, "wb") as f:
         pickle.dump(out, f)
 

@@ -3,7 +3,9 @@ gloo rank (torch only, so the ranks never import JAX): on each case's mesh
 with the train rules, ``LM.loss`` and its reduced gradient, then one
 ``step_fn`` with microbatches and int8 gradients (the batch carries an
 enc-dec config's frames and a VLM's patches); on (2, 1, 2) each
-collective's backward and the trainer's crash, resume and checkpoint."""
+collective's backward and the trainer's crash, resume and checkpoint. A
+case whose fourth entry is "seq" runs under the sequence-parallel rule
+(``make_rules(seq_shard=True)``): the loss and its reduced gradient alone."""
 import pickle
 from pathlib import Path
 
@@ -24,9 +26,9 @@ from repro_torch.training.trainer import CrashForTest, TrainerConfig, train
 from torch_dist_worker import AXES, config
 
 
-def train_rules(strategy):
+def train_rules(strategy, seq_shard=False):
     return make_rules("train", moe="ep" if strategy == "ep_shardmap" else "tp",
-                      tensor_axis="tensor", expert_axis="expert")
+                      tensor_axis="tensor", expert_axis="expert", seq_shard=seq_shard)
 
 
 def train_ctx(strategy, mesh):
@@ -39,9 +41,10 @@ def _numpy(ts):
 
 
 def _case(mesh, case, params_np, batch_np, loss_kw, step_kw):
-    arch, _, strategy = case
+    arch, _, strategy = case[:3]
+    seq = case[3:] == ("seq",)
     model = build_model(config(arch))
-    rules = train_rules(strategy)
+    rules = train_rules(strategy, seq_shard=seq)
     ctx = train_ctx(strategy, mesh)
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
     with use_sharding(mesh, rules):
@@ -53,6 +56,9 @@ def _case(mesh, case, params_np, batch_np, loss_kw, step_kw):
         loss, metrics = model.loss(tree_unflatten(params, leaves), batch, ctx, **loss_kw)
         grads = reduce_grads(list(torch.autograd.grad(loss, leaves)), mesh, specs)
         gnorm = global_norm(tree_unflatten(params, grads), mesh, specs)
+        if seq:
+            return dict(loss=float(loss.detach()), aux=float(metrics["aux"]), grads=_numpy(grads),
+                        slices=slices, gnorm=float(gnorm))
         init_fn, step_fn = make_train_step(model, TrainConfig(**step_kw), ctx)
         before = _numpy(tree_leaves(params))
         params, (opt, err), smet = step_fn(params, init_fn(params), batch)
@@ -138,11 +144,11 @@ def run_all(rank, world, inputs_path):
     with open(inputs_path, "rb") as f:
         inp = pickle.load(f)
     meshes = {}
-    for case in inp["cases"]:
+    for case in inp["cases"] + inp.get("seq_cases", []):
         if case[1] not in meshes:
             meshes[case[1]] = Mesh(case[1], AXES).bind(ranks=range(int(np.prod(case[1]))))
     out = {"cases": {}, "collectives": _collectives(meshes[(2, 1, 2)])}
-    for case in inp["cases"]:
+    for case in inp["cases"] + inp.get("seq_cases", []):
         if meshes[case[1]].rank >= 0:
             out["cases"][case] = _case(meshes[case[1]], case, inp["params"][case[0]],
                                        inp["batches"][case[0]], inp["loss_kw"], inp["step_kw"])

@@ -2,7 +2,10 @@
 gloo rank (torch only, so the ranks never import JAX): the MoE layer's
 shard_map strategies and the sharded model paths on the cases the test
 module writes, each on its mesh (a mesh smaller than the world binds the
-first ranks; the others skip its cases)."""
+first ranks; the others skip its cases). A model case's fourth entry,
+where it has one, names its variant: "int8" (the int8 tree the test module
+quantized, sharded by the float specs' int8 rule) or "seq" (the
+sequence-parallel rule, ``make_rules(seq_shard=True)``)."""
 import dataclasses
 import pickle
 
@@ -10,12 +13,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import tiny_config
-from repro_torch.distributed.sharding import (make_rules, param_partition_specs, shard_tree,
-                                              use_sharding)
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (gather_tree, make_rules, param_partition_specs,
+                                              shard_tree, use_sharding)
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import RunCtx, build_model
 from repro_torch.models.moe import count_drops, moe_sublayer
-from repro_torch.models.params import _moe_specs, params_from_numpy
+from repro_torch.models.params import _moe_specs, params_from_numpy, tree_leaves
 
 AXES = ("data", "expert", "tensor")
 
@@ -30,9 +34,9 @@ def config(arch, cf=None):
     return cfg
 
 
-def rules_for(strategy):
+def rules_for(strategy, seq_shard=False):
     return make_rules("serve", moe="ep" if strategy == "ep_shardmap" else "tp",
-                      tensor_axis="tensor", expert_axis="expert")
+                      tensor_axis="tensor", expert_axis="expert", seq_shard=seq_shard)
 
 
 def _moe_case(mesh, case, p_np, h_np):
@@ -54,17 +58,39 @@ def _moe_case(mesh, case, p_np, h_np):
 
 
 def _model_case(mesh, case, params_np, io):
-    arch, shape, strategy = case
+    arch, shape, strategy = case[:3]
+    variant = case[3] if len(case) > 3 else ""
     model = build_model(config(arch))
-    rules = rules_for(strategy)
-    ctx = RunCtx(moe_strategy=strategy, mesh=mesh, ep_axis="expert", tp_axis="tensor")
+    rules = rules_for(strategy, seq_shard=variant == "seq")
     t = torch.from_numpy
     ext, M, off = io["extras"][arch]
     ext = {k: t(v) for k, v in ext.items()}
+    # the reduce-scatters the sequence-parallel rule runs in place of psums
+    scattered, reduce_scatter = [0], collectives.reduce_scatter
+
+    def counted(*args, **kw):
+        scattered[0] += 1
+        return reduce_scatter(*args, **kw)
+    collectives.reduce_scatter = counted
+    try:
+        out = _paths(model, mesh, rules, strategy, params_np, io, ext, M, off)
+    finally:
+        collectives.reduce_scatter = reduce_scatter
+    out["scattered"] = scattered[0]
+    return out
+
+
+def _paths(model, mesh, rules, strategy, params_np, io, ext, M, off):
+    t = torch.from_numpy
+    ctx = RunCtx(moe_strategy=strategy, mesh=mesh, ep_axis="expert", tp_axis="tensor")
     out = {}
     with use_sharding(mesh, rules), torch.inference_mode():
         specs = param_partition_specs(model.param_specs(), mesh, rules)
         params = params_from_numpy(shard_tree(params_np, specs, mesh), device="cpu")
+        # gather_tree undoes shard_tree: every rank holds the whole tree again
+        whole = [t.numpy() for t in tree_leaves(gather_tree(params, specs, mesh))]
+        round_trip = all(a.dtype == b.dtype and np.array_equal(a, b)
+                         for a, b in zip(whole, tree_leaves(params_np)))
         B = io["prompt"].shape[0]
         ring = model.init_cache(B, io["max_seq"], memory_len=M, device="cpu")
         out["prefill"], ring = model.prefill(params, {"tokens": t(io["prompt"]), **ext}, ring,
@@ -85,6 +111,7 @@ def _model_case(mesh, case, params_np, io):
         out["verify"], pool = model.decode_chunk(params, t(tok), pool, t(st), t(nv), slots,
                                                  t(st == 0), ctx, t(pt), all_logits=True)
         out = {k: v.numpy() for k, v in out.items()}
+        out["round_trip"] = round_trip
         if mesh.shape["data"] > 1 and (model.cfg.ssm is not None or model.cfg.encoder is not None):
             # the slot-pooled caches hold the slots of the rank's batch block:
             # a pack whose rows name each other's slots is refused
@@ -113,6 +140,7 @@ def run_all(rank, world, inputs_path):
     for case in inp["model_cases"]:
         mesh = meshes[case[1]]
         if mesh.rank >= 0:
-            out["model"][case] = _model_case(mesh, case, inp["params"][case[0]], inp["io"])
+            trees = inp["int8_params"] if case[3:] == ("int8",) else inp["params"]
+            out["model"][case] = _model_case(mesh, case, trees[case[0]], inp["io"])
     return out
 
