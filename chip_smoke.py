@@ -215,8 +215,9 @@ exits non-zero and no phase's failure is caught.
      token dropped, asserted), rank 0's gathered logits within LOGIT_ATOL of
      the unsharded run, argmax equal; (c) the same ranks on phase 4's
      8-layer bf16 mixtral at (1, 2, 2) ep_shardmap, teacher-forced with
-     the first 16 of phase 5's greedy tokens: every logit row within
-     DIST_BF16_RTOL of its max |logit| of phase 5's, each argmax flip a
+     the first DIST_C_STEPS = 8 of phase 5's greedy tokens: every logit
+     row within DIST_BF16_RTOL of its max |logit| of phase 5's, each
+     argmax flip a
      tie; prefill ms, decode step ms, tok/s, each rank's parameter bytes
      (equal to its specs' shard sum) and peak memory, and the kernels'
      launches (rank 0) printed; flash attention, paged decode and (b)'s
@@ -289,16 +290,36 @@ exits non-zero and no phase's failure is caught.
      step ms, tokens/s, each rank's peak memory and bytes and rank 0's
      launches printed; flash attention and its backward on ``mma`` only, no
      other kernel. Any rank's failure or a rank not done within 300 s fails.
+ 15. (run after phase 12) the dry-run's memory proof
+     (``launch.dryrun``): rank 0's share of mixtral-8x7b ``decode_32k`` on
+     the single-pod (16, 16) mesh with the MoE on tp (the paper's model and
+     the cell the reference's fig8 (b) reads), in bf16 and on the int8
+     tree: first walked on ``meta`` (its collectives, FLOPs, bytes and
+     roofline terms), then drawn on the card from a seeded generator and
+     run through one step under the same recorder, the mesh placed at rank
+     0 (one card holds one rank, so its collectives stand in for their
+     results). The card's allocation after the inputs are placed equals
+     the walk's ``memory.argument_bytes`` within 1%, the logits are finite
+     and of the global batch's shape, and the card's collective log equals
+     the meta walk's entry for entry. The bf16 cell launches none of the
+     port's kernels (its dense-ring decode attention is the reference's
+     plain einsum, its experts batched matmuls, its head a matmul); the int8
+     cell launches the w8a16 matmul 4 L + 1 and the int8 grouped matmul 3 L
+     times a step (L = 32 layers) and nothing else, at shapes phase 2 holds
+     (``dryrun_shapes``). Prints the peak allocation, the median of
+     DRYRUN_STEPS more steps, and the walk's ``memory_floor_s`` and
+     ``bound_s`` beside them.
  10. every call shape of chunked attention, gmm, w8a16, flash attention,
-     the SSD scan and both backwards in phases 4-9, 11, 12 (a, b, d), 13
-     and 14 (recorded at the public ops, on rank 0 in phases 13 and 14)
+     the SSD scan and both backwards in phases 4-9, 11, 12 (a, b, d), 13,
+     14 and 15 (recorded at the public ops, on rank 0 in phases 13 and 14)
      must be one phase 2 held against the plain version; then
      a ``kernels`` JSON line (with each kernel's launches behind the stack
      as ``stack_launches``, in the speculative runs as ``spec_launches``,
      in phase 11 as ``encdec_launches`` / ``vlm_launches``, in phase 12
      as ``train_launches``, in phase 13 (rank 0, (a) to (f)) as
-     ``dist_launches`` and in phase 14 (rank 0, (a) + (b) + (c)) as
-     ``dist_train_launches``; the flash and SSD backwards' ``launches``
+     ``dist_launches``, in phase 14 (rank 0, (a) + (b) + (c)) as
+     ``dist_train_launches`` and in phase 15 as ``dryrun_launches``; the
+     flash and SSD backwards' ``launches``
      are phase 12's), then ``{"ok": true, "device": {...}}`` last.
 
 Run on the card from the repository root:  python3 chip_smoke.py
@@ -307,8 +328,8 @@ phase 3 (card vs CPU checks only, which the run without options makes)
 and adds torch.profiler windows over short serving runs, over decode steps of the
 generation paths, over a short run of each stack layout (8 requests x 8
 tokens), over a speculative run at each slot count, over a short serving
-run of each phase-11 family and over one qwen2.5-3b and one mamba2-1.3b
-train step (kernel time by name, the device's busy share, and the stack's
+run of each phase-11 family, over one qwen2.5-3b and one mamba2-1.3b
+train step and over one step of each phase-15 cell (kernel time by name, the device's busy share, and the stack's
 device and wall time a step).
 """
 from __future__ import annotations
@@ -360,6 +381,10 @@ DIST_FRAMES = 64                   # phases 13 (g) and 14 (e): seamless's frames
 MM_SLOTS = 4
 MM_MAX_SEQ = {MM_SEAMLESS: 512, MM_VISION: 1024}   # VLM: 576 patches + 297 + 32 fit
 MM_FRAMES = (300, 640, 1024, 1536)  # each request's frames: padded / exact / cropped to 1024
+# phase 15: the dry-run's cell on the card (rank 0 of the single-pod mesh, MoE on tp)
+DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_MESH = "mixtral-8x7b", "decode_32k", (16, 16)
+DRYRUN_STEPS = 3                   # timed steps after the recorded one
+DRYRUN_ALLOC_RTOL = 0.01           # the caching allocator's rounding of the placed inputs
 
 
 def log(msg: str) -> None:
@@ -1287,6 +1312,10 @@ def run_gmm(dev, flush, results):
     for rows, K, N, dtype, E in sorted(dist_int8_shapes()["gmm"], key=str):
         run_gmm_case(dev, flush, results, tokens=0, K=K, N=N, dtype=dtype, int8=True,
                      tol=tols[True, dtype], E=E, buffers=rows // E)
+    # phase 15's rank 0 of (16, 16): its int8 experts' capacity buffers
+    for rows, K, N, E in sorted(dryrun_shapes()["gmm"]):
+        run_gmm_case(dev, flush, results, tokens=0, K=K, N=N, dtype=torch.bfloat16, int8=True,
+                     tol=tols[True, torch.bfloat16], E=E, buffers=rows // E)
 
 
 def run_gmm_case(dev, flush, results, *, tokens, K, N, dtype, int8, tol, E=8, top_k=2,
@@ -1445,6 +1474,9 @@ def run_w8a16(dev, flush, results):
     # heads and vocab columns, in the dtype each mesh serves
     cases += [(f"rank {str(dtype)[6:]} K={K} N={N} M={M}", M, N, G, (dtype,), K)
               for M, K, N, G, dtype in sorted(dist_int8_shapes()["w8a16"], key=str)]
+    # phase 15's rank 0 of (16, 16): its projections, kv heads and head
+    cases += [(f"dryrun K={K} N={N} M={M}", M, N, G, (torch.bfloat16,), K)
+              for M, K, N, G in sorted(dryrun_shapes()["w8a16"])]
     for name, M, N, G, dtypes, *k in cases:
         K = k[0] if k else 4096
         for dtype in dtypes:
@@ -2570,7 +2602,7 @@ DIST_INT8 = (("i fp32", (1, 1, 4), "tp_shardmap", torch.float32),
 DIST_SEQ = (("j mixtral", "mixtral-8x7b", DIST_DEPTH, (1, 1, 4), "tp_shardmap", "j mixtral"),
             ("j qwen", "qwen2.5-3b", 2, (1, 1, 4), "tp_shardmap", "d"))
 # (c): decode_steps, teacher-forced with the first of phase 5's tokens
-DIST_C_STEPS = 16
+DIST_C_STEPS = 8                   # 8 of phase 5's tokens: room in the run for phase 15
 # (c): each logit row against phase 5's at the same context, relative to the
 # row's max |logit|: phase 5 holds no bf16 bound of its own, and a missing
 # psum or a wrong shard moves logits by their own size
@@ -2625,6 +2657,108 @@ def dist_int8_shapes() -> dict:
             out["gmm"] |= {(E * cap, d, fe // tp, dtype, E), (E * cap, fe // tp, d, dtype, E)}
         out["w8a16"].add((B, d, cfg.vocab // tp, 1, dtype))
     return out
+
+
+def dryrun_shapes() -> dict:
+    """Phase 15's calls of the w8a16 and grouped matmuls on rank 0 of the
+    (16, 16) mesh at ``decode_32k`` on the int8 tree (the MoE on tp):
+    {"w8a16": {(M, K, N, G)}, "gmm": {(rows, K, N, experts)}}, bf16. At the
+    rank's B rows: wq at its heads (a scale per head), wk / wv whole (the
+    kv_seq layout: 8 kv heads do not split over 16), wo's rows of its heads,
+    the head's vocab columns; the grouped matmul over every expert's
+    capacity buffer of ``cap`` rows, the FFN split on the tensor axis."""
+    import math
+    from repro_torch.configs import SHAPES, get_config
+    cfg, shape = get_config(DRYRUN_ARCH), SHAPES[DRYRUN_SHAPE]
+    data, tp = DRYRUN_MESH
+    m, d, hd = cfg.moe, cfg.d_model, cfg.head_dim
+    B, E, fe = shape.global_batch // data, m.num_experts, (m.d_expert or cfg.d_ff) // tp
+    H = cfg.n_heads // tp
+    Hkv = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else cfg.n_kv_heads
+    cap = -(-max(math.ceil(B * m.top_k / E * m.capacity_factor), 8) // 8) * 8
+    return {"w8a16": {(B, d, H * hd, H), (B, d, Hkv * hd, Hkv), (B, H * hd, d, 1),
+                      (B, d, cfg.vocab // tp, 1)},
+            "gmm": {(E * cap, d, fe, E), (E * cap, fe, d, E)}}
+
+
+def run_dryrun_proof(dev, profile: bool = False) -> tuple:
+    """Phase 15 (the module's note). Returns ({"bf16" / "int8": numbers},
+    the int8 cell's launches by kernel). ``profile``: one more step of each
+    cell under torch.profiler (``dryrun.profile_step``)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    cfg, shape = get_config(DRYRUN_ARCH), SHAPES[DRYRUN_SHAPE]
+    mesh = Mesh(DRYRUN_MESH, ("data", "model"))
+    L = cfg.n_layers
+    out, all_launches = {}, {}
+    for quant in ("none", "int8"):
+        name = "int8" if quant == "int8" else "bf16"
+        t0 = time.perf_counter()
+        meta = dryrun.build_cell(cfg, shape, mesh, moe_mode="tp", quant=quant, device="meta")
+        mw = dryrun.walk(meta)
+        costs = dryrun.cell_costs(meta, mw)
+        walk_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cell = dryrun.build_cell(cfg, shape, mesh, moe_mode="tp", quant=quant, device="cuda")
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        placed = torch.cuda.memory_allocated() - base
+        assert abs(placed - meta.argument_bytes) <= DRYRUN_ALLOC_RTOL * meta.argument_bytes, \
+            f"phase 15 {name}: {placed} bytes placed, the walk's argument_bytes " \
+            f"{meta.argument_bytes}"
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        cw = dryrun.walk(cell, count=False)
+        first_s = time.perf_counter() - t0
+        logits = cw.out[0]
+        assert tuple(logits.shape) == (shape.global_batch, cfg.vocab) and bool(
+            torch.isfinite(logits.float()).all()), f"phase 15 {name}: logits {logits.shape}"
+        assert cw.log == mw.log, \
+            f"phase 15 {name}: the card's collectives differ from the meta walk's"
+        steps = dryrun.card_steps(cell, DRYRUN_STEPS)
+        launches, _ = read_launches()
+        prof = None
+        if profile:
+            prof = dryrun.profile_step(cell)
+            log(f"  {name} profiled step: wall {prof['wall_ms']:.1f} ms, device busy "
+                f"{prof['device_busy_ms']:.2f} ms, {prof['aten_ops']} aten ops; top: "
+                + ", ".join(f"{r['name'][:40]} {r['ms']:.3f}" for r in prof["top"][:6]))
+        runs = 1 + DRYRUN_STEPS
+        want = ({"w8a16_matmul": runs * (4 * L + 1), "moe_gmm": runs * 3 * L}
+                if quant == "int8" else {})
+        got = {k: n for k, n in launches.items() if n}
+        assert got == want, f"phase 15 {name}: launches {got}, expected {want}"
+        all_launches = {k: all_launches.get(k, 0) + n for k, n in launches.items()}
+        r = costs["roofline"]
+        out[name] = dict(
+            arch=DRYRUN_ARCH, shape=DRYRUN_SHAPE, mesh=list(DRYRUN_MESH), rank=0, moe="tp",
+            argument_bytes=meta.argument_bytes, sizes=meta.sizes, placed_bytes=placed,
+            temp_bytes_meta=mw.temp_bytes, max_allocated_bytes=steps["max_allocated_bytes"],
+            step_ms_median=steps["step_s_median"] * 1e3, steps=DRYRUN_STEPS,
+            first_step_s=first_s, draw_s=draw_s, meta_walk_s=walk_s,
+            memory_floor_ms=r["memory_floor_s"] * 1e3, bound_ms=r["bound_s"] * 1e3,
+            dominant=r["dominant"], flops=costs["cost"]["flops"],
+            bytes_accessed=costs["cost"]["bytes_accessed"], collectives=len(mw.log),
+            launches=got, profile=prof)
+        sizes_gb = {k: n / 1e9 for k, n in meta.sizes.items()}
+        log(f"  {name}: placed {placed / 1e9:.3f} GB (walk's argument_bytes "
+            f"{meta.argument_bytes / 1e9:.3f} GB; params {sizes_gb['params_local_bytes']:.3f}"
+            f" + cache {sizes_gb['cache_local_bytes']:.3f}), peak "
+            f"{steps['max_allocated_bytes'] / 1e9:.3f} GB (meta temp_bytes "
+            f"{mw.temp_bytes / 1e9:.3f} GB), step {out[name]['step_ms_median']:.3f} ms median of "
+            f"{DRYRUN_STEPS} against memory_floor {out[name]['memory_floor_ms']:.3f} ms and "
+            f"bound {out[name]['bound_ms']:.3f} ms ({r['dominant']}); logits finite; "
+            f"{len(mw.log)} collectives equal the meta walk's; launches {got}; meta walk "
+            f"{walk_s:.1f} s, draw {draw_s:.1f} s, first step {first_s:.1f} s")
+        del meta, mw, cell, cw, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, all_launches
 
 
 @contextlib.contextmanager
@@ -5557,8 +5691,17 @@ def main() -> int:
             f"{training['mamba2']['profile']['device_busy_ms']:.1f} ms busy")
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 15: the dry-run's memory proof: rank 0 of {DRYRUN_MESH} {DRYRUN_ARCH} "
+        f"{DRYRUN_SHAPE} (MoE on tp), bf16 and int8, walked on meta, then run on the card")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with served_shapes():
+        dryrun_proof, dryrun_launches = run_dryrun_proof(dev, args.profile)
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+
     unchecked = {k: sorted(SERVED[k] - CHECKED[k]) for k in SERVED}
-    log("call shapes of the main paths (phases 4-9, 11-14) against phase 2's: "
+    log("call shapes of the main paths (phases 4-9, 11-15) against phase 2's: "
         + "; ".join(f"{k} {len(SERVED[k])} served, {len(CHECKED[k])} checked"
                     for k in SERVED))
     assert not any(unchecked.values()), \
@@ -5605,6 +5748,7 @@ def main() -> int:
                             train_launches=train_launches[name],
                             dist_launches=distributed["launches"][name],
                             dist_train_launches=dist_training["launches"][name],
+                            dryrun_launches=dryrun_launches[name],
                             shape=f"{case} bf16: {row['shape']}", **extra))
     if args.out:
         out = Path(args.out)
@@ -5622,7 +5766,7 @@ def main() -> int:
                                        stack=stack, spec=spec, int8_spec=int8_spec,
                                        encdec_vlm=mm, encdec_vlm_card_vs_cpu=mm_checks,
                                        training=training, distributed=distributed,
-                                       dist_training=dist_training,
+                                       dist_training=dist_training, dryrun=dryrun_proof,
                                        served_shapes={k: sorted(v) for k, v in SERVED.items()},
                                        kernels=kernels),
                                   indent=1))

@@ -48,6 +48,21 @@ the backward. Two places finish the convention:
   well as the data axis. A leaf split on data by FSDP gets its data-axis
   sum from its gather's backward (the reduce-scatter).
 
+``record_collectives()`` logs every collective that moves data: one entry
+``(kind, bytes, axis)`` an axis of more than one rank, the kinds the
+reference's dry-run reads out of its optimised HLO (``all-gather``,
+``all-reduce``, ``reduce-scatter``, ``all-to-all``; the port has no
+collective-permute), the bytes the size of the rank's result buffer, as
+``repro.launch.roofline.parse_collective_bytes`` sums them. On a bound mesh
+the collective still runs. On a mesh placed at one rank with no process
+group (``Mesh.at``), and only inside the context, it runs nothing and
+returns a tensor of the result's shape, dtype and device: ``psum`` /
+``pmax`` / ``all_to_all`` give ``x``, ``all_gather`` its ``n`` copies
+concatenated, ``reduce_scatter`` the rank's chunk of ``x``. These are not
+the sharded program's values: a walk on a placed mesh (``launch.dryrun``)
+proves shapes, memory and counts, never numbers. Outside the context a
+placed mesh's collective raises, as an unbound mesh's does.
+
 Gradients are quantized to int8 with one absmax scale a leaf before the
 data-axis all-reduce, and the quantization residual is carried to the next
 step, so the compression is unbiased in the long run. On one process this
@@ -56,10 +71,51 @@ leaf's scale is the pmax of its shards' absmax (``compress_int8(amax=)``).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import spec_axes
+
+
+class _Recording(threading.local):
+    log = None
+
+
+_recording = _Recording()
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """While open, every collective adds ``(kind, result bytes, axis)`` to
+    the list it yields, and a placed mesh's collectives stand in for
+    their results (the module's note)."""
+    prev, log = _recording.log, []
+    _recording.log = log
+    try:
+        yield log
+    finally:
+        _recording.log = prev
+
+
+def _stand_in(mesh, kind: str, nbytes: int, axis: str) -> bool:
+    """Logs the collective when recording; True when it is not to run (a
+    placed mesh inside ``record_collectives``). A mesh with no process
+    group outside the context raises here."""
+    log = _recording.log
+    if log is not None:
+        log.append((kind, int(nbytes), axis))
+    if mesh.bound:
+        return False
+    if log is None:
+        mesh.group(axis)                           # raises: no process group
+    return True
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
 
 
 def _through_host(x, group) -> bool:
@@ -84,7 +140,7 @@ def _all_reduce(x, mesh, axis, op):
     out = x.contiguous()
     out = out.clone() if out is x else out
     for a in spec_axes(axis):
-        if mesh.shape[a] == 1:
+        if mesh.shape[a] == 1 or _stand_in(mesh, "all-reduce", _nbytes(out), a):
             continue
         g = mesh.group(a)
         if _through_host(out, g):
@@ -96,8 +152,11 @@ def _all_reduce(x, mesh, axis, op):
     return out
 
 
-def _all_to_all(x, mesh, axis: str):
+def _all_to_all(x, mesh, axis: str, record: bool = True):
+    """(``record`` False: a reduce-scatter's exchange, logged as that.)"""
     if mesh.shape[axis] == 1:
+        return x.clone()
+    if record and _stand_in(mesh, "all-to-all", _nbytes(x), axis):
         return x.clone()
     g = mesh.group(axis)
     x = x.contiguous()
@@ -116,6 +175,9 @@ def _all_gather(x, mesh, axis, dim: int):
     for a in reversed(spec_axes(axis)):
         n = mesh.shape[a]
         if n == 1:
+            continue
+        if _stand_in(mesh, "all-gather", n * _nbytes(x), a):
+            x = torch.cat([x] * n, dim=dim)
             continue
         g = mesh.group(a)
         src = x.contiguous()
@@ -136,8 +198,12 @@ def _reduce_scatter(x, mesh, axis, dim: int):
     the outer axis first, as the gather's concatenation nests."""
     for a in spec_axes(axis):
         n = mesh.shape[a]
-        if n > 1:
-            x = _all_to_all(torch.stack(x.chunk(n, dim)), mesh, a).sum(0)
+        if n == 1:
+            continue
+        if _stand_in(mesh, "reduce-scatter", _nbytes(x) // n, a):
+            x = x.chunk(n, dim)[mesh.index(a)].contiguous()
+            continue
+        x = _all_to_all(torch.stack(x.chunk(n, dim)), mesh, a, record=False).sum(0)
     return x
 
 

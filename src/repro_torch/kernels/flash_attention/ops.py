@@ -1,7 +1,7 @@
 """Public flash attention op, dispatched on the tensors' device: the CUDA
-kernel for CUDA tensors, the plain PyTorch version for CPU tensors. There
-is no fallback between the two: a CUDA tensor reaches the kernel or an
-error. The layout is the reference's, (B, S, H, D).
+kernel for CUDA tensors, the plain PyTorch version for CPU and meta tensors
+(``kernels.route``). There is no fallback between the two: a CUDA tensor
+reaches the kernel or an error. The layout is the reference's, (B, S, H, D).
 
 On CUDA tensors that need a gradient the op is ``FlashAttention``, an
 autograd function whose forward launches the forward kernel with its row
@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
                                                         flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import mha_reference
+from repro_torch.kernels.route import plain
 
 
 class FlashAttention(torch.autograd.Function):
@@ -50,7 +51,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     if scale is None:
         scale = q.shape[-1] ** -0.5
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset, scale=scale)
-    if q.device.type == "cpu":
+    if plain(q, "flash_attention"):
         return mha_reference(q, k, v, **kw)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

@@ -1,5 +1,6 @@
 """Grouped matmul op, dispatched on the tensors' device: the CUDA kernel for
-CUDA tensors, the plain version for CPU tensors (no fallback between them).
+CUDA tensors, the plain version for CPU and meta tensors
+(``kernels.route``; no fallback between them).
 
 ``gmm(x, w, group_sizes)`` computes ``out[m] = x[m] @ w[expert_of(m)]`` for
 rows sorted by expert; ``w`` is an (E, K, N) tensor or a ``QuantizedLinear``
@@ -20,6 +21,7 @@ import torch
 from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.moe_gmm.kernel import block_m_for, gmm_tiles_cuda
 from repro_torch.kernels.moe_gmm.ref import expert_of_rows, gmm_reference
+from repro_torch.kernels.route import plain
 from repro_torch.quant.quantize import QuantizedLinear
 
 
@@ -50,12 +52,14 @@ class GroupedRows:
     grouped matmul of ``x``'s device. On a CUDA tensor ``pack`` scatters the
     rows into the kernel's tile-aligned buffer and ``unpack`` gathers them
     back; the buffer's padding rows are never read or written by the
-    kernel, so it is not zeroed. On a CPU tensor the rows stay as they are
-    and ``matmul`` is the plain version."""
+    kernel, so it is not zeroed. On a CPU or meta tensor the rows stay as they
+    are and ``matmul`` is the plain version. ``sizes``: the group sizes as
+    Python ints where the caller knows them without reading the tensor (a
+    capacity buffer's), which the plain version on ``meta`` needs."""
 
-    def __init__(self, group_sizes, x):
-        self.group_sizes = group_sizes
-        self.cuda = x.device.type != "cpu"
+    def __init__(self, group_sizes, x, sizes=None):
+        self.group_sizes, self.sizes = group_sizes, sizes
+        self.cuda = not plain(x, "moe_gmm")
         if self.cuda:
             self.M = x.shape[0]
             self.block_m = block_m_for(self.M)
@@ -71,7 +75,7 @@ class GroupedRows:
 
     def matmul(self, xb, w):
         if not self.cuda:
-            return gmm_reference(xb, w, self.group_sizes)
+            return gmm_reference(xb, w, self.group_sizes, self.sizes)
         refuse_grad("moe_gmm", xb, *(w if isinstance(w, QuantizedLinear) else (w,)))
         tiles = (self.tile_expert, self.tile_rows, self.block_m)
         if isinstance(w, QuantizedLinear):

@@ -22,13 +22,16 @@ def expert_of_rows(group_sizes, M: int):
     return torch.searchsorted(ends, torch.arange(M, device=ends.device), right=True)
 
 
-def gmm_reference(x, w, group_sizes):
+def gmm_reference(x, w, group_sizes, sizes=None):
+    """``sizes``: the group sizes as Python ints where the caller knows them
+    (read from ``group_sizes`` otherwise, which a ``meta`` tensor cannot
+    give)."""
     M, K = x.shape
     quant = isinstance(w, QuantizedLinear)
     N = (w.q if quant else w).shape[2]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     off = 0
-    for e, n in enumerate(group_sizes.tolist()):
+    for e, n in enumerate(group_sizes.tolist() if sizes is None else sizes):
         if n:
             we = w.q[e].float() * w.scale[e] if quant else w[e].float()
             out[off:off + n] = (x[off:off + n].float() @ we).to(x.dtype)

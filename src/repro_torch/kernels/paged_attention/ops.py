@@ -1,11 +1,11 @@
 """Public paged attention ops (decode and chunked prefill), dispatched on
 the tensors' device: the CUDA kernel for CUDA tensors, the plain PyTorch
-version for CPU tensors. There is no fallback between the two: a CUDA
-tensor reaches the kernel or an error. On the card the kernels have no
-backward yet: a call that would need a gradient raises. ``q_head0`` /
-``group`` place q's heads among the config's (``kernel.head_fold``): a rank
-of a tensor split wider than the kv heads reads its heads' kv head of the
-whole pool, with no copy of it."""
+version for CPU and meta tensors (``kernels.route``). There is no fallback
+between the two: a CUDA tensor reaches the kernel or an error. On the card
+the kernels have no backward yet: a call that would need a gradient raises.
+``q_head0`` / ``group`` place q's heads among the config's
+(``kernel.head_fold``): a rank of a tensor split wider than the kv heads
+reads its heads' kv head of the whole pool, with no copy of it."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +14,7 @@ from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.paged_attention.kernel import chunked_prefill_cuda, paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import (chunked_prefill_reference,
                                                      paged_attention_reference)
+from repro_torch.kernels.route import plain
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
@@ -24,7 +25,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
     KV already written), within the window that ends at lengths[b] - 1."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if plain(q, "paged_attention"):
         return paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
                                          scale=scale, softcap=softcap, window=window,
                                          q_head0=q_head0, group=group)
@@ -49,7 +50,7 @@ def chunked_prefill_attention(
     engine-issued chunk) and reads only ``q_positions[:, 0]``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if plain(q, "chunked_prefill_attention"):
         return chunked_prefill_reference(
             q, k_pages, v_pages, page_table, lengths, q_positions,
             scale=scale, softcap=softcap, window=window, q_head0=q_head0, group=group,

@@ -1,7 +1,8 @@
 """w8a16 matmul op, dispatched on the tensors' device: the CUDA kernel for
-CUDA tensors, the plain version for CPU tensors (no fallback between them),
-and the reference's per-output-channel quantize helper. On the card the
-kernel has no backward yet: a call that would need a gradient raises."""
+CUDA tensors, the plain version for CPU and meta tensors
+(``kernels.route``; no fallback between them), and the reference's
+per-output-channel quantize helper. On the card the kernel has no backward
+yet: a call that would need a gradient raises."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +10,7 @@ import torch
 from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.quant_matmul.kernel import w8a16_matmul_cuda
 from repro_torch.kernels.quant_matmul.ref import w8a16_matmul_reference
+from repro_torch.kernels.route import plain
 
 
 def quantize_int8(w, axis: int = 0):
@@ -24,7 +26,7 @@ def w8a16_matmul(x, w_q, col_scale=None, *, row_scale=None):
     """x (M, K) @ int8 w_q (K, N), scaled by ``row_scale`` (K, G) per weight
     and ``col_scale`` (N,) per output column; returns (M, N) in x's dtype.
     ``w_q`` may be a strided view (the transposed tied embedding)."""
-    if x.device.type == "cpu":
+    if plain(x, "w8a16_matmul"):
         return w8a16_matmul_reference(x, w_q, col_scale, row_scale)
     refuse_grad("w8a16_matmul", x, col_scale, row_scale)
     if x.stride(-1) != 1:

@@ -1,6 +1,7 @@
 """Public SSD chunk-scan ops, dispatched on the tensors' device: the CUDA
-kernel for CUDA tensors, the plain PyTorch version for CPU tensors. There is
-no fallback between the two: a CUDA tensor reaches the kernel or an error.
+kernel for CUDA tensors, the plain PyTorch version for CPU and meta tensors
+(``kernels.route``). There is no fallback between the two: a CUDA tensor
+reaches the kernel or an error.
 
 ``ssd_chunked`` is what the model calls: it takes a carried ``init_state``
 and returns the final state. ``ssd_scan`` has the reference op's signature
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.route import plain
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
@@ -56,7 +58,7 @@ def ssd_chunked(x, dt, A, B_, C, chunk: int, init_state=None):
     Returns (y (B,L,H,P) fp32, final_state (B,H,P,N) fp32)."""
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be positive")
-    if x.device.type == "cpu":
+    if plain(x, "ssd_scan"):
         rep = x.shape[2] // B_.shape[2]
         if rep > 1:
             B_, C = B_.repeat_interleave(rep, 2), C.repeat_interleave(rep, 2)

@@ -9,7 +9,12 @@ A ``Mesh`` is axis names and sizes alone: its ``devices`` array holds the
 rank of each coordinate (row-major), so specs for the 256- and 512-rank
 meshes are computed anywhere. ``Mesh.bind`` ties it to the running
 ``torch.distributed`` process group: the rank's coordinates and one
-subgroup per axis, over which ``distributed.collectives`` runs. Nothing
+subgroup per axis, over which ``distributed.collectives`` runs.
+``Mesh.at(rank)`` places a mesh without one: the rank's coordinates alone,
+so code that depends on the rank (a vocab split's offset, a rank's rows,
+its first query head) runs for one rank of a 256- or 512-rank mesh in one
+process, as the dry-run walks it (``launch.dryrun``); its collectives run
+only inside ``distributed.collectives.record_collectives``. Nothing
 here names a backend: the subgroups take the default group's (gloo with
 CPU or CUDA tensors, NCCL on a machine of several cards).
 """
@@ -33,7 +38,8 @@ class Mesh:
             raise ValueError(f"mesh shape {shape} and axis names {axis_names}")
         self.axis_names = axis_names
         self.devices = np.arange(int(np.prod(shape))).reshape(shape)
-        self.rank: Optional[int] = None            # set by bind
+        self.rank: Optional[int] = None            # set by bind or at
+        self.placed = False                        # set by at: a rank, no process group
         self.coords: Dict[str, int] = {}
         self.ranks = list(range(self.size))        # the global rank at each position
         self._groups: Dict[str, object] = {}
@@ -48,12 +54,27 @@ class Mesh:
 
     def __repr__(self) -> str:
         sizes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
-        return f"Mesh({sizes}{'' if self.rank is None else f'; rank {self.rank}'})"
+        if self.rank is None:
+            return f"Mesh({sizes})"
+        return f"Mesh({sizes}; {'placed at ' if self.placed else ''}rank {self.rank})"
 
     # ------------------------------------------------------------ bound
     @property
     def bound(self) -> bool:
-        return self.rank is not None
+        """Tied to a process group (``bind``), so collectives run."""
+        return self.rank is not None and not self.placed
+
+    def at(self, rank: int) -> "Mesh":
+        """A shape-only mesh placed at ``rank``: its ``rank`` and ``coords``
+        set, no process group. ``index``, ``count`` and ``axis_ranks`` work
+        on it and ``group`` raises, as on an unbound mesh."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"{self!r} has no rank {rank}")
+        out = Mesh(self.devices.shape, self.axis_names)
+        out.rank, out.placed = int(rank), True
+        at = np.unravel_index(out.rank, self.devices.shape)
+        out.coords = {a: int(i) for a, i in zip(self.axis_names, at)}
+        return out
 
     def bind(self, ranks: Optional[Sequence[int]] = None) -> "Mesh":
         """Tie the mesh to the running process group: mesh position i is
@@ -89,7 +110,9 @@ class Mesh:
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
         if not self.bound:
-            raise RuntimeError(f"{self!r} is not bound to a process group: Mesh.bind()")
+            raise RuntimeError(f"{self!r} is not bound to a process group: Mesh.bind() "
+                               f"(a placed mesh's collectives run only inside "
+                               f"record_collectives)")
         return self._groups[axis]
 
     def index(self, axes) -> int:

@@ -226,16 +226,19 @@ def _write_ring_shard(cache, k, v, positions, ring: _RingShard):
         return
     if k.shape[1] > W:                             # prefill: keep the last W tokens
         k, v, positions = k[:, -W:], v[:, -W:], positions[-W:]
+    # the positions' slots are distinct; those elsewhere go to a trash slot
+    # past the shard's (an index of fixed shape, no host read of the mask)
     slots = positions.long() % W
     for names, first, width in ((("k", "v"), ring.k0, ring.Wk), (("slot_pos",), ring.s0,
                                                                   ring.Ws)):
         loc = slots - first
-        mine = (loc >= 0) & (loc < width)
+        loc = torch.where((loc >= 0) & (loc < width), loc, torch.full_like(loc, width))
         for name in names:
-            if name == "slot_pos":
-                cache[name][:, loc[mine]] = positions[mine].to(torch.int32)[None, :]
-            else:
-                cache[name][:, loc[mine]] = (k if name == "k" else v)[:, mine].to(dt)
+            new = (positions.to(torch.int32)[None, :] if name == "slot_pos"
+                   else (k if name == "k" else v).to(dt))
+            buf = torch.cat([cache[name], cache[name][:, :1]], dim=1)
+            buf[:, loc] = new
+            cache[name].copy_(buf[:, :width])
 
 
 def _write_ring(cache, k, v, positions, ring: Optional[_RingShard] = None):

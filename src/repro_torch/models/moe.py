@@ -140,7 +140,8 @@ def expert_ffn(ebuf, wg, wu, wd):
         return expert_ffn_dense(ebuf, wg, wu, wd)
     E, C, d = ebuf.shape
     xf = ebuf.reshape(E * C, d)
-    rows = GroupedRows(torch.full((E,), C, dtype=torch.int64, device=xf.device), xf)
+    rows = GroupedRows(torch.full((E,), C, dtype=torch.int64, device=xf.device), xf,
+                       sizes=[C] * E)
     xb = rows.pack(xf)
     h = F.silu(rows.matmul(xb, wg)) * rows.matmul(xb, wu)
     return rows.unpack(rows.matmul(h, wd)).reshape(E, C, -1)

@@ -180,6 +180,43 @@ def tree_unflatten(tree, leaves):
 
 
 # --------------------------------------------------------------------------
+def _normal_std(spec: ParamSpec) -> float:
+    """The standard deviation of a normal leaf: 0.02, or LeCun's from the
+    global leaf's fan in."""
+    if spec.init == "normal02":
+        return 0.02
+    shape = spec.shape
+    # lecun: fan_in = the input dim after the stacking dim (as the JAX init)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    if len(shape) == 4:            # (R, in, h, hd) or (R, E, in, out)
+        fan_in = shape[1] if spec.logical[1] == "embed" else shape[2]
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+def draw_leaf(spec: ParamSpec, shape, gen: torch.Generator, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """A tensor of ``shape`` (a shard of the leaf, say) drawn from the
+    leaf's distribution in ``init_params``, but not from its stream of
+    numbers: the values of no particular init, for a rank's shard of a
+    full-width model that only has to be finite (``launch.dryrun`` on the
+    card). A normal leaf of three dims or more is drawn one leading slice
+    at a time, in float32."""
+    shape = tuple(shape)
+    if spec.init in ("zeros", "ones", "a_log", "dt_bias"):
+        part = next(_init_slices(ParamSpec(shape, (None,) * len(shape), spec.init), gen,
+                                 device, dtype))
+        return part[1]
+    std = _normal_std(spec)
+    if len(shape) < 3:
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device).mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for r in range(shape[0]):
+        out[r].copy_(torch.randn(shape[1:], generator=gen, dtype=torch.float32,
+                                 device=device).mul_(std))
+    return out
+
+
 def _init_slices(spec: ParamSpec, gen: torch.Generator, device: torch.device,
                  dtype: torch.dtype):
     """Yields (r, values in ``dtype``): one repeat r of a stacked (>= 3-D)
@@ -201,14 +238,7 @@ def _init_slices(spec: ParamSpec, gen: torch.Generator, device: torch.device,
         dt = 1e-3 + (1e-1 - 1e-3) * u              # inverse softplus of dt ~ uniform[1e-3, 1e-1]
         yield None, (dt + torch.log(-torch.expm1(-dt))).to(dtype)
         return
-    if spec.init == "normal02":
-        std = 0.02
-    else:
-        # lecun: fan_in = the input dim after the stacking dim (as the JAX init)
-        fan_in = shape[-2] if len(shape) >= 2 else shape[0]
-        if len(shape) == 4:            # (R, in, h, hd) or (R, E, in, out)
-            fan_in = shape[1] if spec.logical[1] == "embed" else shape[2]
-        std = 1.0 / math.sqrt(max(fan_in, 1))
+    std = _normal_std(spec)
     if len(shape) < 3:
         yield None, torch.randn(shape, generator=gen, dtype=torch.float32,
                                 device=device).mul_(std).to(dtype)

@@ -45,7 +45,13 @@ once. Held:
   against the same unsharded calls, the prefill and the pack reduce-scattering
   (the one-token steps and the 3-token verify sweep at tensor 2 stay whole);
 - what raises under a mesh: an int8 tree's loss, the int8 all-to-all under
-  grad; an int8 tree on the (1, 1, 1) mesh serves as it does unsharded.
+  grad; an int8 tree on the (1, 1, 1) mesh serves as it does unsharded;
+- the dry-run's walk is the ranks' program: rank 0's real step of the
+  dry-run's cell (tiny mixtral at (1, 2, 2) with ``tp_shardmap``, a
+  ``decode_step`` over the dense cache and a sequence-parallel prefill)
+  under ``record_collectives`` gives the log and the FLOPs of the walk of
+  the same rank on ``meta`` (``launch.dryrun``); a bound mesh's collective
+  still runs under the recorder.
 """
 import os
 import pickle
@@ -108,6 +114,9 @@ SEQ_CASES = [("qwen2.5-3b", (2, 1, 2), "tp_shardmap", "seq"),
              ("phi-3-vision-4.2b", (1, 1, 2), "tp_shardmap", "seq"),
              ("seamless-m4t-large-v2", (2, 1, 2), "tp_shardmap", "seq")]
 PATHS = ("prefill", "ring0", "ring1", "pack", "paged0", "paged1", "verify")
+WALK_MESH = (1, 2, 2)
+WALK_CASES = {"decode": ("mixtral-8x7b", (32, 4, "decode"), "tp", False),
+              "prefill_seq": ("mixtral-8x7b", (16, 2, "prefill"), "tp", True)}
 
 
 def _io():
@@ -181,7 +190,7 @@ def runs(tmp_path_factory):
         pickle.dump({"moe_cases": MOE_CASES, "model_cases": MODEL_CASES + INT8_CASES + SEQ_CASES,
                      "params": params, "int8_params": int8_params,
                      "int8_ref_params": int8_ref_params, "moe_params": moe_params, "moe_h": h,
-                     "io": _io()}, f)
+                     "io": _io(), "walk_mesh": WALK_MESH, "walk_cases": WALK_CASES}, f)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = os.pathsep.join([str(HERE.parent / "src"), env.get("PYTHONPATH", "")])
@@ -283,6 +292,41 @@ def test_every_moe_case_ran_on_its_ranks(runs):
     for case in MOE_CASES:
         n = int(np.prod(case[2]))
         assert all((case in port[r]["moe"]) == (r < n) for r in range(4)), case
+
+
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_the_meta_walk_is_the_ranks_program(runs, name):
+    """The dry-run's walk of rank 0 on ``meta`` (a placed mesh, every
+    collective standing in) records the collectives (kind, result bytes,
+    axis, in order) and counts the FLOPs of rank 0's real step on the gloo
+    ranks."""
+    from repro_torch.configs import tiny_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import build_cell, walk
+    _, port = runs
+    arch, (S, B, kind), moe, seq = WALK_CASES[name]
+    cell = build_cell(tiny_config(arch), ShapeConfig(name, S, B, kind),
+                      Mesh(WALK_MESH, torch_dist_worker.AXES), moe_mode=moe, seq_shard=seq,
+                      device="meta", rank=0)
+    w = walk(cell)
+    got = port[0]["walk"][name]
+    assert w.log and w.log == got["log"]
+    assert {k for k, _, _ in w.log} >= ({"all-reduce", "all-gather", "reduce-scatter"} if seq
+                                        else {"all-reduce", "all-gather"})
+    assert w.flops > 0 and w.flops == got["flops"]
+    assert w.out[0].device.type == "meta"                 # (logits, cache)
+
+
+def test_a_bound_mesh_communicates_under_the_recorder(runs):
+    """On the spawned ranks a psum over the tensor axis under
+    ``record_collectives`` sums the values (rank + 1) of the two ranks of
+    the rank's tensor line, and is logged."""
+    _, port = runs
+    for rank in range(4):
+        total, log = port[rank]["walk"]["psum"]
+        line = 2 * (rank // 2)                     # (data, expert, tensor) = (0, rank // 2, rank % 2)
+        assert total == [float(line + 1 + line + 2)] * 2
+        assert log == [("all-reduce", 8, "tensor")]
 
 
 # ------------------------------------------------------------------ raises

@@ -41,10 +41,31 @@ def test_every_module_imports_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_examples_import_without_jax():
+    """The examples' torch twins import in a fresh interpreter where
+    ``import jax`` fails, loading no ``repro.*`` module."""
+    names = sorted(f.stem for f in (ROOT / "examples").glob("*_torch.py"))
+    assert names == ["dynamic_load_balancing_torch", "quickstart_torch", "serve_endpoint_torch"]
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'repro' or m.startswith('repro.'))\n"
+        "assert bad == [], bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'examples'}", "PATH": ""},
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b|from repro\.)")
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     assert len(files) > 6 and ROOT / "chip_smoke.py" in files
+    assert ROOT / "examples" / "dynamic_load_balancing_torch.py" in files
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
     assert hits == []
@@ -74,19 +95,22 @@ def test_module_list_is_complete():
               "repro_torch.training.train_step", "repro_torch.training.trainer",
               "repro_torch.distributed", "repro_torch.distributed.collectives",
               "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.dryrun",
+              "repro_torch.launch.roofline", "repro_torch.launch.report",
+              "repro_torch.kernels.route"):
         assert m in names
     for m in names:
         importlib.import_module(m)
 
 
 @pytest.mark.parametrize("entry", ["engine", "init_params", "init_cache", "init_cache_paged",
-                                   "train", "train_cli"])
+                                   "train", "train_cli", "dryrun_cuda", "quickstart"])
 def test_no_silent_cpu_fallback(entry):
     """Without a card and without ``device="cpu"``, entry points raise: the
     engine, the params, both kinds of cache (``init_cache`` defaults to
-    the dense ring cache, as the reference's), the trainer and the training
-    launcher."""
+    the dense ring cache, as the reference's), the trainer, the training
+    launcher, the dry-run's memory proof (``--device cuda``) and the
+    examples (quickstart's ``main`` stands for the three)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     model = build_model(tiny_config("qwen2.5-3b"))
@@ -105,9 +129,18 @@ def test_no_silent_cpu_fallback(entry):
             from repro_torch.training.trainer import TrainerConfig, train
             train(model, DataConfig(vocab=model.cfg.vocab, batch=2, seq_len=8), TrainConfig(),
                   TrainerConfig(steps=1))
-        else:
+        elif entry == "train_cli":
             from repro_torch.launch.train import main
             main(["--steps", "1"])
+        elif entry == "dryrun_cuda":
+            from repro_torch.launch.dryrun import run_cell
+            run_cell("qwen2.5-3b", "decode_32k", multi_pod=False, device="cuda")
+        else:
+            sys.path.insert(0, str(ROOT / "examples"))
+            try:
+                importlib.import_module("quickstart_torch").main([])
+            finally:
+                sys.path.remove(str(ROOT / "examples"))
 
 
 def test_kernel_build_is_keyed_by_source_and_raises_without_nvcc(monkeypatch, tmp_path):

@@ -5,7 +5,10 @@ module writes, each on its mesh (a mesh smaller than the world binds the
 first ranks; the others skip its cases). A model case's fourth entry,
 where it has one, names its variant: "int8" (the int8 tree the test module
 quantized, sharded by the float specs' int8 rule) or "seq" (the
-sequence-parallel rule, ``make_rules(seq_shard=True)``)."""
+sequence-parallel rule, ``make_rules(seq_shard=True)``). And the walk
+cases: the dry-run's cell (``launch.dryrun.build_cell``) of a tiny config
+run for real on the ranks, its collectives and FLOPs recorded, to hold
+against the walk of the same rank on ``meta``."""
 import dataclasses
 import pickle
 
@@ -124,6 +127,25 @@ def _paths(model, mesh, rules, strategy, params_np, io, ext, M, off):
     return out
 
 
+def _walk_cases(mesh, cases):
+    """Each walk case's cell (arch, (seq_len, batch, kind), moe, seq_shard)
+    built on the CPU over the bound mesh and walked: the log of its
+    collectives and its FLOPs. And a psum over the tensor axis under the
+    recorder: a bound mesh's collectives still run there."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import build_cell, walk
+    out = {}
+    for name, (arch, (S, B, kind), moe, seq) in cases.items():
+        cell = build_cell(tiny_config(arch), ShapeConfig(name, S, B, kind), mesh, moe_mode=moe,
+                          seq_shard=seq, device="cpu")
+        w = walk(cell)
+        out[name] = {"log": w.log, "flops": w.flops}
+    with collectives.record_collectives() as log:
+        total = collectives.psum(torch.full((2,), float(mesh.rank + 1)), mesh, "tensor")
+    out["psum"] = (total.tolist(), list(log))
+    return out
+
+
 def run_all(rank, world, inputs_path):
     """Every case on this rank; returns {case: result} of the cases whose
     mesh holds it."""
@@ -142,5 +164,7 @@ def run_all(rank, world, inputs_path):
         if mesh.rank >= 0:
             trees = inp["int8_params"] if case[3:] == ("int8",) else inp["params"]
             out["model"][case] = _model_case(mesh, case, trees[case[0]], inp["io"])
+    walk_mesh = Mesh(inp["walk_mesh"], AXES).bind()
+    out["walk"] = _walk_cases(walk_mesh, inp["walk_cases"])
     return out
 
